@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke-run the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size: rmat(20, 16), q = 4
-    python3 chip_smoke.py --scale 16 # a quicker main path
+    python3 chip_smoke.py              # full size: rmat(20, 16) and rmat(18, 16), q = 4
+    python3 chip_smoke.py --scale 16   # a quicker run (tile path at scale 14)
 
 What it does, in order, printing one JSON object per line:
 
@@ -22,7 +22,19 @@ What it does, in order, printing one JSON object per line:
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}, every
-                    method, against the exact per-edge oracle.
+                    method (``search``, ``global``, ``fused``, ``tile``,
+                    ``dense``), against the exact per-edge oracle;
+7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against their
+                    plain versions on small inputs built to hit the edge
+                    cases (exact equality);
+8. ``tile_path``  — ``count_triangles(rmat(min(TILE_SCALE, scale - 2), 16),
+                    q=4, method="tile")`` cold, then warm (must hit the plan
+                    cache), then the same artifact counted by
+                    ``build_cannon_tile_fn(mode="mxu")``, then
+                    ``method="search"`` and the scipy oracle: all equal;
+                    then the two tile kernels' rows of the ``kernels`` line
+                    (equality with the plain version on every device-step
+                    the tile path ran, times, bounds, launches).
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
@@ -43,10 +55,24 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+# H100 SXM: 132 SMs at up to 1,980 MHz; population count (__popc) runs at
+# 16 results a clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, throughput table of the arithmetic instructions)
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
 EDGE_FACTOR = 16  # Graph500's
 GRID = 4  # q: 16 logical devices, 4 Cannon steps
+# largest scale of the tile path: its host plan (pack + join) grows faster
+# than the graph; PERF.md section 4 has the measured sizes
+TILE_SCALE = 18
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/tc_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/tc_fused/tc_fused.py:146"
+TILE_SOURCE = "src/repro_torch/kernels/csrc/tc_tile.cu"
+TILE_REPLACES = {  # the Pallas bodies behind tc_tile.py:114's pallas_call
+    "popcount": "src/repro/kernels/tc_tile/tc_tile.py:53",
+    "mxu": "src/repro/kernels/tc_tile/tc_tile.py:69",
+}
+TILE_BYTES = 128 * 4 * 4  # one packed 128x128-bit tile
 
 
 def emit(tag, **fields):
@@ -292,38 +318,52 @@ def kernel_report(art, dev, launches):
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
-def profile_count(count):
-    """Where a warm count's device time goes: one run of ``count`` under
-    ``torch.profiler``; device time summed by kernel name.  Tracing slows
-    the host down, so the busy share is taken against the run's own wall
-    time and says so.  ``device_seconds`` of 0 means the profiler saw no
-    device activity here, and nothing was measured."""
+def profile_count(count, expect, kernel="fused_short_counts_kernel",
+                  label="fused"):
+    """Where a warm count's device time goes: ``count`` under
+    ``torch.profiler``, once as the profiler's warm-up cycle and once
+    recorded; device time summed by kernel name, and that of the kernels
+    whose name holds ``kernel`` as ``<label>_kernel_seconds``.  ``complete``
+    says whether the profiler saw all ``expect`` launches of that kernel
+    the count made.  Tracing slows the host down, so the busy share is
+    taken against the recorded run's own wall time and says so.
+    ``device_seconds`` of 0 means the profiler saw no device activity
+    here, and nothing was measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        count()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = [
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    kernels = [  # the step's own annotation spans the whole step: no kernel
         (ev.key, ev.self_device_time_total * 1e-6, ev.count)
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA
+        and not ev.key.startswith("ProfilerStep")
     ]
     kernels.sort(key=lambda kv: -kv[1])
     total = sum(t for _, t, _ in kernels)
-    fused = sum(t for k, t, _ in kernels if "fused_short_counts_kernel" in k)
-    return dict(
-        profiled_wall_seconds=wall,
-        device_seconds=total,
-        device_launches=int(sum(n for _, _, n in kernels)),
-        fused_kernel_seconds=fused,
-        device_busy_share_of_profiled_wall=(total / wall) if wall > 0 else None,
-        top=[dict(kernel=k[:80], seconds=t, launches=int(n))
-             for k, t, n in kernels[:6]],
-    )
+    mine = sum(t for k, t, _ in kernels if kernel in k)
+    seen = int(sum(n for k, _, n in kernels if kernel in k))
+    return {
+        "profiled_wall_seconds": wall,
+        "device_seconds": total,
+        "device_launches": int(sum(n for _, _, n in kernels)),
+        f"{label}_kernel_seconds": mine,
+        f"{label}_kernel_launches_seen": seen,
+        f"{label}_kernel_launches_expected": int(expect),
+        "complete": seen == expect,
+        "device_busy_share_of_profiled_wall": (total / wall) if wall > 0 else None,
+        "top": [dict(kernel=k[:80], seconds=t, launches=int(n))
+                for k, t, n in kernels[:6]],
+    }
 
 
 def main_path(scale, edge_factor, seed, q, dev):
@@ -349,7 +389,8 @@ def main_path(scale, edge_factor, seed, q, dev):
     if not cache_hit:
         fail("second count of the same graph missed the plan cache")
 
-    prof = profile_count(lambda: rt.count_triangles(g, q=q, method="fused"))
+    prof = profile_count(lambda: rt.count_triangles(g, q=q, method="fused"),
+                         launches)
 
     rs = rt.count_triangles(g, q=q, method="search", chunk=8192)
     rs2 = rt.count_triangles(g, q=q, method="search", chunk=8192)
@@ -406,15 +447,324 @@ def small_graphs():
     for name, g in fixtures.items():
         exp = triangle_count_oracle(g)
         for q in (1, 2, 3):
-            for method in ("search", "global", "fused"):
+            for method in ("search", "global", "fused", "tile", "dense"):
                 got = rt.count_triangles(g, q=q, method=method).triangles
                 if got != exp:
                     bad.append((name, q, method, got, exp))
         rows.append(dict(graph=name, triangles=exp))
-    emit("small_graphs", ok=not bad, checked=len(fixtures) * 9, graphs=rows,
+    emit("small_graphs", ok=not bad, checked=len(fixtures) * 15, graphs=rows,
          mismatches=bad)
     if bad:
         fail(f"small graphs disagree with the oracle: {bad}")
+
+
+# ----------------------------------------------------------------------
+# tile path: kernels vs plain versions, the path, the kernels' rows
+# ----------------------------------------------------------------------
+def _random_tiles(rng, n, density):
+    """``n`` random 128x128-bit tiles as int32 bit patterns."""
+    bits = (rng.random((n, 128, 4, 32)) < density).astype(np.uint64)
+    words = (bits << np.arange(32, dtype=np.uint64)).sum(axis=-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def tile_trap_cases(seed=0):
+    """(name, triples, a, b, m): densities 0.02 / 0.3 / 0.9 with every
+    third triple invalid; ``valid == 0`` on real slots; tiles with bit 31
+    set in every word; ``G = 1``; many triples naming one slot, padded
+    with ``(0, 0, 0, 0)`` triples as the planner pads."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for density in (0.02, 0.3, 0.9):
+        a, b = _random_tiles(rng, 8, density), _random_tiles(rng, 8, density)
+        m = _random_tiles(rng, 8, min(0.5, 2 * density))
+        trips = rng.integers(0, 8, size=(200, 4)).astype(np.int32)
+        trips[:, 3] = (np.arange(200) % 3 != 2)
+        out.append((f"density_{density}", trips, a, b, m))
+    a, b, m = (_random_tiles(rng, 4, 0.5) for _ in range(3))
+    out.append(("invalid_real_slots",
+                np.array([[3, 3, 3, 0], [1, 2, 0, 0], [0, 0, 0, 0],
+                          [2, 1, 3, 1]], np.int32), a, b, m))
+    full = np.full((2, 128, 4), -1, np.int32)  # every bit, bit 31 included
+    top = np.full((2, 128, 4), np.int32(-2**31), np.int32)  # bit 31 alone
+    for name, t in (("all_bits", full), ("bit31_only", top)):
+        out.append((name, np.array([[0, 1, 0, 1], [1, 0, 1, 1]], np.int32),
+                    t, t, t))
+    out.append(("one_triple", np.array([[1, 2, 3, 1]], np.int32), a, b, m))
+    same = np.zeros((513, 4), np.int32)
+    same[:500] = (2, 2, 2, 1)  # 500 triples on one slot, 13 padding ones
+    out.append(("one_slot", same, a, b, m))
+    return out
+
+
+def run_tile_traps(dev):
+    from repro_torch.kernels.tc_tile import (
+        MODES,
+        tile_triple_counts,
+        tile_triple_counts_plain,
+        tile_triple_counts_ref,
+    )
+
+    checked = 0
+    for name, trips, a, b, m in tile_trap_cases():
+        host = [torch.from_numpy(np.ascontiguousarray(v))
+                for v in (trips, a, b, m)]
+        ref = tile_triple_counts_ref(*host).to(dev)  # int64 einsum: CPU only
+        t = [v.to(dev) for v in host]
+        for mode in MODES:
+            got = tile_triple_counts(*t, mode=mode)
+            want = tile_triple_counts_plain(*t, mode=mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"tile trap {name} mode={mode}: kernel != plain version")
+            if not torch.equal(got.long(), ref):
+                fail(f"tile trap {name} mode={mode}: kernel != reference")
+            checked += 1
+    emit("tile_traps", ok=True, checked=checked)
+
+
+def tile_step_inputs(staged, x, y, step, q):
+    """What logical device ``(x, y)`` hands the tile kernels at Cannon step
+    ``step``: after ``step`` shifts it holds A of ``(x, y + step)`` and B
+    of ``(x + step, y)``; the mask and the triples stay put."""
+    return (
+        staged["triples"][x, y, step],
+        staged["a_tiles"][x, (y + step) % q],
+        staged["b_tiles"][(x + step) % q, y],
+        staged["m_tiles"][x, y],
+    )
+
+
+def tile_kernel_bound(args, mode):
+    """Least time the card could take for the function one call computes.
+
+    Bytes, each counted once: every distinct tile the valid triples name
+    (2 KiB each), 16 B a triple and 4 B an output, over the memory rate.
+    Operations, what this call's data needs: the function sums
+    ``popcount(A[i] & B[j])`` only where mask bit ``(i, j)`` is set, so 4
+    AND+popc (one a word) per set mask bit of a valid triple, over the SM
+    population-count rate.  Both modes compute the same function and
+    share this bound.
+
+    ``formulation_bound_ms`` is another quantity and no bound: the time of
+    the kernel's own formulation, which visits every ``(i, j)`` of every
+    valid triple — popcount 128·128·4 AND+popc over the popc rate, mxu
+    2·128³ over the bf16 tensor-core rate (bytes as above)."""
+    from repro_torch.kernels.tc_tile.tc_tile import popcount32
+
+    trips, a, b, m = args
+    v = trips[:, 3] > 0
+    n_valid = int(v.sum())
+    tiles = sum(int(torch.unique(trips[v, k]).numel()) for k in range(3))
+    nbytes = tiles * TILE_BYTES + 16 * trips.shape[0] + 4 * trips.shape[0]
+    mask_bits = int(popcount32(m).sum(dim=(1, 2))[trips[v, 2].long()].sum())
+    ops = 4 * mask_bits
+    if mode == "popcount":
+        f_ops, f_rate = 128 * 128 * 4 * n_valid, POPC_OPS_PER_S
+    else:
+        f_ops, f_rate = 2 * 128 ** 3 * n_valid, BF16_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / POPC_OPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=int(nbytes), operations=int(ops), valid_triples=n_valid,
+        distinct_tiles=tiles, set_mask_bits=mask_bits,
+        formulation_operations=int(f_ops),
+        formulation_bound_ms=max(t_bytes, f_ops / f_rate * 1e3),
+    )
+
+
+def bmm_library_ms(args, chunk=8192):
+    """``torch.bmm`` over the step's valid triples, both tiles pre-unpacked
+    to 0/1 bf16 outside the timing, one chunk at a time; the event times
+    of the chunks' products summed."""
+    from repro_torch.kernels.tc_tile import unpack_bits_tile
+
+    trips, a, b, _ = args
+    trips = trips[trips[:, 3] > 0].long()
+    total = 0.0
+    for g0 in range(0, trips.shape[0], chunk):
+        t = trips[g0:g0 + chunk]
+        ua = unpack_bits_tile(a[t[:, 0]], torch.bfloat16)
+        ub = unpack_bits_tile(b[t[:, 1]], torch.bfloat16).transpose(1, 2)
+        torch.bmm(ua, ub)  # warm-up of this shape
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.bmm(ua, ub)
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+        del ua, ub
+    return total
+
+
+def tile_kernel_report(art, staged, dev, mode, launches):
+    """Holds the ``mode`` kernel against its plain version on every
+    device-step the tile path ran (exact equality per triple) and times
+    the first of them, logical device (0, 0) at step 0 where it ran."""
+    from repro_torch.kernels.tc_tile import (
+        tile_triple_counts,
+        tile_triple_counts_plain,
+    )
+
+    plan = art.plan
+    q = plan.q
+    keep = plan.step_keep
+    ran = [(x, y, s) for s in range(q) for x in range(q) for y in range(q)
+           if int(plan.m_cnt[x, y]) > 0 and (keep is None or keep[x, y, s])]
+    max_abs_err, unequal, step_ms = 0, [], []
+    t0 = time.perf_counter()
+    for x, y, s in ran:
+        args = tile_step_inputs(staged, x, y, s, q)
+        got = tile_triple_counts(*args, mode=mode)
+        want = tile_triple_counts_plain(*args, mode=mode)
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        max_abs_err = max(max_abs_err, err)
+        if err or got.shape != want.shape:
+            unequal.append((x, y, s))
+        del want
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tile_triple_counts(*args, mode=mode)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    compare_s = time.perf_counter() - t0
+    equal = not unequal
+
+    x, y, s = ran[0]
+    args = tile_step_inputs(staged, x, y, s, q)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_cold(lambda: tile_triple_counts(*args, mode=mode), 10, flush)
+    plain_ms = time_cold(
+        lambda: tile_triple_counts_plain(*args, mode=mode), 2, flush
+    )
+    rec = dict(
+        name=f"tc_tile.tile_triple_counts[{mode}]",
+        route="cuda",
+        source=TILE_SOURCE,
+        replaces=TILE_REPLACES[mode],
+        launches=launches,
+        max_abs_err=max_abs_err,
+        equal=equal,
+        compared_device_steps=len(ran),
+        compare_seconds=compare_s,
+        tolerance="exact (integer counts, per triple)",
+        ms=ms,
+        plain_ms=plain_ms,
+        timed=f"logical device ({x}, {y}), step {s}",
+        all_steps_ms=float(sum(step_ms)),
+        all_steps_note="one warm launch on each device-step the path ran, "
+                       "event-timed and summed: the kernel's time in a count",
+        shape=dict(triples=int(args[0].shape[0]), nt_pad=int(args[1].shape[0])),
+    )
+    if mode == "popcount":
+        rec.update(library_ms=None,
+                   library_note="no PyTorch call computes a masked popcount "
+                                "of ANDed bit rows")
+    else:
+        rec.update(library_ms=bmm_library_ms(args),
+                   library_note="torch.bmm of the step's valid tile pairs, "
+                                "pre-unpacked to bf16: the product only, "
+                                "no unpack, no mask")
+    rec.update(tile_kernel_bound(args, mode))
+    rec["bound_share"] = rec["bound_ms"] / ms if ms > 0 else None
+    if not equal:
+        print(json.dumps({"kernels": [rec]}), flush=True)
+        fail(f"tile kernel {mode} != plain version at the tile path's "
+             f"shapes, device-steps (x, y, step) {unequal}")
+    return rec
+
+
+def tile_path(scale, seed, q, dev):
+    """The tile path end to end, then both tile kernels' rows."""
+    import repro_torch as rt
+    from repro_torch.core.cannon import build_cannon_tile_fn
+    from repro_torch.kernels.tc_tile import tc_tile as tmod
+    from repro_torch.pipeline import default_cache
+
+    def no_build():
+        fail("the tile plan was not memoised on the artifact")
+
+    t0 = time.perf_counter()
+    g = rt.rmat(scale, EDGE_FACTOR, seed=seed)
+    gen_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    tmod.reset_launch_count()
+    r = rt.count_triangles(g, q=q, method="tile")
+    launches = {"popcount": tmod.launch_count("popcount")}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["popcount"] <= 0 or tmod.launch_count("mxu"):
+        fail(f"method='tile' launched {tmod.LAUNCHES}: popcount only expected")
+
+    hits0 = default_cache().hits
+    r2 = rt.count_triangles(g, q=q, method="tile")
+    cache_hit = (bool(r2.artifact.cache_hit) and r2.artifact is r.artifact
+                 and default_cache().hits > hits0)
+    if not cache_hit:
+        fail("second tile count of the same graph missed the plan cache")
+    prof = profile_count(lambda: rt.count_triangles(g, q=q, method="tile"),
+                         launches["popcount"], kernel="tile_popcount_kernel",
+                         label="popcount")
+
+    art = r.artifact
+    tp = art.memo("tile_plan", no_build)
+    staged = art.memo(("tile_staged", str(dev)), no_build)
+    fn_mxu = build_cannon_tile_fn(art, mode="mxu")
+    tmod.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mxu = int(fn_mxu(**staged))
+    mxu_s = time.perf_counter() - t0
+    launches["mxu"] = tmod.launch_count("mxu")
+    if launches["mxu"] <= 0 or tmod.launch_count("popcount"):
+        fail(f"the mxu tile fn launched {tmod.LAUNCHES}: mxu only expected")
+    t0 = time.perf_counter()
+    mxu_warm = int(fn_mxu(**staged))
+    mxu_warm_s = time.perf_counter() - t0
+
+    rs = rt.count_triangles(g, q=q, method="search", chunk=8192)
+    t0 = time.perf_counter()
+    oracle = scipy_triangle_oracle(g.n, g.edges)
+    oracle_s = time.perf_counter() - t0
+
+    plan = r.plan
+    sk = plan.step_keep
+    info = dict(
+        graph=f"rmat:{scale},{EDGE_FACTOR},{seed}", n=g.n, m=g.m, q=q,
+        logical_devices=q * q, device=r.device,
+        triangles=r.triangles, triangles_repeat=r2.triangles,
+        triangles_mxu=mxu, triangles_mxu_repeat=mxu_warm,
+        triangles_search=rs.triangles, triangles_scipy_oracle=oracle,
+        generate_seconds=gen_s, oracle_seconds=oracle_s,
+        preprocess_seconds=r.preprocess_seconds,
+        stage_seconds={k: float(v) for k, v in art.stage_seconds.items()},
+        count_seconds=r.count_seconds,
+        warm_preprocess_seconds=r2.preprocess_seconds,
+        warm_count_seconds=r2.count_seconds,
+        mxu_count_seconds=mxu_s, mxu_warm_count_seconds=mxu_warm_s,
+        search_count_seconds=rs.count_seconds,
+        tile_stats=tp.stats, nt_pad=tp.nt_pad, trip_pad=tp.trip_pad,
+        skew_perm=plan.skew_perm,
+        schedule_steps=int(sk.size), skipped_steps=int(sk.size - sk.sum()),
+        launches_per_count=launches, cache_hit=cache_hit,
+        peak_device_bytes=int(peak),
+        warm_popcount_count_profile=prof,
+    )
+    ok = (r.triangles == r2.triangles == mxu == mxu_warm == rs.triangles
+          == oracle)
+    emit("tile_path", ok=ok, **info)
+    if not ok:
+        fail("tile path counts disagree (popcount / mxu / search / scipy)")
+    return [tile_kernel_report(art, staged, dev, mode, launches[mode])
+            for mode in ("popcount", "mxu")]
+
+
 
 
 def main():
@@ -453,6 +803,9 @@ def main():
     art, launches = main_path(args.scale, EDGE_FACTOR, args.seed, GRID, dev)
     kernels = [kernel_report(art, dev, launches)]
     small_graphs()
+    run_tile_traps(dev)
+    tile_scale = min(TILE_SCALE, args.scale - 2)
+    kernels += tile_path(tile_scale, args.seed, GRID, dev)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

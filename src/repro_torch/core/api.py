@@ -13,8 +13,9 @@ The count runs on the GPU unless the caller asks for the CPU:
 
 Schedules resolve via a registry: :func:`register_schedule` makes a new
 schedule one registration away — the bundled one is ``cannon`` (the
-paper).  The per-block count path is selected with ``method`` (any
-registered CSR kernel: ``search``, ``global``, ``fused``).  Runners
+paper).  The per-block count path is selected with ``method``: any
+registered CSR kernel (``search``, ``global``, ``fused``), the bit-tile
+kernels (``tile``) or the dense oracle path (``dense``).  Runners
 receive the *raw* graph plus the relabel options on the
 :class:`RunContext` (``reorder``/``cyclic_p``) — relabeling happens
 inside the pipeline so the cache can skip it.
@@ -181,11 +182,52 @@ def available_schedules():
 # ----------------------------------------------------------------------
 # bundled schedule runner
 # ----------------------------------------------------------------------
+# count paths that stage arrays of their own, derived from the CSR plan
+_DERIVED_METHODS = ("tile", "dense")
+
+
+def _count_derived(plan, ctx: RunContext):
+    """The tile and dense paths: their own arrays, derived from the CSR
+    plan, are built, staged and memoised on the artifact before the count
+    starts (they are planning).  ``tile`` packs the blocks into bit tiles
+    and joins the tile triples; ``dense`` expands the blocks to
+    ``(q, q, nb, nb)`` float32 (small graphs only)."""
+    from ..pipeline.artifact import stage_arrays
+    from .tiles import build_tile_plan, stage_tile_plan
+
+    def timed(name, build):
+        t0 = time.perf_counter()
+        out = build()
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+        if ctx.artifact is not None:
+            ctx.artifact.stage_seconds[name] = time.perf_counter() - t0
+        return out
+
+    knobs = dict(use_step_mask=ctx.use_step_mask,
+                 double_buffer=ctx.double_buffer, compact=ctx.compact,
+                 reduce_strategy=ctx.reduce_strategy)
+    if ctx.method == "tile":
+        tp = ctx.memo("tile_plan", lambda: timed(
+            "tile_plan", lambda: build_tile_plan(plan)))
+        staged = ctx.memo(("tile_staged", str(ctx.device)), lambda: timed(
+            "tile_stage", lambda: stage_tile_plan(tp, ctx.device)))
+        build = lambda: cannon_mod.build_cannon_tile_fn(plan, **knobs)
+    else:
+        staged = ctx.memo(("dense_staged", str(ctx.device)), lambda: (
+            stage_arrays(plan.dense_blocks(), ctx.device)))
+        build = lambda: cannon_mod.build_cannon_dense_fn(plan, **knobs)
+    fn = ctx.memo((ctx.method + "_fn", *knobs.values()), build)
+    ctx.mark_counting()
+    return int(fn(**staged)), plan
+
+
 def _run_cannon(graph: Graph, grid, ctx: RunContext):
-    if ctx.method not in CSR_KERNELS:
+    methods = sorted(set(CSR_KERNELS) | set(_DERIVED_METHODS))
+    if ctx.method not in methods:
         raise ValueError(
             f"unknown count method {ctx.method!r} for the cannon schedule; "
-            f"registered: {sorted(CSR_KERNELS)}"
+            f"registered: {methods}"
         )
     plan = ctx.plan  # a caller-supplied plan is already relabeled and
     if plan is None:  # wins over the pipeline (reorder/cyclic_p unused)
@@ -198,7 +240,8 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
                 chunk=ctx.chunk,
                 reorder=ctx.reorder,
                 cyclic_p=ctx.cyclic_p,
-                keep_blocks=False,
+                # blocks are only consumed by the tile join
+                keep_blocks=(ctx.method == "tile"),
                 compact=ctx.compact is not False,
                 # the fused kernel needs the two-sided maxfrag split
                 autotune="fused" if ctx.method == "fused" else False,
@@ -218,6 +261,8 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
                 ctx.artifact = plan_with(True)
                 plan = ctx.artifact.plan
 
+    if ctx.method in _DERIVED_METHODS:
+        return _count_derived(plan, ctx)
     if ctx.artifact is not None:
         staged = ctx.artifact.staged(ctx.device)
     else:
@@ -279,10 +324,14 @@ def count_triangles(
     is none; pass ``device="cpu"`` to run on the CPU.
     ``schedule`` resolves via the registry (see
     :func:`available_schedules`); ``method`` picks the count kernel
-    (``"search"``, ``"global"``, ``"fused"``).  ``method="fused"`` runs
-    the hand-written CUDA intersection kernel with its long-row fallback
-    — planning switches to the two-sided maxfrag autotune split it
-    requires.
+    (``"search"``, ``"global"``, ``"fused"``, ``"tile"``, ``"dense"``).
+    ``method="fused"`` runs the hand-written CUDA intersection kernel with
+    its long-row fallback — planning switches to the two-sided maxfrag
+    autotune split it requires.  ``method="tile"`` packs the blocks into
+    128x128-bit tiles and runs the popcount tile kernel over the planned
+    tile triples (tile plan and stores count as preprocessing);
+    ``method="dense"`` is the oracle path over dense 0/1 blocks, for small
+    graphs.
     ``cyclic_p`` enables the paper's initial cyclic redistribution
     (§5.3 step 1) as the pipeline's first relabel stage.
     ``use_step_mask`` controls sparsity-aware step skipping (None =

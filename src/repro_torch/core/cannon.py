@@ -8,18 +8,45 @@ pair against the static task list, shift A left, shift B up}.
 This module is a thin *configuration* of :mod:`repro_torch.core.engine`:
 ``build_cannon_fn`` composes the CSR operand store, the
 :class:`~repro_torch.core.engine.CannonSchedule`, a count kernel and a
-Reduction — the schedule body lives in the engine, once.  Single pod
-only: ``pod_stack_arrays`` and the 2.5D path are not carried over yet.
+Reduction — the schedule body lives in the engine, once.
+``build_cannon_tile_fn`` swaps in the bit-tile store and
+``build_cannon_dense_fn`` the dense oracle store.  Single pod only:
+``pod_stack_arrays`` and the 2.5D path are not carried over yet.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from . import engine
-from .engine import CannonSchedule, CSRStore, Reduction, make_csr_kernel
+from .engine import (
+    CannonSchedule,
+    CSRStore,
+    DenseStore,
+    Reduction,
+    TileStore,
+    make_csr_kernel,
+)
 from .plan import as_plan, resolve_compact_steps, resolve_step_mask
 
-__all__ = ["build_cannon_fn"]
+__all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn"]
+
+
+def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
+               compact, reduce_strategy):
+    """The engine composition shared by every ``build_cannon_*`` fn: the skip
+    mask and the compacted schedule come from the CSR plan."""
+    use_step_mask = resolve_step_mask(plan, use_step_mask)
+    live = resolve_compact_steps(plan, compact)
+    schedule = CannonSchedule(
+        q=plan.q, double_buffer=double_buffer, live_steps=live
+    )
+    return engine.build_engine_fn(
+        store,
+        schedule,
+        m_cnt=plan.m_cnt,
+        step_keep=plan.step_keep if use_step_mask else None,
+        reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
+    )
 
 
 def build_cannon_fn(
@@ -56,11 +83,6 @@ def build_cannon_fn(
     :class:`~repro_torch.core.engine.CannonSchedule`).
     """
     plan = as_plan(plan)
-    use_step_mask = resolve_step_mask(plan, use_step_mask)
-    live = resolve_compact_steps(plan, compact)
-    schedule = CannonSchedule(
-        q=plan.q, double_buffer=double_buffer, live_steps=live
-    )
     if method == "fused":
         engine.check_fused_split(plan)
     n_long = getattr(plan, "n_long", None)
@@ -82,10 +104,54 @@ def build_cannon_fn(
             and getattr(plan, "b_aug", None) is not None
         ),
     )
-    return engine.build_engine_fn(
-        store,
-        schedule,
-        m_cnt=plan.m_cnt,
-        step_keep=plan.step_keep if use_step_mask else None,
-        reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
+    return _engine_fn(
+        plan, store, reduce_global=reduce_global, use_step_mask=use_step_mask,
+        double_buffer=double_buffer, compact=compact,
+        reduce_strategy=reduce_strategy,
+    )
+
+
+def build_cannon_tile_fn(
+    plan,
+    *,
+    mode: str = "popcount",
+    reduce_global: bool = True,
+    use_step_mask: Optional[bool] = None,
+    double_buffer: bool = True,
+    compact: Optional[bool] = None,
+    reduce_strategy: str = "auto",
+):
+    """Cannon schedule with the bit-tile kernels as the count path.
+
+    Returns ``fn(**staged)`` over the tile plan's tensors
+    (:func:`~repro_torch.core.tiles.stage_tile_plan`).  Tile stores shift
+    exactly like the CSR blocks; the per-(device, shift) active-triple
+    lists are static (planner-joined) and selected by the ORIGINAL step
+    index, also under a compacted schedule.  ``mode`` is ``"popcount"``
+    or ``"mxu"`` (same count).  The skip mask and the compaction come from
+    the *CSR* plan.  Unlike the JAX package's, it takes no tile plan: the
+    tile shapes travel with the staged tensors.
+    """
+    return _engine_fn(
+        as_plan(plan), TileStore(mode=mode), reduce_global=reduce_global,
+        use_step_mask=use_step_mask, double_buffer=double_buffer,
+        compact=compact, reduce_strategy=reduce_strategy,
+    )
+
+
+def build_cannon_dense_fn(
+    plan,
+    *,
+    reduce_global: bool = True,
+    use_step_mask: Optional[bool] = None,
+    double_buffer: bool = True,
+    compact: Optional[bool] = None,
+    reduce_strategy: str = "auto",
+):
+    """Dense-operand Cannon (oracle path): blocks as 0/1 float32 matrices
+    (``plan.dense_blocks()`` staged), counted by ``torch.matmul``."""
+    return _engine_fn(
+        as_plan(plan), DenseStore(), reduce_global=reduce_global,
+        use_step_mask=use_step_mask, double_buffer=double_buffer,
+        compact=compact, reduce_strategy=reduce_strategy,
     )

@@ -12,6 +12,8 @@ are the two CSR blocks a logical device holds at the current Cannon step.
 * ``fused``   — the hand-written CUDA intersection kernel
   (:mod:`repro_torch.kernels.tc_fused`); its long-row fallback reuses
   :func:`count_pair_search` / :func:`count_pair_search_global` from here.
+* ``dense``   — the oracle path: ``sum((A @ Bᵀ) ⊙ M)`` over dense 0/1
+  blocks (:func:`count_pair_dense`).
 
 Everything here is ordinary tensor code that runs on whatever device its
 inputs live on.  ``tcount`` is a host integer (the engine reads it from
@@ -19,8 +21,7 @@ the plan's numpy ``m_cnt``), chunks wholly past it are never launched, and
 each function returns a 0-dim ``int64`` tensor on the inputs' device
 without synchronising.
 
-Not carried over yet: ``count_pair_search_two_level`` and
-``count_pair_dense``.
+Not carried over yet: ``count_pair_search_two_level``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ __all__ = [
     "aug_key_dtype",
     "aug_key_numpy_dtype",
     "build_aug_keys",
+    "count_pair_dense",
     "count_pair_search",
     "count_pair_search_global",
     "gather_rows",
@@ -181,3 +183,16 @@ def count_pair_search_global(
         hit &= offs[None, :] < a_len[:, None]
         total += hit.sum()
     return total
+
+
+def count_pair_dense(a_dense, b_dense, m_dense):
+    """``sum((A @ Bᵀ) ⊙ M)`` — exact for 0/1 blocks.
+
+    ``A: (nb, nb)`` rows=i cols=k; ``B: (nb, nb)`` rows=j cols=k;
+    ``M: (nb, nb)`` mask at (i_local, j_local), all float32.  Every entry
+    of the product is an integer ≤ nb, exact in float32; the masked sum is
+    taken in float64, so the count stays exact past 2^24.  Returns a 0-dim
+    int64 tensor.
+    """
+    prod = a_dense @ b_dense.T
+    return (prod * m_dense).sum(dtype=torch.float64).to(torch.int64)

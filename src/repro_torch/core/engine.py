@@ -23,13 +23,13 @@ dimensions of every stacked plan tensor on ONE device, so
   Only the final total crosses back to the host, once per count.
 
 Carried over here: the CSR-kernel registry (``search``, ``global``,
-``fused``), :class:`CSRStore` (with ``with_aug``), :func:`masked_count`,
-:class:`CannonSchedule` (plain and compacted), :class:`Reduction`
-(``flat``) and :func:`build_engine_fn`.  Not carried over yet: blob
-packing and uint16 length compression of the shifted payload (a
-communication optimisation with nothing to serialise on one device), the
-dense/tile/SUMMA/ring stores and schedules, the 2.5D pod axis, the tree
-reduction, the hub-split partial, batching and the stepper.
+``fused``), :class:`CSRStore` (with ``with_aug``), :class:`DenseStore`,
+:class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule` (plain
+and compacted), :class:`Reduction` (``flat``) and :func:`build_engine_fn`.
+Not carried over yet: blob packing and uint16 length compression of the
+shifted payload (a communication optimisation with nothing to serialise
+on one device), the SUMMA/ring stores and schedules, the 2.5D pod axis,
+the tree reduction, the hub-split partial, batching and the stepper.
 """
 from __future__ import annotations
 
@@ -40,11 +40,14 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.tc_tile import tile_pair_count
 from . import count as count_mod
 
 __all__ = [
     "OperandStore",
     "CSRStore",
+    "DenseStore",
+    "TileStore",
     "ShiftSchedule",
     "CannonSchedule",
     "Reduction",
@@ -219,8 +222,9 @@ class OperandStore:
     * ``payload(arrays)`` — the shiftable state ``(a_state, b_state)``:
       two tuples of stacked ``(q, q, ...)`` tensors; schedules treat them
       opaquely and roll them along the grid dimensions.
-    * ``count(state, arrays, x, y, cnt)`` — run the bound count kernel for
-      logical device ``(x, y)`` on the current state.
+    * ``count(state, arrays, x, y, step, cnt)`` — run the bound count
+      kernel for logical device ``(x, y)`` on the current state at schedule
+      step ``step`` (the ORIGINAL step index, also under compaction).
     """
 
     operand_names: Sequence[str] = ()
@@ -233,7 +237,7 @@ class OperandStore:
     def payload(self, arrays: Dict):
         raise NotImplementedError
 
-    def count(self, state, arrays: Dict, x: int, y: int, cnt: int):
+    def count(self, state, arrays: Dict, x: int, y: int, step: int, cnt: int):
         raise NotImplementedError
 
 
@@ -263,7 +267,8 @@ class CSRStore(OperandStore):
             b_state = b_state + (arrays["b_aug"],)
         return (a_state, b_state)
 
-    def count(self, state, arrays, x, y, cnt):
+    def count(self, state, arrays, x, y, step, cnt):
+        del step  # the task list is the same at every step
         (a_ptr, a_idx), b_state = state
         extra = {}
         if self.with_aug:
@@ -275,6 +280,49 @@ class CSRStore(OperandStore):
             a_ptr[x, y], a_idx[x, y], b_ptr[x, y], b_idx[x, y],
             arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
             **extra,
+        )
+
+
+class DenseStore(OperandStore):
+    """Dense 0/1 block operands (oracle path): count = sum((A@Bᵀ)⊙M)."""
+
+    operand_names = ("a_dense", "b_dense")
+    static_names = ("m_dense",)
+
+    def payload(self, arrays):
+        return ((arrays["a_dense"],), (arrays["b_dense"],))
+
+    def count(self, state, arrays, x, y, step, cnt):
+        del step, cnt
+        (a,), (b,) = state
+        return count_mod.count_pair_dense(
+            a[x, y], b[x, y], arrays["m_dense"][x, y]
+        )
+
+
+class TileStore(OperandStore):
+    """Bit-packed 128x128 tile operands driving the tile kernels.
+
+    Tile stores shift exactly like the CSR blocks; the per-(device, shift)
+    active-triple lists are static (planner-joined) and selected by the
+    schedule's ORIGINAL step index.
+    """
+
+    operand_names = ("a_tiles", "b_tiles")
+    static_names = ("m_tiles", "triples")
+
+    def __init__(self, *, mode: str = "popcount"):
+        self.mode = mode
+
+    def payload(self, arrays):
+        return ((arrays["a_tiles"],), (arrays["b_tiles"],))
+
+    def count(self, state, arrays, x, y, step, cnt):
+        del cnt
+        (a,), (b,) = state
+        return tile_pair_count(
+            arrays["triples"][x, y, step], a[x, y], b[x, y],
+            arrays["m_tiles"][x, y], mode=self.mode,
         )
 
 
@@ -295,7 +343,7 @@ def masked_count(store, state, arrays, x, y, step, cnt, step_keep):
         return None
     if cnt <= 0:
         return None
-    return store.count(state, arrays, x, y, cnt)
+    return store.count(state, arrays, x, y, step, cnt)
 
 
 class ShiftSchedule:
@@ -356,7 +404,7 @@ class CannonSchedule(ShiftSchedule):
                     out[x, y] += c
 
     def run(self, store, arrays, *, m_cnt, step_keep=None):
-        dev = arrays["m_ti"].device
+        dev = arrays[store.static_names[0]].device
         out = torch.zeros((self.q, self.q), dtype=torch.int64, device=dev)
         payload = store.payload(arrays)
         if self.live_steps is not None:

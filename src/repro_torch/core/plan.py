@@ -23,8 +23,8 @@ aligned blocks are simply *fed*).  ``skew=0`` (SUMMA placement) is also
 available from the packer.
 
 Not carried over yet from the JAX package's module of the same name:
-``shape_structs``, ``analytic_plan``, ``bucketize_plan``,
-``resolve_broadcast`` and ``dense_blocks``.
+``shape_structs``, ``analytic_plan``, ``bucketize_plan`` and
+``resolve_broadcast``.
 """
 from __future__ import annotations
 
@@ -267,6 +267,30 @@ class TCPlan:
             out["step_keep"] = self.step_keep
         if self.b_aug is not None:
             out["b_aug"] = self.b_aug
+        return out
+
+    def dense_blocks(self) -> Dict[str, np.ndarray]:
+        """Materialize dense block operands (oracle path, small n only)."""
+        q, nb = self.q, self.nb
+        out = {}
+        for name in ("a", "b"):
+            arr = np.zeros((q, q, nb, nb), dtype=np.float32)
+            indptr = getattr(self, f"{name}_indptr")
+            indices = getattr(self, f"{name}_indices")
+            for x in range(q):
+                for y in range(q):
+                    ptr = indptr[x, y]
+                    rows = np.repeat(np.arange(nb), np.diff(ptr))
+                    arr[x, y, rows, indices[x, y, : ptr[-1]]] = 1.0
+            out[f"{name}_dense"] = arr
+        msk = np.zeros((q, q, nb, nb), dtype=np.float32)
+        for x in range(q):
+            for y in range(q):
+                cnt = self.m_cnt[x, y]
+                msk[x, y, self.m_ti[x, y, :cnt], self.m_tj[x, y, :cnt]] = 1.0
+        out["m_dense"] = msk
+        if self.step_keep is not None:
+            out["step_keep"] = self.step_keep
         return out
 
 

@@ -71,34 +71,55 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()}.so"
 
 
-def _compile(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+def _start(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` unless its library is already
+    built; returns ``None`` or ``(process, command, temporary, library)``."""
     lib = _lib_path(name)
     if lib.exists():
-        return
+        return None
     nvcc = _find_nvcc()
     build_dir().mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=False,
     )
+    return proc, cmd, tmp, lib
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, cmd, tmp, lib = job
+    out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed for {name} (exit {proc.returncode}):\n"
-            f"$ {' '.join(cmd)}\n{proc.stdout}"
+            f"$ {' '.join(cmd)}\n{out}"
         )
     os.replace(tmp, lib)
 
 
+def _compile(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    _finish(name, _start(name))
+
+
 def build_all() -> float:
-    """Build every kernel library that is not built yet; returns seconds."""
+    """Build every kernel library that is not built yet, one ``nvcc`` per
+    source, all started together; returns seconds."""
     t0 = time.perf_counter()
     with _LOCK:
-        for name in kernel_names():
-            _compile(name)
+        jobs = {name: _start(name) for name in kernel_names()}
+        errors = []
+        for name, job in jobs.items():  # wait for every one, then report
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                errors.append(e)
+        if errors:
+            raise errors[0]
     return time.perf_counter() - t0
 
 

@@ -22,7 +22,7 @@ def main(argv=None):
                          "cliques:<k>,<size> | star:<n> | named:<id>")
     ap.add_argument("--grid", type=int, default=1, help="sqrt(p): grid is q x q")
     ap.add_argument("--method", default="search",
-                    help="count kernel: search | global | fused")
+                    help="count kernel: search | global | fused | tile | dense")
     ap.add_argument("--chunk", type=int, default=512)
     ap.add_argument("--no-probe-shorter", action="store_true")
     ap.add_argument("--no-skip-mask", action="store_true",

@@ -238,8 +238,11 @@ def test_forced_int32_count_raises_on_overflow():
 
 def test_unknown_method_and_schedule_list_what_is_registered():
     g = _graph("karate")
-    with pytest.raises(ValueError, match=r"registered: \['fused', 'global', 'search'\]"):
-        rt.count_triangles(g, method="tile", device="cpu")
+    with pytest.raises(
+        ValueError,
+        match=r"registered: \['dense', 'fused', 'global', 'search', 'tile'\]",
+    ):
+        rt.count_triangles(g, method="search2", device="cpu")
     with pytest.raises(ValueError, match=r"registered: \['cannon'\]"):
         rt.count_triangles(g, schedule="summa", device="cpu")
     with pytest.raises(ValueError, match="autotune"):

@@ -29,9 +29,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import repro_torch as rt
     import repro_torch.launch.tc_run, repro_torch.kernels._build
     import repro_torch.kernels.tc_fused, repro_torch.pipeline
+    import repro_torch.kernels.tc_tile, repro_torch.core.tiles
     g = rt.graph_from_spec("rmat:8,8,5")
     r = rt.count_triangles(g, q=2, method="fused", device="cpu")
     assert r.triangles == rt.triangle_count_oracle(g), r.triangles
+    t = rt.count_triangles(g, q=2, method="tile", device="cpu")
+    assert t.triangles == r.triangles, t.triangles
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                  or m == "repro" or m.startswith("repro."))
@@ -80,12 +83,15 @@ def test_cuda_tensor_path_never_falls_back():
 
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is present on this machine")
+    for name in ("tc_fused", "tc_tile"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load_library(name)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load_library("tc_fused")
+        _build.build_all()
     assert _build.build_dir() == type(_build.build_dir())(REPO) / "build"
     with pytest.raises(FileNotFoundError):
         _build.load_library("no_such_kernel")
-    assert _build.kernel_names() == ["tc_fused"]
+    assert _build.kernel_names() == ["tc_fused", "tc_tile"]
 
 
 def test_cli_counts_karate_on_the_cpu():
