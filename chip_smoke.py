@@ -8,7 +8,10 @@ What it does, in order, printing one JSON object per line:
 
 1. ``env``        — torch / CUDA versions, the card's name and power limit;
 2. ``build``      — builds every CUDA kernel of the package from
-                    ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+                    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
+                    process per source, started together) and reports each
+                    kernel's registers, shared memory and spills as
+                    ``nvcc -Xptxas -v`` gives them;
 3. ``traps``      — holds each kernel against its plain PyTorch version on
                     small inputs built to hit the edge cases (exact equality);
 4. ``main_path``  — ``repro_torch.count_triangles(rmat(scale, 16), q=4,
@@ -24,9 +27,10 @@ What it does, in order, printing one JSON object per line:
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}, every
                     method (``search``, ``global``, ``fused``, ``tile``,
                     ``dense``), against the exact per-edge oracle;
-7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against their
-                    plain versions on small inputs built to hit the edge
-                    cases (exact equality);
+7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against
+                    their plain versions and the reference on small inputs
+                    built to hit the edge cases (exact equality; the tests
+                    take the same cases from ``tile_trap_cases``);
 8. ``tile_path``  — ``count_triangles(rmat(min(TILE_SCALE, scale - 2), 16),
                     q=4, method="tile")`` cold, then warm (must hit the plan
                     cache), then the same artifact counted by
@@ -34,7 +38,11 @@ What it does, in order, printing one JSON object per line:
                     ``method="search"`` and the scipy oracle: all equal;
                     then the two tile kernels' rows of the ``kernels`` line
                     (equality with the plain version on every device-step
-                    the tile path ran, times, bounds, launches).
+                    the tile path ran, times, bounds, launches);
+9. ``tile_density`` — both tile kernels on a synthetic device-step of the
+                    tile path's size at mask densities 0.0003 to 0.5: each
+                    equal to the plain version and timed, and where the
+                    two kernels' times cross.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
@@ -55,7 +63,6 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 # H100 SXM: 132 SMs at up to 1,980 MHz; population count (__popc) runs at
 # 16 results a clock per SM on compute capability 9.0 (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions)
@@ -468,33 +475,88 @@ def _random_tiles(rng, n, density):
     return words.astype(np.uint32).view(np.int32)
 
 
-def tile_trap_cases(seed=0):
-    """(name, triples, a, b, m): densities 0.02 / 0.3 / 0.9 with every
-    third triple invalid; ``valid == 0`` on real slots; tiles with bit 31
-    set in every word; ``G = 1``; many triples naming one slot, padded
-    with ``(0, 0, 0, 0)`` triples as the planner pads."""
+# one set mask bit at each of these (i, j): the corners of the 16x8 output
+# blocks of the tensor-core kernel, the word and strip boundaries, and
+# (0, 127), bit 31 of word 3
+SINGLE_BITS = ((0, 0), (15, 7), (16, 8), (127, 127), (31, 32), (32, 31),
+               (0, 127))
+# mask densities whose set-bit counts (about 16 to 16,000 a tile) straddle
+# the popcount kernel's dense-route threshold
+ROUTE_DENSITIES = (0.001, 0.05, 0.2, 0.45, 0.7, 0.98)
+# triples of the ragged trap: prime and above twice the most warps a grid
+# of this card can hold (132 SMs x 64), so every warp loops and none of the
+# grid's warp counts divides it
+RAGGED = 20011
+
+
+def _one_bit_tiles(cells):
+    """One mask tile per ``(i, j)`` of ``cells``, that bit alone set."""
+    m = np.zeros((len(cells), 128, 4), np.uint32)
+    for k, (i, j) in enumerate(cells):
+        m[k, i, j // 32] = np.uint32(1) << np.uint32(j % 32)
+    return m.view(np.int32)
+
+
+def tile_trap_cases(seed=0, ragged=RAGGED):
+    """name -> (triples, a, b, m), numpy int32, tiles as bit patterns:
+    densities 0.02 / 0.3 / 0.9 with every third triple invalid;
+    ``valid == 0`` on real slots; every bit set, and bit 31 alone, each
+    with a padding triple on the full slot 0; ``G = 1``; many triples
+    naming one slot, padded as the planner pads; ``G = 0``; one set mask
+    bit at each of ``SINGLE_BITS``; one set bit in every 16x8 block; an
+    empty mask on a valid triple; ``ragged`` triples on a few slots;
+    set-bit counts on both sides of the popcount kernel's dense-route
+    threshold in one launch.  ``tests/test_torch_tile.py`` takes its edge
+    cases from here."""
     rng = np.random.default_rng(seed)
-    out = []
+    out = {}
     for density in (0.02, 0.3, 0.9):
         a, b = _random_tiles(rng, 8, density), _random_tiles(rng, 8, density)
         m = _random_tiles(rng, 8, min(0.5, 2 * density))
         trips = rng.integers(0, 8, size=(200, 4)).astype(np.int32)
         trips[:, 3] = (np.arange(200) % 3 != 2)
-        out.append((f"density_{density}", trips, a, b, m))
+        out[f"density_{density}"] = (trips, a, b, m)
     a, b, m = (_random_tiles(rng, 4, 0.5) for _ in range(3))
-    out.append(("invalid_real_slots",
-                np.array([[3, 3, 3, 0], [1, 2, 0, 0], [0, 0, 0, 0],
-                          [2, 1, 3, 1]], np.int32), a, b, m))
+    out["invalid_real_slots"] = (
+        np.array([[3, 3, 3, 0], [1, 2, 0, 0], [0, 0, 0, 0], [2, 1, 3, 1]],
+                 np.int32), a, b, m)
     full = np.full((2, 128, 4), -1, np.int32)  # every bit, bit 31 included
     top = np.full((2, 128, 4), np.int32(-2**31), np.int32)  # bit 31 alone
     for name, t in (("all_bits", full), ("bit31_only", top)):
-        out.append((name, np.array([[0, 1, 0, 1], [1, 0, 1, 1]], np.int32),
-                    t, t, t))
-    out.append(("one_triple", np.array([[1, 2, 3, 1]], np.int32), a, b, m))
+        out[name] = (np.array([[0, 1, 0, 1], [1, 0, 1, 1], [0, 0, 0, 0]],
+                              np.int32), t, t, t)
+    out["one_triple"] = (np.array([[1, 2, 3, 1]], np.int32), a, b, m)
     same = np.zeros((513, 4), np.int32)
     same[:500] = (2, 2, 2, 1)  # 500 triples on one slot, 13 padding ones
-    out.append(("one_slot", same, a, b, m))
+    out["one_slot"] = (same, a, b, m)
+    out["no_triples"] = (np.zeros((0, 4), np.int32), a, b, m)
+    out["single_bits"] = (
+        np.array([(k % 4, (k + 1) % 4, k, 1) for k in range(len(SINGLE_BITS))],
+                 np.int32), a, b, _one_bit_tiles(SINGLE_BITS))
+    per_block = _one_bit_tiles([(16 * s + (3 * s + c) % 16, 8 * c + (s + 5 * c) % 8)
+                                for s in range(8) for c in range(16)])
+    out["one_bit_per_block"] = (
+        np.array([[0, 1, 0, 1], [3, 2, 0, 1]], np.int32), a, b,
+        np.bitwise_or.reduce(per_block, axis=0)[None])
+    out["empty_mask_valid"] = (np.array([[1, 2, 0, 1], [0, 0, 0, 0]], np.int32),
+                               a, b, np.zeros((1, 128, 4), np.int32))
+    pattern = np.array([[2, 2, 2, 1], [1, 3, 0, 1], [0, 0, 0, 0],
+                        [3, 1, 1, 1], [2, 2, 2, 0]], np.int32)
+    out["ragged_one_slot"] = (np.resize(pattern, (ragged, 4)), a, b, m)
+    routes = np.concatenate([_random_tiles(rng, 1, d) for d in ROUTE_DENSITIES])
+    trips = np.array([(k % 3, (k + 1) % 3, k, 1)
+                      for k in range(len(ROUTE_DENSITIES))] * 2, np.int32)
+    trips[-1, 3] = 0
+    out["both_routes"] = (trips, _random_tiles(rng, 3, 0.3),
+                          _random_tiles(rng, 3, 0.3), routes)
     return out
+
+
+def _set_bits(tiles):
+    """Set bits of each int32 bit-pattern tile, numpy ``(N,)``."""
+    return np.unpackbits(np.ascontiguousarray(tiles).view(np.uint8)
+                         .reshape(tiles.shape[0], -1), axis=1).sum(
+                             axis=1, dtype=np.int64)
 
 
 def run_tile_traps(dev):
@@ -504,12 +566,23 @@ def run_tile_traps(dev):
         tile_triple_counts_plain,
         tile_triple_counts_ref,
     )
+    from repro_torch.kernels.tc_tile.tc_tile import dense_threshold
 
     checked = 0
-    for name, trips, a, b, m in tile_trap_cases():
+    for name, (trips, a, b, m) in tile_trap_cases().items():
+        if name == "both_routes":
+            bits = _set_bits(m)[trips[trips[:, 3] > 0, 2]]
+            if not bits.min() <= dense_threshold() < bits.max():
+                fail(f"tile trap {name}: set bits {bits.tolist()} do not "
+                     f"straddle the dense threshold {dense_threshold()}")
         host = [torch.from_numpy(np.ascontiguousarray(v))
                 for v in (trips, a, b, m)]
-        ref = tile_triple_counts_ref(*host).to(dev)  # int64 einsum: CPU only
+        # the int64 einsum reference runs on the CPU, once per distinct triple
+        if trips.shape[0]:
+            uniq, inv = torch.unique(host[0], dim=0, return_inverse=True)
+            ref = tile_triple_counts_ref(uniq, *host[1:])[inv].to(dev)
+        else:
+            ref = torch.zeros(0, dtype=torch.int64, device=dev)
         t = [v.to(dev) for v in host]
         for mode in MODES:
             got = tile_triple_counts(*t, mode=mode)
@@ -520,7 +593,8 @@ def run_tile_traps(dev):
             if not torch.equal(got.long(), ref):
                 fail(f"tile trap {name} mode={mode}: kernel != reference")
             checked += 1
-    emit("tile_traps", ok=True, checked=checked)
+    emit("tile_traps", ok=True, checked=checked,
+         dense_threshold=dense_threshold())
 
 
 def tile_step_inputs(staged, x, y, step, q):
@@ -535,6 +609,19 @@ def tile_step_inputs(staged, x, y, step, q):
     )
 
 
+def live_blocks_per_tile(m, chunk=4096):
+    """``(N,)`` int64: the 16x8 output blocks of each mask tile that hold a
+    set bit (the blocks the mxu kernel issues an MMA for)."""
+    from repro_torch.kernels.tc_tile import unpack_bits_tile
+
+    parts = []
+    for k0 in range(0, m.shape[0], chunk):
+        bits = unpack_bits_tile(m[k0:k0 + chunk], torch.uint8)
+        live = bits.reshape(-1, 8, 16, 16, 8).amax(dim=(2, 4))
+        parts.append(live.sum(dim=(1, 2), dtype=torch.int64))
+    return torch.cat(parts)
+
+
 def tile_kernel_bound(args, mode):
     """Least time the card could take for the function one call computes.
 
@@ -547,22 +634,26 @@ def tile_kernel_bound(args, mode):
     share this bound.
 
     ``formulation_bound_ms`` is another quantity and no bound: the time of
-    the kernel's own formulation, which visits every ``(i, j)`` of every
-    valid triple — popcount 128·128·4 AND+popc over the popc rate, mxu
-    2·128³ over the bf16 tensor-core rate (bytes as above)."""
+    the kernel's own formulation.  Both read each valid triple's whole
+    mask tile to find its set bits (2 KiB a triple, counted per triple, on
+    top of the bytes above); popcount then does the 4 AND+popc of each set
+    bit over the popc rate.  mxu issues one b1 MMA (16·8·128 AND+popc) for
+    each of the ``live_blocks`` 16x8 blocks that hold a set bit; no b1
+    tensor-core rate is published for the H100, so its formulation counts
+    the bytes alone and ``formulation_operations`` is None."""
     from repro_torch.kernels.tc_tile.tc_tile import popcount32
 
     trips, a, b, m = args
     v = trips[:, 3] > 0
     n_valid = int(v.sum())
+    slots = trips[v, 2].long()
     tiles = sum(int(torch.unique(trips[v, k]).numel()) for k in range(3))
     nbytes = tiles * TILE_BYTES + 16 * trips.shape[0] + 4 * trips.shape[0]
-    mask_bits = int(popcount32(m).sum(dim=(1, 2))[trips[v, 2].long()].sum())
+    mask_bits = int(popcount32(m).sum(dim=(1, 2))[slots].sum())
+    live_blocks = int(live_blocks_per_tile(m)[slots].sum())
     ops = 4 * mask_bits
-    if mode == "popcount":
-        f_ops, f_rate = 128 * 128 * 4 * n_valid, POPC_OPS_PER_S
-    else:
-        f_ops, f_rate = 2 * 128 ** 3 * n_valid, BF16_OPS_PER_S
+    f_ops = ops if mode == "popcount" else None
+    f_bytes = nbytes + n_valid * TILE_BYTES
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / POPC_OPS_PER_S * 1e3
     return dict(
@@ -570,8 +661,11 @@ def tile_kernel_bound(args, mode):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=int(nbytes), operations=int(ops), valid_triples=n_valid,
         distinct_tiles=tiles, set_mask_bits=mask_bits,
-        formulation_operations=int(f_ops),
-        formulation_bound_ms=max(t_bytes, f_ops / f_rate * 1e3),
+        live_blocks=live_blocks,
+        formulation_bytes=int(f_bytes),
+        formulation_operations=f_ops,
+        formulation_bound_ms=max(f_bytes / HBM_BYTES_PER_S * 1e3,
+                                 (f_ops or 0) / POPC_OPS_PER_S * 1e3),
     )
 
 
@@ -609,7 +703,6 @@ def tile_kernel_report(art, staged, dev, mode, launches):
         tile_triple_counts,
         tile_triple_counts_plain,
     )
-
     plan = art.plan
     q = plan.q
     keep = plan.step_keep
@@ -767,6 +860,140 @@ def tile_path(scale, seed, q, dev):
 
 
 
+# ----------------------------------------------------------------------
+# tile kernels across mask densities (a synthetic device-step)
+# ----------------------------------------------------------------------
+DENSITY_TRIPLES = 349_932  # trip_pad of the tile path at rmat(18, 16), q = 4
+DENSITY_TILES = 4_096
+DENSITY_AB = 0.3
+DENSITIES = (0.0003, 0.01, 0.1, 0.5)
+
+
+def _crossing(xs, u, v):
+    """Where ``u - v`` changes sign along ``xs``, interpolated linearly
+    between the two measured points around it; None if it never does."""
+    for k in range(len(xs) - 1):
+        d0, d1 = u[k] - v[k], u[k + 1] - v[k + 1]
+        if (d0 <= 0 < d1) or (d1 <= 0 < d0):
+            return xs[k] + (xs[k + 1] - xs[k]) * d0 / (d0 - d1)
+    return None
+
+
+def tile_density(dev, seed):
+    """Both tile kernels on one synthetic device-step of the tile path's
+    size: ``DENSITY_TRIPLES`` valid triples on random slots (ordered by A
+    slot, as the planner orders them) of ``DENSITY_TILES``-tile stores, A
+    and B at bit density 0.3, the mask at each of ``DENSITIES``.  Each
+    kernel equals the plain popcount version on every triple, and the mxu
+    kernel the plain mxu version on the first 8,192; each is timed
+    cold-L2, median of 10.  ``mxu_crossing_set_bits`` is the set-bit count
+    per triple where popcount's time crosses mxu's."""
+    from repro_torch.kernels.tc_tile import (
+        MODES,
+        tile_triple_counts,
+        tile_triple_counts_plain,
+    )
+    from repro_torch.kernels.tc_tile.tc_tile import dense_threshold
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(_random_tiles(rng, DENSITY_TILES, DENSITY_AB))
+            .to(dev) for _ in range(2))
+    trips = rng.integers(0, DENSITY_TILES, size=(DENSITY_TRIPLES, 4))
+    trips[:, 3] = 1
+    trips = torch.from_numpy(
+        trips[np.argsort(trips[:, 0], kind="stable")].astype(np.int32)
+    ).to(dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows, bad = [], []
+    for density in DENSITIES:
+        m_host = _random_tiles(rng, DENSITY_TILES, density)
+        m = torch.from_numpy(m_host).to(dev)
+        args = (trips, a, b, m)
+        want = tile_triple_counts_plain(*args, mode="popcount")
+        head = [t[:8192] if k == 0 else t for k, t in enumerate(args)]
+        if not torch.equal(tile_triple_counts(*head, mode="mxu"),
+                           tile_triple_counts_plain(*head, mode="mxu")):
+            bad.append((density, "mxu vs plain mxu"))
+        bits = torch.from_numpy(_set_bits(m_host)).to(dev)[trips[:, 2].long()]
+        live = live_blocks_per_tile(m)[trips[:, 2].long()]
+        row = dict(mask_density=density,
+                   set_bits_per_triple=float(bits.double().mean()),
+                   dense_route_triples=int((bits > dense_threshold()).sum()),
+                   live_blocks_per_triple=float(live.double().mean()))
+        for mode in MODES:
+            def fn(mode=mode):
+                return tile_triple_counts(*args, mode=mode)
+            if not torch.equal(fn(), want):
+                bad.append((density, mode))
+            row[f"{mode}_ms"] = time_cold(fn, 10, flush)
+        row.update({k: v for k, v in tile_kernel_bound(args, "mxu").items()
+                    if k in ("bound_ms", "bound_by", "live_blocks",
+                             "set_mask_bits")})
+        rows.append(row)
+        del m, want
+    xs = [r["set_bits_per_triple"] for r in rows]
+    emit("tile_density", ok=not bad, triples=DENSITY_TRIPLES,
+         tiles=DENSITY_TILES, ab_density=DENSITY_AB,
+         dense_threshold=dense_threshold(),
+         mxu_crossing_set_bits=_crossing(
+             xs, [r["mxu_ms"] for r in rows], [r["popcount_ms"] for r in rows]),
+         timed="cold L2, median of 10", rows=rows, mismatches=bad,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"tile_density: kernels != plain versions at {bad}")
+
+
+# ----------------------------------------------------------------------
+# what ptxas says of each kernel
+# ----------------------------------------------------------------------
+def start_ptxas(_build):
+    """``nvcc -Xptxas -v`` on every kernel source, with the build's flags
+    but into a throwaway cubin under ``build/``, all started together;
+    returns the processes."""
+    procs = {}
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    for name in _build.kernel_names():
+        cmd = [_build._find_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+               str(_build.build_dir() / f"{name}.ptxas.cubin"),
+               str(_build.source_path(name))]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish_ptxas(procs, _build):
+    """Registers, shared memory and spills of every kernel, by function
+    (named as ``cu++filt``, which ships with ``nvcc``, demangles it)."""
+    import re
+
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed for {name}:\n{text}")
+        fn = None
+        for line in text.splitlines():
+            hit = re.search(r"Compiling entry function '(\w+)'", line)
+            if hit:
+                fn = hit.group(1)
+                out[fn] = {}
+            elif fn is not None:
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("smem_bytes", r"(\d+) bytes smem"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    hit = re.search(pat, line)
+                    if hit:
+                        out[fn][key] = int(hit.group(1))
+    filt = os.path.join(os.path.dirname(_build._find_nvcc()), "cu++filt")
+    names = subprocess.run([filt, *out], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return dict(zip(names, out.values()))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -794,9 +1021,11 @@ def main():
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
 
+    ptxas = start_ptxas(_build)
     build_s = _build.build_all()
     emit("build", seconds=build_s, kernels=_build.kernel_names(),
-         flags=" ".join(_build.NVCC_FLAGS), build_dir=str(_build.build_dir()))
+         flags=" ".join(_build.NVCC_FLAGS), build_dir=str(_build.build_dir()),
+         ptxas=finish_ptxas(ptxas, _build))
 
     emit("traps", ok=True, checked=run_traps(dev))
 
@@ -806,6 +1035,7 @@ def main():
     run_tile_traps(dev)
     tile_scale = min(TILE_SCALE, args.scale - 2)
     kernels += tile_path(tile_scale, args.seed, GRID, dev)
+    tile_density(dev, args.seed)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

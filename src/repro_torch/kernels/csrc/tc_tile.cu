@@ -6,232 +6,293 @@
 // both: a tile is 128 rows of 4 32-bit words (128x128 bits); for triple g =
 // (a_slot, b_slot, m_slot, valid)
 //
-//     out[g] = valid ? sum_{i,j} M[i,j] * popcount(A[i,:] & B[j,:]) : 0
+//     out[g] = valid > 0 ? sum_{i,j} M[i,j] * popcount(A[i,:] & B[j,:]) : 0
 //
 // with A = a_tiles[a_slot], B = b_tiles[b_slot], M = m_tiles[m_slot].
 // Padding triples are (0,0,0,0) and slot 0 is a real tile, so `valid`
 // decides.  Column c of a tile row is bit c % 32 of word c / 32.  A total is
-// at most 128^3 = 2^21 and fits int32 (and fp32 exactly).
+// at most 128^3 = 2^21 and fits int32.
 //
-// What bounds them on an H100: operations.  A triple reads three 2 KiB
-// tiles and does 128*128*4 word AND+popcount (popcount mode; __popc runs at
-// 16 a clock per SM on compute capability 9.0, a quarter of the AND rate)
-// or 2*128^3 multiply-adds (mxu mode, bf16 tensor cores), i.e. 32 and 1024
-// operations per byte read.
+// What bounds them on an H100: bytes.  The function needs only the pairs
+// (i, j) whose mask bit is set -- on the tile path about 4.6 of a triple's
+// 16,384 -- so it is the tiles it names (2 KiB each, each read once) over
+// the memory rate, not the 128*128*4 AND+popcount of every (i, j).  Each
+// triple must still read its whole mask tile to find its set bits: 2 KiB a
+// triple, mostly from L2, and on the tile path that mask scan (about 0.7 GB
+// a device-step) is what the kernels' time follows (PERF.md).
 //
 // What the designs do about it.
-//  popcount: one block per triple, thread i owns row i of A and of M (both
-//    in registers, 4 words each); the B tile is staged in shared memory and
-//    read as broadcasts (all threads read the same word).  Every (i, j) pair
-//    is computed and masked, so the popc work is the full 128*128*4; no
-//    atomics, one block reduction.
-//  mxu ("mxu" names the TPU counterpart; here it is the tensor cores): one
-//    block of 8 warps per triple.  Both tiles are unpacked to 0/1 bf16 in
-//    shared memory, 64 k-columns at a time (47 KB of static shared memory
-//    in all); warp w owns output rows [16w, 16w+16) and multiplies them
-//    against all 8 column blocks with 16x16x16 wmma fragments into fp32
-//    (8 accumulators, 64 registers a thread).  Each accumulator is stored
-//    to a per-warp 16x16 shared buffer, where the mask bit of every element
-//    is tested and the integer values summed.
-//  Skipping unset mask bits, int8 MMA, wgmma/TMA and persistent blocks are
-//  left for later work.
+//  Both: one warp per triple, 8 warps a block, a grid of as many blocks as
+//    fit on the card at once (the launch asks the occupancy calculator);
+//    warp w of the grid takes triples w, w + warps, w + 2 * warps, ...
+//    Lane l reads mask rows l, l + 32, l + 64, l + 96 as 16-byte loads and
+//    keeps them in registers.  An invalid triple writes 0 and reads no
+//    tile.  Copying the next triple's mask tile with `cp.async` into
+//    shared memory while this one is counted was measured no faster (the
+//    scan is bandwidth-, not latency-bound) and cost registers (PERF.md).
+//  popcount (CUDA cores): the warp sums the set bits of the mask.  Up to
+//    kDenseThreshold of them (sparse route) each lane walks its own set
+//    bits with __ffs and, for each, reads row A[i] and row B[j] as one
+//    16-byte load each and adds 4 __popc.  Above it (dense route) the warp
+//    stages B in its shared buffer and each lane takes its 4 rows against
+//    all 128 j, selecting by the mask bit, as a dense mask needs.
+//  mxu (tensor cores, packed bits): mma.sync m16n8k128 .b1 with .and.popc
+//    (wgmma has no b1 type).  A tile row is exactly one k = 128 operand row:
+//    the A fragment of rows 16s+g and 16s+g+8 is word t of each row and the
+//    B fragment word t of row 8b+g of B (g = lane / 4, t = lane % 4), plain
+//    4-byte loads with no unpack.  The warp ORs its mask rows into a
+//    128-bit map of live 16x8 output blocks and issues one MMA per live
+//    block only; the C fragment's layout is fixed (c0,c1: row g, columns
+//    2t, 2t+1; c2,c3: row g+8), so the mask bits reach the accumulators
+//    by warp shuffles, in registers.  The same block as four m16n8k32 s8
+//    MMAs on bits expanded to bytes in registers was measured 1.4-2.1x
+//    slower at every mask density, so b1 it is (PERF.md).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <algorithm>
 #include <climits>
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kWords = 4;
+constexpr int kTile = 128;             // rows of a tile, and bits of a row
+constexpr int kWarps = 8;              // warps a block, one triple each
+constexpr int kThreads = kWarps * 32;
+constexpr int kLaneRows = kTile / 32;  // lane l holds rows l + 32 r
+constexpr unsigned kFull = 0xffffffffu;
+
+// Set mask bits of a triple above which the popcount kernel takes its dense
+// route.  chip_smoke.py's tile_density sweep (349,932 triples, A/B bit
+// density 0.3, NVIDIA H100 80GB HBM3 at 700 W) put the sparse route's time
+// level with the dense route's at 6,577, 6,614 and 6,515 set bits per
+// triple in three runs (sparse 2.32-2.43 ms / dense 5.72-5.93 ms at 1,639
+// bits, 6.88-7.12 / 5.76-5.98 ms at 8,193 bits; PERF.md).  Its 24 MB of
+// stores sat in L2; the tile path's distinct tiles do not.  To measure the
+// two routes again, set this to 0 (dense only) or 16384 (sparse only) and
+// rerun that phase.
+constexpr int kDenseThreshold = 6600;
+
+struct Tile {
+  uint4 row[kTile];  // 2 KiB
+};
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int popc_and(const uint4& a, const uint4& b) {
+  return __popc(a.x & b.x) + __popc(a.y & b.y) + __popc(a.z & b.z) +
+         __popc(a.w & b.w);
+}
+
+// The front end of both kernels.  The warp walks its triples; for a valid
+// one each lane gets its mask rows `mrow` (rows lane + 32 r) and
+// `body(t, mrow)` returns the triple's total (the same in every lane).
+template <class Body>
+__device__ __forceinline__ void for_each_triple(
+    const int4* __restrict__ triples, const uint4* __restrict__ m_tiles,
+    long long n, int* __restrict__ out, Body body) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kWarps;
+  uint4 mrow[kLaneRows];
+  for (long long g = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       g < n; g += stride) {
+    const int4 t = __ldg(triples + g);
+    int count = 0;
+    if (t.w > 0) {  // uniform over the warp
+      const uint4* m = m_tiles + (long long)t.z * kTile;
+#pragma unroll
+      for (int r = 0; r < kLaneRows; ++r) mrow[r] = __ldg(m + lane + 32 * r);
+      count = body(t, mrow);
+    }
+    if (lane == 0) out[g] = count;
+    __syncwarp();
+  }
+}
 
 // ---------------------------------------------------------------------------
 // popcount mode
 // ---------------------------------------------------------------------------
-constexpr int kPopThreads = kTile;  // thread i owns row i
-
-__global__ void __launch_bounds__(kPopThreads)
+__global__ void __launch_bounds__(kThreads)
 tile_popcount_kernel(const int4* __restrict__ triples,
                      const uint4* __restrict__ a_tiles,
                      const uint4* __restrict__ b_tiles,
-                     const uint4* __restrict__ m_tiles,
+                     const uint4* __restrict__ m_tiles, long long n,
                      int* __restrict__ out) {
-  __shared__ uint4 b_s[kTile];
-  __shared__ int warp_sum[kPopThreads / 32];
-  const int g = blockIdx.x;
-  const int4 t = triples[g];
-  if (t.w == 0) {  // uniform over the block: no thread reaches a barrier
-    if (threadIdx.x == 0) out[g] = 0;
-    return;
-  }
-  const int i = threadIdx.x;
-  const uint4 a = a_tiles[(long long)t.x * kTile + i];
-  const uint4 m = m_tiles[(long long)t.z * kTile + i];
-  b_s[i] = b_tiles[(long long)t.y * kTile + i];
-  __syncthreads();
-
-  const unsigned mrow[kWords] = {m.x, m.y, m.z, m.w};
-  int count = 0;
+  __shared__ Tile b_stage[kWarps];  // the dense route's B, a tile a warp
+  const int lane = threadIdx.x & 31;
+  Tile& scratch = b_stage[threadIdx.x >> 5];
+  auto body = [&](const int4& t, const uint4 (&mrow)[kLaneRows]) {
+    const uint4* a = a_tiles + (long long)t.x * kTile;
+    const uint4* b = b_tiles + (long long)t.y * kTile;
+    int bits = 0;
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) {
-    const unsigned bits = mrow[w];
-#pragma unroll 8
-    for (int jj = 0; jj < 32; ++jj) {
-      const uint4 b = b_s[w * 32 + jj];
-      const int c = __popc(a.x & b.x) + __popc(a.y & b.y) +
-                    __popc(a.z & b.z) + __popc(a.w & b.w);
-      count += ((bits >> jj) & 1u) ? c : 0;
+    for (int r = 0; r < kLaneRows; ++r)
+      bits += __popc(mrow[r].x) + __popc(mrow[r].y) + __popc(mrow[r].z) +
+              __popc(mrow[r].w);
+    int count = 0;
+    if (__reduce_add_sync(kFull, bits) > kDenseThreshold) {
+      // dense route: B staged in the warp's buffer, read as broadcasts
+      __syncwarp();  // no lane still reads the previous triple's B
+#pragma unroll
+      for (int r = 0; r < kLaneRows; ++r)
+        scratch.row[lane + 32 * r] = __ldg(b + lane + 32 * r);
+      uint4 arow[kLaneRows];
+#pragma unroll
+      for (int r = 0; r < kLaneRows; ++r) arow[r] = __ldg(a + lane + 32 * r);
+      __syncwarp();
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+#pragma unroll 4
+        for (int jj = 0; jj < 32; ++jj) {
+          const uint4 bj = scratch.row[32 * w + jj];
+#pragma unroll
+          for (int r = 0; r < kLaneRows; ++r) {
+            const int c = popc_and(arow[r], bj);
+            count += ((word_of(mrow[r], w) >> jj) & 1u) ? c : 0;
+          }
+        }
+      }
+    } else {
+      // sparse route: each lane visits only its own set bits
+#pragma unroll
+      for (int r = 0; r < kLaneRows; ++r) {
+        const uint4 m = mrow[r];
+        if (m.x | m.y | m.z | m.w) {
+          const uint4 ar = __ldg(a + lane + 32 * r);
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            unsigned bitsw = word_of(m, w);
+            while (bitsw) {
+              const int j = 32 * w + __ffs(bitsw) - 1;
+              bitsw &= bitsw - 1;
+              count += popc_and(ar, __ldg(b + j));
+            }
+          }
+        }
+      }
     }
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < kPopThreads / 32; ++w) s += warp_sum[w];
-    out[g] = s;
-  }
+    return __reduce_add_sync(kFull, count);
+  };
+  for_each_triple(triples, m_tiles, n, out, body);
 }
 
 // ---------------------------------------------------------------------------
-// mxu mode (tensor cores)
+// mxu mode (tensor cores, b1 MMA)
 // ---------------------------------------------------------------------------
-constexpr int kMxuWarps = 8;                // warp w: output rows [16w, 16w+16)
-constexpr int kMxuThreads = kMxuWarps * 32;
-constexpr int kChunk = 64;                  // k-columns unpacked at a time
-constexpr int kChunkWords = kChunk / 32;
-constexpr int kLd = kChunk + 8;             // bf16 row stride (multiple of 8)
-constexpr int kColBlocks = kTile / 16;
-constexpr unsigned kOneBf16 = 0x3F80u;      // bit pattern of bf16 1.0
 
-static_assert(kMxuWarps * 16 == kTile, "one 16-row strip per warp");
+// d = popc(A & B) over k = 128 for a 16x8 output block, C = 0.
+__device__ __forceinline__ void mma_b1_and_popc(int (&d)[4], unsigned a0,
+                                                unsigned a1, unsigned b0) {
+  asm("mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(0), "r"(0), "r"(0), "r"(0));
+}
 
-__global__ void __launch_bounds__(kMxuThreads)
+// Bit b (b < 4) set iff byte b of x is not zero.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
+  const unsigned y = __vcmpne4(x, 0u) & 0x08040201u;
+  return (y | (y >> 8) | (y >> 16) | (y >> 24)) & 0xFu;
+}
+
+// Bit c (c < 16) set iff columns 8c .. 8c + 7 of the row hold a set bit.
+__device__ __forceinline__ unsigned live_columns(const uint4& m) {
+  return nonzero_bytes(m.x) | (nonzero_bytes(m.y) << 4) |
+         (nonzero_bytes(m.z) << 8) | (nonzero_bytes(m.w) << 12);
+}
+
+__global__ void __launch_bounds__(kThreads)
 tile_mxu_kernel(const int4* __restrict__ triples,
-                const unsigned* __restrict__ a_tiles,
-                const unsigned* __restrict__ b_tiles,
-                const unsigned* __restrict__ m_tiles,
+                const uint4* __restrict__ a_tiles,
+                const uint4* __restrict__ b_tiles,
+                const uint4* __restrict__ m_tiles, long long n,
                 int* __restrict__ out) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 a_s[kTile * kLd];
-  __shared__ __align__(32) __nv_bfloat16 b_s[kTile * kLd];
-  __shared__ __align__(32) float epi[kMxuWarps][16 * 16];
-  __shared__ unsigned m_s[kTile * kWords];
-  __shared__ int warp_sum[kMxuWarps];
-
-  const int g = blockIdx.x;
-  const int4 t = triples[g];
-  if (t.w == 0) {  // uniform over the block: no thread reaches a barrier
-    if (threadIdx.x == 0) out[g] = 0;
-    return;
-  }
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const unsigned* a = a_tiles + (long long)t.x * kTile * kWords;
-  const unsigned* b = b_tiles + (long long)t.y * kTile * kWords;
-  const unsigned* m = m_tiles + (long long)t.z * kTile * kWords;
-  for (int e = threadIdx.x; e < kTile * kWords; e += kMxuThreads) m_s[e] = m[e];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kColBlocks];
+  const int grp = lane >> 2;  // groupID of the MMA fragments
+  const int tig = lane & 3;   // threadID_in_group
+  auto body = [&](const int4& t, const uint4 (&mrow)[kLaneRows]) {
+    const unsigned* a =
+        reinterpret_cast<const unsigned*>(a_tiles + (long long)t.x * kTile);
+    const unsigned* b =
+        reinterpret_cast<const unsigned*>(b_tiles + (long long)t.y * kTile);
+    // Row lane + 32 r lies in 16-row strip 2 r + lane / 16, so live[r]
+    // holds strip 2 r in its low half and strip 2 r + 1 in its high half,
+    // one bit per 8-column block.
+    unsigned live[kLaneRows];
 #pragma unroll
-  for (int n = 0; n < kColBlocks; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  for (int c = 0; c < kTile / kChunk; ++c) {
-    __syncthreads();  // the previous chunk's fragments are loaded
-    // unpack: (tile, row, word-in-chunk) items, 32 bf16 each, written as
-    // 16 pairs (little endian: the lower column is the low half)
-    for (int item = threadIdx.x; item < 2 * kTile * kChunkWords;
-         item += kMxuThreads) {
-      const int which = item / (kTile * kChunkWords);  // 0: A, 1: B
-      const int r = (item / kChunkWords) % kTile;
-      const int wl = item % kChunkWords;
-      const unsigned word = (which ? b : a)[r * kWords + c * kChunkWords + wl];
-      unsigned* dst = reinterpret_cast<unsigned*>(
-          (which ? b_s : a_s) + r * kLd + wl * 32);
+    for (int r = 0; r < kLaneRows; ++r)
+      live[r] = __reduce_or_sync(kFull, live_columns(mrow[r])
+                                            << (16 * (lane >> 4)));
+    int count = 0;
 #pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const unsigned lo = ((word >> (2 * p)) & 1u) * kOneBf16;
-        const unsigned hi = ((word >> (2 * p + 1)) & 1u) * kOneBf16;
-        dst[p] = lo | (hi << 16);
-      }
+    for (int s = 0; s < kTile / 16; ++s) {
+      unsigned blocks = (live[s >> 1] >> (16 * (s & 1))) & 0xFFFFu;
+      if (!blocks) continue;  // uniform over the warp
+      const int i0 = 16 * s + grp;
+      const unsigned a0 = __ldg(a + 4 * i0 + tig);
+      const unsigned a1 = __ldg(a + 4 * (i0 + 8) + tig);
+      const int src = 16 * (s & 1) + grp;  // lane holding mask row i0
+      do {
+        const int bj = __ffs(blocks) - 1;
+        blocks &= blocks - 1;
+        int d[4];
+        const unsigned b0 = __ldg(b + 4 * (8 * bj + grp) + tig);
+        mma_b1_and_popc(d, a0, a1, b0);
+        const unsigned w = word_of(mrow[s >> 1], bj >> 2);
+        const int shift = 8 * (bj & 3) + 2 * tig;  // column 8 bj + 2 tig
+        const unsigned m0 = __shfl_sync(kFull, w, src) >> shift;
+        const unsigned m1 = __shfl_sync(kFull, w, src + 8) >> shift;
+        count += ((m0 & 1u) ? d[0] : 0) + ((m0 & 2u) ? d[1] : 0) +
+                 ((m1 & 1u) ? d[2] : 0) + ((m1 & 2u) ? d[3] : 0);
+      } while (blocks);
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af;
-      wmma::load_matrix_sync(af, a_s + warp * 16 * kLd + k, kLd);
-#pragma unroll
-      for (int n = 0; n < kColBlocks; ++n) {
-        // B^T as a (k x j) matrix: element (k, j) = B[j][k] = b_s[j*kLd + k]
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, b_s + n * 16 * kLd + k, kLd);
-        wmma::mma_sync(acc[n], af, bf, acc[n]);
-      }
-    }
-  }
+    return __reduce_add_sync(kFull, count);
+  };
+  for_each_triple(triples, m_tiles, n, out, body);
+}
 
-  // epilogue: each 16x16 accumulator through the warp's buffer, masked
-  int count = 0;
-  float* buf = epi[warp];
-  const int i0 = warp * 16;
-#pragma unroll
-  for (int n = 0; n < kColBlocks; ++n) {
-    wmma::store_matrix_sync(buf, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = lane; e < 256; e += 32) {
-      const int i = i0 + (e >> 4);
-      const int j = n * 16 + (e & 15);
-      const unsigned bit = (m_s[i * kWords + (j >> 5)] >> (j & 31)) & 1u;
-      count += bit ? __float2int_rn(buf[e]) : 0;
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if (lane == 0) warp_sum[warp] = count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < kMxuWarps; ++w) s += warp_sum[w];
-    out[g] = s;
-  }
+// One block of 8 warps for every 8 triples, but no more blocks than fit on
+// the card at once: the warps loop over the rest.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, long long n, void* stream, Args... args) {
+  if (n <= 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = std::min<long long>(
+      (n + kWarps - 1) / kWarps, (long long)sms * std::max(per_sm, 1));
+  kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points.  Each launches one block per triple on `stream`,
-// does not synchronise, allocates nothing, and returns cudaGetLastError()
-// as an int (0 = launched).  Pointers must be 16-byte aligned.
+// Plain C entry points.  Each launches on `stream`, does not synchronise,
+// allocates nothing, and returns the CUDA error as an int (0 = launched).
+// Pointers must be 16-byte aligned; g is the number of triples.
 extern "C" int tc_tile_popcount(const void* triples, const void* a_tiles,
                                 const void* b_tiles, const void* m_tiles,
                                 long long g, void* out, void* stream) {
-  if (g <= 0 || g > INT_MAX) return (int)cudaErrorInvalidValue;
-  tile_popcount_kernel<<<(unsigned)g, kPopThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)triples, (const uint4*)a_tiles, (const uint4*)b_tiles,
-      (const uint4*)m_tiles, (int*)out);
-  return (int)cudaGetLastError();
+  return launch(tile_popcount_kernel, g, stream, (const int4*)triples,
+                (const uint4*)a_tiles, (const uint4*)b_tiles,
+                (const uint4*)m_tiles, g, (int*)out);
 }
 
 extern "C" int tc_tile_mxu(const void* triples, const void* a_tiles,
                            const void* b_tiles, const void* m_tiles,
                            long long g, void* out, void* stream) {
-  if (g <= 0 || g > INT_MAX) return (int)cudaErrorInvalidValue;
-  tile_mxu_kernel<<<(unsigned)g, kMxuThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)triples, (const unsigned*)a_tiles, (const unsigned*)b_tiles,
-      (const unsigned*)m_tiles, (int*)out);
-  return (int)cudaGetLastError();
+  return launch(tile_mxu_kernel, g, stream, (const int4*)triples,
+                (const uint4*)a_tiles, (const uint4*)b_tiles,
+                (const uint4*)m_tiles, g, (int*)out);
 }
+
+extern "C" int tc_tile_dense_threshold() { return kDenseThreshold; }
 
 extern "C" const char* tc_tile_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -17,26 +17,28 @@ unpack masks with ``& 1`` after the shift, which is arithmetic.
 signature minus ``interpret``.  For tensors on a CUDA device it launches
 the hand-written kernel of ``mode`` from ``csrc/tc_tile.cu`` (or raises —
 nothing stands in for it on the GPU); for tensors on the CPU it takes the
-plain version of that mode.  The two modes compute the same integer:
+plain version of that mode.  The two modes compute the same integer.
+
+What bounds both on an H100 is bytes: the function needs only the pairs
+``(i, j)`` whose mask bit is set (on the tile path about 4.6 of a triple's
+16,384), so the least time is the tiles it names, each read once, over
+the memory rate.  Both kernels are built to visit only those pairs: one
+warp per triple, as many blocks as fit on the card at once, each warp
+looping over its share of the triples; lane ``l`` holds mask rows ``l +
+32 r`` in registers.  On the tile path the time follows that mask scan,
+2 KiB a triple (``PERF.md``).
 
 * ``mode="popcount"`` replaces the TPU kernel ``_kernel_popcount`` of
-  ``src/repro/kernels/tc_tile/tc_tile.py``.  One block per triple, thread
-  ``i`` owns row ``i`` of A and of the mask, the B tile is staged in
-  shared memory, and the thread sums ``__popc(a_w & b_w)`` over the 4
-  words of every ``j`` whose mask bit is set.  What bounds it: operations —
-  128·128·4 AND+popc per triple against the SM's population-count rate
-  (16 a clock per SM on compute capability 9.0), while it reads only
-  three 2 KiB tiles.  The design keeps every operand on chip for the whole
-  triple; it does not yet skip unset mask bits.
+  ``src/repro/kernels/tc_tile/tc_tile.py``.  Up to a fixed number of set
+  mask bits (:func:`dense_threshold`) each lane walks its own set bits and
+  reads only rows ``A[i]`` and ``B[j]`` for each (sparse route); above it
+  the warp stages the B tile in shared memory and each lane takes its
+  rows against every ``j``, selecting by the mask bit (dense route).
 * ``mode="mxu"`` replaces ``_kernel_mxu`` (with ``unpack_bits_tile``).  The
   name is kept so a reader finds the counterpart; on this card it means
-  tensor cores.  Both tiles are unpacked to 0/1 bf16 in shared memory,
-  ``A·Bᵀ`` is taken with 16x16x16 ``wmma`` fragments into fp32, and each
-  16x16 accumulator passes through a per-warp shared buffer where the mask
-  is applied and summed (entries ≤ 128, totals ≤ 2^21: exact).  What
-  bounds it: operations, 2·128³ per triple against the bf16 tensor-core
-  rate, but the unpack into shared memory and the epilogue, not the
-  product, take its time.
+  tensor cores: ``mma.sync`` m16n8k128 on packed bits (``.b1``, AND +
+  popcount), one instruction per 16x8 output block that holds a set mask
+  bit, the mask applied to the accumulators in registers.  No unpack.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ __all__ = [
     "MODES",
     "unpack_bits_tile",
     "popcount32",
+    "dense_threshold",
     "tile_triple_counts",
     "tile_triple_counts_plain",
     "launch_count",
@@ -162,17 +165,25 @@ def _kernel_fns():
         from .._build import load_library
 
         lib = load_library("tc_tile")
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fns = {}
         for mode in MODES:
             fn = getattr(lib, f"tc_tile_{mode}")
             fn.argtypes = [p, p, p, p, ll, p, p]
-            fn.restype = ctypes.c_int
+            fn.restype = i
             fns[mode] = fn
-        lib.tc_tile_error_string.argtypes = [ctypes.c_int]
+        lib.tc_tile_dense_threshold.argtypes = []
+        lib.tc_tile_dense_threshold.restype = i
+        lib.tc_tile_error_string.argtypes = [i]
         lib.tc_tile_error_string.restype = ctypes.c_char_p
-        _FN = (fns, lib.tc_tile_error_string)
+        _FN = (fns, lib)
     return _FN
+
+
+def dense_threshold() -> int:
+    """Set mask bits of a triple above which the popcount kernel takes its
+    dense route (a constant of ``csrc/tc_tile.cu``; builds the library)."""
+    return int(_kernel_fns()[1].tc_tile_dense_threshold())
 
 
 def tile_triple_counts(triples, a_tiles, b_tiles, m_tiles, *, mode="popcount"):
@@ -205,7 +216,7 @@ def tile_triple_counts(triples, a_tiles, b_tiles, m_tiles, *, mode="popcount"):
     out = torch.empty(g, dtype=torch.int32, device=dev)
     if g == 0:
         return out
-    fns, err_str = _kernel_fns()
+    fns, lib = _kernel_fns()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fns[mode](
@@ -215,7 +226,7 @@ def tile_triple_counts(triples, a_tiles, b_tiles, m_tiles, *, mode="popcount"):
     if rc != 0:
         raise RuntimeError(
             f"tc_tile_{mode} launch failed: CUDA error {rc} "
-            f"({err_str(rc).decode()})"
+            f"({lib.tc_tile_error_string(rc).decode()})"
         )
     LAUNCHES[mode] += 1
     return out

@@ -7,6 +7,7 @@ references'; the tile plans must be byte-identical to the JAX package's;
 the JAX package's count at q in {1, 2, 3}.  Inputs are made from a seed
 with numpy and handed to both packages.  Parity is ``==``.
 """
+import importlib.util
 import json
 import os
 import subprocess
@@ -44,8 +45,15 @@ from repro_torch.kernels.tc_tile import (
     unpack_bits_tile,
 )
 from repro_torch.kernels.tc_tile import tc_tile as kmod
+from repro_torch.kernels.tc_tile.tc_tile import dense_threshold
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# chip_smoke.py builds the tile kernels' trap cases; it imports nothing at
+# module level but numpy and torch
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 FIXTURES = {
     "karate": "named:karate",
     "rmat8": "rmat:8,8,5",
@@ -127,40 +135,80 @@ def test_unpack_bits_tile_is_exact_bit_31_included():
     assert unpack_bits_tile(_t(rnd), torch.bfloat16).shape == (2, TILE, TILE)
 
 
-def _edge_cases():
-    rng = np.random.default_rng(5)
-    a, b, m = (_tiles(rng, 4, 0.5) for _ in range(3))
-    full = np.full((2, TILE, WORDS), 0xFFFFFFFF, np.uint32)
-    top = np.full((2, TILE, WORDS), 0x80000000, np.uint32)
-    one_slot = np.zeros((40, 4), np.int32)
-    one_slot[:33] = (2, 2, 2, 1)
-    return {
-        # padding triples are (0,0,0,0): slot 0 is real, valid decides
-        "invalid_real_slots": (np.array([[3, 3, 3, 0], [0, 0, 0, 0],
-                                         [2, 1, 3, 1]], np.int32), a, b, m),
-        "all_bits": (np.array([[0, 1, 0, 1]], np.int32), full, full, full),
-        "bit31_only": (np.array([[1, 0, 1, 1], [0, 0, 0, 0]], np.int32),
-                       top, top, top),
-        "one_triple": (np.array([[1, 2, 3, 1]], np.int32), a, b, m),
-        "one_slot": (one_slot, a, b, m),
-        "no_triples": (np.zeros((0, 4), np.int32), a, b, m),
-    }
+SINGLE_BITS = chip_smoke.SINGLE_BITS
+# triples of the ragged case: prime, so no grid's warp count divides it
+RAGGED_CPU, RAGGED_GPU = 1009, chip_smoke.RAGGED
+
+
+def _edge_cases(ragged=RAGGED_CPU):
+    """``chip_smoke.tile_trap_cases`` with the tiles as uint32, as the JAX
+    package takes them."""
+    return {name: (trips, *(v.view(np.uint32) for v in tiles))
+            for name, (trips, *tiles)
+            in chip_smoke.tile_trap_cases(ragged=ragged).items()}
+
+
+def _ref(trips, a, b, m):
+    """``tile_triple_counts_ref`` taken once per distinct triple."""
+    if trips.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int64)
+    uniq, inv = torch.unique(trips, dim=0, return_inverse=True)
+    return tile_triple_counts_ref(uniq, a, b, m)[inv]
+
+
+def _pair_count(a, b, i, j):
+    """``popcount(A[i] & B[j])`` of two uint32 tiles, in numpy."""
+    return sum(bin(int(w)).count("1") for w in a[i] & b[j])
 
 
 @pytest.mark.parametrize("case", list(_edge_cases()))
 @pytest.mark.parametrize("mode", MODES)
 def test_plain_versions_on_edge_cases(mode, case):
-    args = [_t(v) for v in _edge_cases()[case]]
+    trips, a, b, m = _edge_cases()[case]
+    args = [_t(v) for v in (trips, a, b, m)]
     got = tile_triple_counts(*args, mode=mode)
-    want = tile_triple_counts_ref(*args)
+    want = _ref(*args)
     assert torch.equal(got.long(), want)
-    if case == "all_bits":
-        assert int(got[0]) == TILE ** 3
+    if case == "all_bits":  # the padding triple names the full slot 0
+        assert got.tolist() == [TILE ** 3, TILE ** 3, 0]
     if case == "bit31_only":  # columns 31/63/95/127 set in every row:
         # 128 rows x 4 mask bits x 4 shared columns
-        assert got.tolist() == [TILE * WORDS * WORDS, 0]
+        assert got.tolist() == [TILE * WORDS * WORDS] * 2 + [0]
     if case == "invalid_real_slots":
-        assert got[:2].tolist() == [0, 0] and int(got[2]) > 0
+        assert got[:3].tolist() == [0, 0, 0] and int(got[3]) > 0
+    if case == "single_bits":
+        assert got.tolist() == [_pair_count(a[ta], b[tb], i, j)
+                                for (ta, tb, _, _), (i, j)
+                                in zip(trips, SINGLE_BITS)]
+        assert min(got.tolist()) > 0
+    if case == "one_bit_per_block":
+        ii, jj = np.nonzero(unpack_bits_tile(_t(m[0]), torch.int32).numpy())
+        assert len(ii) == (TILE // 16) * (TILE // 8)
+        assert got.tolist() == [
+            sum(_pair_count(a[ta], b[tb], i, j) for i, j in zip(ii, jj))
+            for ta, tb, _, _ in trips]
+    if case == "empty_mask_valid":
+        assert got.tolist() == [0, 0]
+    if case == "ragged_one_slot":
+        assert got.shape == (RAGGED_CPU,) and RAGGED_CPU % 5 != 0
+        assert torch.equal(got[:5].repeat(RAGGED_CPU // 5 + 1)[:RAGGED_CPU],
+                           got)
+
+
+@pytest.mark.parametrize("case", list(_edge_cases()))
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_versions_match_the_jax_kernel_on_edge_cases(mode, case):
+    """The JAX kernel in interpret mode, once per distinct triple."""
+    trips, a, b, m = _edge_cases()[case]
+    got = tile_triple_counts(*[_t(v) for v in (trips, a, b, m)], mode=mode)
+    if trips.shape[0] == 0:
+        assert got.shape == (0,)
+        return
+    uniq, inv = np.unique(trips, axis=0, return_inverse=True)
+    want = np.asarray(j_counts(jnp.asarray(uniq), jnp.asarray(a),
+                               jnp.asarray(b), jnp.asarray(m), mode=mode,
+                               interpret=True))[inv.reshape(-1)]
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_tile_pair_count_sums_in_int64(monkeypatch):
@@ -420,19 +468,25 @@ def test_tile_sizing_reports_the_plan_and_a_correct_count():
 
 @pytest.mark.gpu
 def test_tile_kernels_equal_plain_on_the_gpu():
-    """Both CUDA tile kernels against their plain versions, per triple.
-    Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the same
-    comparison (and more) on a machine that has them."""
+    """Both CUDA tile kernels against their plain versions, per triple,
+    on random cases and the edge cases.  Needs a CUDA device and nvcc;
+    ``python3 chip_smoke.py`` runs the same comparison (and more) on a
+    machine that has them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the tile kernels have no CPU build")
-    cases = [_case(s, 8, 64, d) for s, d in ((0, 0.02), (1, 0.3), (2, 0.9))]
-    cases += list(_edge_cases().values())
-    for case in cases:
+    cases = {f"random_{d}": _case(s, 8, 64, d)
+             for s, d in ((0, 0.02), (1, 0.3), (2, 0.9))}
+    cases.update(_edge_cases(ragged=RAGGED_GPU))
+    routes = cases["both_routes"]
+    bits = [int(np.unpackbits(routes[3][k].view(np.uint8)).sum())
+            for k in routes[0][routes[0][:, 3] > 0, 2]]
+    assert min(bits) <= dense_threshold() < max(bits)
+    for name, case in cases.items():
         args = [_t(v).cuda() for v in case]
         for mode in MODES:
             before = kmod.launch_count(mode)
             got = tile_triple_counts(*args, mode=mode)
             want = tile_triple_counts_plain(*args, mode=mode)
             torch.cuda.synchronize()
-            assert torch.equal(got, want)
+            assert torch.equal(got, want), (name, mode)
             assert kmod.launch_count(mode) == before + (args[0].shape[0] > 0)
