@@ -12,13 +12,24 @@ What it does, in order, printing one JSON object per line:
                     process per source, started together) and reports each
                     kernel's registers, shared memory and spills as
                     ``nvcc -Xptxas -v`` gives them;
-3. ``traps``      — holds each kernel against its plain PyTorch version on
-                    small inputs built to hit the edge cases (exact equality);
+3. ``traps``      — holds the fused kernel on the short bucket
+                    (``fused_short_counts``) against its plain PyTorch
+                    version on small inputs built to hit the edge cases
+                    (exact equality, per tile);
+   ``fused_traps`` — the fused kernel over both buckets
+                    (``count_pair_fused``, one launch) against
+                    ``count_pair_fused_plain`` and brute force on
+                    ``fused_trap_cases`` (runs of equal ti across tile and
+                    warp boundaries, rows past the staging limit, B rows
+                    past ``dpad_long``, odd long buckets), both long-bucket
+                    functions; the tests take the same cases;
 4. ``main_path``  — ``repro_torch.count_triangles(rmat(scale, 16), q=4,
-                    method="fused")`` on the GPU, checked against the same
-                    call with ``method="search"`` and against a scipy oracle
-                    that shares no code with the package; then the same
-                    graph again, which must hit the plan cache;
+                    method="fused")`` on the GPU — one plan, one kernel
+                    launch a device-step, no ``searchsorted`` in the warm
+                    count's profile — checked against the same call with
+                    ``method="search"`` and against a scipy oracle that
+                    shares no code with the package; then the same graph
+                    again, which must hit the plan cache;
 5. ``kernels``    — for each kernel: equality with the plain version on
                     every device-step the main path gave it, its time,
                     the plain version's time, the least time the card
@@ -179,11 +190,200 @@ def run_traps(dev):
     return checked
 
 
+# ----------------------------------------------------------------------
+# the fused kernel over both buckets: trap cases
+# ----------------------------------------------------------------------
+# run lengths of equal ti in the traps' task lists: one task, a warp's 32
+# and a tile's 32 either side, and a run over many tiles
+FUSED_RUNS = (1, 31, 32, 33, 1000, 1, 2, 3, 64, 5)
+
+
+def _csr(rng, lens, window, hub_window):
+    """CSR of rows with ``lens`` ids: short rows draw from ``[0, window)``,
+    rows longer than ``window`` from ``[0, hub_window)``.  The ids are
+    block-local (below the row count) as the row-encoded keys need; the
+    array ends in 5 padding ids."""
+    rows = [np.sort(rng.choice(window if k <= window else hub_window,
+                               size=int(k), replace=False)) for k in lens]
+    indptr = np.zeros(len(lens) + 1, np.int32)
+    indptr[1:] = np.cumsum(lens)
+    idx = np.concatenate(rows + [np.full(5, len(lens))]).astype(np.int32)
+    return indptr, idx
+
+
+def fused_trap_cases(seed=0):
+    """name -> dict(arrays=(ap, ai, bp, bi, ti, tj), n_long, d_small,
+    dpad_long, chunk, tile, tcounts) for ``count_pair_fused``: task lists
+    in runs of equal ti of ``FUSED_RUNS`` lengths, ordered by (ti, tj) and
+    shuffled, at tiles 8, 32 and 256; rows of A and of B longer than the
+    kernel's staging limit in both buckets; a B row longer than
+    ``dpad_long`` in the long bucket, where the two long-bucket functions
+    differ; a long bucket that is no multiple of the tile, and one that
+    takes every task.  ``tcounts`` include one inside the long bucket.
+    ``tests/test_torch_fused.py`` takes its cases from here."""
+    from repro_torch.kernels.tc_fused import STAGE_LIMIT, fused_split_sizes
+
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def add(name, arrays, n_long, d_small, dpad_long, tile, chunk=4096):
+        tmax = len(arrays[4])
+        n_long_c, _ = fused_split_sizes(tmax, n_long, chunk)
+        tcounts = sorted({0, 1, n_long_c // 2 + 1, n_long_c + 3, tmax}
+                         & set(range(tmax + 1)))
+        out[name] = dict(arrays=arrays, n_long=n_long, d_small=d_small,
+                         dpad_long=dpad_long, chunk=chunk, tile=tile,
+                         tcounts=tuple(tcounts))
+
+    nb = 1024
+    ap, ai = _csr(rng, rng.integers(0, 49, nb), 256, nb)
+    bp, bi = _csr(rng, rng.integers(0, 49, nb), 256, nb)
+    rows = rng.choice(nb, len(FUSED_RUNS), replace=False)
+    rows[3] = int(np.flatnonzero(np.diff(ap) == 0)[0])  # a run of an empty row
+    ti = np.repeat(rows, FUSED_RUNS).astype(np.int32)
+    tj = rng.integers(0, nb, ti.shape[0]).astype(np.int32)
+    order = np.lexsort((tj, np.repeat(np.arange(len(FUSED_RUNS)), FUSED_RUNS)))
+    ti, tj = ti[order], tj[order]
+    runs = (ap, ai, bp, bi, ti, tj)
+    add("runs_by_row", runs, 100, 24, 48, 32)
+    perm = rng.permutation(ti.shape[0])
+    add("runs_shuffled", (ap, ai, bp, bi, ti[perm], tj[perm]), 100, 24, 48, 32)
+    add("runs_tile_256", runs, 300, 24, 48, 256)
+    add("runs_tile_8_no_long", runs, 0, 24, 48, 8)
+
+    lens_a, lens_b = rng.integers(0, 41, nb), rng.integers(0, 41, nb)
+    lens_a[[3, 500]] = 700  # past the staging limit
+    lens_b[4], lens_b[9] = 700, 900  # 900: past dpad_long too
+    edge = (STAGE_LIMIT - 1, STAGE_LIMIT, STAGE_LIMIT + 1)
+    lens_a[[40, 41, 42]] = edge  # either side of the limit
+    lens_b[[50, 51, 52]] = edge
+    ap, ai = _csr(rng, lens_a, 256, nb)
+    bp, bi = _csr(rng, lens_b, 256, nb)
+    pairs = [(3, 4), (3, 9), (500, 4), (500, 9), (3, 17), (21, 9), (21, 4),
+             (40, 50), (41, 51), (42, 52), (42, 9), (41, 4), (40, 17)]
+    ti = rng.integers(0, nb, 600).astype(np.int32)
+    tj = rng.integers(0, nb, 600).astype(np.int32)
+    for k, (i, j) in enumerate(pairs):  # in the long bucket and the short
+        ti[k], tj[k] = i, j
+        ti[300 + k], tj[300 + k] = i, j
+    for lo, hi in ((0, 192), (192, 600)):  # ordered by ti within a bucket
+        o = np.lexsort((tj[lo:hi], ti[lo:hi])) + lo
+        ti[lo:hi], tj[lo:hi] = ti[o], tj[o]
+    add("rows_past_stage_limit", (ap, ai, bp, bi, ti, tj), 150, 640, 800, 32)
+
+    nb = 256
+    ap, ai = _csr(rng, rng.integers(0, 61, nb), nb, nb)
+    bp, bi = _csr(rng, rng.integers(0, 61, nb), nb, nb)
+    ti = rng.integers(0, nb, 400).astype(np.int32)
+    tj = rng.integers(0, nb, 400).astype(np.int32)
+    # chunk 50: the long bucket is 150 tasks, no multiple of the tile
+    add("b_past_dpad_long", (ap, ai, bp, bi, ti, tj), 120, 10, 20, 32,
+        chunk=50)
+    add("long_takes_all", (ap, ai, bp, bi, ti[:300], tj[:300]), 400, 10, 20,
+        32)
+    return out
+
+
+def fused_brute(case, long_fallback):
+    """Per-task counts of ``count_pair_fused``'s function, from Python
+    sets: long tasks A cut at ``dpad_long`` and B whole (``global``) or cut
+    there (``search``), short tasks both cut at ``d``; ``(tmax,)``."""
+    from repro_torch.kernels.tc_fused import fused_split_sizes
+
+    ap, ai, bp, bi, ti, tj = case["arrays"]
+    n_long_c, _ = fused_split_sizes(len(ti), case["n_long"], case["chunk"])
+    d = max(1, min(case["d_small"], len(ai), len(bi)))
+    dl = case["dpad_long"]
+    per = np.zeros(len(ti), np.int64)
+    for t, (i, j) in enumerate(zip(ti, tj)):
+        if t < n_long_c:
+            ca, cb = dl, (None if long_fallback == "global" else dl)
+        else:
+            ca, cb = d, d
+        a = set(ai[ap[i]:ap[i + 1]][:ca].tolist())
+        per[t] = len(a.intersection(bi[bp[j]:bp[j + 1]][:cb].tolist()))
+    return per
+
+
+def fused_case_kwargs(case, long_fallback):
+    return dict(n_long=case["n_long"], d_small=case["d_small"],
+                dpad_long=case["dpad_long"], chunk=case["chunk"],
+                tile=case["tile"], long_fallback=long_fallback)
+
+
+def run_fused_traps(dev):
+    """``count_pair_fused`` (the kernel, one launch) against
+    ``count_pair_fused_plain`` and brute force on ``fused_trap_cases``, both
+    long-bucket functions, every ``tcount``; and the launch's per-tile
+    counts against ``fused_step_counts_plain``, and its short tiles against
+    ``fused_short_counts_plain``."""
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+        fused_short_counts_plain,
+        fused_split_sizes,
+        fused_step_counts,
+        fused_step_counts_plain,
+        fused_tile_for,
+    )
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+
+    if kmod.stage_limit() != kmod.STAGE_LIMIT:
+        fail(f"the kernel stages {kmod.stage_limit()} ids, the traps "
+             f"assume {kmod.STAGE_LIMIT}")
+    checked = 0
+    for name, case in fused_trap_cases().items():
+        t = [torch.from_numpy(a).to(dev) for a in case["arrays"]]
+        tmax = t[4].shape[0]
+        n_long_c, _ = fused_split_sizes(tmax, case["n_long"], case["chunk"])
+        d = max(1, min(case["d_small"], t[1].shape[0], t[3].shape[0]))
+        tile = case["tile"] or fused_tile_for(d)
+        counts = {}
+        for fb in ("global", "search"):
+            per = fused_brute(case, fb)
+            kw = fused_case_kwargs(case, fb)
+            for tc in case["tcounts"]:
+                before = kmod.launch_count()
+                got = int(count_pair_fused(*t, tc, **kw))
+                if kmod.launch_count() != before + 1:
+                    fail(f"fused trap {name}: count_pair_fused made "
+                         f"{kmod.launch_count() - before} launches, not 1")
+                want = int(count_pair_fused_plain(*t, tc, **kw))
+                brute = int(per[:tc].sum())
+                if not got == want == brute:
+                    fail(f"fused trap {name} {fb} tcount={tc}: kernel {got}, "
+                         f"plain {want}, brute force {brute}")
+                step_kw = dict(n_long=n_long_c, tile=tile,
+                               d_long=case["dpad_long"],
+                               long_b_whole=fb == "global", d_short=d)
+                tiles = fused_step_counts(*t, tc, **step_kw)
+                if not torch.equal(tiles, fused_step_counts_plain(
+                        *t, tc, **step_kw)):
+                    fail(f"fused trap {name} {fb} tcount={tc}: per-tile "
+                         f"counts != fused_step_counts_plain")
+                ntile_long = -(-n_long_c // tile)
+                if n_long_c < tmax and not torch.equal(
+                        tiles[ntile_long:], fused_short_counts_plain(
+                            *t[:4], t[4][n_long_c:], t[5][n_long_c:],
+                            max(tc - n_long_c, 0), tile=tile, d=d)):
+                    fail(f"fused trap {name} {fb} tcount={tc}: short tiles "
+                         f"!= fused_short_counts_plain")
+                checked += 1
+            counts[fb] = int(per.sum())
+        if name == "b_past_dpad_long" and counts["global"] == counts["search"]:
+            fail("fused trap b_past_dpad_long: the two long-bucket "
+                 "functions agree, so the trap does not bite")
+    return checked
+
+
 def step_inputs(art, dev, x=0, y=0, step=0):
-    """The tensors logical device ``(x, y)`` hands the fused kernel at
-    Cannon step ``step`` of the planned main path, exactly as
-    ``count_pair_fused`` slices them: after ``step`` shifts the device
-    holds block ``(x, y + step)`` of A and block ``(x + step, y)`` of B."""
+    """What logical device ``(x, y)`` hands ``count_pair_fused`` at Cannon
+    step ``step`` of the planned main path: after ``step`` shifts the
+    device holds block ``(x, y + step)`` of A and block ``(x + step, y)``
+    of B.  Returns ``(args, tcount, kw, split)``: the tensors, the task
+    count, ``count_pair_fused``'s keywords as the engine binds them, and
+    the keywords of ``fused_step_counts`` (the one launch) with the short
+    bucket's tile and cap."""
     from repro_torch.kernels.tc_fused import fused_split_sizes, fused_tile_for
 
     plan = art.plan
@@ -191,43 +391,63 @@ def step_inputs(art, dev, x=0, y=0, step=0):
     q = plan.q
     ax, ay = x, (y + step) % q
     bx, by = (x + step) % q, y
-    a_ptr, a_idx = st["a_indptr"][ax, ay], st["a_indices"][ax, ay]
-    b_ptr, b_idx = st["b_indptr"][bx, by], st["b_indices"][bx, by]
+    a_idx, b_idx = st["a_indices"][ax, ay], st["b_indices"][bx, by]
+    args = (st["a_indptr"][ax, ay], a_idx, st["b_indptr"][bx, by], b_idx,
+            st["m_ti"][x, y], st["m_tj"][x, y])
+    kw = dict(n_long=plan.n_long, d_small=plan.d_small, dpad_long=plan.dmax,
+              chunk=plan.chunk, long_fallback="global")
     n_long_c, _ = fused_split_sizes(plan.tmax, plan.n_long, plan.chunk)
     d = int(max(1, min(plan.d_small, a_idx.shape[0], b_idx.shape[0])))
-    tile = fused_tile_for(d)
-    ti, tj = st["m_ti"][x, y][n_long_c:], st["m_tj"][x, y][n_long_c:]
-    tcount = max(int(plan.m_cnt[x, y]) - n_long_c, 0)
-    return (a_ptr, a_idx, b_ptr, b_idx, ti, tj), tcount, tile, d
+    split = dict(n_long=n_long_c, tile=fused_tile_for(d), d_long=plan.dmax,
+                 long_b_whole=True, d_short=d)
+    return args, int(plan.m_cnt[x, y]), kw, split
 
 
-def kernel_bound(args, tcount, tile, d):
-    """Least time the card could take for this call's data.
+def kernel_bound(args, tcount, split):
+    """Least time the card could take for this call's data, both buckets.
 
     Bytes, each counted ONCE however many tasks name it: the two ids of
-    every live task, the row pointers and the column ids (cut at ``d``)
-    of every distinct row a live task names, and the per-tile output,
-    over the memory rate; against one compare per binary-search step
-    (shorter fragment probed into the longer) over the 32-bit rate.
+    every live task, the row pointers and the column ids of every distinct
+    row a live task names (cut at the largest cap a task reads it at:
+    ``d_long`` for A in the long bucket, nothing for B there when
+    ``long_b_whole``, ``d_short`` in the short bucket), and the per-tile
+    output, over the memory rate; against one compare per binary-search
+    step (shorter fragment probed into the longer) over the 32-bit rate.
 
     ``task_traffic_bytes`` is another quantity and no bound: what the
     tasks read when every task's fragments are counted per task (24 B of
     ids and pointers and 4 B per column id).  Rows are shared between
     tasks, so most of it can be served from cache."""
+    from repro_torch.kernels.tc_fused.tc_fused import fused_tiles
+
     a_ptr, _, b_ptr, _, ti, tj = args
-    live = min(tcount, ti.shape[0])
-    len_a = (a_ptr[1:] - a_ptr[:-1]).clamp(max=d).long()
-    len_b = (b_ptr[1:] - b_ptr[:-1]).clamp(max=d).long()
-    rows_a = torch.unique(ti[:live].long())
-    rows_b = torch.unique(tj[:live].long())
-    ntile = max(1, -(-ti.shape[0] // tile))
-    nbytes = int(
-        8 * live
-        + 4 * (rows_a.numel() + 1) + 4 * int(len_a[rows_a].sum())
-        + 4 * (rows_b.numel() + 1) + 4 * int(len_b[rows_b].sum())
-        + 4 * ntile
-    )
-    la, lb = len_a[ti[:live].long()], len_b[tj[:live].long()]
+    tmax = ti.shape[0]
+    live = min(tcount, tmax)
+    n_long = split["n_long"]
+    big = 2**31 - 1
+    pos = torch.arange(live, device=ti.device)
+    is_long = pos < n_long
+    cap_a = torch.where(is_long, split["d_long"], split["d_short"])
+    cap_b = torch.where(is_long, big if split["long_b_whole"]
+                        else split["d_long"], split["d_short"])
+    rows_a, rows_b = ti[:live].long(), tj[:live].long()
+    full_a = (a_ptr[1:] - a_ptr[:-1]).long()
+    full_b = (b_ptr[1:] - b_ptr[:-1]).long()
+    la = torch.minimum(full_a[rows_a], cap_a)
+    lb = torch.minimum(full_b[rows_b], cap_b)
+
+    def distinct(rows, lens, n):
+        longest = torch.zeros(n, dtype=torch.int64, device=rows.device)
+        longest.scatter_reduce_(0, rows, lens, reduce="amax")
+        used = torch.zeros(n, dtype=torch.bool, device=rows.device)
+        used[rows] = True
+        return int(used.sum()), int(longest.sum())
+
+    na, ids_a = distinct(rows_a, la, full_a.shape[0])
+    nb_, ids_b = distinct(rows_b, lb, full_b.shape[0])
+    ntile = fused_tiles(tmax, n_long, split["tile"])[1]
+    nbytes = int(8 * live + 4 * (na + 1) + 4 * ids_a + 4 * (nb_ + 1)
+                 + 4 * ids_b + 4 * ntile)
     short, long_ = torch.minimum(la, lb), torch.maximum(la, lb)
     ops = int((short * torch.ceil(torch.log2(long_.double() + 1)).long()).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -260,64 +480,95 @@ def time_cold(fn, reps, flush):
 
 
 def kernel_report(art, dev, launches):
-    """Holds the kernel against its plain version on every device-step
-    of the main path (all ``q * q`` logical devices at all ``q`` steps,
-    exact equality per tile); times device (0, 0) at step 0."""
+    """Holds the kernel against its plain route on every device-step of
+    the main path (all ``q * q`` logical devices at all ``q`` steps): the
+    whole step's count equal to ``count_pair_fused_plain``'s, and the one
+    launch's short-bucket tiles equal to ``fused_short_counts_plain``'s.
+    Times device (0, 0) at step 0, both buckets."""
     from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
         fused_short_counts,
         fused_short_counts_plain,
+        fused_step_counts,
     )
 
     q = art.plan.q
     compared, max_abs_err, unequal = 0, 0, []
+    t0 = time.perf_counter()
     for step in range(q):
         for x in range(q):
             for y in range(q):
-                args, tcount, tile, d = step_inputs(art, dev, x, y, step)
-                got = fused_short_counts(*args, tcount, tile=tile, d=d)
-                want = fused_short_counts_plain(*args, tcount, tile=tile, d=d)
-                err = int((got.long() - want.long()).abs().max())
+                args, tcount, kw, split = step_inputs(art, dev, x, y, step)
+                got = int(count_pair_fused(*args, tcount, **kw))
+                want = int(count_pair_fused_plain(*args, tcount, **kw))
+                n_long = split["n_long"]
+                tiles = fused_step_counts(*args, tcount, **split)
+                short_want = fused_short_counts_plain(
+                    *args[:4], args[4][n_long:], args[5][n_long:],
+                    max(tcount - n_long, 0), tile=split["tile"],
+                    d=split["d_short"])
+                short_got = tiles[-short_want.shape[0]:]
+                err = max(abs(got - want), int(
+                    (short_got.long() - short_want.long()).abs().max()))
                 max_abs_err = max(max_abs_err, err)
-                if err or got.shape != want.shape:
+                if err:
                     unequal.append((x, y, step))
                 compared += 1
-                del want
+                del short_want, tiles
+    compare_s = time.perf_counter() - t0
     equal = not unequal
 
-    args, tcount, tile, d = step_inputs(art, dev)
+    args, tcount, kw, split = step_inputs(art, dev)
+    n_long = split["n_long"]
+    short_args = (*args[:4], args[4][n_long:], args[5][n_long:])
+    short_tasks = max(tcount - n_long, 0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms = time_cold(
-        lambda: fused_short_counts(*args, tcount, tile=tile, d=d), 10, flush
-    )
+    ms = time_cold(lambda: fused_step_counts(*args, tcount, **split), 10, flush)
+    short_ms = time_cold(
+        lambda: fused_short_counts(*short_args, short_tasks,
+                                   tile=split["tile"], d=split["d_short"]),
+        10, flush)
     plain_ms = time_cold(
-        lambda: fused_short_counts_plain(*args, tcount, tile=tile, d=d), 2, flush
-    )
-    ntile = max(1, -(-int(args[4].shape[0]) // tile))
+        lambda: count_pair_fused_plain(*args, tcount, **kw), 2, flush)
     rec = dict(
-        name="tc_fused.fused_short_counts",
+        name="tc_fused.fused_step_counts",
         route="cuda",
         source=KERNEL_SOURCE,
         replaces=KERNEL_REPLACES,
+        also_replaces="src/repro/kernels/tc_fused/ops.py:126 (the lax long "
+                      "bucket)",
         launches=launches,
         max_abs_err=max_abs_err,
         equal=equal,
         compared_device_steps=compared,
-        tolerance="exact (integer counts, per tile)",
+        compare_seconds=compare_s,
+        tolerance="exact (integer counts: the whole step, and per tile "
+                  "on the short bucket)",
         ms=ms,
+        short_bucket_ms=short_ms,
+        short_bucket_note="the same kernel on the short bucket alone "
+                          "(fused_short_counts): the work of the TPU "
+                          "kernel it replaces",
         plain_ms=plain_ms,
+        plain_note="count_pair_fused_plain: count_pair_search_global on "
+                   "the long bucket, fused_short_counts_plain on the short",
         library_ms=None,
         library_note="no single PyTorch call computes a batched "
                      "sorted-set intersection over CSR rows",
-        timed="logical device (0, 0), step 0",
-        shape=dict(tasks=int(tcount), tmax=int(args[4].shape[0]), tile=tile,
-                   d=d, ntile=ntile, nb=int(args[0].shape[0] - 1),
+        timed="logical device (0, 0), step 0, both buckets, cold L2, "
+              "median of 10 (plain: of 2)",
+        shape=dict(tasks=int(tcount), long_tasks=min(int(tcount), n_long),
+                   short_tasks=short_tasks, tmax=int(args[4].shape[0]),
+                   n_long_c=n_long, tile=split["tile"], d_short=split["d_short"],
+                   d_long=split["d_long"], nb=int(args[0].shape[0] - 1),
                    npad=int(args[1].shape[0])),
     )
-    rec.update(kernel_bound(args, tcount, tile, d))
+    rec.update(kernel_bound(args, tcount, split))
     rec["bound_share"] = rec["bound_ms"] / ms if ms > 0 else None
     if not equal:
         print(json.dumps({"kernels": [rec]}), flush=True)
-        fail(f"fused kernel != plain version at the main path's shapes, "
+        fail(f"fused kernel != plain route at the main path's shapes, "
              f"device-steps (x, y, step) {unequal}")
     return rec
 
@@ -325,7 +576,7 @@ def kernel_report(art, dev, launches):
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
-def profile_count(count, expect, kernel="fused_short_counts_kernel",
+def profile_count(count, expect, kernel="fused_counts_kernel",
                   label="fused"):
     """Where a warm count's device time goes: ``count`` under
     ``torch.profiler``, once as the profiler's warm-up cycle and once
@@ -357,12 +608,15 @@ def profile_count(count, expect, kernel="fused_short_counts_kernel",
     ]
     kernels.sort(key=lambda kv: -kv[1])
     total = sum(t for _, t, _ in kernels)
+    searchsorted = int(sum(n for k, _, n in kernels
+                           if "searchsorted" in k.lower()))
     mine = sum(t for k, t, _ in kernels if kernel in k)
     seen = int(sum(n for k, _, n in kernels if kernel in k))
     return {
         "profiled_wall_seconds": wall,
         "device_seconds": total,
         "device_launches": int(sum(n for _, _, n in kernels)),
+        "searchsorted_launches": searchsorted,
         f"{label}_kernel_seconds": mine,
         f"{label}_kernel_launches_seen": seen,
         f"{label}_kernel_launches_expected": int(expect),
@@ -383,12 +637,23 @@ def main_path(scale, edge_factor, seed, q, dev):
     gen_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
+    entries0 = len(default_cache())
     kmod.reset_launch_count()
     r = rt.count_triangles(g, q=q, method="fused")
     launches = kmod.launch_count()
     peak = torch.cuda.max_memory_allocated()
+    entries_added = len(default_cache()) - entries0
+    plan = r.plan
+    keep = plan.step_keep
+    expect = sum(1 for s in range(q) for x in range(q) for y in range(q)
+                 if plan.m_cnt[x, y] > 0 and (keep is None or keep[x, y, s]))
     if launches <= 0:
         fail("the main path launched the fused kernel no time")
+    if launches != expect:
+        fail(f"the fused count launched its kernel {launches} times, not "
+             f"once for each of the {expect} device-steps that count")
+    if getattr(plan, "b_aug", None) is not None:
+        fail("method='fused' planned with row-encoded keys it does not read")
 
     hits0 = default_cache().hits
     r2 = rt.count_triangles(g, q=q, method="fused")
@@ -398,6 +663,9 @@ def main_path(scale, edge_factor, seed, q, dev):
 
     prof = profile_count(lambda: rt.count_triangles(g, q=q, method="fused"),
                          launches)
+    if prof["searchsorted_launches"]:
+        fail(f"the warm fused count ran {prof['searchsorted_launches']} "
+             "searchsorted launches: the long bucket left the kernel")
 
     rs = rt.count_triangles(g, q=q, method="search", chunk=8192)
     rs2 = rt.count_triangles(g, q=q, method="search", chunk=8192)
@@ -406,7 +674,6 @@ def main_path(scale, edge_factor, seed, q, dev):
     oracle = scipy_triangle_oracle(g.n, g.edges)
     oracle_s = time.perf_counter() - t0
 
-    plan = r.plan
     sk = plan.step_keep
     cs = plan.compact
     info = dict(
@@ -428,7 +695,9 @@ def main_path(scale, edge_factor, seed, q, dev):
         autotune=plan.autotune,
         schedule_steps=int(sk.size), skipped_steps=int(sk.size - sk.sum()),
         live_steps=None if cs is None else cs.n_live,
-        kernel_launches=launches, cache_hit=cache_hit,
+        kernel_launches=launches, device_steps_counted=expect,
+        plan_cache_entries_added=entries_added,
+        warm_device_launches=prof["device_launches"], cache_hit=cache_hit,
         peak_device_bytes=int(peak),
         warm_count_profile=prof,
     )
@@ -1028,6 +1297,8 @@ def main():
          ptxas=finish_ptxas(ptxas, _build))
 
     emit("traps", ok=True, checked=run_traps(dev))
+    emit("fused_traps", ok=True, checked=run_fused_traps(dev),
+         cases=list(fused_trap_cases()))
 
     art, launches = main_path(args.scale, EDGE_FACTOR, args.seed, GRID, dev)
     kernels = [kernel_report(art, dev, launches)]

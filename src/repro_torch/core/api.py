@@ -233,33 +233,24 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     if plan is None:  # wins over the pipeline (reorder/cyclic_p unused)
         from ..pipeline import plan_cannon
 
-        def plan_with(aug: bool):
-            return plan_cannon(
-                graph,
-                ctx.q,
-                chunk=ctx.chunk,
-                reorder=ctx.reorder,
-                cyclic_p=ctx.cyclic_p,
-                # blocks are only consumed by the tile join
-                keep_blocks=(ctx.method == "tile"),
-                compact=ctx.compact is not False,
-                # the fused kernel needs the two-sided maxfrag split
-                autotune="fused" if ctx.method == "fused" else False,
-                aug_keys=aug,
-                cache=ctx.cache,
-            )
-
-        ctx.artifact = plan_with(ctx.method == "global")
+        ctx.artifact = plan_cannon(
+            graph,
+            ctx.q,
+            chunk=ctx.chunk,
+            reorder=ctx.reorder,
+            cyclic_p=ctx.cyclic_p,
+            # blocks are only consumed by the tile join
+            keep_blocks=(ctx.method == "tile"),
+            compact=ctx.compact is not False,
+            # the fused kernel needs the two-sided maxfrag split
+            autotune="fused" if ctx.method == "fused" else False,
+            # only the global kernel reads staged row-encoded keys
+            aug_keys=(ctx.method == "global"),
+            cache=ctx.cache,
+        )
         plan = ctx.artifact.plan
         if ctx.method == "fused":
             ctx.autotune_mode = "percentile"
-            if (plan.n_long or 0) > 0:
-                # only the long-row fallback consumes staged keys: re-plan
-                # with them (deterministic, so only aug differs; its own
-                # cache entry serves repeat counts warm), but skip it
-                # entirely on kernel-only plans (n_long == 0)
-                ctx.artifact = plan_with(True)
-                plan = ctx.artifact.plan
 
     if ctx.method in _DERIVED_METHODS:
         return _count_derived(plan, ctx)
@@ -325,13 +316,13 @@ def count_triangles(
     ``schedule`` resolves via the registry (see
     :func:`available_schedules`); ``method`` picks the count kernel
     (``"search"``, ``"global"``, ``"fused"``, ``"tile"``, ``"dense"``).
-    ``method="fused"`` runs the hand-written CUDA intersection kernel with
-    its long-row fallback — planning switches to the two-sided maxfrag
-    autotune split it requires.  ``method="tile"`` packs the blocks into
-    128x128-bit tiles and runs the popcount tile kernel over the planned
-    tile triples (tile plan and stores count as preprocessing);
-    ``method="dense"`` is the oracle path over dense 0/1 blocks, for small
-    graphs.
+    ``method="fused"`` runs the hand-written CUDA intersection kernel, one
+    launch a device-step over both buckets — planning switches to the
+    two-sided maxfrag autotune split it requires.  ``method="tile"`` packs
+    the blocks into 128x128-bit tiles and runs the popcount tile kernel
+    over the planned tile triples (tile plan and stores count as
+    preprocessing); ``method="dense"`` is the oracle path over dense 0/1
+    blocks, for small graphs.
     ``cyclic_p`` enables the paper's initial cyclic redistribution
     (§5.3 step 1) as the pipeline's first relabel stage.
     ``use_step_mask`` controls sparsity-aware step skipping (None =

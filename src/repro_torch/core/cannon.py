@@ -71,14 +71,15 @@ def build_cannon_fn(
     live.
     ``method``: any registered CSR kernel — ``"search"`` (flat padding),
     ``"global"`` (gather-free keys), ``"fused"`` (the CUDA intersection
-    kernel + long-row fallback; requires a maxfrag-split plan from
-    ``autotune='fused'``).
+    kernel, one launch a device-step over both buckets; requires a
+    maxfrag-split plan from ``autotune='fused'``).
     ``use_step_mask=None`` auto-enables sparsity-aware step skipping
     when the plan carries ``step_keep``; ``compact=None`` auto-enables
     the compacted kept-step schedule (dead-shift elision + fused
     multi-hop shifts) when the plan staged one that elides a step; the
-    global kernel and the fused long-row fallback pick up planner-staged
-    ``b_aug`` intersection keys when the plan carries them.
+    global kernel picks up planner-staged ``b_aug`` intersection keys
+    when the plan carries them (no other method reads them, so none
+    carries them along).
     ``double_buffer`` is accepted and gives the same count (see
     :class:`~repro_torch.core.engine.CannonSchedule`).
     """
@@ -94,15 +95,9 @@ def build_cannon_fn(
         n_long=n_long,
         d_small=getattr(plan, "d_small", None),
     )
-    # fused consumes staged keys only in its long-row fallback — with
-    # n_long == 0 carrying the aug tensor along would be pure shift bytes
-    fused_wants_aug = method == "fused" and (n_long or 0) > 0
     store = CSRStore(
         kernel,
-        with_aug=(
-            (method == "global" or fused_wants_aug)
-            and getattr(plan, "b_aug", None) is not None
-        ),
+        with_aug=method == "global" and getattr(plan, "b_aug", None) is not None,
     )
     return _engine_fn(
         plan, store, reduce_global=reduce_global, use_step_mask=use_step_mask,

@@ -10,8 +10,9 @@ are the two CSR blocks a logical device holds at the current Cannon step.
 * ``global``  — probe A fragments into one row-encoded sorted key array of
   the whole B block; only the probe side is gathered and padded.
 * ``fused``   — the hand-written CUDA intersection kernel
-  (:mod:`repro_torch.kernels.tc_fused`); its long-row fallback reuses
-  :func:`count_pair_search` / :func:`count_pair_search_global` from here.
+  (:mod:`repro_torch.kernels.tc_fused`); its plain route
+  (``count_pair_fused_plain``, what the CPU runs) counts the long bucket
+  with :func:`count_pair_search` / :func:`count_pair_search_global`.
 * ``dense``   — the oracle path: ``sum((A @ Bᵀ) ⊙ M)`` over dense 0/1
   blocks (:func:`count_pair_dense`).
 

@@ -120,7 +120,7 @@ def _global_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
 
 def _fused_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
                    **extra):
-    """Fused intersection kernel + long-row fallback.
+    """The fused intersection kernel over both buckets of the split.
 
     Needs the *two-sided* (maxfrag) split: under the probe-only split a
     B fragment longer than ``d_small`` would be silently truncated.
@@ -135,24 +135,17 @@ def _fused_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
         )
     from ..kernels.tc_fused import count_pair_fused
 
-    tile = extra.get("fused_tile")
-    long_fallback = extra.get("fused_long_fallback", "global")
-
-    def kernel(a_ptr, a_idx, b_ptr, b_idx, ti, tj, cnt, aug_b=None):
-        return count_pair_fused(
-            a_ptr, a_idx, b_ptr, b_idx, ti, tj, cnt,
-            n_long=n_long,
-            d_small=d_small,
-            dpad_long=dpad,
-            chunk=chunk,
-            tile=tile,
-            long_fallback=long_fallback,
-            probe_shorter=probe_shorter,
-            sentinel=sentinel,
-            aug_b=aug_b,
-        )
-
-    return kernel
+    return functools.partial(
+        count_pair_fused,
+        n_long=n_long,
+        d_small=d_small,
+        dpad_long=dpad,
+        chunk=chunk,
+        tile=extra.get("fused_tile"),
+        long_fallback=extra.get("fused_long_fallback", "global"),
+        probe_shorter=probe_shorter,
+        sentinel=sentinel,
+    )
 
 
 register_csr_kernel("search", _search_factory)
@@ -247,8 +240,7 @@ class CSRStore(OperandStore):
     ``with_aug=True`` adds the planner-staged row-encoded intersection
     keys (``b_aug``) as an extra payload leaf travelling with the B
     operand: the keys shift with the blocks, so the ``global`` kernel
-    (and the fused kernel's long-row fallback) never rebuild them on the
-    device.
+    never rebuilds them on the device.  The fused kernel reads no keys.
     """
 
     operand_names = ("a_indptr", "a_indices", "b_indptr", "b_indices")

@@ -1,12 +1,17 @@
 """The fused intersection module against ``repro.kernels.tc_fused``.
 
-The CUDA kernel cannot run without a GPU; what runs here is its plain
-PyTorch version (which the wrapper takes for CPU tensors) — per tile
+The CUDA kernel cannot run without a GPU; what runs here are its plain
+PyTorch versions (which the wrappers take for CPU tensors) — per tile
 against the reference's Pallas body under the interpreter, in total
 against both packages' independently formulated references and a brute
-force.  The same inputs, made with numpy from a seed, go to both
-packages; everything is integers, so parity is ``==``.
+force, and the plain route of the whole device-step against the JAX
+dispatcher on ``chip_smoke.fused_trap_cases``.  The same inputs, made
+with numpy from a seed, go to both packages; everything is integers, so
+parity is ``==``.
 """
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,13 +27,26 @@ from repro_torch.core.cannon import build_cannon_fn
 from repro_torch.core.engine import check_fused_split, make_csr_kernel
 from repro_torch.kernels.tc_fused import (
     count_pair_fused,
+    count_pair_fused_plain,
     fused_short_counts,
     fused_short_counts_plain,
     fused_short_ref,
     fused_split_sizes,
+    fused_step_counts,
+    fused_step_counts_plain,
     fused_tile_for,
 )
 from repro_torch.kernels.tc_fused import tc_fused as kmod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# chip_smoke.py builds the fused kernel's trap cases; it imports nothing at
+# module level but numpy and torch
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+FUSED_TRAPS = chip_smoke.fused_trap_cases()
+FALLBACKS = ("global", "search")
 
 
 def _random_csr(rng, nrows, maxd, ncols, pad, last_len=None):
@@ -235,11 +253,186 @@ def test_check_fused_split_refuses_probe_only_plans():
         make_csr_kernel("search2", dpad=8, chunk=64)
 
 
+def _trap_split(case, long_fallback):
+    """``fused_step_counts``'s keywords for a trap case, and ``n_long_c``."""
+    ap, ai, bp, bi, ti, tj = case["arrays"]
+    n_long_c, _ = fused_split_sizes(len(ti), case["n_long"], case["chunk"])
+    d = max(1, min(case["d_small"], len(ai), len(bi)))
+    return dict(n_long=n_long_c, tile=case["tile"], d_long=case["dpad_long"],
+                long_b_whole=long_fallback == "global", d_short=d)
+
+
+def _brute_step_tiles(per, tcount, n_long, tile):
+    """Per-tile sums of per-task counts: long tiles from 0, short tiles
+    from ``n_long``, as the kernel lays them out."""
+    per = per.copy()
+    per[tcount:] = 0
+    tmax = per.shape[0]
+    parts = [per[:n_long], per[n_long:]]
+    out = []
+    for k, part in enumerate(parts):
+        n = -(-part.shape[0] // tile)
+        if k == 1 and (part.shape[0] or tmax == 0):
+            n = max(1, n)
+        pad = np.zeros(n * tile - part.shape[0], np.int64)
+        out.append(np.concatenate([part, pad]).reshape(n, tile).sum(axis=1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("long_fallback", FALLBACKS)
+@pytest.mark.parametrize("name", list(FUSED_TRAPS))
+def test_plain_route_matches_the_jax_dispatcher_on_traps(name, long_fallback):
+    """``count_pair_fused_plain`` against the JAX dispatcher on its lax
+    path and brute force, on every trap case the chip run holds the
+    kernel to, for every ``tcount``."""
+    case = FUSED_TRAPS[name]
+    per = chip_smoke.fused_brute(case, long_fallback)
+    kw = chip_smoke.fused_case_kwargs(case, long_fallback)
+    for tcount in case["tcounts"]:
+        got = count_pair_fused_plain(*_t(case["arrays"]), tcount, **kw)
+        want = int(j_count_pair_fused(*_j(case["arrays"]), tcount,
+                                      impl="lax", **kw))
+        assert got.dtype == torch.int64
+        assert int(got) == want == int(per[:tcount].sum()), tcount
+
+
+@pytest.mark.parametrize("long_fallback", FALLBACKS)
+@pytest.mark.parametrize("name", list(FUSED_TRAPS))
+def test_step_counts_plain_per_tile_on_traps(name, long_fallback):
+    """The plain version of the one launch: per tile against brute force
+    (long tiles from task 0, short tiles from ``n_long``), its short tiles
+    against ``fused_short_counts_plain``."""
+    case = FUSED_TRAPS[name]
+    split = _trap_split(case, long_fallback)
+    per = chip_smoke.fused_brute(case, long_fallback)
+    args = _t(case["arrays"])
+    n_long = split["n_long"]
+    for tcount in case["tcounts"]:
+        got = fused_step_counts_plain(*args, tcount, **split)
+        assert got.dtype == torch.int32
+        want = _brute_step_tiles(per, tcount, n_long, split["tile"])
+        assert np.array_equal(got.numpy(), want), tcount
+        if n_long < args[4].shape[0]:
+            short = fused_short_counts_plain(
+                *args[:4], args[4][n_long:], args[5][n_long:],
+                max(tcount - n_long, 0), tile=split["tile"],
+                d=split["d_short"])
+            ntile_long = -(-n_long // split["tile"])
+            assert torch.equal(got[ntile_long:], short), tcount
+
+
+def test_the_traps_hit_what_they_name():
+    """Runs of 1, 31, 32, 33 and 1,000 equal ti; rows longer than the
+    kernel's staging limit in A and in B, in both buckets; a B row past
+    ``dpad_long`` in the long bucket where the two long-bucket functions
+    differ; a long bucket that is no multiple of the tile; one that takes
+    every task; a ``tcount`` inside the long bucket."""
+    runs = FUSED_TRAPS["runs_by_row"]["arrays"][4]
+    lengths = np.diff(np.flatnonzero(np.r_[True, runs[1:] != runs[:-1], True]))
+    assert {1, 31, 32, 33, 1000} <= set(lengths.tolist())
+    case = FUSED_TRAPS["rows_past_stage_limit"]
+    ap, ai, bp, bi, ti, tj = case["arrays"]
+    n_long_c = _trap_split(case, "global")["n_long"]
+    for bucket in (slice(0, n_long_c), slice(n_long_c, None)):
+        assert (np.diff(ap)[ti[bucket]] > kmod.STAGE_LIMIT).any()
+        assert (np.diff(bp)[tj[bucket]] > kmod.STAGE_LIMIT).any()
+    assert case["d_small"] > kmod.STAGE_LIMIT
+    assert (np.diff(bp)[tj[:n_long_c]] > case["dpad_long"]).any()
+    for name in ("rows_past_stage_limit", "b_past_dpad_long",
+                 "long_takes_all"):
+        case = FUSED_TRAPS[name]
+        assert (chip_smoke.fused_brute(case, "global").sum()
+                != chip_smoke.fused_brute(case, "search").sum()), name
+    case = FUSED_TRAPS["b_past_dpad_long"]
+    assert _trap_split(case, "global")["n_long"] % case["tile"]
+    case = FUSED_TRAPS["long_takes_all"]
+    assert _trap_split(case, "global")["n_long"] == len(case["arrays"][4])
+    for case in FUSED_TRAPS.values():
+        n_long_c = _trap_split(case, "global")["n_long"]
+        if n_long_c:
+            assert any(0 < tc < n_long_c for tc in case["tcounts"])
+
+
+@pytest.mark.parametrize("name", list(FUSED_TRAPS))
+def test_count_pair_fused_on_the_cpu_launches_nothing(name):
+    """On CPU tensors ``count_pair_fused`` is its plain route, and the
+    one-launch entry its plain version: no kernel launch is counted."""
+    case = FUSED_TRAPS[name]
+    args = _t(case["arrays"])
+    before = kmod.launch_count()
+    for fb in FALLBACKS:
+        kw = chip_smoke.fused_case_kwargs(case, fb)
+        for tcount in case["tcounts"]:
+            assert torch.equal(count_pair_fused(*args, tcount, **kw),
+                               count_pair_fused_plain(*args, tcount, **kw))
+            split = _trap_split(case, fb)
+            assert torch.equal(fused_step_counts(*args, tcount, **split),
+                               fused_step_counts_plain(*args, tcount, **split))
+    assert kmod.launch_count() == before
+
+
+def test_step_counts_refuse_bad_splits():
+    args = _t(_case(8))
+    with pytest.raises(ValueError, match="n_long"):
+        fused_step_counts(*args, 10, n_long=301, tile=32, d_long=12,
+                          long_b_whole=True, d_short=12)
+    with pytest.raises(ValueError, match=">= 1"):
+        fused_step_counts(*args, 10, n_long=0, tile=0, d_long=12,
+                          long_b_whole=True, d_short=12)
+
+
+@pytest.mark.parametrize("spec,q", [("rmat:9,8,42", 3), ("cliques:3,60", 3)])
+def test_fused_count_makes_one_plan(spec, q):
+    """``method="fused"`` plans once (the relabel and one plan in the
+    cache, no second plan with row-encoded keys), its plan and store carry
+    no ``b_aug``, and it still counts right — also from a plan handed in
+    with ``b_aug`` staged."""
+    from repro.core import graph_from_spec as j_graph_from_spec
+    from repro.core.graph import triangle_count_oracle
+
+    g = tc.graph_from_spec(spec)
+    want = triangle_count_oracle(j_graph_from_spec(spec))
+    cache = tp.PlanCache()
+    r = tc.count_triangles(g, q=q, method="fused", device="cpu", cache=cache)
+    assert r.plan.n_long > 0  # the long bucket is live
+    assert len(cache) == 2  # relabel + one plan
+    assert r.plan.b_aug is None
+    assert "b_aug" not in build_cannon_fn(r.plan, method="fused").ordered
+    assert r.triangles == want
+    staged = tp.plan_cannon(g, q, autotune="fused", aug_keys=True,
+                            cache=tp.PlanCache())
+    assert staged.plan.b_aug is not None
+    assert "b_aug" not in build_cannon_fn(staged, method="fused").ordered
+    assert tc.count_triangles(g, plan=staged, method="fused",
+                              device="cpu").triangles == want
+
+
+def test_fused_sweep_edits_apply_to_the_kernel_source():
+    """``launch/fused_sweep.py`` builds its variants by editing
+    ``csrc/tc_fused.cu``: each edit must still find what it edits, and each
+    variant must differ from the kernel unless only its tile differs."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import fused_sweep
+
+    src = _build.source_path("tc_fused").read_text()
+    table = fused_sweep.variants(src)
+    assert table["kernel"] == (src, None, True)
+    for name, (text, tile, must_equal) in table.items():
+        if name == "kernel":
+            continue
+        assert (text != src) != (tile is not None), name
+        assert must_equal == (name not in ("no_search", "skeleton")), name
+    with pytest.raises(ValueError, match="kRatio"):
+        fused_sweep.variants(src.replace("kRatio = ", "kRatioX = "))
+
+
 @pytest.mark.gpu
 def test_kernel_equals_plain_on_the_gpu():
-    """The CUDA kernel against its plain version, per tile, on the trap
-    inputs.  Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs
-    the same comparison (and more) on a machine that has them."""
+    """The CUDA kernel against its plain versions: the short bucket per
+    tile on the old trap inputs; both buckets in one launch
+    (``count_pair_fused``, ``fused_step_counts``) on ``fused_trap_cases``.
+    Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the same
+    comparisons (and more) on a machine that has them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU build")
     for seed, kw, d, tile in ((0, {}, 12, 32), (2, dict(maxd=40), 16, 8),
@@ -252,3 +445,19 @@ def test_kernel_equals_plain_on_the_gpu():
             torch.cuda.synchronize()
             assert torch.equal(got, want)
             assert kmod.launch_count() == before + 1
+    assert kmod.stage_limit() == kmod.STAGE_LIMIT
+    for name, case in FUSED_TRAPS.items():
+        args = [a.cuda() for a in _t(case["arrays"])]
+        for fb in FALLBACKS:
+            kw = chip_smoke.fused_case_kwargs(case, fb)
+            split = _trap_split(case, fb)
+            for tcount in case["tcounts"]:
+                before = kmod.launch_count()
+                got = count_pair_fused(*args, tcount, **kw)
+                assert kmod.launch_count() == before + 1
+                want = count_pair_fused_plain(*args, tcount, **kw)
+                assert int(got) == int(want), (name, fb, tcount)
+                assert torch.equal(
+                    fused_step_counts(*args, tcount, **split),
+                    fused_step_counts_plain(*args, tcount, **split)), (
+                        name, fb, tcount)
