@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke-run the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # full size: rmat(20, 16) and rmat(18, 16), q = 4
+    python3 chip_smoke.py              # full size: rmat(20, 16) on Cannon q = 4,
+                                       # SUMMA 2 x 8 and the ring p = 16; rmat(18, 16) tiles
     python3 chip_smoke.py --scale 16   # a quicker run (tile path at scale 14)
 
 What it does, in order, printing one JSON object per line:
@@ -35,9 +36,24 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
-6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}, every
-                    method (``search``, ``global``, ``fused``, ``tile``,
-                    ``dense``), against the exact per-edge oracle;
+   ``search2``    — the main graph with ``method="search2"`` (cold and
+                    warm, the bucketizer's ``bucket_stats``) and
+                    ``method="auto"`` (what it resolved to), each equal to
+                    the oracle;
+   ``summa_path`` / ``oned_path`` — the main graph on the SUMMA schedule
+                    (``grid=(2, 8)``) and on the 1D ring (p = 16) with
+                    ``method="fused"``: cold (one kernel launch a counted
+                    device-step), warm (a plan-cache hit, no
+                    ``searchsorted`` in its profile), ``method="search"``
+                    and on SUMMA each broadcast strategy, all equal to the
+                    oracle; then each path's row of the fused kernel
+                    (``"path"``), held to ``count_pair_fused_plain`` on
+                    every device-step the path counted;
+6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}: Cannon
+                    with every method (``search``, ``global``, ``fused``,
+                    ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
+                    the ring with ``search``, ``global``, ``fused``,
+                    ``auto``, against the exact per-edge oracle;
 7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against
                     their plain versions and the reference on small inputs
                     built to hit the edge cases (exact equality; the tests
@@ -211,29 +227,54 @@ def _csr(rng, lens, window, hub_window):
     return indptr, idx
 
 
+# the ring-shaped trap's id space: global vertex ids below RING_N, padded
+# with RING_N + 1 as the 1D planner pads them
+RING_N = 1 << 20
+
+
+def _ring_csr(rng, lens, pool, pad):
+    """CSR of rows with ``lens`` global ids drawn from ``pool`` (sorted),
+    ending in ``pad`` padding ids ``RING_N + 1``."""
+    rows = [np.sort(rng.choice(pool, size=int(k), replace=False))
+            for k in lens]
+    indptr = np.zeros(len(lens) + 1, np.int32)
+    indptr[1:] = np.cumsum(lens)
+    idx = np.concatenate(rows + [np.full(pad, RING_N + 1)]).astype(np.int32)
+    return indptr, idx
+
+
 def fused_trap_cases(seed=0):
     """name -> dict(arrays=(ap, ai, bp, bi, ti, tj), n_long, d_small,
-    dpad_long, chunk, tile, tcounts) for ``count_pair_fused``: task lists
-    in runs of equal ti of ``FUSED_RUNS`` lengths, ordered by (ti, tj) and
-    shuffled, at tiles 8, 32 and 256; rows of A and of B longer than the
-    kernel's staging limit in both buckets; a B row longer than
-    ``dpad_long`` in the long bucket, where the two long-bucket functions
-    differ; a long bucket that is no multiple of the tile, and one that
-    takes every task.  ``tcounts`` include one inside the long bucket.
-    ``tests/test_torch_fused.py`` takes its cases from here."""
+    dpad_long, chunk, tile, tcounts, sentinel, fallbacks) for
+    ``count_pair_fused``: task lists in runs of equal ti of ``FUSED_RUNS``
+    lengths, ordered by (ti, tj) and shuffled, at tiles 8, 32 and 256;
+    rows of A and of B longer than the kernel's staging limit in both
+    buckets; a B row longer than ``dpad_long`` in the long bucket, where
+    the two long-bucket functions differ; a long bucket that is no
+    multiple of the tile, and one that takes every task; and a step shaped
+    as the 1D ring gives it (``ring_global_ids``: global ids up to 2**20
+    padded with ``n + 1``, A and B with different row counts and pads,
+    long rows of 511 / 512 / 513 / 700 ids, the padded search's function
+    only — row-encoded keys do not hold global ids).  ``tcounts`` include
+    one inside the long bucket; ``fallbacks`` are the long-bucket
+    functions a case is checked under, ``sentinel`` the plain search's
+    padding id.  ``tests/test_torch_fused.py`` takes its cases from
+    here."""
     from repro_torch.kernels.tc_fused import STAGE_LIMIT, fused_split_sizes
 
     rng = np.random.default_rng(seed)
     out = {}
 
-    def add(name, arrays, n_long, d_small, dpad_long, tile, chunk=4096):
+    def add(name, arrays, n_long, d_small, dpad_long, tile, chunk=4096,
+            sentinel=None, fallbacks=("global", "search")):
         tmax = len(arrays[4])
         n_long_c, _ = fused_split_sizes(tmax, n_long, chunk)
         tcounts = sorted({0, 1, n_long_c // 2 + 1, n_long_c + 3, tmax}
                          & set(range(tmax + 1)))
         out[name] = dict(arrays=arrays, n_long=n_long, d_small=d_small,
                          dpad_long=dpad_long, chunk=chunk, tile=tile,
-                         tcounts=tuple(tcounts))
+                         tcounts=tuple(tcounts), sentinel=sentinel,
+                         fallbacks=fallbacks)
 
     nb = 1024
     ap, ai = _csr(rng, rng.integers(0, 49, nb), 256, nb)
@@ -281,6 +322,35 @@ def fused_trap_cases(seed=0):
         chunk=50)
     add("long_takes_all", (ap, ai, bp, bi, ti[:300], tj[:300]), 400, 10, 20,
         32)
+
+    # the 1D ring: A is the device's own row block, B the block that
+    # arrived, each with its own row count and pad; ids are global and
+    # shared through a pool, so long rows overlap
+    pool = np.sort(rng.choice(RING_N, 3000, replace=False))
+    pool[-1] = RING_N - 1  # the largest global id
+    hubs = (STAGE_LIMIT - 1, STAGE_LIMIT, STAGE_LIMIT + 1, 700)
+    nb_a, nb_b = 640, 900
+    lens_a, lens_b = rng.integers(0, 33, nb_a), rng.integers(0, 33, nb_b)
+    lens_a[[5, 6, 7, 8]] = hubs
+    lens_b[[10, 11, 12, 13]] = hubs
+    ap, ai = _ring_csr(rng, lens_a, pool, 7)
+    bp, bi = _ring_csr(rng, lens_b, pool, 19)
+    # long bucket [0, 160): any rows; short bucket: rows of at most
+    # d_small = 32 ids, as the maxfrag split leaves it
+    ti = np.concatenate([rng.integers(0, nb_a, 160), rng.choice(
+        np.flatnonzero(lens_a <= 32), 540)]).astype(np.int32)
+    tj = np.concatenate([rng.integers(0, nb_b, 160), rng.choice(
+        np.flatnonzero(lens_b <= 32), 540)]).astype(np.int32)
+    k = 0
+    for i in (5, 6, 7, 8):  # every hub pairing, in the long bucket
+        for j in (10, 11, 12, 13, 20):
+            ti[k], tj[k] = i, j
+            k += 1
+    for lo, hi in ((0, 160), (160, 700)):  # ordered by ti within a bucket
+        o = np.lexsort((tj[lo:hi], ti[lo:hi])) + lo
+        ti[lo:hi], tj[lo:hi] = ti[o], tj[o]
+    add("ring_global_ids", (ap, ai, bp, bi, ti, tj), 160, 32, 700, 32,
+        chunk=64, sentinel=RING_N + 1, fallbacks=("search",))
     return out
 
 
@@ -308,7 +378,8 @@ def fused_brute(case, long_fallback):
 def fused_case_kwargs(case, long_fallback):
     return dict(n_long=case["n_long"], d_small=case["d_small"],
                 dpad_long=case["dpad_long"], chunk=case["chunk"],
-                tile=case["tile"], long_fallback=long_fallback)
+                tile=case["tile"], long_fallback=long_fallback,
+                sentinel=case["sentinel"])
 
 
 def run_fused_traps(dev):
@@ -339,7 +410,7 @@ def run_fused_traps(dev):
         d = max(1, min(case["d_small"], t[1].shape[0], t[3].shape[0]))
         tile = case["tile"] or fused_tile_for(d)
         counts = {}
-        for fb in ("global", "search"):
+        for fb in case["fallbacks"]:
             per = fused_brute(case, fb)
             kw = fused_case_kwargs(case, fb)
             for tc in case["tcounts"]:
@@ -705,7 +776,284 @@ def main_path(scale, edge_factor, seed, q, dev):
     emit("main_path", ok=ok, **info)
     if not ok:
         fail("main path counts disagree (fused / search / scipy oracle)")
-    return r.artifact, launches
+    return r.artifact, launches, g, oracle
+
+
+# ----------------------------------------------------------------------
+# search2 / auto, and the SUMMA and 1D-ring schedules on the main graph
+# ----------------------------------------------------------------------
+SUMMA_GRID = (2, 8)  # 16 logical devices, 8 broadcast rounds
+
+
+def search2_phase(g, oracle, q):
+    """``method="search2"`` (bucketized plan, staged keys; cold, then
+    warm) and ``method="auto"`` (resolved from the autotune report; cold
+    only: at this graph it resolves to ``search`` at the autotuned chunk,
+    which takes tens of seconds a count) on the main path's graph: each
+    equal to the oracle."""
+    import repro_torch as rt
+
+    rows, bad = {}, []
+    for method in ("search2", "auto"):
+        r = rt.count_triangles(g, q=q, method=method, chunk=8192)
+        r2 = (rt.count_triangles(g, q=q, method=method, chunk=8192)
+              if method == "search2" else r)
+        plan = r.plan
+        rows[method] = dict(
+            resolved=r.method, triangles=r.triangles,
+            triangles_repeat=r2.triangles, cache_hit=bool(
+                r2 is not r and r2.artifact.cache_hit),
+            preprocess_seconds=r.preprocess_seconds,
+            count_seconds=r.count_seconds,
+            warm_count_seconds=r2.count_seconds if r2 is not r else None,
+            stage_seconds={k: float(v)
+                           for k, v in r.artifact.stage_seconds.items()},
+            n_long=plan.n_long, d_small=plan.d_small, dmax=plan.dmax,
+            chunk=plan.chunk, bucket_stats=plan.bucket_stats,
+            autotune=plan.autotune,
+        )
+        if not r.triangles == r2.triangles == oracle:
+            bad.append((method, r.triangles, r2.triangles))
+    emit("search2", ok=not bad, q=q, triangles_scipy_oracle=oracle,
+         mismatches=bad, **rows)
+    if bad:
+        fail(f"search2 / auto disagree with the oracle: {bad}")
+
+
+def schedule_device_steps(plan, kind):
+    """``(device index, step)`` of every device-step the engine counts on
+    a SUMMA (``(x, y)``, round) or ring (``(d,)``, step) plan: the mask
+    keeps it and the device has tasks that step."""
+    if kind == "summa":
+        grid, nsteps = (plan.r, plan.c), plan.c
+
+        def tasks(idx, s):
+            return int(plan.m_cnt[idx])
+    else:
+        grid, nsteps = (plan.p,), plan.p
+
+        def tasks(idx, s):
+            return int(plan.t_cnt[idx[0], (idx[0] + s) % plan.p])
+    keep = plan.step_keep
+    return [(idx, s) for s in range(nsteps) for idx in np.ndindex(*grid)
+            if tasks(idx, s) > 0 and (keep is None or keep[idx + (s,)])]
+
+
+def schedule_step_inputs(art, dev, kind, idx, step):
+    """What a device hands ``count_pair_fused`` at a step of a SUMMA or
+    ring plan, as the engine binds it: SUMMA device ``(x, y)`` in round
+    ``z`` counts A panel ``(x, z % c)`` and B panel ``b[z % r, y, z // r]``
+    (block-local ids, the row-encoded keys' long bucket); ring device
+    ``d`` at step ``t`` counts its own block against owner ``(d + t) % p``'s
+    with that owner's task group (global ids, the padded search's long
+    bucket).  Returns ``(args, tcount, kw, split)`` as ``step_inputs``."""
+    from repro_torch.kernels.tc_fused import fused_split_sizes, fused_tile_for
+
+    plan = art.plan
+    st = art.staged(dev)
+    if kind == "summa":
+        x, y = idx
+        ac, br, slot = step % plan.c, step % plan.r, step // plan.r
+        args = (st["a_indptr"][x, ac], st["a_indices"][x, ac],
+                st["b_indptr"][br, y, slot], st["b_indices"][br, y, slot],
+                st["m_ti"][x, y], st["m_tj"][x, y])
+        tcount, fb, sentinel = int(plan.m_cnt[x, y]), "global", plan.nb_c + 1
+    else:
+        (d,) = idx
+        o = (d + step) % plan.p
+        args = (st["indptr"][d], st["indices"][d], st["indptr"][o],
+                st["indices"][o], st["t_i"][d, o], st["t_j"][d, o])
+        tcount, fb, sentinel = int(plan.t_cnt[d, o]), "search", plan.n + 1
+    kw = dict(n_long=plan.n_long, d_small=plan.d_small, dpad_long=plan.dmax,
+              chunk=plan.chunk, long_fallback=fb, sentinel=sentinel)
+    n_long_c, _ = fused_split_sizes(args[4].shape[0], plan.n_long, plan.chunk)
+    d = int(max(1, min(plan.d_small, args[1].shape[0], args[3].shape[0])))
+    split = dict(n_long=n_long_c, tile=fused_tile_for(d), d_long=plan.dmax,
+                 long_b_whole=fb == "global", d_short=d)
+    return args, tcount, kw, split
+
+
+def tasks_past_stage_limit(plan, kind):
+    """Tasks of the counted device-steps whose A or B row is longer than
+    the kernel's staging limit (searched in global memory), and the
+    longest row a task names."""
+    from repro_torch.kernels.tc_fused import STAGE_LIMIT
+
+    past, longest = 0, 0
+    if kind == "summa":
+        la_all = np.diff(plan.a_indptr.astype(np.int64), axis=-1)
+        lb_all = np.diff(plan.b_indptr.astype(np.int64), axis=-1)
+    else:
+        lens = np.diff(plan.indptr.astype(np.int64), axis=-1)
+    for idx, s in schedule_device_steps(plan, kind):
+        if kind == "summa":
+            x, y = idx
+            cnt = int(plan.m_cnt[x, y])
+            la = la_all[x, s % plan.c][plan.m_ti[x, y, :cnt]]
+            lb = lb_all[s % plan.r, y, s // plan.r][plan.m_tj[x, y, :cnt]]
+        else:
+            (d,) = idx
+            o = (d + s) % plan.p
+            cnt = int(plan.t_cnt[d, o])
+            la = lens[d][plan.t_i[d, o, :cnt]]
+            lb = lens[o][plan.t_j[d, o, :cnt]]
+        big = np.maximum(la, lb)
+        past += int((big > STAGE_LIMIT).sum())
+        longest = max(longest, int(big.max(initial=0)))
+    return past, longest
+
+
+def schedule_path(kind, g, oracle, dev, grid, graph):
+    """``count_triangles(g, grid=grid, schedule=kind, method="fused")``
+    cold (one kernel launch a counted device-step), warm (a plan-cache
+    hit, profiled: no ``searchsorted``), then with ``method="search"``
+    and — on SUMMA — each broadcast strategy by name: all equal to the
+    main path's oracle."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.pipeline import default_cache
+
+    def count(**kw):
+        return rt.count_triangles(g, grid=grid, schedule=kind, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    kmod.reset_launch_count()
+    r = count(method="fused")
+    launches = kmod.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    plan = r.plan
+    steps = schedule_device_steps(plan, kind)
+    if launches <= 0:
+        fail(f"the {kind} path launched the fused kernel no time")
+    if launches != len(steps):
+        fail(f"the {kind} fused count launched its kernel {launches} times, "
+             f"not once for each of the {len(steps)} device-steps that count")
+
+    hits0 = default_cache().hits
+    r2 = count(method="fused")
+    cache_hit = (r2.artifact is r.artifact and bool(r2.artifact.cache_hit)
+                 and default_cache().hits > hits0)
+    if not cache_hit:
+        fail(f"second {kind} count of the same graph missed the plan cache")
+    prof = profile_count(lambda: count(method="fused"), launches)
+    if prof["searchsorted_launches"]:
+        fail(f"the warm {kind} fused count ran "
+             f"{prof['searchsorted_launches']} searchsorted launches")
+
+    others = {}
+    if kind == "summa":
+        for b in ("onehot", "chain"):
+            others[f"fused_broadcast_{b}"] = count(method="fused",
+                                                   broadcast=b).triangles
+    rs = count(method="search", chunk=8192)
+    others["search"] = rs.triangles
+    past, longest = tasks_past_stage_limit(plan, kind)
+    sk = plan.step_keep
+    cs = plan.compact
+    info = dict(
+        graph=graph, schedule=kind, grid=list(r.grid), device=r.device,
+        logical_devices=int(np.prod(r.grid)),
+        triangles=r.triangles, triangles_repeat=r2.triangles,
+        triangles_other=others, triangles_scipy_oracle=oracle,
+        preprocess_seconds=r.preprocess_seconds,
+        stage_seconds={k: float(v) for k, v in r.artifact.stage_seconds.items()},
+        count_seconds=r.count_seconds,
+        warm_preprocess_seconds=r2.preprocess_seconds,
+        warm_count_seconds=r2.count_seconds,
+        search_preprocess_seconds=rs.preprocess_seconds,
+        search_count_seconds=rs.count_seconds,
+        dmax=plan.dmax, d_small=plan.d_small, n_long=plan.n_long,
+        chunk=plan.chunk, autotune=plan.autotune,
+        schedule_steps=int(sk.size), skipped_steps=int(sk.size - sk.sum()),
+        live_steps=None if cs is None else cs.n_live,
+        kernel_launches=launches, device_steps_counted=len(steps),
+        tasks_past_stage_limit=past, longest_task_row=longest,
+        warm_device_launches=prof["device_launches"], cache_hit=cache_hit,
+        peak_device_bytes=int(peak), warm_count_profile=prof,
+    )
+    if kind == "summa":
+        info.update(nb_r=plan.nb_r, nb_c=plan.nb_c, npan=plan.npan,
+                    tmax=plan.tmax, broadcast=plan.broadcast)
+    else:
+        info.update(nb=plan.nb, gmax=plan.gmax, nnz_pad=plan.nnz_pad)
+    ok = (r.triangles == r2.triangles == oracle
+          and all(v == oracle for v in others.values()))
+    emit(f"{kind}_path", ok=ok, **info)
+    if not ok:
+        fail(f"{kind} path counts disagree (fused / search / broadcasts / "
+             "scipy oracle)")
+    return r.artifact, launches, steps
+
+
+def schedule_kernel_report(kind, art, dev, launches, steps):
+    """The fused kernel's row for a schedule: the whole step's count equal
+    to ``count_pair_fused_plain``'s on every device-step the path counted;
+    timed cold-L2 at the first device's first counted step."""
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+        fused_step_counts,
+    )
+
+    compared, max_abs_err, unequal = 0, 0, []
+    t0 = time.perf_counter()
+    for idx, s in steps:
+        args, tcount, kw, _ = schedule_step_inputs(art, dev, kind, idx, s)
+        got = int(count_pair_fused(*args, tcount, **kw))
+        want = int(count_pair_fused_plain(*args, tcount, **kw))
+        max_abs_err = max(max_abs_err, abs(got - want))
+        if got != want:
+            unequal.append((idx, s))
+        compared += 1
+    compare_s = time.perf_counter() - t0
+
+    idx, s = steps[0]  # steps run step by step: the first device's first
+    args, tcount, kw, split = schedule_step_inputs(art, dev, kind, idx, s)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_cold(lambda: fused_step_counts(*args, tcount, **split), 10,
+                   flush)
+    plain_ms = time_cold(lambda: count_pair_fused_plain(*args, tcount, **kw),
+                         2, flush)
+    rec = dict(
+        name="tc_fused.fused_step_counts",
+        path=kind,
+        route="cuda",
+        source=KERNEL_SOURCE,
+        replaces=KERNEL_REPLACES,
+        also_replaces="src/repro/kernels/tc_fused/ops.py:126 (the lax long "
+                      "bucket)",
+        launches=launches,
+        max_abs_err=max_abs_err,
+        equal=not unequal,
+        compared_device_steps=compared,
+        compare_seconds=compare_s,
+        tolerance="exact (integer counts, the whole step)",
+        ms=ms,
+        plain_ms=plain_ms,
+        plain_note="count_pair_fused_plain: count_pair_search_global "
+                   "(summa) / count_pair_search (oned) on the long bucket, "
+                   "fused_short_counts_plain on the short",
+        library_ms=None,
+        library_note="no single PyTorch call computes a batched "
+                     "sorted-set intersection over CSR rows",
+        timed=f"logical device {tuple(idx)}, step {s}, both buckets, cold "
+              "L2, median of 10 (plain: of 2)",
+        shape=dict(tasks=int(tcount), tmax=int(args[4].shape[0]),
+                   n_long_c=split["n_long"], tile=split["tile"],
+                   d_short=split["d_short"], d_long=split["d_long"],
+                   long_b_whole=split["long_b_whole"],
+                   nb_a=int(args[0].shape[0] - 1),
+                   nb_b=int(args[2].shape[0] - 1),
+                   npad_a=int(args[1].shape[0]),
+                   npad_b=int(args[3].shape[0])),
+    )
+    rec.update(kernel_bound(args, tcount, split))
+    rec["bound_share"] = rec["bound_ms"] / ms if ms > 0 else None
+    if unequal:
+        print(json.dumps({"kernels": [rec]}), flush=True)
+        fail(f"fused kernel != plain route on the {kind} path at "
+             f"device-steps {unequal[:20]}")
+    return rec
 
 
 def small_graphs():
@@ -719,16 +1067,22 @@ def small_graphs():
         "edgeless": erdos_renyi(24, 0.0, seed=0),
         "rmat:9,8,42": graph_from_spec("rmat:9,8,42"),
     }
+    runs = [("cannon", m) for m in ("search", "global", "fused", "tile",
+                                     "dense", "search2", "auto")]
+    runs += [(sch, m) for sch in ("summa", "oned")
+             for m in ("search", "global", "fused", "auto")]
     rows, bad = [], []
     for name, g in fixtures.items():
         exp = triangle_count_oracle(g)
         for q in (1, 2, 3):
-            for method in ("search", "global", "fused", "tile", "dense"):
-                got = rt.count_triangles(g, q=q, method=method).triangles
+            for schedule, method in runs:
+                got = rt.count_triangles(g, q=q, schedule=schedule,
+                                         method=method).triangles
                 if got != exp:
-                    bad.append((name, q, method, got, exp))
+                    bad.append((name, q, schedule, method, got, exp))
         rows.append(dict(graph=name, triangles=exp))
-    emit("small_graphs", ok=not bad, checked=len(fixtures) * 15, graphs=rows,
+    emit("small_graphs", ok=not bad, checked=len(fixtures) * 3 * len(runs),
+         runs=[f"{sch}/{m}" for sch, m in runs], graphs=rows,
          mismatches=bad)
     if bad:
         fail(f"small graphs disagree with the oracle: {bad}")
@@ -1300,8 +1654,18 @@ def main():
     emit("fused_traps", ok=True, checked=run_fused_traps(dev),
          cases=list(fused_trap_cases()))
 
-    art, launches = main_path(args.scale, EDGE_FACTOR, args.seed, GRID, dev)
+    art, launches, g, oracle = main_path(args.scale, EDGE_FACTOR, args.seed,
+                                         GRID, dev)
     kernels = [kernel_report(art, dev, launches)]
+    del art
+    search2_phase(g, oracle, GRID)
+    graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
+    for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
+        sart, slaunches, steps = schedule_path(kind, g, oracle, dev, grid,
+                                               graph)
+        kernels.append(schedule_kernel_report(kind, sart, dev, slaunches,
+                                              steps))
+    del g, sart
     small_graphs()
     run_tile_traps(dev)
     tile_scale = min(TILE_SCALE, args.scale - 2)

@@ -5,7 +5,9 @@ Public surface:
 * :func:`count_triangles` — full pipeline (preprocess -> plan -> schedule).
 * :class:`Graph`, generators (:func:`rmat`, :func:`erdos_renyi`, ...).
 * :func:`build_plan` / :func:`plan_from_numpy` — host planner.
-* schedule: :mod:`.cannon` (the paper's).
+* schedules: :mod:`.cannon` (the paper's), :mod:`.summa` (rectangular
+  grids), :mod:`.onedim` (the 1D-decomposition baseline the paper
+  compares against).
 """
 from .api import (  # noqa: F401
     TCResult,

@@ -2,20 +2,23 @@
 
 ``count_triangles(graph, q=...)`` runs the full pipeline of the paper:
 host planning (ingest → relabel → decompose → pack → stage, cached) ->
-schedule -> global count, on a logical ``q x q`` grid held on one device
-(including a 1x1 grid).  The bundled runner plans through
-:mod:`repro_torch.pipeline`, so repeated counts of an already-seen graph
-hit the content-addressed plan cache and skip planning and staging.
+schedule -> global count, on a logical grid held on one device (including
+a 1x1 grid).  The bundled runners plan through :mod:`repro_torch.pipeline`,
+so repeated counts of an already-seen graph hit the content-addressed plan
+cache and skip planning and staging.
 
 The count runs on the GPU unless the caller asks for the CPU:
 ``device=None`` resolves to ``cuda`` and raises where there is none
 (:mod:`repro_torch.device`).
 
 Schedules resolve via a registry: :func:`register_schedule` makes a new
-schedule one registration away — the bundled one is ``cannon`` (the
-paper).  The per-block count path is selected with ``method``: any
-registered CSR kernel (``search``, ``global``, ``fused``), the bit-tile
-kernels (``tile``) or the dense oracle path (``dense``).  Runners
+schedule one registration away — the bundled ones are ``cannon`` (the
+paper), ``summa`` (rectangular ``r x c`` grids) and ``oned`` (the 1D ring
+baseline over ``p = r * c`` devices).  The per-block count path is
+selected with ``method``: any registered CSR kernel (``search``,
+``search2``, ``global``, ``fused``), ``auto`` (resolved from the plan's
+autotune report), and on Cannon also the bit-tile kernels (``tile``) or
+the dense oracle path (``dense``).  Runners
 receive the *raw* graph plus the relabel options on the
 :class:`RunContext` (``reorder``/``cyclic_p``) — relabeling happens
 inside the pipeline so the cache can skip it.
@@ -23,6 +26,7 @@ inside the pipeline so the cache can skip it.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, Optional
 
@@ -32,7 +36,9 @@ from ..device import resolve_device
 from . import cannon as cannon_mod
 from .engine import CSR_KERNELS
 from .graph import Graph
+from .onedim import OneDPlan, build_oned_fn
 from .plan import TCPlan
+from .summa import SummaPlan, build_summa_fn
 
 __all__ = [
     "TCResult",
@@ -89,9 +95,10 @@ class ScheduleSpec:
     """One registered schedule: how to plan and how to run.
 
     ``runner(graph, grid, ctx) -> (total, plan)`` does planning + tensor
-    staging + engine-fn build + execution; ``grid`` is the ``(q, q)``
-    shape and ``ctx`` the :class:`RunContext` of the current
-    ``count_triangles`` call.  ``build_fn`` exposes the function that
+    staging + engine-fn build + execution; ``grid`` is the grid shape —
+    ``(q, q)``, the caller's ``grid=(r, c)``, or the shape a
+    caller-supplied plan was made for — and ``ctx`` the
+    :class:`RunContext` of the current ``count_triangles`` call.  ``build_fn`` exposes the function that
     builds the raw engine fn.
 
     ``plans_itself`` marks runners that route the *raw* graph through
@@ -123,6 +130,8 @@ class RunContext:
     double_buffer: bool = True
     compact: Optional[bool] = None
     reduce_strategy: str = "auto"
+    # SUMMA's panel-broadcast strategy (None = the plan's own)
+    broadcast: Optional[str] = None
     # pipeline options: runners plan the *raw* graph through
     # repro_torch.pipeline with these, so cache hits skip the relabel too
     reorder: bool = True
@@ -222,8 +231,40 @@ def _count_derived(plan, ctx: RunContext):
     return int(fn(**staged)), plan
 
 
+def _resolve_auto_method(plan, fallback: str = "search") -> str:
+    """Resolve ``method='auto'`` from the plan's autotune report:
+    ``search2`` when the probe-length tail is heavy (and the plan
+    carries the two-level split), plain ``search`` otherwise."""
+    at = getattr(plan, "autotune", None)
+    if (
+        at
+        and at.get("tail_heavy")
+        and getattr(plan, "n_long", None) is not None
+    ):
+        return "search2"
+    return fallback
+
+
+def _check_plan_kind(plan, cls, schedule: str) -> None:
+    if not isinstance(plan, cls):
+        raise ValueError(
+            f"the {schedule} schedule runs a {cls.__name__}, got "
+            f"{type(plan).__name__}"
+        )
+
+
+def _staged(plan, ctx: RunContext):
+    """The plan's tensors on the run's device: the artifact's memoised
+    copy, or a fresh one for a caller-supplied raw plan."""
+    if ctx.artifact is not None:
+        return ctx.artifact.staged(ctx.device)
+    from ..pipeline.artifact import stage_arrays
+
+    return stage_arrays(plan.device_arrays(), ctx.device)
+
+
 def _run_cannon(graph: Graph, grid, ctx: RunContext):
-    methods = sorted(set(CSR_KERNELS) | set(_DERIVED_METHODS))
+    methods = sorted(set(CSR_KERNELS) | set(_DERIVED_METHODS) | {"auto"})
     if ctx.method not in methods:
         raise ValueError(
             f"unknown count method {ctx.method!r} for the cannon schedule; "
@@ -233,33 +274,47 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     if plan is None:  # wins over the pipeline (reorder/cyclic_p unused)
         from ..pipeline import plan_cannon
 
-        ctx.artifact = plan_cannon(
-            graph,
-            ctx.q,
-            chunk=ctx.chunk,
-            reorder=ctx.reorder,
-            cyclic_p=ctx.cyclic_p,
-            # blocks are only consumed by the tile join
-            keep_blocks=(ctx.method == "tile"),
-            compact=ctx.compact is not False,
-            # the fused kernel needs the two-sided maxfrag split
-            autotune="fused" if ctx.method == "fused" else False,
-            # only the global kernel reads staged row-encoded keys
-            aug_keys=(ctx.method == "global"),
-            cache=ctx.cache,
-        )
+        def plan_with(aug: bool, method: str):
+            return plan_cannon(
+                graph,
+                ctx.q,
+                chunk=ctx.chunk,
+                reorder=ctx.reorder,
+                cyclic_p=ctx.cyclic_p,
+                # blocks are only consumed by the tile join (and
+                # search2's bucketizer, which the planner forces)
+                keep_blocks=(method == "tile"),
+                bucketize=(method == "search2"),
+                compact=ctx.compact is not False,
+                # the fused kernel needs the two-sided maxfrag split;
+                # auto resolves from the percentile report
+                autotune="fused" if method == "fused" else (method == "auto"),
+                aug_keys=aug,
+                cache=ctx.cache,
+            )
+
+        # only the global and search2 kernels read staged row-encoded keys
+        ctx.artifact = plan_with(ctx.method in ("global", "search2"),
+                                 ctx.method)
         plan = ctx.artifact.plan
-        if ctx.method == "fused":
+        if ctx.method in ("auto", "fused"):
             ctx.autotune_mode = "percentile"
+        if ctx.method == "auto":
+            ctx.method = _resolve_auto_method(plan)
+            if ctx.method == "search2":
+                # auto resolved to a key-consuming kernel: re-plan with
+                # staged keys (deterministic, so only the keys differ;
+                # its own cache entry serves repeat counts warm)
+                ctx.artifact = plan_with(True, "auto")
+                plan = ctx.artifact.plan
+    else:
+        _check_plan_kind(plan, TCPlan, "cannon")
+        if ctx.method == "auto":
+            ctx.method = _resolve_auto_method(plan)
 
     if ctx.method in _DERIVED_METHODS:
         return _count_derived(plan, ctx)
-    if ctx.artifact is not None:
-        staged = ctx.artifact.staged(ctx.device)
-    else:
-        from ..pipeline.artifact import stage_arrays
-
-        staged = stage_arrays(plan.device_arrays(), ctx.device)
+    staged = _staged(plan, ctx)
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
          ctx.double_buffer, ctx.compact, ctx.reduce_strategy),
@@ -278,10 +333,102 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     return int(fn(**staged)), plan
 
 
+def _run_summa(graph: Graph, grid, ctx: RunContext):
+    splan = ctx.plan  # a caller-supplied plan wins over the pipeline
+    if splan is None:
+        from ..pipeline import plan_summa
+
+        ctx.artifact = plan_summa(
+            graph, *grid, chunk=ctx.chunk, reorder=ctx.reorder,
+            cyclic_p=ctx.cyclic_p, compact=ctx.compact is not False,
+            autotune="fused" if ctx.method == "fused"
+            else (ctx.method == "auto"),
+            broadcast=ctx.broadcast or "auto",
+            cache=ctx.cache,
+        )
+        splan = ctx.artifact.plan
+        if ctx.method in ("auto", "fused"):
+            ctx.autotune_mode = "percentile"
+    else:
+        _check_plan_kind(splan, SummaPlan, "summa")
+    if ctx.method == "auto":
+        ctx.method = _resolve_auto_method(splan)
+    staged = _staged(splan, ctx)
+    fn = ctx.memo(
+        ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
+         ctx.compact, ctx.broadcast, ctx.reduce_strategy),
+        lambda: build_summa_fn(
+            splan,
+            method=ctx.method,
+            probe_shorter=ctx.probe_shorter,
+            use_step_mask=ctx.use_step_mask,
+            compact=ctx.compact,
+            broadcast=ctx.broadcast,
+            reduce_strategy=ctx.reduce_strategy,
+        ),
+    )
+    ctx.mark_counting()
+    return int(fn(**staged)), splan
+
+
+def _run_oned(graph: Graph, grid, ctx: RunContext):
+    p = math.prod(grid)
+    oplan = ctx.plan  # a caller-supplied plan wins over the pipeline
+    if oplan is None:
+        from ..pipeline import plan_oned
+
+        ctx.artifact = plan_oned(
+            graph, p, chunk=ctx.chunk, reorder=ctx.reorder,
+            cyclic_p=ctx.cyclic_p, compact=ctx.compact is not False,
+            autotune="fused" if ctx.method == "fused"
+            else (ctx.method == "auto"),
+            cache=ctx.cache,
+        )
+        oplan = ctx.artifact.plan
+        if ctx.method in ("auto", "fused"):
+            ctx.autotune_mode = "percentile"
+    else:
+        _check_plan_kind(oplan, OneDPlan, "oned")
+    if ctx.method == "auto":
+        # the ring's global-id columns rule out the two-level kernel
+        ctx.method = "search"
+    staged = _staged(oplan, ctx)
+    fn = ctx.memo(
+        ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
+         ctx.compact, ctx.reduce_strategy),
+        lambda: build_oned_fn(
+            oplan,
+            method=ctx.method,
+            probe_shorter=ctx.probe_shorter,
+            use_step_mask=ctx.use_step_mask,
+            compact=ctx.compact,
+            reduce_strategy=ctx.reduce_strategy,
+        ),
+    )
+    ctx.mark_counting()
+    return int(fn(**staged)), oplan
+
+
 register_schedule(
     "cannon", _run_cannon, build_fn=cannon_mod.build_cannon_fn,
     plans_itself=True,
 )
+register_schedule("summa", _run_summa, build_fn=build_summa_fn,
+                  plans_itself=True)
+register_schedule("oned", _run_oned, build_fn=build_oned_fn,
+                  plans_itself=True)
+
+
+def _plan_grid(plan) -> Optional[tuple]:
+    """The logical grid a plan was made for: ``(q, q)``, ``(r, c)`` or
+    ``(p,)``; ``None`` for anything else."""
+    if isinstance(plan, OneDPlan):
+        return (plan.p,)
+    if isinstance(plan, SummaPlan):
+        return (plan.r, plan.c)
+    if isinstance(plan, TCPlan):
+        return (plan.q, plan.q)
+    return None
 
 
 # ----------------------------------------------------------------------
@@ -291,6 +438,7 @@ def count_triangles(
     graph: Graph,
     *,
     q: Optional[int] = None,
+    grid: Optional[tuple] = None,
     method: str = "search",
     schedule: str = "cannon",
     probe_shorter: bool = True,
@@ -298,11 +446,12 @@ def count_triangles(
     reorder: bool = True,
     cyclic_p: Optional[int] = None,
     count_dtype=None,
-    plan: Optional[TCPlan] = None,
+    plan=None,
     use_step_mask: Optional[bool] = None,
     double_buffer: bool = True,
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
+    broadcast: Optional[str] = None,
     cache=None,
     autotune: str = "percentile",
     device=None,
@@ -310,19 +459,33 @@ def count_triangles(
     """Count triangles with the paper's 2D algorithm.
 
     ``q`` is the logical grid dimension (default 1: degenerate but the
-    identical code path); the whole ``q x q`` grid lives on ``device``.
-    ``device=None`` means the current CUDA device and raises when there
-    is none; pass ``device="cpu"`` to run on the CPU.
+    identical code path); ``grid=(r, c)`` gives the grid's shape instead,
+    in place of the JAX package's mesh.  The whole grid lives on
+    ``device``.  ``device=None`` means the current CUDA device and raises
+    when there is none; pass ``device="cpu"`` to run on the CPU.
     ``schedule`` resolves via the registry (see
-    :func:`available_schedules`); ``method`` picks the count kernel
-    (``"search"``, ``"global"``, ``"fused"``, ``"tile"``, ``"dense"``).
+    :func:`available_schedules`): ``"cannon"`` needs a square grid,
+    ``"summa"`` runs ``r x c`` (``q x q`` with ``q`` alone), ``"oned"``
+    the ring of ``p = r * c`` devices (``q²``).  ``TCResult.grid`` is
+    the grid that ran: ``(q, q)``, ``(r, c)`` or ``(p,)``.
+    ``method`` picks the count kernel (``"search"``, ``"search2"``,
+    ``"global"``, ``"fused"``, ``"auto"``, and on Cannon ``"tile"``,
+    ``"dense"``).  ``method="auto"`` plans through the deterministic
+    autotune stage and resolves to ``search2`` when the probe-length tail
+    is heavy, else ``search`` (always ``search`` on the ring, whose
+    global-id columns rule the two-level kernel out); ``TCResult.method``
+    reports the resolution.  ``method="search2"`` needs the bucketized
+    plan Cannon's planner makes for it; on SUMMA and the ring it raises,
+    as in the JAX package.
     ``method="fused"`` runs the hand-written CUDA intersection kernel, one
     launch a device-step over both buckets — planning switches to the
     two-sided maxfrag autotune split it requires.  ``method="tile"`` packs
     the blocks into 128x128-bit tiles and runs the popcount tile kernel
     over the planned tile triples (tile plan and stores count as
     preprocessing); ``method="dense"`` is the oracle path over dense 0/1
-    blocks, for small graphs.
+    blocks, for small graphs.  ``broadcast`` names SUMMA's panel-broadcast
+    strategy (``"onehot"``, ``"chain"``, ``"auto"`` or ``None`` for the
+    plan's own); on one device all of them give the same count.
     ``cyclic_p`` enables the paper's initial cyclic redistribution
     (§5.3 step 1) as the pipeline's first relabel stage.
     ``use_step_mask`` controls sparsity-aware step skipping (None =
@@ -361,11 +524,22 @@ def count_triangles(
         artifact = plan
         plan = artifact.plan
     t0 = time.perf_counter()
-    if plan is not None:
-        q = plan.q
-    q = q or 1
-
     spec = get_schedule(schedule)
+    if grid is not None:
+        grid = tuple(int(v) for v in grid)
+        if len(grid) != 2 or min(grid) < 1:
+            raise ValueError(f"grid must be (r, c) with r, c >= 1, got {grid}")
+        if q is not None and grid != (q, q):
+            raise ValueError(f"q={q} and grid={grid} disagree")
+    else:
+        grid = _plan_grid(plan) or (q or 1, q or 1)
+    if schedule == "cannon" and (len(grid) != 2 or grid[0] != grid[1]):
+        raise ValueError(
+            f"the cannon schedule needs a square grid, got {grid}; "
+            "use schedule='summa' for a rectangular one"
+        )
+    q = grid[0]
+
     if not spec.plans_itself and (reorder or cyclic_p is not None):
         # runner contract without plans_itself: hand it the relabeled graph
         from ..pipeline import relabel_stage
@@ -383,13 +557,14 @@ def count_triangles(
         double_buffer=double_buffer,
         compact=compact,
         reduce_strategy=reduce_strategy,
+        broadcast=broadcast,
         reorder=reorder,
         cyclic_p=cyclic_p,
         cache=cache,
     )
     if artifact is not None:
         ctx.artifact = artifact
-    total, out_plan = spec.runner(graph, (q, q), ctx)
+    total, out_plan = spec.runner(graph, grid, ctx)
     total = check_count_overflow(total, count_dtype)
     t2 = time.perf_counter()
     # host-side planning/staging counts as preprocessing (paper's ppt);
@@ -404,7 +579,7 @@ def count_triangles(
         count_seconds=t2 - t1,
         method=ctx.method,
         schedule=schedule,
-        grid=(q, q),
+        grid=_plan_grid(out_plan) or grid,
         device=str(device),
         autotune_mode=ctx.autotune_mode,
         artifact=ctx.artifact,

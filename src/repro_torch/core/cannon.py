@@ -70,6 +70,8 @@ def build_cannon_fn(
     ``reduce_global=False``.  The device is wherever the staged tensors
     live.
     ``method``: any registered CSR kernel — ``"search"`` (flat padding),
+    ``"search2"`` (gather-free keys in two length buckets; requires a
+    split plan from ``bucketize=True`` or the autotune stage),
     ``"global"`` (gather-free keys), ``"fused"`` (the CUDA intersection
     kernel, one launch a device-step over both buckets; requires a
     maxfrag-split plan from ``autotune='fused'``).
@@ -77,9 +79,9 @@ def build_cannon_fn(
     when the plan carries ``step_keep``; ``compact=None`` auto-enables
     the compacted kept-step schedule (dead-shift elision + fused
     multi-hop shifts) when the plan staged one that elides a step; the
-    global kernel picks up planner-staged ``b_aug`` intersection keys
-    when the plan carries them (no other method reads them, so none
-    carries them along).
+    global and search2 kernels pick up planner-staged ``b_aug``
+    intersection keys when the plan carries them (no other method reads
+    them, so none carries them along).
     ``double_buffer`` is accepted and gives the same count (see
     :class:`~repro_torch.core.engine.CannonSchedule`).
     """
@@ -97,7 +99,8 @@ def build_cannon_fn(
     )
     store = CSRStore(
         kernel,
-        with_aug=method == "global" and getattr(plan, "b_aug", None) is not None,
+        with_aug=(method in ("global", "search2")
+                  and getattr(plan, "b_aug", None) is not None),
     )
     return _engine_fn(
         plan, store, reduce_global=reduce_global, use_step_mask=use_step_mask,

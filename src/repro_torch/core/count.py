@@ -9,6 +9,9 @@ are the two CSR blocks a logical device holds at the current Cannon step.
   tensor re-expression of the paper's ⟨j,i,k⟩ hash-the-longer-list rule).
 * ``global``  — probe A fragments into one row-encoded sorted key array of
   the whole B block; only the probe side is gathered and padded.
+* ``search2`` — ``global`` in two length buckets
+  (:func:`count_pair_search_two_level`): long tasks at ``dmax`` probe
+  padding, the rest at ``d_small``.
 * ``fused``   — the hand-written CUDA intersection kernel
   (:mod:`repro_torch.kernels.tc_fused`); its plain route
   (``count_pair_fused_plain``, what the CPU runs) counts the long bucket
@@ -21,11 +24,10 @@ inputs live on.  ``tcount`` is a host integer (the engine reads it from
 the plan's numpy ``m_cnt``), chunks wholly past it are never launched, and
 each function returns a 0-dim ``int64`` tensor on the inputs' device
 without synchronising.
-
-Not carried over yet: ``count_pair_search_two_level``.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -38,6 +40,7 @@ __all__ = [
     "count_pair_dense",
     "count_pair_search",
     "count_pair_search_global",
+    "count_pair_search_two_level",
     "gather_rows",
 ]
 
@@ -126,13 +129,13 @@ def count_pair_search(
     return total
 
 
-def build_aug_keys(b_indptr, b_indices):
+def build_aug_keys(b_indptr, b_indices, base: Optional[int] = None):
     """Row-encoded global key array for :func:`count_pair_search_global`:
-    ``aug[e] = row(e) * (nb + 1) + col(e)``, sorted because rows are
-    sorted and the padding (column ``nb`` in a row past the last) lands on
-    the maximal key."""
+    ``aug[e] = row(e) * base + col(e)`` with ``base = nb + 1`` by default,
+    sorted because rows are sorted and the padding (column ``base - 1`` in
+    a row past the last) lands on the maximal key."""
     nb = b_indptr.shape[0] - 1
-    base = nb + 1
+    base = nb + 1 if base is None else int(base)
     key_dtype = aug_key_dtype(base)
     nnz = b_indices.shape[0]
     e = torch.arange(nnz, dtype=b_indptr.dtype, device=b_indptr.device)
@@ -152,20 +155,27 @@ def count_pair_search_global(
     dpad: int,
     chunk: int,
     aug_b=None,
+    base: Optional[int] = None,
 ):
     """Gather-free-keys intersection: probe A fragments into a row-encoded
-    *global* sorted view of B (``aug_b[e] = row(e) * (nb+1) + col(e)``).
+    *global* sorted view of B (``aug_b[e] = row(e) * base + col(e)``).
 
     Only the probe side is gathered (padded to ``dpad``); the keys side is
     searched in place regardless of row length — so probe padding can be
     sized to the PROBE distribution alone, and truncation bugs on long key
     rows are structurally impossible.
+
+    ``base`` must exceed every column id, padding included: ``nb + 1``
+    (the default) for block-local ids; the 1D ring, whose ids are global
+    vertex ids padded with ``n + 1``, passes ``n + 2``.  With a base at or
+    below a column id, keys of neighbouring rows overlap and the count is
+    wrong.
     """
     dev = a_indptr.device
     nb = b_indptr.shape[0] - 1
-    base = nb + 1
+    base = nb + 1 if base is None else int(base)
     if aug_b is None:
-        aug_b = build_aug_keys(b_indptr, b_indices)
+        aug_b = build_aug_keys(b_indptr, b_indices, base)
     key_dtype = aug_key_dtype(base)
     if aug_b.dtype != key_dtype:
         raise TypeError(
@@ -184,6 +194,90 @@ def count_pair_search_global(
         hit &= offs[None, :] < a_len[:, None]
         total += hit.sum()
     return total
+
+
+_TWO_LEVEL_KW_WARNED = False
+
+
+def _warn_two_level_kwargs(probe_shorter, sentinel) -> None:
+    """One-time notice that the two-level path ignores search-only knobs.
+
+    The global-key formulation *always* probes the A side into the
+    row-encoded B keys and needs no padding sentinel, so
+    ``probe_shorter``/``sentinel`` are accepted for signature
+    compatibility with :func:`count_pair_search` but have no effect —
+    callers porting from ``search`` must not believe the flags are
+    honored.
+    """
+    global _TWO_LEVEL_KW_WARNED
+    if _TWO_LEVEL_KW_WARNED:
+        return
+    ignored = []
+    if probe_shorter is not True:
+        ignored.append(f"probe_shorter={probe_shorter!r}")
+    if sentinel is not None:
+        ignored.append(f"sentinel={sentinel!r}")
+    if ignored:
+        _TWO_LEVEL_KW_WARNED = True
+        warnings.warn(
+            "count_pair_search_two_level ignores "
+            + ", ".join(ignored)
+            + ": the global-key path always probes the A side and needs "
+            "no sentinel (this notice is emitted once per process)",
+            UserWarning,
+            stacklevel=3,
+        )
+
+
+def count_pair_search_two_level(
+    a_indptr,
+    a_indices,
+    b_indptr,
+    b_indices,
+    ti,
+    tj,
+    tcount: int,
+    n_long: int,
+    *,
+    dpad_long: int,
+    dpad_short: int,
+    chunk: int,
+    probe_shorter: bool = True,
+    sentinel: Optional[int] = None,
+    aug_b=None,
+):
+    """Length-bucketed intersection: two calls of
+    :func:`count_pair_search_global`.
+
+    The planner (``bucketize_plan`` or the autotune stage) reorders each
+    device's task list so the ``n_long`` tasks whose *probe* fragment can
+    exceed ``dpad_short`` come first; the long bucket — ``n_long`` rounded
+    up to a whole ``chunk`` — runs at ``dpad_long`` probe padding, the
+    rest at ``dpad_short``.  Both buckets search the same row-encoded B
+    keys (``aug_b``, planner-staged, or built here once), so the keys
+    side needs no padding at all.
+
+    ``probe_shorter``/``sentinel`` are search-path knobs the global-key
+    formulation ignores — passing non-defaults warns once per process.
+    """
+    _warn_two_level_kwargs(probe_shorter, sentinel)
+    tmax = ti.shape[0]
+    tcount = int(tcount)
+    n_long_c = min(-(-max(1, int(n_long)) // chunk) * chunk, tmax)
+    if aug_b is None:
+        aug_b = build_aug_keys(b_indptr, b_indices)
+    total = count_pair_search_global(
+        a_indptr, a_indices, b_indptr, b_indices,
+        ti[:n_long_c], tj[:n_long_c], min(tcount, n_long_c),
+        dpad=dpad_long, chunk=chunk, aug_b=aug_b,
+    )
+    if n_long_c >= tmax:
+        return total
+    return total + count_pair_search_global(
+        a_indptr, a_indices, b_indptr, b_indices,
+        ti[n_long_c:], tj[n_long_c:], max(tcount - n_long_c, 0),
+        dpad=dpad_short, chunk=chunk, aug_b=aug_b,
+    )
 
 
 def count_pair_dense(a_dense, b_dense, m_dense):

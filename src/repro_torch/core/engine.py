@@ -6,30 +6,38 @@ A distributed triangle count is expressed as the composition
     (OperandStore, ShiftSchedule, CountKernel, Reduction)
 
 exactly as in the JAX package's module of the same name; what changes is
-how the grid is realised.  There the ``q x q`` grid is a device mesh and
-each device sees its own block.  Here the grid is the leading ``(q, q)``
-dimensions of every stacked plan tensor on ONE device, so
+how the grid is realised.  There the grid is a device mesh and each device
+sees its own block.  Here the grid is the leading dimensions of every
+stacked plan tensor on ONE device — ``(q, q)`` for Cannon, ``(r, c)`` for
+SUMMA, ``(p,)`` for the 1D ring — so
 
-* logical device ``(x, y)`` is the slice ``tensor[x, y]``;
+* logical device ``(x, y)`` (or ``d``) is the slice ``tensor[x, y]``
+  (``tensor[d]``);
 * a Cannon shift (A left along the column axis, B up along the row axis,
   by ``k`` positions) is ``torch.roll`` of the A tensors by ``-k`` on dim 1
   and of the B tensors by ``-k`` on dim 0 — logical device ``(x, y)``
   then holds what ``(x, y+k)`` resp. ``(x+k, y)`` held, which is what
-  :func:`shift_perm` prescribes;
-* the global sum is a sum over the two grid dimensions;
+  :func:`shift_perm` prescribes; a ring rotation is the same roll of the
+  rotating row blocks on dim 0;
+* a SUMMA panel broadcast is a view: device ``(x, y)`` reads round
+  ``z``'s panels where their owners store them, nothing is copied;
+* the global sum is a sum over the grid dimensions;
 * the scan over schedule steps is a host loop, and the per-(device, step)
-  skip is a host ``if`` on the plan's *numpy* ``step_keep`` / ``m_cnt``
-  (reading a device bool per step would synchronise q³ times per count).
-  Only the final total crosses back to the host, once per count.
+  skip is a host ``if`` on the plan's *numpy* ``step_keep`` / task counts
+  (reading a device bool per step would synchronise once per
+  device-step).  Only the final total crosses back to the host, once per
+  count.
 
-Carried over here: the CSR-kernel registry (``search``, ``global``,
-``fused``), :class:`CSRStore` (with ``with_aug``), :class:`DenseStore`,
-:class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule` (plain
-and compacted), :class:`Reduction` (``flat``) and :func:`build_engine_fn`.
+Carried over here: the CSR-kernel registry (``search``, ``search2``,
+``global``, ``fused``), :class:`CSRStore` (with ``with_aug``),
+:class:`SummaCSRStore`, :class:`OneDCSRStore`, :class:`DenseStore`,
+:class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule`,
+:class:`SummaSchedule` and :class:`RingSchedule` (plain and compacted),
+:class:`Reduction` (``flat``) and :func:`build_engine_fn`.
 Not carried over yet: blob packing and uint16 length compression of the
 shifted payload (a communication optimisation with nothing to serialise
-on one device), the SUMMA/ring stores and schedules, the 2.5D pod axis,
-the tree reduction, the hub-split partial, batching and the stepper.
+on one device), the 2.5D pod axis and the tree reduction, the hub-split
+partial (``HubCount``), batching and the stepper.
 """
 from __future__ import annotations
 
@@ -50,6 +58,10 @@ __all__ = [
     "TileStore",
     "ShiftSchedule",
     "CannonSchedule",
+    "SummaCSRStore",
+    "SummaSchedule",
+    "OneDCSRStore",
+    "RingSchedule",
     "Reduction",
     "CSR_KERNELS",
     "register_csr_kernel",
@@ -92,8 +104,9 @@ def register_csr_kernel(name: str, factory: Callable) -> None:
     ``factory(dpad=..., chunk=..., probe_shorter=..., sentinel=...,
     n_long=..., d_small=..., **extra) -> kernel``.
     ``extra`` carries method-specific knobs (the fused kernel's
-    ``fused_tile``/``fused_long_fallback``); factories must tolerate and
-    ignore keys they don't own.
+    ``fused_tile``/``fused_long_fallback``, the global kernel's
+    ``key_base``); factories must tolerate and ignore keys they don't
+    own.
     """
     CSR_KERNELS[name] = factory
 
@@ -110,11 +123,41 @@ def _search_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
     )
 
 
+def _search2_factory(*, dpad, chunk, probe_shorter, sentinel, n_long,
+                     d_small, **extra):
+    # sentinel is plan-derived: the build_*_fn functions pass it
+    # unconditionally with no user intent behind it, so drop it here and
+    # spare engine users the one-time ignored-kwarg warning inside
+    # count_pair_search_two_level.
+    # probe_shorter is forwarded: a non-default value only ever comes
+    # from an explicit user request, the porting mistake the warning
+    # exists to surface.
+    del sentinel, extra
+    if n_long is None or d_small is None:
+        raise ValueError(
+            "method 'search2' needs a bucketized plan (bucketize_plan) "
+            "providing n_long/d_small"
+        )
+
+    def kernel(a_ptr, a_idx, b_ptr, b_idx, ti, tj, cnt, aug_b=None):
+        return count_mod.count_pair_search_two_level(
+            a_ptr, a_idx, b_ptr, b_idx, ti, tj, cnt, n_long,
+            dpad_long=dpad,
+            dpad_short=d_small,
+            chunk=chunk,
+            probe_shorter=probe_shorter,
+            aug_b=aug_b,
+        )
+
+    return kernel
+
+
 def _global_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
                     **extra):
-    del probe_shorter, sentinel, n_long, d_small, extra
+    del probe_shorter, sentinel, n_long, d_small
     return functools.partial(
-        count_mod.count_pair_search_global, dpad=dpad, chunk=chunk
+        count_mod.count_pair_search_global, dpad=dpad, chunk=chunk,
+        base=extra.get("key_base"),
     )
 
 
@@ -149,6 +192,7 @@ def _fused_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
 
 
 register_csr_kernel("search", _search_factory)
+register_csr_kernel("search2", _search2_factory)
 register_csr_kernel("global", _global_factory)
 register_csr_kernel("fused", _fused_factory)
 
@@ -212,12 +256,14 @@ class OperandStore:
 
     * ``operand_names`` / ``static_names`` — plan array names, in call
       order (operands travel; statics stay put).
-    * ``payload(arrays)`` — the shiftable state ``(a_state, b_state)``:
-      two tuples of stacked ``(q, q, ...)`` tensors; schedules treat them
-      opaquely and roll them along the grid dimensions.
-    * ``count(state, arrays, x, y, step, cnt)`` — run the bound count
-      kernel for logical device ``(x, y)`` on the current state at schedule
-      step ``step`` (the ORIGINAL step index, also under compaction).
+    * ``payload(arrays)`` — the shiftable state: for Cannon two tuples
+      ``(a_state, b_state)`` of stacked ``(q, q, ...)`` tensors, for the
+      ring one tuple of ``(p, ...)`` tensors, for SUMMA nothing;
+      schedules treat it opaquely and roll it along the grid dimensions.
+    * ``count(state, arrays, dev, step, cnt)`` — run the bound count
+      kernel for logical device ``dev`` (an index tuple into the grid) on
+      the current state at schedule step ``step`` (the ORIGINAL step
+      index, also under compaction) over ``cnt`` tasks.
     """
 
     operand_names: Sequence[str] = ()
@@ -230,7 +276,8 @@ class OperandStore:
     def payload(self, arrays: Dict):
         raise NotImplementedError
 
-    def count(self, state, arrays: Dict, x: int, y: int, step: int, cnt: int):
+    def count(self, state, arrays: Dict, dev: Tuple[int, ...], step: int,
+              cnt: int):
         raise NotImplementedError
 
 
@@ -239,8 +286,9 @@ class CSRStore(OperandStore):
 
     ``with_aug=True`` adds the planner-staged row-encoded intersection
     keys (``b_aug``) as an extra payload leaf travelling with the B
-    operand: the keys shift with the blocks, so the ``global`` kernel
-    never rebuilds them on the device.  The fused kernel reads no keys.
+    operand: the keys shift with the blocks, so the ``global`` and
+    ``search2`` kernels never rebuild them on the device.  The fused
+    kernel reads no keys.
     """
 
     operand_names = ("a_indptr", "a_indices", "b_indptr", "b_indices")
@@ -259,8 +307,9 @@ class CSRStore(OperandStore):
             b_state = b_state + (arrays["b_aug"],)
         return (a_state, b_state)
 
-    def count(self, state, arrays, x, y, step, cnt):
+    def count(self, state, arrays, dev, step, cnt):
         del step  # the task list is the same at every step
+        x, y = dev
         (a_ptr, a_idx), b_state = state
         extra = {}
         if self.with_aug:
@@ -284,8 +333,9 @@ class DenseStore(OperandStore):
     def payload(self, arrays):
         return ((arrays["a_dense"],), (arrays["b_dense"],))
 
-    def count(self, state, arrays, x, y, step, cnt):
+    def count(self, state, arrays, dev, step, cnt):
         del step, cnt
+        x, y = dev
         (a,), (b,) = state
         return count_mod.count_pair_dense(
             a[x, y], b[x, y], arrays["m_dense"][x, y]
@@ -309,8 +359,9 @@ class TileStore(OperandStore):
     def payload(self, arrays):
         return ((arrays["a_tiles"],), (arrays["b_tiles"],))
 
-    def count(self, state, arrays, x, y, step, cnt):
+    def count(self, state, arrays, dev, step, cnt):
         del cnt
+        x, y = dev
         (a,), (b,) = state
         return tile_pair_count(
             arrays["triples"][x, y, step], a[x, y], b[x, y],
@@ -318,86 +369,146 @@ class TileStore(OperandStore):
         )
 
 
+class SummaCSRStore(OperandStore):
+    """CSR operands for SUMMA broadcast rounds on an ``(r, c)`` grid.
+
+    Nothing is carried between rounds: A is stored ``(r, c, nb_r + ...)``
+    (panel ``(x, z)`` at grid position ``(x, z)``) and B ``(r, c, npan,
+    ...)`` (panel ``(y, z)`` at grid row ``z % r``, slot ``z // r``).  In
+    round ``z`` device ``(x, y)`` counts the A panel ``a[x, z % c]`` and
+    the B panel ``b[z % r, y, z // r]`` — the broadcasts along the grid
+    row and the grid column, realised as views of the owners' tensors.
+
+    ``broadcast`` names the JAX package's strategy (``"onehot"``: masked
+    psums; ``"chain"``: masked ppermute doubling chains).  Both move the
+    owner's panel to every device of its row or column; with the grid on
+    one device both come down to the same read of the owner's slice, so
+    the count is the same and only the name is checked and kept.
+    """
+
+    operand_names = ("a_indptr", "a_indices", "b_indptr", "b_indices")
+    static_names = ("m_ti", "m_tj", "m_cnt")
+
+    def __init__(self, kernel, *, r: int, c: int, broadcast: str = "onehot"):
+        if broadcast not in ("onehot", "chain"):
+            raise ValueError(
+                f"unknown broadcast strategy {broadcast!r}; "
+                "expected 'onehot' or 'chain'"
+            )
+        self.kernel = kernel
+        self.r = r
+        self.c = c
+        self.broadcast = broadcast
+
+    def payload(self, arrays):  # SUMMA carries no shift state
+        del arrays
+        return ()
+
+    def count(self, state, arrays, dev, step, cnt):
+        del state
+        x, y = dev
+        z = step
+        bx, slot = z % self.r, z // self.r
+        return self.kernel(
+            arrays["a_indptr"][x, z % self.c],
+            arrays["a_indices"][x, z % self.c],
+            arrays["b_indptr"][bx, y, slot],
+            arrays["b_indices"][bx, y, slot],
+            arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
+        )
+
+
+class OneDCSRStore(OperandStore):
+    """1D-ring operands: each device's own row-block CSR stays put (the A
+    side) while a copy of every block rotates around the ring (the B
+    side); tasks are grouped by owner-of-j, and device ``d`` at ring step
+    ``t`` counts its group ``(d, (d + t) % p)`` against the block it then
+    holds."""
+
+    operand_names = ("indptr", "indices")
+    static_names = ("t_i", "t_j", "t_cnt")
+
+    def __init__(self, kernel, *, p: int):
+        self.kernel = kernel
+        self.p = p
+
+    def payload(self, arrays):
+        return (arrays["indptr"], arrays["indices"])
+
+    def count(self, state, arrays, dev, step, cnt):
+        (d,) = dev
+        o = (d + step) % self.p
+        b_ptr, b_idx = state
+        return self.kernel(
+            arrays["indptr"][d], arrays["indices"][d], b_ptr[d], b_idx[d],
+            arrays["t_i"][d, o], arrays["t_j"][d, o], cnt,
+        )
+
+
 # ======================================================================
 # shift schedules
 # ======================================================================
-def masked_count(store, state, arrays, x, y, step, cnt, step_keep):
+def masked_count(store, state, arrays, dev, step, cnt, step_keep):
     """One logical device's count for one schedule step, short-circuited
     on the host by the planner's mask.
 
-    ``step_keep`` is the plan's numpy ``(q, q, nsteps)`` bool array (True
-    = this step's incoming block pair can contribute) or ``None``;
-    returns ``None`` when the step is masked off or the device has no
-    tasks, so no kernel is launched at all.  Shifts stay outside — the
-    whole grid rolls together whether or not a device counts.
+    ``dev`` is the device's index tuple into the grid; ``step_keep`` is
+    the plan's numpy ``(*grid, nsteps)`` bool array (True = this step's
+    incoming operands can contribute) or ``None``; returns ``None`` when
+    the step is masked off or the device has no tasks that step, so no
+    kernel is launched at all.  Shifts stay outside — the whole grid
+    rolls together whether or not a device counts.
     """
-    if step_keep is not None and not step_keep[x, y, step]:
+    if step_keep is not None and not step_keep[dev + (step,)]:
         return None
     if cnt <= 0:
         return None
-    return store.count(state, arrays, x, y, step, cnt)
+    return store.count(state, arrays, dev, step, cnt)
 
 
 class ShiftSchedule:
     """Permutation structure for the host loop.
 
-    ``run`` executes the whole schedule and returns the ``(q, q)`` int64
-    tensor of per-device totals: the plain loop over all steps normally,
-    or — when ``live_steps`` is set (a compacted schedule) — only the
-    globally-live steps, with the elided unit shifts fused into multi-hop
-    rolls.  Step indices stay in the ORIGINAL numbering either way, so
-    the staged ``step_keep`` mask is indexed unremapped.
+    ``grid`` is the logical device grid; ``task_count(m_cnt, dev, step)``
+    reads a device's task count for a step from the plan's host array.
+    ``run`` executes the whole schedule and returns the ``grid``-shaped
+    int64 tensor of per-device totals: the plain loop over all steps
+    normally, or — when ``live_steps`` is set (a compacted schedule) —
+    only the globally-live steps, with the elided unit shifts fused into
+    multi-hop rolls.  Step indices stay in the ORIGINAL numbering either
+    way, so the staged ``step_keep`` mask (and the ring's task groups) are
+    indexed unremapped.
     """
 
-    live_steps: Optional[Tuple[int, ...]] = None
-
-    def run(self, store: OperandStore, arrays: Dict, *, m_cnt, step_keep=None):
-        raise NotImplementedError
-
-
-@dataclasses.dataclass
-class CannonSchedule(ShiftSchedule):
-    """Cannon's q-step {count, shift-A-left, shift-B-up} rotation.
-
-    ``double_buffer`` is accepted for signature parity and gives the same
-    count: the JAX package overlaps the next shift's collective with the
-    current count by carrying two payload generations; in an eager loop
-    on one device there is no collective to overlap (a roll is an
-    ordinary kernel on the same stream), so one generation is carried.
-    """
-
-    q: int
-    double_buffer: bool = True
-    # compacted schedule: original indices of the globally-live steps
-    # (strictly increasing); ``run`` then visits only them
     live_steps: Optional[Tuple[int, ...]] = None
 
     @property
+    def grid(self) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    @property
     def nsteps(self) -> int:
-        return self.q
+        raise NotImplementedError
+
+    def task_count(self, m_cnt, dev, step) -> int:
+        del step  # the task list is the same at every step
+        return int(m_cnt[dev])
 
     def _shift_k(self, payload, hop: int):
-        """Fused shift of ``hop`` schedule steps (one roll per tensor
-        regardless of hop — the multi-hop fusion)."""
-        k = hop % self.q
-        if k == 0:
-            return payload
-        a_state, b_state = payload
-        return (_roll_tree(a_state, k, 1), _roll_tree(b_state, k, 0))
+        raise NotImplementedError
 
     def _count_grid(self, store, payload, arrays, step, m_cnt, step_keep, out):
-        for x in range(self.q):
-            for y in range(self.q):
-                c = masked_count(
-                    store, payload, arrays, x, y, step, int(m_cnt[x, y]),
-                    step_keep,
-                )
-                if c is not None:
-                    out[x, y] += c
+        for dev in np.ndindex(*self.grid):
+            c = masked_count(
+                store, payload, arrays, dev, step,
+                self.task_count(m_cnt, dev, step), step_keep,
+            )
+            if c is not None:
+                out[dev] += c
 
     def run(self, store, arrays, *, m_cnt, step_keep=None):
         dev = arrays[store.static_names[0]].device
-        out = torch.zeros((self.q, self.q), dtype=torch.int64, device=dev)
+        out = torch.zeros(self.grid, dtype=torch.int64, device=dev)
         payload = store.payload(arrays)
         if self.live_steps is not None:
             return self._run_compacted(
@@ -424,6 +535,95 @@ class CannonSchedule(ShiftSchedule):
         return out
 
 
+@dataclasses.dataclass
+class CannonSchedule(ShiftSchedule):
+    """Cannon's q-step {count, shift-A-left, shift-B-up} rotation.
+
+    ``double_buffer`` is accepted for signature parity and gives the same
+    count: the JAX package overlaps the next shift's collective with the
+    current count by carrying two payload generations; in an eager loop
+    on one device there is no collective to overlap (a roll is an
+    ordinary kernel on the same stream), so one generation is carried.
+    """
+
+    q: int
+    double_buffer: bool = True
+    # compacted schedule: original indices of the globally-live steps
+    # (strictly increasing); ``run`` then visits only them
+    live_steps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def grid(self) -> Tuple[int, ...]:
+        return (self.q, self.q)
+
+    @property
+    def nsteps(self) -> int:
+        return self.q
+
+    def _shift_k(self, payload, hop: int):
+        """Fused shift of ``hop`` schedule steps (one roll per tensor
+        regardless of hop — the multi-hop fusion)."""
+        k = hop % self.q
+        if k == 0:
+            return payload
+        a_state, b_state = payload
+        return (_roll_tree(a_state, k, 1), _roll_tree(b_state, k, 0))
+
+
+@dataclasses.dataclass
+class SummaSchedule(ShiftSchedule):
+    """SUMMA broadcast rounds on an ``(r, c)`` grid: ``c`` rounds, each a
+    panel broadcast that the store realises as a view
+    (:class:`SummaCSRStore`).  Rounds carry no state, so a compacted
+    schedule simply leaves the dead rounds out — no hop fusion needed."""
+
+    r: int
+    c: int
+    live_steps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def grid(self) -> Tuple[int, ...]:
+        return (self.r, self.c)
+
+    @property
+    def nsteps(self) -> int:
+        return self.c
+
+    def _shift_k(self, payload, hop: int):
+        del hop  # broadcast rounds carry no shift state
+        return payload
+
+
+@dataclasses.dataclass
+class RingSchedule(ShiftSchedule):
+    """1D ring rotation over ``p`` devices: the rotating row blocks pass
+    through every device once.  A rotation by ``k`` is ``torch.roll`` by
+    ``-k`` on dim 0 (the sign of :class:`CannonSchedule`'s shifts), so at
+    step ``t`` device ``d`` holds owner ``(d + t) % p``'s block; the task
+    count is that of its group ``(d, (d + t) % p)``."""
+
+    p: int
+    live_steps: Optional[Tuple[int, ...]] = None
+
+    @property
+    def grid(self) -> Tuple[int, ...]:
+        return (self.p,)
+
+    @property
+    def nsteps(self) -> int:
+        return self.p
+
+    def task_count(self, m_cnt, dev, step) -> int:
+        (d,) = dev
+        return int(m_cnt[d, (d + step) % self.p])
+
+    def _shift_k(self, payload, hop: int):
+        k = hop % self.p
+        if k == 0:
+            return payload
+        return _roll_tree(payload, k, 0)
+
+
 # ======================================================================
 # reductions
 # ======================================================================
@@ -432,7 +632,7 @@ class Reduction:
     """Global sum of the per-device partials, or per-device outputs.
 
     Only the ``"flat"`` strategy exists here (``"auto"`` resolves to it):
-    a sum over both grid dimensions.  The 2.5D ``"tree"`` reduction needs
+    a sum over the grid dimensions.  The 2.5D ``"tree"`` reduction needs
     a pod axis, which this package does not have yet.
     """
 
@@ -469,15 +669,18 @@ def build_engine_fn(
 ):
     """Generate the counting function for one composition.
 
-    Returns ``call(**arrays)`` over the staged plan tensors (stacked
-    ``(q, q, ...)``, all on one device) yielding the global count as a
-    0-dim int64 tensor on that device — or the ``(q, q)`` per-device
+    Returns ``call(**arrays)`` over the staged plan tensors (stacked over
+    the schedule's grid, all on one device) yielding the global count as a
+    0-dim int64 tensor on that device — or the grid-shaped per-device
     counts with ``Reduction(global_sum=False)``.  The call does not
     synchronise; ``int(result)`` does, once.
 
     ``m_cnt`` and ``step_keep`` are the plan's *host* arrays: the loop
     reads task counts and the skip mask from them, never from the
-    device.  ``step_keep=None`` runs every (device, step) pair.
+    device.  ``m_cnt`` is indexed as the schedule reads it
+    (:meth:`ShiftSchedule.task_count`: per device for Cannon and SUMMA,
+    per (device, owner group) for the ring).  ``step_keep=None`` runs
+    every (device, step) pair.
     """
     reduction = (reduction or Reduction()).resolve()
     m_cnt = np.asarray(m_cnt)

@@ -20,11 +20,12 @@ report.
 The pre-skew implements Cannon's initial alignment at data-distribution
 time (the paper performs it as its first communication step; here the
 aligned blocks are simply *fed*).  ``skew=0`` (SUMMA placement) is also
-available from the packer.
+available from the packer.  The SUMMA and 1D-ring plans live in
+:mod:`.summa` and :mod:`.onedim`; :func:`plan_from_numpy` assembles any of
+the three.
 
 Not carried over yet from the JAX package's module of the same name:
-``shape_structs``, ``analytic_plan``, ``bucketize_plan`` and
-``resolve_broadcast``.
+``shape_structs`` and ``analytic_plan`` (the dry run).
 """
 from __future__ import annotations
 
@@ -44,7 +45,10 @@ __all__ = [
     "CompactSchedule",
     "compact_live_steps",
     "as_plan",
+    "bucketize_plan",
+    "resolve_broadcast",
     "resolve_step_mask",
+    "StepStats",
     "resolve_compact_steps",
     "host_aug_keys",
 ]
@@ -131,6 +135,30 @@ def resolve_compact_steps(plan, compact) -> Optional[Tuple[int, ...]]:
     return cs.live_steps
 
 
+def resolve_broadcast(plan, broadcast) -> str:
+    """Resolve a ``broadcast`` request of ``build_summa_fn`` against the
+    plan.
+
+    ``None`` defers to the strategy the plan was staged for (its
+    ``broadcast`` field; ``"auto"`` when it has none); ``"auto"``
+    resolves to ``"chain"``, as the JAX package resolves it for an
+    unbatched engine.  On one device both strategies are the same gather
+    (:class:`~repro_torch.core.engine.SummaCSRStore`); the name is kept
+    so plans, cache keys and errors stay the reference's.
+    """
+    b = broadcast
+    if b is None:
+        b = getattr(as_plan(plan), "broadcast", None) or "auto"
+    if b == "auto":
+        return "chain"
+    if b not in ("onehot", "chain"):
+        raise ValueError(
+            f"unknown broadcast strategy {b!r}; "
+            "expected 'onehot', 'chain', or 'auto'"
+        )
+    return b
+
+
 def resolve_step_mask(plan, use_step_mask) -> bool:
     """Resolve a ``use_step_mask`` request against the plan.
 
@@ -202,6 +230,19 @@ class PlanStats:
 
 
 @dataclasses.dataclass
+class StepStats:
+    """Per-(device, step) probe work for the non-Cannon schedules.
+
+    The lean sibling of :class:`PlanStats`: SUMMA broadcast rounds carry a
+    ``(r, c, c)`` array, the 1D ring a ``(p, p)`` one; the last axis is
+    always the schedule step.
+    """
+
+    probe_work_per_device_shift: np.ndarray  # (..., nsteps) int64
+    probe_imbalance: float  # max/avg of per-device total probe work
+
+
+@dataclasses.dataclass
 class TCPlan:
     """Device-ready arrays + metadata for one grid factorization."""
 
@@ -244,11 +285,13 @@ class TCPlan:
     # deterministic kernel-shape autotune report (chunk, d_small/n_long,
     # tail_heavy) when the plan went through the autotune stage
     autotune: Optional[dict] = None
-    # long/short task split from the autotune stage:
+    # long/short task split from bucketize_plan / the autotune stage:
     # the first ``n_long`` tasks on every device need probes padded to
     # dmax, the rest fit in ``d_small``.  None = plan not split.
     n_long: Optional[int] = None
     d_small: Optional[int] = None
+    # padded-probe waste accounting from bucketize_plan
+    bucket_stats: Optional[dict] = None
     # hub-split side; always None until the hub-split stage is ported
     hub: Optional[object] = None
 
@@ -501,28 +544,122 @@ def _build_plan_loops(
     )
 
 
-def plan_from_numpy(arrays: Dict[str, np.ndarray], meta: dict) -> TCPlan:
-    """Build a :class:`TCPlan` from plain numpy arrays and Python scalars.
+def bucketize_plan(plan: TCPlan, d_small: int = 32) -> TCPlan:
+    """Statically reorder each device's tasks into long | short.
 
-    ``arrays`` holds the keys of :meth:`TCPlan.device_arrays` (``a_indptr,
-    a_indices, b_indptr, b_indices, m_ti, m_tj, m_cnt`` and optionally
-    ``step_keep`` / ``b_aug``); ``meta`` holds ``n, m, q, nb, nnz_pad,
-    tmax, dmax, chunk`` and optionally ``n_long, d_small, autotune,
-    skew_perm, live_steps``.  This is how plan state made elsewhere — for
-    example by the JAX package's planner — is carried into this engine:
-    the caller extracts the values, this function only assembles them.
+    A task is *long* iff under ANY Cannon pairing its probe (the A
+    fragment, row ``i``) is longer than ``d_small``: the max over the
+    panels ``z`` of block-row ``x``.  The planner reorders ``(m_ti,
+    m_tj)`` so long tasks come first (stable) and records the per-plan
+    maximum long count; ``method="search2"`` then runs long chunks at
+    ``dmax`` and the rest at ``d_small``.  Needs the plan's canonical
+    blocks (``keep_blocks``).  Returns a new plan with ``n_long``,
+    ``d_small`` and ``bucket_stats`` (padded-probe work before and after,
+    over all shifts) set.
     """
-    required = ("a_indptr", "a_indices", "b_indptr", "b_indices",
-                "m_ti", "m_tj", "m_cnt")
-    missing = [k for k in required if k not in arrays]
+    plan = as_plan(plan)
+    if plan.blocks is None:
+        raise ValueError(
+            "bucketize_plan needs the plan's canonical blocks: plan with "
+            "keep_blocks=True"
+        )
+    q = plan.q
+    rowlen = {
+        (x, y): np.diff(plan.blocks[x][y].indptr)
+        for x in range(q)
+        for y in range(q)
+    }
+    m_ti = plan.m_ti.copy()
+    m_tj = plan.m_tj.copy()
+    n_long_max = 0
+    waste_before = 0
+    waste_after = 0
+    for x in range(q):
+        for y in range(q):
+            cnt = int(plan.m_cnt[x, y])
+            ti = plan.m_ti[x, y, :cnt]
+            tj = plan.m_tj[x, y, :cnt]
+            need = np.zeros(cnt, dtype=np.int64)
+            for z in range(q):
+                need = np.maximum(need, rowlen[(x, z)][ti])
+            long_mask = need > d_small
+            order = np.argsort(~long_mask, kind="stable")  # long first
+            m_ti[x, y, :cnt] = ti[order]
+            m_tj[x, y, :cnt] = tj[order]
+            n_long = int(long_mask.sum())
+            n_long_max = max(n_long_max, n_long)
+            waste_before += cnt * plan.dmax
+            waste_after += n_long * plan.dmax + (cnt - n_long) * d_small
+    return dataclasses.replace(
+        plan,
+        m_ti=m_ti,
+        m_tj=m_tj,
+        n_long=n_long_max,
+        d_small=d_small,
+        bucket_stats=dict(
+            padded_probe_before=float(waste_before * q),  # x shifts
+            padded_probe_after=float(waste_after * q),
+            reduction=float(waste_before / max(1, waste_after)),
+        ),
+    )
+
+
+# per plan kind: its integer fields, its device grid (as meta keys), and
+# its required arrays with their leading grid dims
+_PLAN_LAYOUTS = {
+    "cannon": (
+        ("n", "m", "q", "nb", "nnz_pad", "tmax", "dmax", "chunk"),
+        ("q", "q"),
+        {k: ("q", "q") for k in ("a_indptr", "a_indices", "b_indptr",
+                                 "b_indices", "m_ti", "m_tj", "m_cnt")},
+    ),
+    "summa": (
+        ("n", "m", "r", "c", "nb_r", "nb_c", "npan", "a_nnz_pad",
+         "b_nnz_pad", "tmax", "dmax", "chunk"),
+        ("r", "c"),
+        {k: ("r", "c") for k in ("a_indptr", "a_indices", "b_indptr",
+                                 "b_indices", "m_ti", "m_tj", "m_cnt")},
+    ),
+    "oned": (
+        ("n", "m", "p", "nb", "nnz_pad", "gmax", "dmax", "chunk"),
+        ("p",),
+        dict(indptr=("p",), indices=("p",), t_i=("p", "p"),
+             t_j=("p", "p"), t_cnt=("p", "p")),
+    ),
+}
+
+
+def plan_from_numpy(arrays: Dict[str, np.ndarray], meta: dict):
+    """Build a plan from plain numpy arrays and Python scalars.
+
+    The plan kind follows ``meta``: with ``p`` a
+    :class:`~repro_torch.core.onedim.OneDPlan`, with ``r`` (and ``c``) a
+    :class:`~repro_torch.core.summa.SummaPlan`, else a :class:`TCPlan`.
+    ``arrays`` holds the keys of the kind's ``device_arrays`` (for a
+    TCPlan ``a_indptr, a_indices, b_indptr, b_indices, m_ti, m_tj,
+    m_cnt``; for a OneDPlan ``indptr, indices, t_i, t_j, t_cnt``; each
+    optionally with ``step_keep``, and a TCPlan with ``b_aug``); ``meta``
+    holds the kind's integer fields (``n, m, q, nb, nnz_pad, tmax, dmax,
+    chunk`` for a TCPlan) and optionally ``n_long, d_small, autotune,
+    live_steps`` — plus ``skew_perm`` (TCPlan) or ``broadcast`` (SUMMA).
+    This is how plan state made elsewhere — for example by the JAX
+    package's planner — is carried into this engine: the caller extracts
+    the values, this function only assembles them.
+    """
+    kind = "oned" if "p" in meta else "summa" if "r" in meta else "cannon"
+    scalars, grid, layout = _PLAN_LAYOUTS[kind]
+    missing = [k for k in layout if k not in arrays]
     if missing:
         raise ValueError(f"plan_from_numpy: missing arrays {missing}")
-    q = int(meta["q"])
+    missing = [k for k in scalars if k not in meta]
+    if missing:
+        raise ValueError(f"plan_from_numpy: missing meta {missing}")
     for k, v in arrays.items():
-        if tuple(np.shape(v)[:2]) != (q, q):
+        want = tuple(int(meta[d]) for d in layout.get(k, grid))
+        if tuple(np.shape(v)[:len(want)]) != want:
             raise ValueError(
                 f"plan_from_numpy: {k} has shape {np.shape(v)}, expected "
-                f"leading grid dims ({q}, {q})"
+                f"leading grid dims {want}"
             )
     step_keep = arrays.get("step_keep")
     compact = None
@@ -534,30 +671,31 @@ def plan_from_numpy(arrays: Dict[str, np.ndarray], meta: dict) -> TCPlan:
             n_total=int(np.shape(step_keep)[-1]),
             live_steps=tuple(int(s) for s in live),
         )
-    skew_perm = meta.get("skew_perm")
     n_long, d_small = meta.get("n_long"), meta.get("d_small")
     autotune = meta.get("autotune")
-    return TCPlan(
-        n=int(meta["n"]),
-        m=int(meta["m"]),
-        q=q,
-        nb=int(meta["nb"]),
-        nnz_pad=int(meta["nnz_pad"]),
-        tmax=int(meta["tmax"]),
-        dmax=int(meta["dmax"]),
-        chunk=int(meta["chunk"]),
-        a_indptr=np.asarray(arrays["a_indptr"]),
-        a_indices=np.asarray(arrays["a_indices"]),
-        b_indptr=np.asarray(arrays["b_indptr"]),
-        b_indices=np.asarray(arrays["b_indices"]),
-        m_ti=np.asarray(arrays["m_ti"]),
-        m_tj=np.asarray(arrays["m_tj"]),
-        m_cnt=np.asarray(arrays["m_cnt"]),
+    common = dict(
+        {k: int(meta[k]) for k in scalars},
+        **{k: np.asarray(arrays[k]) for k in layout},
         step_keep=None if step_keep is None else np.asarray(step_keep, bool),
-        b_aug=None if arrays.get("b_aug") is None else np.asarray(arrays["b_aug"]),
-        skew_perm=None if skew_perm is None else tuple(int(v) for v in skew_perm),
         compact=compact,
         autotune=None if autotune is None else dict(autotune),
         n_long=None if n_long is None else int(n_long),
         d_small=None if d_small is None else int(d_small),
+    )
+    if kind == "oned":
+        from .onedim import OneDPlan
+
+        return OneDPlan(**common)
+    if kind == "summa":
+        from .summa import SummaPlan
+
+        return SummaPlan(broadcast=str(meta.get("broadcast", "auto")),
+                         **common)
+    skew_perm = meta.get("skew_perm")
+    return TCPlan(
+        b_aug=None if arrays.get("b_aug") is None
+        else np.asarray(arrays["b_aug"]),
+        skew_perm=None if skew_perm is None
+        else tuple(int(v) for v in skew_perm),
+        **common,
     )

@@ -2,11 +2,15 @@
 
     python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
         --method fused --verify --json
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
+        --schedule summa --broadcast chain --method auto --verify
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
-grid held on one device and reports the paper's split: ``ppt_seconds``
-(host planning + staging) and ``tct_seconds`` (the count).  Runs on the
-GPU unless ``--device cpu`` is given.
+grid held on one device (``--schedule summa``: the same ``q x q`` grid by
+broadcast rounds; ``--schedule oned``: the 1D ring over ``q²`` devices)
+and reports the paper's split: ``ppt_seconds`` (host planning + staging)
+and ``tct_seconds`` (the count).  Runs on the GPU unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
@@ -21,8 +25,20 @@ def main(argv=None):
                     help="rmat:<scale>[,<ef>[,<seed>]] | er:<n>,<deg> | "
                          "cliques:<k>,<size> | star:<n> | named:<id>")
     ap.add_argument("--grid", type=int, default=1, help="sqrt(p): grid is q x q")
+    ap.add_argument("--schedule", default="cannon",
+                    help="cannon | summa | oned (resolved by the schedule "
+                         "registry; a bad name lists the registered ones)")
     ap.add_argument("--method", default="search",
-                    help="count kernel: search | global | fused | tile | dense")
+                    choices=["auto", "search", "search2", "global",
+                             "dense", "tile", "fused"],
+                    help="count kernel; 'auto' runs the deterministic "
+                         "autotune stage and picks search2 on "
+                         "heavy-tailed graphs; 'fused' is the CUDA "
+                         "intersection kernel (two-sided maxfrag split)")
+    ap.add_argument("--broadcast", default=None,
+                    choices=["auto", "onehot", "chain"],
+                    help="summa's panel-broadcast strategy (the same "
+                         "count on one device)")
     ap.add_argument("--chunk", type=int, default=512)
     ap.add_argument("--no-probe-shorter", action="store_true")
     ap.add_argument("--no-skip-mask", action="store_true",
@@ -55,7 +71,9 @@ def main(argv=None):
         res = count_triangles(
             g,
             q=args.grid,
+            schedule=args.schedule,
             method=args.method,
+            broadcast=args.broadcast,
             chunk=args.chunk,
             probe_shorter=not args.no_probe_shorter,
             use_step_mask=False if args.no_skip_mask else None,
@@ -69,6 +87,7 @@ def main(argv=None):
         tct_seconds=round(min(times[1:]) if len(times) > 1 else times[0], 4),
         total_seconds=round(time.perf_counter() - t0, 4),
         grid=res.grid,
+        schedule=res.schedule,
         method=res.method,
         device=res.device,
     )

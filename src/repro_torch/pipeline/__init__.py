@@ -2,8 +2,9 @@
 
 Public surface:
 
-* :func:`plan_cannon` — cached pipeline entry point (ingest → relabel →
-  decompose → pack → stage) returning a :class:`PlanArtifact`.
+* :func:`plan_cannon` / :func:`plan_summa` / :func:`plan_oned` — cached
+  pipeline entry points (ingest → relabel → decompose → pack → stage)
+  returning a :class:`PlanArtifact`.
 * :class:`PlanCache` / :func:`graph_digest` / :func:`default_cache` —
   the content-addressed plan cache.
 * :mod:`.stages` — the individual stage functions (vectorized packer,
@@ -16,7 +17,7 @@ from .cache import (  # noqa: F401
     graph_digest,
     set_default_cache,
 )
-from .planner import plan_cannon, relabel_cached  # noqa: F401
+from .planner import plan_cannon, plan_oned, plan_summa, relabel_cached  # noqa: F401
 from .stages import relabel_stage  # noqa: F401
 
 __all__ = [
@@ -28,4 +29,6 @@ __all__ = [
     "set_default_cache",
     "graph_digest",
     "plan_cannon",
+    "plan_summa",
+    "plan_oned",
 ]

@@ -2,7 +2,7 @@
 
 A :class:`PlanArtifact` bundles everything one planned graph needs to be
 counted repeatedly: the relabeled host graph, the composed relabeling
-permutation, the plan (``TCPlan``, host numpy), per-stage wall times, and
+permutation, the plan (host numpy), per-stage wall times, and
 a memo space where the runners park derived state (the plan's tensors
 staged on a device, built engine fns) so a cache hit skips *all*
 per-call host work — planning and host→device staging.
@@ -39,7 +39,8 @@ def stage_arrays(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tenso
 class PlanArtifact:
     """One planned graph, ready for repeated counting.
 
-    ``kind`` names the plan family (``"cannon"``); ``digest`` is the
+    ``kind`` names the plan family (``"cannon"``, ``"summa"`` or
+    ``"oned"``); ``digest`` is the
     content digest of the *input* graph (pre-relabel), ``key`` the full
     cache key this artifact is stored under.
     """
@@ -49,7 +50,7 @@ class PlanArtifact:
     key: Tuple
     graph: Graph  # relabeled graph actually planned
     perm: Optional[np.ndarray]  # composed relabeling, old id -> new id
-    plan: Any  # TCPlan
+    plan: Any  # TCPlan, SummaPlan or OneDPlan
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     cache_hit: bool = False
     # planner knobs this artifact was built with

@@ -1,4 +1,4 @@
-"""Composable host-planning stages, Cannon family.
+"""Composable host-planning stages.
 
 The pipeline is  **ingest → relabel → decompose → pack → stage**:
 
@@ -14,9 +14,8 @@ The pipeline is  **ingest → relabel → decompose → pack → stage**:
   (:meth:`repro_torch.pipeline.artifact.PlanArtifact.staged`).
 
 Everything here is host numpy and emits, byte for byte, what the JAX
-package's module of the same name emits for the same graph and flags.
-The SUMMA and 1D packers and their autotune stages are not carried over
-yet.
+package's module of the same name emits for the same graph and flags —
+the Cannon, SUMMA and 1D-ring packers and their autotune stages.
 """
 from __future__ import annotations
 
@@ -27,23 +26,32 @@ import numpy as np
 
 from ..core.decomp import CyclicCOO, blocks_from_coo, cyclic_coo
 from ..core.graph import Graph
+from ..core.onedim import OneDPlan
 from ..core.plan import (
     INT,
     PlanStats,
+    StepStats,
     TCPlan,
     compact_live_steps,
     host_aug_keys,
 )
 from ..core.preprocess import cyclic_relabel, degree_order
+from ..core.summa import SummaPlan
 
 __all__ = [
     "relabel_stage",
     "emit_block_arrays",
     "cannon_step_keep",
+    "summa_probe_work",
+    "oned_probe_work",
     "pack_tc_plan",
+    "pack_summa_plan",
+    "pack_oned_plan",
     "choose_cannon_skew",
     "compact_stage",
     "autotune_tc_plan",
+    "autotune_summa_plan",
+    "autotune_oned_plan",
     "timed",
 ]
 
@@ -292,6 +300,224 @@ def pack_tc_plan(
     )
 
 
+def summa_probe_work(acoo: CyclicCOO, bcoo: CyclicCOO, r: int, c: int) -> np.ndarray:
+    """Per-(device, round) probe work for SUMMA, ``(r, c, c)`` int64.
+
+    Broadcast round ``z`` hands device ``(x, y)`` the A panel ``(x, z)``
+    and the B panel ``(y, z)``; each task ``(i, j)`` of its mask block
+    then intersects row ``i`` of the A panel with row ``j`` of the B
+    panel, so the round's work is ``sum(min(la, lb))`` over tasks with
+    both fragments non-empty (the SUMMA analogue of
+    :func:`_tc_plan_stats`'s Cannon probe)."""
+    rowcnt_a = acoo.rowcnt.reshape(r, c, acoo.rows_loc)
+    rowcnt_b = bcoo.rowcnt.reshape(c, c, bcoo.rows_loc)
+    probe = np.zeros((r, c, c), dtype=np.int64)
+    for x in range(r):
+        for y in range(c):
+            b = x * c + y
+            lo, hi = acoo.starts[b], acoo.starts[b + 1]
+            rows = acoo.li_s[lo:hi]
+            cols = acoo.lj_s[lo:hi]
+            for z in range(c):
+                la = rowcnt_a[x, z][rows]
+                lb = rowcnt_b[y, z][cols]
+                both = (la > 0) & (lb > 0)
+                probe[x, y, z] = int(np.minimum(la, lb)[both].sum())
+    return probe
+
+
+def oned_probe_work(
+    rowcnt: np.ndarray, t_i: np.ndarray, t_j: np.ndarray,
+    gcnt: np.ndarray, p: int,
+) -> np.ndarray:
+    """Per-(device, ring step) probe work for the 1D baseline, ``(p, p)``.
+
+    At ring step ``t`` device ``d`` holds owner ``o = (d + t) % p``'s row
+    block and counts its task group ``(d, o)``: row ``i`` comes from its
+    own block, row ``j`` from the arriving one."""
+    probe = np.zeros((p, p), dtype=np.int64)
+    for d in range(p):
+        for o in range(p):
+            cnt = int(gcnt[d * p + o])
+            if not cnt:
+                continue
+            la = rowcnt[d][t_i[d * p + o, :cnt]]
+            lb = rowcnt[o][t_j[d * p + o, :cnt]]
+            both = (la > 0) & (lb > 0)
+            probe[d, (o - d) % p] = int(np.minimum(la, lb)[both].sum())
+    return probe
+
+
+def _step_stats(probe: np.ndarray) -> StepStats:
+    per_dev = probe.reshape(-1, probe.shape[-1]).sum(axis=1)
+    return StepStats(
+        probe_work_per_device_shift=probe,
+        probe_imbalance=float(per_dev.max() / max(1.0, per_dev.mean()))
+        if per_dev.size else 1.0,
+    )
+
+
+def pack_summa_plan(
+    graph: Graph, r: int, c: int, *, chunk: int = 512,
+    step_masks: bool = True, with_stats: bool = False,
+) -> SummaPlan:
+    """Vectorized SUMMA planner (semantics of
+    :func:`repro_torch.core.summa.build_summa_plan`): A/mask blocks from one
+    ``(r, c)`` pass, B panels gathered from one ``(c, c)`` pass.
+
+    ``with_stats`` computes per-round probe work (:class:`StepStats`) —
+    the skip-aware rebalancer's cost input — and, like the Cannon
+    packer, refines the skip mask to exact zero-work rounds."""
+    n, m = graph.n, graph.m
+    nb_r = -(-n // r)
+    nb_c = -(-n // c)
+    npan = -(-c // r)
+
+    acoo = cyclic_coo(graph, r, c)
+    bcoo = cyclic_coo(graph, c, c)
+    a_nnz_pad = max(1, acoo.nnz_max)
+    b_nnz_pad = max(1, bcoo.nnz_max)
+    tmax = a_nnz_pad
+
+    a_indptr, a_indices = emit_block_arrays(acoo, a_nnz_pad)
+    m_ti, m_tj, m_cnt = _emit_tasks(acoo, tmax)
+
+    cb_ptr, cb_idx = emit_block_arrays(bcoo, b_nnz_pad)
+    b_indptr = np.zeros((r, c, npan, nb_c + 1), dtype=INT)
+    b_indices = np.full((r, c, npan, b_nnz_pad), nb_c, dtype=INT)
+    for kc in range(c):  # panel owner mapping: kc -> (row kc % r, slot kc // r)
+        b_indptr[kc % r, :, kc // r] = cb_ptr[:, kc]
+        b_indices[kc % r, :, kc // r] = cb_idx[:, kc]
+
+    stats = None
+    probe = None
+    if with_stats:
+        probe = summa_probe_work(acoo, bcoo, r, c)
+        stats = _step_stats(probe)
+
+    step_keep = None
+    if step_masks:
+        # step z broadcasts A panel (x, z) and B panel (y, z): skip the
+        # count when the task list or either incoming panel is empty
+        a_nz = acoo.counts.reshape(r, c) > 0
+        b_nz = bcoo.counts.reshape(c, c) > 0
+        step_keep = (
+            (m_cnt > 0)[:, :, None] & a_nz[:, None, :] & b_nz[None, :, :]
+        )
+        if probe is not None:
+            # probe == 0 ⇒ every task has an empty fragment side ⇒ the
+            # round's count is provably zero even with non-empty panels
+            step_keep &= probe > 0
+
+    dmax = max(1, acoo.row_len_max, bcoo.row_len_max)
+    return SummaPlan(
+        n=n,
+        m=m,
+        r=r,
+        c=c,
+        nb_r=nb_r,
+        nb_c=nb_c,
+        npan=npan,
+        a_nnz_pad=a_nnz_pad,
+        b_nnz_pad=b_nnz_pad,
+        tmax=tmax,
+        dmax=dmax,
+        chunk=min(chunk, tmax),
+        a_indptr=a_indptr,
+        a_indices=a_indices,
+        b_indptr=b_indptr,
+        b_indices=b_indices,
+        m_ti=m_ti,
+        m_tj=m_tj,
+        m_cnt=m_cnt,
+        step_keep=step_keep,
+        stats=stats,
+    )
+
+
+def pack_oned_plan(
+    graph: Graph, p: int, *, chunk: int = 512, step_masks: bool = True,
+    with_stats: bool = False,
+) -> OneDPlan:
+    """Vectorized 1D planner (semantics of
+    :func:`repro_torch.core.onedim.build_oned_plan`): the per-device row CSR
+    and the owner-grouped task lists are both single-sort scatters.
+
+    ``with_stats`` computes per-step probe work (:class:`StepStats`) for
+    the skip-aware rebalancer and refines the skip mask to exact
+    zero-work ring steps."""
+    n, m = graph.n, graph.m
+    nb = -(-n // p)
+    i = graph.edges[:, 0]
+    j = graph.edges[:, 1]
+    own = i % p
+
+    # per-device CSR over local rows, global sorted cols
+    order = np.lexsort((j, i, own))
+    i_s, j_s, own_s = i[order], j[order], own[order]
+    dev_cnt = np.bincount(own_s, minlength=p)
+    nnz_pad = max(1, int(dev_cnt.max()) if m else 0)
+    dev_starts = np.zeros(p + 1, dtype=np.int64)
+    np.cumsum(dev_cnt, out=dev_starts[1:])
+    rowcnt = np.bincount(own_s * nb + i_s // p, minlength=p * nb).reshape(p, nb)
+    indptr = np.zeros((p, nb + 1), dtype=INT)
+    np.cumsum(rowcnt, axis=1, out=indptr[:, 1:])
+    indices = np.full((p, nnz_pad), n + 1, dtype=INT)
+    indices[own_s, np.arange(m, dtype=np.int64) - dev_starts[own_s]] = j_s
+
+    # task groups: device d = i%p, group o = j%p (stable in edge order)
+    gid = own * p + j % p
+    gorder = np.argsort(gid, kind="stable")
+    gid_s = gid[gorder]
+    gcnt = np.bincount(gid_s, minlength=p * p)
+    gmax = max(1, int(gcnt.max()) if m else 0)
+    gstarts = np.zeros(p * p + 1, dtype=np.int64)
+    np.cumsum(gcnt, out=gstarts[1:])
+    goffs = np.arange(m, dtype=np.int64) - gstarts[gid_s]
+    t_i = np.zeros((p * p, gmax), dtype=INT)
+    t_j = np.zeros((p * p, gmax), dtype=INT)
+    t_i[gid_s, goffs] = i[gorder] // p
+    t_j[gid_s, goffs] = j[gorder] // p
+
+    stats = None
+    probe = None
+    if with_stats:
+        probe = oned_probe_work(rowcnt, t_i, t_j, gcnt, p)
+        stats = _step_stats(probe)
+
+    step_keep = None
+    if step_masks:
+        # device d at ring step t holds owner o = (d + t) % p's rotating
+        # row block and counts its task group (d, o): skip when either
+        # the group or the incoming block is empty
+        d = np.arange(p)[:, None]
+        t = np.arange(p)[None, :]
+        o = (d + t) % p
+        t_cnt_pp = gcnt.reshape(p, p)
+        step_keep = (t_cnt_pp[d, o] > 0) & (dev_cnt[o] > 0)
+        if probe is not None:
+            step_keep &= probe > 0
+
+    dmax = max(1, int(rowcnt.max()) if m else 0)
+    return OneDPlan(
+        n=n,
+        m=m,
+        p=p,
+        nb=nb,
+        nnz_pad=nnz_pad,
+        gmax=gmax,
+        dmax=dmax,
+        chunk=min(chunk, gmax),
+        indptr=indptr,
+        indices=indices,
+        t_i=t_i.reshape(p, p, gmax),
+        t_j=t_j.reshape(p, p, gmax),
+        t_cnt=gcnt.reshape(p, p).astype(INT),
+        step_keep=step_keep,
+        stats=stats,
+    )
+
+
 # ======================================================================
 # schedule compaction: dead-shift elision + σ visit-order search
 # ======================================================================
@@ -486,6 +712,69 @@ def autotune_tc_plan(plan: TCPlan, two_sided: bool = False) -> TCPlan:
         plan, m_ti=new_ti, m_tj=new_tj, chunk=chunk,
         n_long=report["n_long"], d_small=report["d_small"],
         autotune=report,
+    )
+
+
+def autotune_summa_plan(plan: SummaPlan, two_sided: bool = False) -> SummaPlan:
+    """SUMMA autotune: the probe side is the A panel row, so per-task
+    lengths are the max over broadcast rounds of the ``a_indptr`` row
+    lengths (panel ``(x, z)`` sits at grid position ``(x, z)``).  With
+    ``two_sided=True`` the maxfrag split also folds in the B panel rows:
+    device column ``y`` sees exactly the panels stored at
+    ``b_indptr[:, y, :]``, so the max over (grid row, panel slot) is the
+    max over broadcast rounds."""
+    import dataclasses as _dc
+
+    c = plan.c
+    lens = np.diff(plan.a_indptr.astype(np.int64), axis=2)  # (r, c, nb_r)
+    need_rows = lens.max(axis=1)  # (r, nb_r)
+    need_b_of = None
+    if two_sided:
+        lens_b = np.diff(plan.b_indptr.astype(np.int64), axis=3)
+        need_rows_b = lens_b.max(axis=(0, 2))  # (c, nb_c)
+        need_b_of = lambda b: need_rows_b[b % c]  # noqa: E731
+
+    new_ti, new_tj, chunk, report = _autotune_tasks(
+        plan.m_ti, plan.m_tj, plan.m_cnt, lambda b: need_rows[b // c],
+        plan.dmax, plan.tmax, need_rows_b_of=need_b_of,
+    )
+    return _dc.replace(
+        plan, m_ti=new_ti, m_tj=new_tj, chunk=chunk,
+        n_long=report["n_long"], d_small=report["d_small"],
+        autotune=report,
+    )
+
+
+def autotune_oned_plan(plan: OneDPlan, two_sided: bool = False) -> OneDPlan:
+    """1D-ring autotune: chunk only by default.  The ring's B columns are
+    *global* ids (they rotate whole adjacency rows), so the block-local
+    global-key two-level kernel does not apply — ``tail_heavy`` is
+    reported for visibility but ``method='auto'`` resolves to ``search``
+    on this schedule, and no two-level split lands on the plan.
+
+    ``two_sided=True`` (fused): the panel path compares raw column ids,
+    which IS valid on global ids, so the maxfrag split and long-first
+    reorder land on the plan — task (d, o) intersects device ``d``'s row
+    ``t_i`` with partner ``o``'s row ``t_j``."""
+    import dataclasses as _dc
+
+    lens = np.diff(plan.indptr.astype(np.int64), axis=1)  # (p, nb)
+    p = plan.p
+
+    new_ti, new_tj, chunk, report = _autotune_tasks(
+        plan.t_i, plan.t_j, plan.t_cnt, lambda b: lens[b // p],
+        plan.dmax, plan.gmax,
+        need_rows_b_of=(lambda b: lens[b % p]) if two_sided else None,
+    )
+    if two_sided:
+        return _dc.replace(
+            plan, t_i=new_ti, t_j=new_tj, chunk=chunk,
+            n_long=report["n_long"], d_small=report["d_small"],
+            autotune=report,
+        )
+    # task order stays put (the two-level boundary is unused here)
+    return _dc.replace(
+        plan, chunk=chunk, autotune=dict(report, n_long=None, d_small=None)
     )
 
 

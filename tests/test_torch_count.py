@@ -4,6 +4,9 @@ The same random CSR blocks and task lists, made with numpy from a seed,
 go through the JAX functions and through the port's on the CPU.  Results
 are integers and integer arrays, so parity is ``==`` with no tolerance.
 """
+import json
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,3 +175,209 @@ def test_wide_keys_count_right_past_the_int32_boundary():
     with pytest.raises(TypeError):
         tcount.count_pair_search_global(*t, 4, dpad=4, chunk=2,
                                         aug_b=aug.to(torch.int32))
+
+
+# ----------------------------------------------------------------------
+# search2: the two-level search, bucketize_plan, method="search2" | "auto"
+# ----------------------------------------------------------------------
+TWO_LEVEL = dict(dpad_long=14, chunk=64)
+
+
+@pytest.mark.parametrize("dpad_short", [3, 8, 14])
+@pytest.mark.parametrize("n_long", [0, 10, 100, 333])
+@pytest.mark.parametrize("tc", [0, 1, 200, 333])
+def test_count_pair_search_two_level_matches(tc, n_long, dpad_short):
+    """Both buckets through the global-key search, the short one cut at
+    ``dpad_short``: the same function in both packages (int32 keys)."""
+    arrs = _blocks(5)
+    kw = dict(TWO_LEVEL, dpad_short=dpad_short)
+    want = int(jcount.count_pair_search_two_level(*_j(arrs), tc, n_long,
+                                                  **kw))
+    got = tcount.count_pair_search_two_level(*_t(arrs), tc, n_long, **kw)
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == want
+    if dpad_short == 14:  # the longest row: nothing cut
+        assert want == _brute(*arrs, tc)
+    staged = tcount.build_aug_keys(*_t(arrs[2:4]))
+    assert int(tcount.count_pair_search_two_level(
+        *_t(arrs), tc, n_long, aug_b=staged, **kw)) == want
+
+
+def _wide_blocks(nb, seed=6, nrows=300, ntask=500):
+    """Random CSR blocks of ``nb`` rows, ids drawn up to ``nb - 1`` so the
+    row-encoded keys reach ``nb * (nb + 1) - 1``: int32 up to nb = 46339,
+    int64 from nb = 46340 on."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(nb, nrows, replace=False))
+    lens = np.zeros(nb, np.int64)
+    lens[rows] = rng.integers(1, 21, nrows)
+    lens[nb - 1] = 5  # the last row: the largest keys
+    cols = [np.sort(rng.choice(nb, int(k), replace=False)) for k in lens if k]
+    ptr = np.zeros(nb + 1, np.int32)
+    ptr[1:] = np.cumsum(lens)
+    idx = np.concatenate(cols + [np.full(3, nb)]).astype(np.int32)
+    live = np.flatnonzero(lens)
+    ti = rng.choice(live, ntask).astype(np.int32)
+    tj = rng.choice(live, ntask).astype(np.int32)
+    ti[0] = tj[0] = nb - 1
+    return ptr, idx, ptr, idx, ti, tj
+
+
+WIDE_NBS = (46338, 46339, 46340, 46341)
+# no row of _wide_blocks is longer than 20 ids: nothing is cut
+WIDE_KW = dict(dpad_long=20, dpad_short=20, chunk=64)
+WIDE_CASES = [(nb, tc, n_long) for nb in WIDE_NBS for tc in (1, 500)
+              for n_long in (0, 200)]
+
+
+@pytest.fixture(scope="module")
+def two_level_wide_reference(distributed_runner):
+    """The JAX package's two-level count on blocks either side of the
+    int32 key boundary, run as its own tests run wide keys: in a process
+    with x64 on."""
+    code = f"""
+import json, sys
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+from test_torch_count import _wide_blocks, WIDE_CASES, WIDE_KW
+from repro.core.count import count_pair_search_two_level
+out = {{}}
+blocks = {{}}
+for nb, tc, n_long in WIDE_CASES:
+    if nb not in blocks:
+        blocks[nb] = [jnp.asarray(a) for a in _wide_blocks(nb)]
+    out[f"{{nb}}/{{tc}}/{{n_long}}"] = int(count_pair_search_two_level(
+        *blocks[nb], tc, n_long, **WIDE_KW))
+print("RESULT" + json.dumps(out))
+"""
+    out = distributed_runner(code, ndev=1)
+    line = [ln for ln in out.splitlines() if ln.startswith("RESULT")][-1]
+    return json.loads(line[len("RESULT"):])
+
+
+@pytest.mark.parametrize("nb", WIDE_NBS)
+def test_two_level_either_side_of_the_key_boundary(two_level_wide_reference,
+                                                   nb):
+    """int32 keys up to nb = 46339 (base 46,340), int64 past it: the
+    port's count equals the reference's (x64 on) and brute force, with
+    keys built on the device and staged by the host alike."""
+    from repro_torch.core.plan import host_aug_keys
+
+    arrs = _wide_blocks(nb)
+    t = _t(arrs)
+    aug = tcount.build_aug_keys(t[2], t[3])
+    assert aug.dtype == (torch.int32 if nb <= 46339 else torch.int64)
+    host = host_aug_keys(arrs[2][None, None], arrs[3][None, None])[0, 0]
+    assert np.array_equal(host, aug.numpy())
+    for case in WIDE_CASES:
+        if case[0] != nb:
+            continue
+        _, tc, n_long = case
+        want = two_level_wide_reference[f"{nb}/{tc}/{n_long}"]
+        for keys in (None, aug):
+            got = tcount.count_pair_search_two_level(
+                *t, tc, n_long, aug_b=keys, **WIDE_KW)
+            assert int(got) == want == _brute(*arrs, tc), case
+
+
+def test_two_level_warns_once_about_ignored_knobs(monkeypatch):
+    import warnings
+
+    monkeypatch.setattr(tcount, "_TWO_LEVEL_KW_WARNED", False)
+    arrs = _t(_blocks(5))
+    kw = dict(TWO_LEVEL, dpad_short=8)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        tcount.count_pair_search_two_level(*arrs, 10, 5, **kw)
+    assert not seen  # defaults: nothing ignored, nothing said
+    with pytest.warns(UserWarning, match=r"ignores probe_shorter=False, "
+                                         r"sentinel=7"):
+        tcount.count_pair_search_two_level(*arrs, 10, 5, probe_shorter=False,
+                                           sentinel=7, **kw)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        tcount.count_pair_search_two_level(*arrs, 10, 5, probe_shorter=False,
+                                           **kw)
+    assert not seen  # once per process
+
+
+BUCKET_SPECS = ["rmat:9,8,42", "star:64", "cliques:3,60", "named:karate"]
+
+
+@pytest.mark.parametrize("d_small", [4, 32])
+@pytest.mark.parametrize("q", [1, 2, 3])
+def test_bucketize_plan_byte_identical(q, d_small):
+    """``plan_cannon(bucketize=True)``: the long|short reorder, ``n_long``,
+    ``d_small``, ``bucket_stats`` and the cache key as the reference's."""
+    import repro.core as jc
+    import repro.pipeline as jp
+    import repro_torch.core as tc
+    import repro_torch.pipeline as tp
+    from repro.core.plan import bucketize_plan as j_bucketize
+    from repro_torch.core.plan import bucketize_plan as t_bucketize
+
+    for spec in BUCKET_SPECS:
+        kw = dict(bucketize=True, d_small=d_small, aug_keys=True,
+                  keep_blocks=False)
+        a = jp.plan_cannon(jc.graph_from_spec(spec), q, cache=jp.PlanCache(),
+                           **kw)
+        b = tp.plan_cannon(tc.graph_from_spec(spec), q, cache=tp.PlanCache(),
+                           **kw)
+        assert a.key == b.key
+        for f in ("m_ti", "m_tj", "b_aug", "a_indices", "step_keep"):
+            va, vb = getattr(a.plan, f), getattr(b.plan, f)
+            assert va.dtype == vb.dtype and va.tobytes() == vb.tobytes(), f
+        for f in ("n_long", "d_small", "bucket_stats", "skew_perm", "chunk"):
+            assert getattr(a.plan, f) == getattr(b.plan, f), f
+        assert b.plan.blocks is not None  # the bucketizer's input
+        # the stage alone, on a plan packed without compaction
+        ga = jc.preprocess(jc.graph_from_spec(spec))[0]
+        gb = tc.preprocess(tc.graph_from_spec(spec))[0]
+        pa = j_bucketize(jc.build_plan(ga, q), d_small=d_small)
+        pb = t_bucketize(tc.build_plan(gb, q), d_small=d_small)
+        assert pa.m_ti.tobytes() == pb.m_ti.tobytes()
+        assert pa.m_tj.tobytes() == pb.m_tj.tobytes()
+        assert (pa.n_long, pa.bucket_stats) == (pb.n_long, pb.bucket_stats)
+
+
+def test_bucketize_plan_needs_blocks():
+    import repro_torch.core as tc
+    from repro_torch.core.plan import bucketize_plan
+
+    g = tc.preprocess(tc.graph_from_spec("named:karate"))[0]
+    with pytest.raises(ValueError, match="keep_blocks"):
+        bucketize_plan(tc.build_plan(g, 2, keep_blocks=False))
+
+
+@pytest.mark.parametrize("method", ["search2", "auto"])
+@pytest.mark.parametrize("q", [1, 2, 3])
+@pytest.mark.parametrize("spec", BUCKET_SPECS + ["powerlaw:300,2.5,1"])
+def test_count_triangles_search2_and_auto(spec, q, method):
+    """Cannon with ``search2`` (bucketized plan, staged keys) and ``auto``
+    (resolved from the autotune report): the oracle's count; at q = 1
+    the reference's count and resolution too."""
+    import repro.core as jc
+    import repro_torch as rt
+    import repro_torch.pipeline as tp
+
+    g = rt.graph_from_spec(spec)
+    r = rt.count_triangles(g, q=q, method=method, device="cpu",
+                           cache=tp.PlanCache())
+    assert r.triangles == rt.triangle_count_oracle(g)
+    if method == "search2":
+        from repro_torch.core.cannon import build_cannon_fn
+
+        assert r.method == "search2" and r.plan.bucket_stats is not None
+        # the staged keys travel with B: nothing rebuilds them per step
+        assert r.plan.b_aug is not None
+        assert "b_aug" in build_cannon_fn(r.artifact, method="search2").ordered
+    else:
+        assert r.autotune_mode == "percentile"
+        want = "search2" if r.plan.autotune["tail_heavy"] else "search"
+        assert r.method == want
+    if q == 1:
+        ref = jc.count_triangles(jc.graph_from_spec(spec), q=1,
+                                 method=method)
+        assert (r.triangles, r.method) == (ref.triangles, ref.method)

@@ -240,11 +240,13 @@ def test_unknown_method_and_schedule_list_what_is_registered():
     g = _graph("karate")
     with pytest.raises(
         ValueError,
-        match=r"registered: \['dense', 'fused', 'global', 'search', 'tile'\]",
+        match=r"registered: \['auto', 'dense', 'fused', 'global', 'search', "
+              r"'search2', 'tile'\]",
     ):
-        rt.count_triangles(g, method="search2", device="cpu")
-    with pytest.raises(ValueError, match=r"registered: \['cannon'\]"):
-        rt.count_triangles(g, schedule="summa", device="cpu")
+        rt.count_triangles(g, method="bogus", device="cpu")
+    with pytest.raises(ValueError,
+                       match=r"registered: \['cannon', 'oned', 'summa'\]"):
+        rt.count_triangles(g, schedule="bogus", device="cpu")
     with pytest.raises(ValueError, match="autotune"):
         rt.count_triangles(g, autotune="measured", device="cpu")
-    assert rt.available_schedules() == ["cannon"]
+    assert rt.available_schedules() == ["cannon", "oned", "summa"]

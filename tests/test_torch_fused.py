@@ -47,6 +47,10 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 FUSED_TRAPS = chip_smoke.fused_trap_cases()
 FALLBACKS = ("global", "search")
+# (case, long-bucket function) pairs: each case under the functions it
+# declares (the ring's global ids take the padded search only)
+TRAP_RUNS = [(name, fb) for name, case in FUSED_TRAPS.items()
+             for fb in case["fallbacks"]]
 
 
 def _random_csr(rng, nrows, maxd, ncols, pad, last_len=None):
@@ -249,8 +253,10 @@ def test_check_fused_split_refuses_probe_only_plans():
         make_csr_kernel("fused", dpad=8, chunk=64)
     ok = tp.plan_cannon(g, 2, autotune="fused", cache=tp.PlanCache())
     check_fused_split(ok.plan)
-    with pytest.raises(ValueError, match="registered"):
+    with pytest.raises(ValueError, match="bucketized plan"):
         make_csr_kernel("search2", dpad=8, chunk=64)
+    with pytest.raises(ValueError, match="registered"):
+        make_csr_kernel("bogus", dpad=8, chunk=64)
 
 
 def _trap_split(case, long_fallback):
@@ -279,8 +285,7 @@ def _brute_step_tiles(per, tcount, n_long, tile):
     return np.concatenate(out)
 
 
-@pytest.mark.parametrize("long_fallback", FALLBACKS)
-@pytest.mark.parametrize("name", list(FUSED_TRAPS))
+@pytest.mark.parametrize("name,long_fallback", TRAP_RUNS)
 def test_plain_route_matches_the_jax_dispatcher_on_traps(name, long_fallback):
     """``count_pair_fused_plain`` against the JAX dispatcher on its lax
     path and brute force, on every trap case the chip run holds the
@@ -296,8 +301,7 @@ def test_plain_route_matches_the_jax_dispatcher_on_traps(name, long_fallback):
         assert int(got) == want == int(per[:tcount].sum()), tcount
 
 
-@pytest.mark.parametrize("long_fallback", FALLBACKS)
-@pytest.mark.parametrize("name", list(FUSED_TRAPS))
+@pytest.mark.parametrize("name,long_fallback", TRAP_RUNS)
 def test_step_counts_plain_per_tile_on_traps(name, long_fallback):
     """The plain version of the one launch: per tile against brute force
     (long tiles from task 0, short tiles from ``n_long``), its short tiles
@@ -326,7 +330,8 @@ def test_the_traps_hit_what_they_name():
     kernel's staging limit in A and in B, in both buckets; a B row past
     ``dpad_long`` in the long bucket where the two long-bucket functions
     differ; a long bucket that is no multiple of the tile; one that takes
-    every task; a ``tcount`` inside the long bucket."""
+    every task; a ring-shaped step of global ids; a ``tcount`` inside the
+    long bucket."""
     runs = FUSED_TRAPS["runs_by_row"]["arrays"][4]
     lengths = np.diff(np.flatnonzero(np.r_[True, runs[1:] != runs[:-1], True]))
     assert {1, 31, 32, 33, 1000} <= set(lengths.tolist())
@@ -347,6 +352,24 @@ def test_the_traps_hit_what_they_name():
     assert _trap_split(case, "global")["n_long"] % case["tile"]
     case = FUSED_TRAPS["long_takes_all"]
     assert _trap_split(case, "global")["n_long"] == len(case["arrays"][4])
+    # the ring's step: global ids near 2**20 padded with n + 1, A and B of
+    # different row counts and pads, hub rows either side of the staging
+    # limit in the long bucket, short tasks within d_small
+    case = FUSED_TRAPS["ring_global_ids"]
+    ap, ai, bp, bi, ti, tj = case["arrays"]
+    n = chip_smoke.RING_N
+    assert case["sentinel"] == n + 1 and case["fallbacks"] == ("search",)
+    assert ai[ap[-1]:].tolist() == [n + 1] * (len(ai) - ap[-1])
+    assert bi[bp[-1]:].tolist() == [n + 1] * (len(bi) - bp[-1])
+    assert max(ai[:ap[-1]].max(), bi[:bp[-1]].max()) == n - 1
+    assert len(ap) != len(bp) and len(ai) - ap[-1] != len(bi) - bp[-1]
+    n_long_c = _trap_split(case, "search")["n_long"]
+    hubs = {kmod.STAGE_LIMIT - 1, kmod.STAGE_LIMIT, kmod.STAGE_LIMIT + 1, 700}
+    assert hubs <= set(np.diff(ap)[ti[:n_long_c]].tolist())
+    assert hubs <= set(np.diff(bp)[tj[:n_long_c]].tolist())
+    assert max(np.diff(ap)[ti[n_long_c:]].max(),
+               np.diff(bp)[tj[n_long_c:]].max()) <= case["d_small"]
+    assert chip_smoke.fused_brute(case, "search")[:n_long_c].sum() > 0
     for case in FUSED_TRAPS.values():
         n_long_c = _trap_split(case, "global")["n_long"]
         if n_long_c:
@@ -360,7 +383,7 @@ def test_count_pair_fused_on_the_cpu_launches_nothing(name):
     case = FUSED_TRAPS[name]
     args = _t(case["arrays"])
     before = kmod.launch_count()
-    for fb in FALLBACKS:
+    for fb in case["fallbacks"]:
         kw = chip_smoke.fused_case_kwargs(case, fb)
         for tcount in case["tcounts"]:
             assert torch.equal(count_pair_fused(*args, tcount, **kw),
@@ -448,7 +471,7 @@ def test_kernel_equals_plain_on_the_gpu():
     assert kmod.stage_limit() == kmod.STAGE_LIMIT
     for name, case in FUSED_TRAPS.items():
         args = [a.cuda() for a in _t(case["arrays"])]
-        for fb in FALLBACKS:
+        for fb in case["fallbacks"]:
             kw = chip_smoke.fused_case_kwargs(case, fb)
             split = _trap_split(case, fb)
             for tcount in case["tcounts"]:

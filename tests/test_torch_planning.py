@@ -183,8 +183,8 @@ def test_graph_digest_and_cache_behaviour():
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(rebalance_trials=2), dict(hub_split=True), dict(bucketize=True)],
-    ids=["rebalance", "hub_split", "bucketize"],
+    "kw", [dict(rebalance_trials=2), dict(hub_split=True)],
+    ids=["rebalance", "hub_split"],
 )
 def test_later_stages_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
