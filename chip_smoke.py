@@ -36,6 +36,10 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
+   ``rebalance_path`` — the main graph with ``rebalance_trials=3``: the
+                    rebalance report, one kernel launch a counted
+                    device-step, warm counts of the plain and the
+                    rebalanced plan in turns, each equal to the oracle;
    ``search2``    — the main graph with ``method="search2"`` (cold and
                     warm, the bucketizer's ``bucket_stats``) and
                     ``method="auto"`` (what it resolved to), each equal to
@@ -49,11 +53,25 @@ What it does, in order, printing one JSON object per line:
                     oracle; then each path's row of the fused kernel
                     (``"path"``), held to ``count_pair_fused_plain`` on
                     every device-step the path counted;
+   ``hub_path``   — the main graph with ``hub_split=True`` on the ring
+                    (p = 16) and on Cannon (q = 4), ``method="fused"``:
+                    cold, warm (on the ring profiled, the ``tc_hub``
+                    range apart), ``method="search"``, the hub partial
+                    and the residual schedule alone (the ring's hub
+                    partial also at chunk 512), all equal to the
+                    oracle; then the fused
+                    kernel's ``"oned_hub"`` row, held to its plain route
+                    on every residual device-step;
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}: Cannon
                     with every method (``search``, ``global``, ``fused``,
                     ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
                     the ring with ``search``, ``global``, ``fused``,
                     ``auto``, against the exact per-edge oracle;
+   ``many_path``  — ``count_triangles_many`` over ``rmat(16..18, 16)`` and
+                    two named graphs, ``method="search"``, Cannon q = 4
+                    and the ring p = 16, chunks 512 and 8192: cold, warm
+                    (a program-cache hit), equal to ``count_triangles``
+                    graph by graph and to the oracle;
 7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against
                     their plain versions and the reference on small inputs
                     built to hit the edge cases (exact equality; the tests
@@ -648,7 +666,7 @@ def kernel_report(art, dev, launches):
 # phases
 # ----------------------------------------------------------------------
 def profile_count(count, expect, kernel="fused_counts_kernel",
-                  label="fused"):
+                  label="fused", annotation=None):
     """Where a warm count's device time goes: ``count`` under
     ``torch.profiler``, once as the profiler's warm-up cycle and once
     recorded; device time summed by kernel name, and that of the kernels
@@ -657,7 +675,10 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     the count made.  Tracing slows the host down, so the busy share is
     taken against the recorded run's own wall time and says so.
     ``device_seconds`` of 0 means the profiler saw no device activity
-    here, and nothing was measured."""
+    here, and nothing was measured.  ``annotation`` names a
+    ``record_function`` range (``tc_hub``): its host time and, where the
+    profiler reports one, its device span are given apart and kept out
+    of the kernel sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -671,12 +692,24 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
+    events = prof.key_averages()
     kernels = [  # the step's own annotation spans the whole step: no kernel
         (ev.key, ev.self_device_time_total * 1e-6, ev.count)
-        for ev in prof.key_averages()
+        for ev in events
         if ev.device_type == DeviceType.CUDA
-        and not ev.key.startswith("ProfilerStep")
+        and not ev.key.startswith("ProfilerStep") and ev.key != annotation
     ]
+    spans = {}
+    if annotation is not None:
+        mine_ev = [ev for ev in events if ev.key == annotation]
+        spans = {
+            f"{annotation}_host_seconds": sum(
+                ev.cpu_time_total for ev in mine_ev
+                if ev.device_type == DeviceType.CPU) * 1e-6,
+            f"{annotation}_device_span_seconds": sum(
+                ev.device_time_total for ev in mine_ev
+                if ev.device_type == DeviceType.CUDA) * 1e-6,
+        }
     kernels.sort(key=lambda kv: -kv[1])
     total = sum(t for _, t, _ in kernels)
     searchsorted = int(sum(n for k, _, n in kernels
@@ -693,6 +726,7 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
         f"{label}_kernel_launches_expected": int(expect),
         "complete": seen == expect,
         "device_busy_share_of_profiled_wall": (total / wall) if wall > 0 else None,
+        **spans,
         "top": [dict(kernel=k[:80], seconds=t, launches=int(n))
                 for k, t, n in kernels[:6]],
     }
@@ -822,10 +856,12 @@ def search2_phase(g, oracle, q):
 
 def schedule_device_steps(plan, kind):
     """``(device index, step)`` of every device-step the engine counts on
-    a SUMMA (``(x, y)``, round) or ring (``(d,)``, step) plan: the mask
-    keeps it and the device has tasks that step."""
-    if kind == "summa":
-        grid, nsteps = (plan.r, plan.c), plan.c
+    a Cannon (``(x, y)``, step), SUMMA (``(x, y)``, round) or ring
+    (``(d,)``, step) plan: the mask keeps it and the device has tasks that
+    step."""
+    if kind in ("cannon", "summa"):
+        grid = (plan.q, plan.q) if kind == "cannon" else (plan.r, plan.c)
+        nsteps = grid[1]
 
         def tasks(idx, s):
             return int(plan.m_cnt[idx])
@@ -880,13 +916,19 @@ def tasks_past_stage_limit(plan, kind):
     from repro_torch.kernels.tc_fused import STAGE_LIMIT
 
     past, longest = 0, 0
-    if kind == "summa":
+    if kind in ("cannon", "summa"):
         la_all = np.diff(plan.a_indptr.astype(np.int64), axis=-1)
         lb_all = np.diff(plan.b_indptr.astype(np.int64), axis=-1)
     else:
         lens = np.diff(plan.indptr.astype(np.int64), axis=-1)
     for idx, s in schedule_device_steps(plan, kind):
-        if kind == "summa":
+        if kind == "cannon":  # after s shifts: A block (x, y+s), B (x+s, y)
+            x, y = idx
+            q = plan.q
+            cnt = int(plan.m_cnt[x, y])
+            la = la_all[x, (y + s) % q][plan.m_ti[x, y, :cnt]]
+            lb = lb_all[(x + s) % q, y][plan.m_tj[x, y, :cnt]]
+        elif kind == "summa":
             x, y = idx
             cnt = int(plan.m_cnt[x, y])
             la = la_all[x, s % plan.c][plan.m_ti[x, y, :cnt]]
@@ -985,10 +1027,11 @@ def schedule_path(kind, g, oracle, dev, grid, graph):
     return r.artifact, launches, steps
 
 
-def schedule_kernel_report(kind, art, dev, launches, steps):
+def schedule_kernel_report(kind, art, dev, launches, steps, path=None):
     """The fused kernel's row for a schedule: the whole step's count equal
     to ``count_pair_fused_plain``'s on every device-step the path counted;
-    timed cold-L2 at the first device's first counted step."""
+    timed cold-L2 at the first device's first counted step.  ``path``
+    names the row (default: the schedule)."""
     from repro_torch.kernels.tc_fused import (
         count_pair_fused,
         count_pair_fused_plain,
@@ -1016,7 +1059,7 @@ def schedule_kernel_report(kind, art, dev, launches, steps):
                          2, flush)
     rec = dict(
         name="tc_fused.fused_step_counts",
-        path=kind,
+        path=path or kind,
         route="cuda",
         source=KERNEL_SOURCE,
         replaces=KERNEL_REPLACES,
@@ -1051,9 +1094,264 @@ def schedule_kernel_report(kind, art, dev, launches, steps):
     rec["bound_share"] = rec["bound_ms"] / ms if ms > 0 else None
     if unequal:
         print(json.dumps({"kernels": [rec]}), flush=True)
-        fail(f"fused kernel != plain route on the {kind} path at "
+        fail(f"fused kernel != plain route on the {path or kind} path at "
              f"device-steps {unequal[:20]}")
     return rec
+
+
+# ----------------------------------------------------------------------
+# the planner stages on the card: hub split, rebalance, batched counts
+# ----------------------------------------------------------------------
+HUB_GRIDS = (("oned", (GRID, GRID)), ("cannon", (GRID, GRID)))
+HUB_CHUNK = 8192
+DEFAULT_CHUNK = 512  # count_triangles' and tc_run's default chunk
+REBALANCE_TRIALS = 3
+MANY_SCALES = (16, 17, 18)
+MANY_NAMED = ("named:karate", "named:k10")
+MANY_GRIDS = (("cannon", (GRID, GRID)), ("oned", (GRID, GRID)))
+
+
+def synced(fn):
+    """``fn()`` and its host seconds, between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hub_partial(art, dev, chunk=None):
+    """The hub side's partial alone, as ``HubCount`` runs it inside a
+    count (the plain search over every logical device's fragments), at the
+    plan's chunk or at ``chunk``: ``(triangles, seconds)``."""
+    from repro_torch.core.engine import HubCount
+
+    h = art.plan.hub
+    hub = HubCount(dpad=h.dpad, chunk=h.chunk if chunk is None else chunk,
+                   sentinel=h.sentinel, hub_cnt=h.hub_cnt)
+    st = art.staged(dev)
+    out = torch.zeros(h.hub_cnt.shape, dtype=torch.int64, device=dev)
+    return synced(lambda: int(hub.count(st, out).sum()))
+
+
+def residual_count(art, kind, dev):
+    """The residual schedule alone (the hub side dropped from the plan),
+    fused, warm: ``(triangles, seconds)``."""
+    import dataclasses
+
+    from repro_torch.core.cannon import build_cannon_fn
+    from repro_torch.core.onedim import build_oned_fn
+    from repro_torch.core.summa import build_summa_fn
+
+    build = {"cannon": build_cannon_fn, "summa": build_summa_fn,
+             "oned": build_oned_fn}[kind]
+    fn = build(dataclasses.replace(art.plan, hub=None), method="fused")
+    st = art.staged(dev)
+    int(fn(**st))
+    return synced(lambda: int(fn(**st)))
+
+
+def hub_path(g, oracle, dev, graph):
+    """``count_triangles(g, hub_split=True, method="fused", chunk=8192)``
+    on the ring p = 16 and on Cannon q = 4: cold (one kernel launch a
+    counted residual device-step), warm (a plan-cache hit; on the ring
+    profiled with the ``tc_hub`` range apart), ``method="search"`` on the
+    same artifact, and the two halves alone — the hub partial (on the ring
+    also at the default chunk 512) and the residual schedule — all equal
+    to the oracle.  Returns the ring's ``oned_hub`` row of the fused kernel,
+    held to its plain route on every residual device-step."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.pipeline import default_cache
+
+    rows, bad, kernel_rows = {}, [], []
+    for kind, grid in HUB_GRIDS:
+        def count(**kw):
+            return rt.count_triangles(g, grid=grid, schedule=kind,
+                                      hub_split=True, chunk=HUB_CHUNK, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        kmod.reset_launch_count()
+        r = count(method="fused")
+        launches = kmod.launch_count()
+        peak = torch.cuda.max_memory_allocated()
+        art, plan = r.artifact, r.plan
+        if plan.hub is None:
+            fail(f"the {kind} hub split found no hub row")
+        steps = schedule_device_steps(plan, kind)
+        if launches <= 0:
+            fail(f"the {kind} hub path launched the fused kernel no time")
+        if launches != len(steps):
+            fail(f"the {kind} hub-split fused count launched its kernel "
+                 f"{launches} times, not once for each of the {len(steps)} "
+                 "residual device-steps that count")
+        hits0 = default_cache().hits
+        r2 = count(method="fused")
+        cache_hit = (r2.artifact is art and bool(r2.artifact.cache_hit)
+                     and default_cache().hits > hits0)
+        if not cache_hit:
+            fail(f"second {kind} hub-split count missed the plan cache")
+        prof = None
+        if kind == "oned":  # tracing Cannon's ~320,000 launches costs minutes
+            t0 = time.perf_counter()
+            prof = profile_count(lambda: count(method="fused"), launches,
+                                 annotation="tc_hub")
+            prof["profile_call_seconds"] = time.perf_counter() - t0
+        rs = rt.count_triangles(g, plan=art, schedule=kind, method="search")
+        hub_t, hub_s = hub_partial(art, dev)
+        res_t, res_s = residual_count(art, kind, dev)
+        h = plan.hub
+        row = dict(
+            graph=graph, schedule=kind, grid=list(r.grid), device=r.device,
+            triangles=r.triangles, triangles_repeat=r2.triangles,
+            triangles_search=rs.triangles, triangles_scipy_oracle=oracle,
+            hub=r.hub, hub_chunk=h.chunk, hub_tmax=int(h.hub_ti.shape[-1]),
+            hub_indices_pad=int(h.hub_indices.shape[-1]),
+            hubsplit_seconds=art.stage_seconds.get("hubsplit"),
+            preprocess_seconds=r.preprocess_seconds,
+            stage_seconds={k: float(v)
+                           for k, v in art.stage_seconds.items()},
+            count_seconds=r.count_seconds,
+            warm_preprocess_seconds=r2.preprocess_seconds,
+            warm_count_seconds=r2.count_seconds,
+            search_count_seconds=rs.count_seconds,
+            hub_partial=dict(triangles=hub_t, seconds=hub_s, chunk=h.chunk),
+            residual=dict(triangles=res_t, seconds=res_s, m=plan.m,
+                          dmax=plan.dmax, d_small=plan.d_small,
+                          n_long=plan.n_long, chunk=plan.chunk),
+            hub_share_of_halves=hub_s / (hub_s + res_s)
+            if hub_s + res_s > 0 else None,
+            kernel_launches=launches, device_steps_counted=len(steps),
+            cache_hit=cache_hit, peak_device_bytes=int(peak),
+            warm_count_profile=prof,
+        )
+        row["tasks_past_stage_limit"], row["longest_task_row"] = (
+            tasks_past_stage_limit(plan, kind))
+        want = [r.triangles, r2.triangles, rs.triangles, hub_t + res_t]
+        if kind == "oned":
+            t512, s512 = hub_partial(art, dev, chunk=DEFAULT_CHUNK)
+            row["hub_partial_chunk512"] = dict(triangles=t512, seconds=s512,
+                                               chunk=DEFAULT_CHUNK)
+            want.append(t512 + res_t)
+            kernel_rows.append(schedule_kernel_report(
+                kind, art, dev, launches, steps, path="oned_hub"))
+        if any(v != oracle for v in want):
+            bad.append((kind, want))
+        rows[kind] = row
+        del art, r, r2, rs
+    emit("hub_path", ok=not bad, mismatches=bad, **rows)
+    if bad:
+        fail(f"hub-split counts disagree with the oracle: {bad}")
+    return kernel_rows
+
+
+def rebalance_path(g, oracle, dev, q):
+    """``count_triangles(g, q=q, method="fused", rebalance_trials=3)``:
+    the rebalance report and stage seconds, one kernel launch a counted
+    device-step, then warm counts of the plain and the rebalanced plan in
+    turns (plain, rebalanced, rebalanced, plain): all equal to the
+    oracle.  Runs while the main path's plan is still in the cache."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+
+    def count(trials):
+        return rt.count_triangles(g, q=q, method="fused",
+                                  rebalance_trials=trials)
+
+    kmod.reset_launch_count()
+    r = count(REBALANCE_TRIALS)
+    launches = kmod.launch_count()
+    rb = r.rebalance
+    if rb is None:
+        fail("rebalance_trials > 0 gave no rebalance report")
+    steps = schedule_device_steps(r.plan, "cannon")
+    if launches <= 0 or launches != len(steps):
+        fail(f"the rebalanced fused count launched its kernel {launches} "
+             f"times, not once for each of the {len(steps)} device-steps")
+    warm = {"plain": [], "rebalanced": []}
+    counts = [r.triangles]
+    for name in ("plain", "rebalanced", "rebalanced", "plain"):
+        rw = count(REBALANCE_TRIALS if name == "rebalanced" else 0)
+        if not rw.artifact.cache_hit:
+            fail(f"the warm {name} count missed the plan cache")
+        warm[name].append(rw.count_seconds)
+        counts.append(rw.triangles)
+    impr = rb["improvement"]
+    sk = r.plan.step_keep
+    ok = all(c == oracle for c in counts)
+    emit("rebalance_path", ok=ok, q=q, device=r.device, trials=rb["trials"],
+         best_seed=rb["best_seed"],
+         improvement=impr if np.isfinite(impr) else None,
+         baseline_masked_critical_path=rb["baseline_masked_critical_path"],
+         best_masked_critical_path=rb["best_masked_critical_path"],
+         skipped_steps=rb["skipped_steps"],
+         baseline_skipped_steps=rb["baseline_skipped_steps"],
+         rebalance_seconds=r.artifact.stage_seconds.get("rebalance"),
+         preprocess_seconds=r.preprocess_seconds,
+         stage_seconds={k: float(v)
+                        for k, v in r.artifact.stage_seconds.items()},
+         count_seconds=r.count_seconds, warm_count_seconds=warm,
+         schedule_steps=int(sk.size), kernel_launches=launches,
+         device_steps_counted=len(steps), triangles=counts,
+         triangles_scipy_oracle=oracle)
+    if not ok:
+        fail(f"rebalanced counts disagree with the oracle: {counts}")
+
+
+def many_path(dev, seed, scales=MANY_SCALES):
+    """``count_triangles_many`` over rmat graphs of ``scales`` and two
+    small named graphs, ``method="search"``, on Cannon q = 4 and the ring
+    p = 16 at chunks 512 and 8192: cold (planning, padding, staging),
+    warm (a program-cache hit), against ``count_triangles`` graph by graph
+    and the scipy oracle.  No hand-written kernel runs here: the batch is
+    the plain search's."""
+    import repro_torch as rt
+    from repro_torch.core import graph_from_spec
+    from repro_torch.pipeline import PlanCache
+
+    specs = [f"rmat:{s},{EDGE_FACTOR},{seed}" for s in scales]
+    graphs = [rt.rmat(s, EDGE_FACTOR, seed=seed) for s in scales]
+    specs += list(MANY_NAMED)
+    graphs += [graph_from_spec(s) for s in MANY_NAMED]
+    t0 = time.perf_counter()
+    oracles = [scipy_triangle_oracle(x.n, x.edges) for x in graphs]
+    oracle_s = time.perf_counter() - t0
+    rows, bad = {}, []
+    for kind, grid in MANY_GRIDS:
+        for chunk in (DEFAULT_CHUNK, HUB_CHUNK):
+            cache = PlanCache()
+            kw = dict(grid=grid, schedule=kind, method="search", chunk=chunk,
+                      cache=cache)
+            res = rt.count_triangles_many(graphs, **kw)
+            res2 = rt.count_triangles_many(graphs, **kw)
+            if res.cache_hit or not res2.cache_hit:
+                fail(f"the {kind} batch at chunk {chunk}: cold hit "
+                     f"{res.cache_hit}, warm hit {res2.cache_hit}")
+            per = [rt.count_triangles(x, **kw) for x in graphs]
+            rows[f"{kind}/chunk{chunk}"] = dict(
+                grid=list(res.grid), batch=res.batch,
+                triangles=res.triangles, triangles_repeat=res2.triangles,
+                triangles_per_graph=[p.triangles for p in per],
+                padding_overhead=res.padding_overhead,
+                plan_seconds=res.plan_seconds,
+                warm_plan_seconds=res2.plan_seconds,
+                count_seconds=res.count_seconds,
+                warm_count_seconds=res2.count_seconds,
+                per_graph_count_seconds=[p.count_seconds for p in per],
+                per_graph_count_seconds_sum=sum(p.count_seconds for p in per),
+                per_graph_preprocess_seconds_sum=sum(
+                    p.preprocess_seconds for p in per),
+            )
+            if not (res.triangles == res2.triangles
+                    == [p.triangles for p in per] == oracles):
+                bad.append((kind, chunk, res.triangles,
+                            [p.triangles for p in per]))
+    emit("many_path", ok=not bad, graphs=specs, device=str(dev),
+         triangles_scipy_oracle=oracles, oracle_seconds=oracle_s,
+         mismatches=bad, **rows)
+    if bad:
+        fail(f"batched counts disagree with count_triangles / the oracle: "
+             f"{bad}")
 
 
 def small_graphs():
@@ -1658,6 +1956,7 @@ def main():
                                          GRID, dev)
     kernels = [kernel_report(art, dev, launches)]
     del art
+    rebalance_path(g, oracle, dev, GRID)
     search2_phase(g, oracle, GRID)
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
@@ -1665,8 +1964,12 @@ def main():
                                                graph)
         kernels.append(schedule_kernel_report(kind, sart, dev, slaunches,
                                               steps))
-    del g, sart
+    del sart
+    kernels += hub_path(g, oracle, dev, graph)
+    del g
     small_graphs()
+    many_path(dev, args.seed,
+              tuple(s - (20 - args.scale) for s in MANY_SCALES))
     run_tile_traps(dev)
     tile_scale = min(TILE_SCALE, args.scale - 2)
     kernels += tile_path(tile_scale, args.seed, GRID, dev)

@@ -2,7 +2,8 @@
 
 Public surface:
 
-* :func:`count_triangles` — full pipeline (preprocess -> plan -> schedule).
+* :func:`count_triangles` — full pipeline (preprocess -> plan -> schedule);
+  :func:`count_triangles_many` — many graphs in one engine call.
 * :class:`Graph`, generators (:func:`rmat`, :func:`erdos_renyi`, ...).
 * :func:`build_plan` / :func:`plan_from_numpy` — host planner.
 * schedules: :mod:`.cannon` (the paper's), :mod:`.summa` (rectangular
@@ -13,6 +14,7 @@ from .api import (  # noqa: F401
     TCResult,
     available_schedules,
     count_triangles,
+    count_triangles_many,
     get_schedule,
     register_schedule,
 )

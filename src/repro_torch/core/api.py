@@ -20,8 +20,10 @@ selected with ``method``: any registered CSR kernel (``search``,
 autotune report), and on Cannon also the bit-tile kernels (``tile``) or
 the dense oracle path (``dense``).  Runners
 receive the *raw* graph plus the relabel options on the
-:class:`RunContext` (``reorder``/``cyclic_p``) — relabeling happens
-inside the pipeline so the cache can skip it.
+:class:`RunContext` (``reorder``/``cyclic_p``) and the planner stages
+(``rebalance_trials``/``hub_split``) — relabeling happens inside the
+pipeline so the cache can skip it.  ``count_triangles_many`` batches
+several graphs into one engine call.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ __all__ = [
     "RunContext",
     "check_count_overflow",
     "count_triangles",
+    "count_triangles_many",
     "register_schedule",
     "get_schedule",
     "available_schedules",
@@ -85,6 +88,14 @@ class TCResult:
     # the PlanArtifact this count ran from (None for caller-supplied raw
     # plans or schedules registered without plans_itself)
     artifact: Optional[object] = None
+    # skip-aware rebalance search report (set when rebalance_trials > 0
+    # planned the artifact): trial history, best seed, baseline/best
+    # masked critical path, skipped steps
+    rebalance: Optional[dict] = None
+    # hub-split report when the plan carries a hub side: h0 / hub_rows /
+    # hub_nnz / hub_nnz_frac / hub_tasks / hub_dpad plus residual_mcp (the
+    # residual plan's masked critical path; None when no stats were kept)
+    hub: Optional[dict] = None
 
 
 # ----------------------------------------------------------------------
@@ -136,6 +147,11 @@ class RunContext:
     # repro_torch.pipeline with these, so cache hits skip the relabel too
     reorder: bool = True
     cyclic_p: Optional[int] = None
+    # skip-aware rebalance: search this many relabeling seeds (0 = off)
+    rebalance_trials: int = 0
+    # hub-split stage: False = off, True = the default threshold, a
+    # number = the threshold multiplier c
+    hub_split: object = False
     cache: Optional[object] = None  # PlanCache; None -> default_cache()
     # resolved reporting fields (land on TCResult)
     autotune_mode: Optional[str] = None
@@ -285,11 +301,13 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
                 # search2's bucketizer, which the planner forces)
                 keep_blocks=(method == "tile"),
                 bucketize=(method == "search2"),
+                rebalance_trials=ctx.rebalance_trials,
                 compact=ctx.compact is not False,
                 # the fused kernel needs the two-sided maxfrag split;
                 # auto resolves from the percentile report
                 autotune="fused" if method == "fused" else (method == "auto"),
                 aug_keys=aug,
+                hub_split=ctx.hub_split,
                 cache=ctx.cache,
             )
 
@@ -340,10 +358,12 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
 
         ctx.artifact = plan_summa(
             graph, *grid, chunk=ctx.chunk, reorder=ctx.reorder,
-            cyclic_p=ctx.cyclic_p, compact=ctx.compact is not False,
+            cyclic_p=ctx.cyclic_p, rebalance_trials=ctx.rebalance_trials,
+            compact=ctx.compact is not False,
             autotune="fused" if ctx.method == "fused"
             else (ctx.method == "auto"),
             broadcast=ctx.broadcast or "auto",
+            hub_split=ctx.hub_split,
             cache=ctx.cache,
         )
         splan = ctx.artifact.plan
@@ -379,9 +399,11 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
 
         ctx.artifact = plan_oned(
             graph, p, chunk=ctx.chunk, reorder=ctx.reorder,
-            cyclic_p=ctx.cyclic_p, compact=ctx.compact is not False,
+            cyclic_p=ctx.cyclic_p, rebalance_trials=ctx.rebalance_trials,
+            compact=ctx.compact is not False,
             autotune="fused" if ctx.method == "fused"
             else (ctx.method == "auto"),
+            hub_split=ctx.hub_split,
             cache=ctx.cache,
         )
         oplan = ctx.artifact.plan
@@ -445,6 +467,8 @@ def count_triangles(
     chunk: int = 512,
     reorder: bool = True,
     cyclic_p: Optional[int] = None,
+    rebalance_trials: int = 0,
+    hub_split: object = False,
     count_dtype=None,
     plan=None,
     use_step_mask: Optional[bool] = None,
@@ -488,6 +512,16 @@ def count_triangles(
     plan's own); on one device all of them give the same count.
     ``cyclic_p`` enables the paper's initial cyclic redistribution
     (§5.3 step 1) as the pipeline's first relabel stage.
+    ``rebalance_trials > 0`` runs the skip-aware rebalance stage during
+    planning (``TCResult.rebalance`` carries its report);
+    ``hub_split`` (``True`` or a threshold multiplier c) runs the
+    hub-split stage: rows of degree above c × the average degree are cut
+    off the schedule and counted as a separate plain-search partial
+    (``TCResult.hub``), while the residual takes the normal path with
+    ``method``.  Both need planning through the pipeline: with a
+    caller-supplied plan, or a schedule registered without
+    ``plans_itself``, they raise.  The tile and dense paths refuse hub
+    plans.
     ``use_step_mask`` controls sparsity-aware step skipping (None =
     auto: on when the plan staged ``step_keep`` masks; False forces the
     unmasked engine); ``compact`` controls the compacted kept-step
@@ -540,6 +574,23 @@ def count_triangles(
         )
     q = grid[0]
 
+    if rebalance_trials and (plan is not None or not spec.plans_itself):
+        raise ValueError(
+            "rebalance_trials requires planning through the pipeline: "
+            "drop the caller-supplied plan and use a schedule registered "
+            "with plans_itself=True"
+        )
+    from ..pipeline.hubsplit import normalize_hub_split
+
+    if normalize_hub_split(hub_split) is not None and (
+        plan is not None or not spec.plans_itself
+    ):
+        raise ValueError(
+            "hub_split requires planning through the pipeline: drop the "
+            "caller-supplied plan (it already carries — or lacks — its "
+            "hub side) and use a schedule registered with "
+            "plans_itself=True"
+        )
     if not spec.plans_itself and (reorder or cyclic_p is not None):
         # runner contract without plans_itself: hand it the relabeled graph
         from ..pipeline import relabel_stage
@@ -560,6 +611,8 @@ def count_triangles(
         broadcast=broadcast,
         reorder=reorder,
         cyclic_p=cyclic_p,
+        rebalance_trials=rebalance_trials,
+        hub_split=hub_split,
         cache=cache,
     )
     if artifact is not None:
@@ -583,4 +636,43 @@ def count_triangles(
         device=str(device),
         autotune_mode=ctx.autotune_mode,
         artifact=ctx.artifact,
+        rebalance=getattr(ctx.artifact, "rebalance", None),
+        hub=_hub_report(out_plan, ctx.artifact),
     )
+
+
+def _hub_report(plan, artifact) -> Optional[dict]:
+    """The hub side's report plus ``residual_mcp``: the residual plan's
+    masked critical path, from the rebalance report when there is one,
+    else from the plan's stats (``None`` without either)."""
+    hub_side = getattr(plan, "hub", None)
+    if hub_side is None:
+        return None
+    rep = hub_side.report()
+    rb = getattr(artifact, "rebalance", None)
+    stats = getattr(plan, "stats", None)
+    if rb is not None:
+        rep["residual_mcp"] = rb.get("best_masked_critical_path")
+    elif stats is not None:
+        from ..pipeline.rebalance import masked_critical_path
+
+        rep["residual_mcp"] = masked_critical_path(
+            stats.probe_work_per_device_shift,
+            getattr(plan, "step_keep", None),
+        )
+    else:
+        rep["residual_mcp"] = None
+    return rep
+
+
+def count_triangles_many(graphs, **kwargs):
+    """Count triangles of many graphs in one engine call.
+
+    Thin re-export of :func:`repro_torch.pipeline.count_triangles_many`
+    (the batched front end): graphs are padded to shared shapes, stacked
+    on a leading batch dimension, and run through the engine once;
+    results match the per-graph :func:`count_triangles` totals exactly.
+    """
+    from ..pipeline import count_triangles_many as _many
+
+    return _many(graphs, **kwargs)

@@ -32,11 +32,11 @@ __all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn"]
 
 
 def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
-               compact, reduce_strategy):
+               compact, reduce_strategy, batched=False, hub=None):
     """The engine composition shared by every ``build_cannon_*`` fn: the skip
     mask and the compacted schedule come from the CSR plan."""
     use_step_mask = resolve_step_mask(plan, use_step_mask)
-    live = resolve_compact_steps(plan, compact)
+    live = resolve_compact_steps(plan, compact, batched=batched)
     schedule = CannonSchedule(
         q=plan.q, double_buffer=double_buffer, live_steps=live
     )
@@ -46,7 +46,16 @@ def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
         m_cnt=plan.m_cnt,
         step_keep=plan.step_keep if use_step_mask else None,
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
+        batched=batched,
+        hub=hub,
     )
+
+
+def _refuse_hub(plan, message):
+    """The tile and dense paths stage arrays of their own and have no slot
+    for the hub-split partial: refuse a hub plan loudly."""
+    if getattr(plan, "hub", None) is not None:
+        raise ValueError(message)
 
 
 def build_cannon_fn(
@@ -59,6 +68,7 @@ def build_cannon_fn(
     double_buffer: bool = True,
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
+    batched: bool = False,
 ):
     """Build the counting function for ``plan`` on its ``(q, q)`` grid.
 
@@ -83,7 +93,12 @@ def build_cannon_fn(
     intersection keys when the plan carries them (no other method reads
     them, so none carries them along).
     ``double_buffer`` is accepted and gives the same count (see
-    :class:`~repro_torch.core.engine.CannonSchedule`).
+    :class:`~repro_torch.core.engine.CannonSchedule`).  A hub-split plan
+    adds its hub partial (:class:`~repro_torch.core.engine.HubCount`,
+    the plain search whatever ``method`` counts the residual).
+    ``batched=True`` builds the multi-graph function of
+    :mod:`repro_torch.pipeline.batch` (``plan.m_cnt`` / ``step_keep``
+    then carry the leading batch dimension).
     """
     plan = as_plan(plan)
     if method == "fused":
@@ -105,7 +120,8 @@ def build_cannon_fn(
     return _engine_fn(
         plan, store, reduce_global=reduce_global, use_step_mask=use_step_mask,
         double_buffer=double_buffer, compact=compact,
-        reduce_strategy=reduce_strategy,
+        reduce_strategy=reduce_strategy, batched=batched,
+        hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
     )
 
 
@@ -128,10 +144,18 @@ def build_cannon_tile_fn(
     index, also under a compacted schedule.  ``mode`` is ``"popcount"``
     or ``"mxu"`` (same count).  The skip mask and the compaction come from
     the *CSR* plan.  Unlike the JAX package's, it takes no tile plan: the
-    tile shapes travel with the staged tensors.
+    tile shapes travel with the staged tensors.  A hub-split plan is
+    refused.
     """
+    plan = as_plan(plan)
+    _refuse_hub(
+        plan,
+        "the bit-tile path stages its own arrays and would drop the "
+        "hub-split partial; plan with hub_split=False for method "
+        "'tile'",
+    )
     return _engine_fn(
-        as_plan(plan), TileStore(mode=mode), reduce_global=reduce_global,
+        plan, TileStore(mode=mode), reduce_global=reduce_global,
         use_step_mask=use_step_mask, double_buffer=double_buffer,
         compact=compact, reduce_strategy=reduce_strategy,
     )
@@ -147,9 +171,17 @@ def build_cannon_dense_fn(
     reduce_strategy: str = "auto",
 ):
     """Dense-operand Cannon (oracle path): blocks as 0/1 float32 matrices
-    (``plan.dense_blocks()`` staged), counted by ``torch.matmul``."""
+    (``plan.dense_blocks()`` staged), counted by ``torch.matmul``.  A
+    hub-split plan is refused."""
+    plan = as_plan(plan)
+    _refuse_hub(
+        plan,
+        "the dense oracle path stages its own blocks and would drop "
+        "the hub-split partial; plan with hub_split=False for "
+        "method 'dense'",
+    )
     return _engine_fn(
-        as_plan(plan), DenseStore(), reduce_global=reduce_global,
+        plan, DenseStore(), reduce_global=reduce_global,
         use_step_mask=use_step_mask, double_buffer=double_buffer,
         compact=compact, reduce_strategy=reduce_strategy,
     )

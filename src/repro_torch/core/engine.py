@@ -33,11 +33,15 @@ Carried over here: the CSR-kernel registry (``search``, ``search2``,
 :class:`SummaCSRStore`, :class:`OneDCSRStore`, :class:`DenseStore`,
 :class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule`,
 :class:`SummaSchedule` and :class:`RingSchedule` (plain and compacted),
-:class:`Reduction` (``flat``) and :func:`build_engine_fn`.
+:class:`Reduction` (``flat``), the hub-split partial (:class:`HubCount`)
+and :func:`build_engine_fn`, batched or not.  Where the JAX package maps
+the schedule over a batch of graphs with ``lax.map``, the batched
+function here loops over the staged tensors' leading batch dimension,
+each graph with its own host task counts and skip mask.
 Not carried over yet: blob packing and uint16 length compression of the
 shifted payload (a communication optimisation with nothing to serialise
-on one device), the 2.5D pod axis and the tree reduction, the hub-split
-partial (``HubCount``), batching and the stepper.
+on one device), the 2.5D pod axis and the tree reduction, and the
+stepper.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ __all__ = [
     "OneDCSRStore",
     "RingSchedule",
     "Reduction",
+    "HubCount",
     "CSR_KERNELS",
     "register_csr_kernel",
     "make_csr_kernel",
@@ -657,6 +662,65 @@ class Reduction:
 
 
 # ======================================================================
+# hub-split partial count
+# ======================================================================
+class HubCount:
+    """The hub-fragment partial sum of a hub-split plan.
+
+    Runs *outside* the schedule loop, once a count: the planner's
+    hub-split stage (:mod:`repro_torch.pipeline.hubsplit`) stages
+    column-strided fragment CSRs + task lists per logical device, each
+    device's slice is counted with the plain pair-search
+    (:func:`~repro_torch.core.count.count_pair_search`, whatever the
+    schedule's ``method``: fragments are intersected against each other,
+    A and B alike), and the per-device partials are added to the
+    schedule's before the :class:`Reduction` — so skip masks and schedule
+    compaction compose untouched (hub work never revives an elided step).
+    The work sits inside ``torch.profiler.record_function("tc_hub")``, so
+    a profile splits it from the schedule.  ``hub_cnt`` is the hub side's
+    *host* task counts, read like the plan's ``m_cnt``.
+    """
+
+    names = ("hub_indptr", "hub_indices", "hub_ti", "hub_tj", "hub_cnt")
+
+    def __init__(self, *, dpad: int, chunk: int, sentinel: int,
+                 hub_cnt: np.ndarray, probe_shorter: bool = True):
+        self.dpad = int(dpad)
+        self.chunk = int(chunk)
+        self.sentinel = int(sentinel)
+        self.hub_cnt = np.asarray(hub_cnt)
+        self.probe_shorter = probe_shorter
+
+    @classmethod
+    def from_plan(cls, plan, *, probe_shorter: bool = True):
+        h = getattr(plan, "hub", None)
+        if h is None:
+            return None
+        return cls(
+            dpad=h.dpad, chunk=h.chunk, sentinel=h.sentinel,
+            hub_cnt=h.hub_cnt, probe_shorter=probe_shorter,
+        )
+
+    def count(self, arrays, out):
+        """Add every logical device's hub partial to ``out`` (the
+        grid-shaped int64 per-device counts) in place."""
+        ptr, idx = arrays["hub_indptr"], arrays["hub_indices"]
+        with torch.profiler.record_function("tc_hub"):
+            for dev in np.ndindex(*self.hub_cnt.shape):
+                cnt = int(self.hub_cnt[dev])
+                if cnt <= 0:
+                    continue
+                out[dev] += count_mod.count_pair_search(
+                    ptr[dev], idx[dev], ptr[dev], idx[dev],
+                    arrays["hub_ti"][dev], arrays["hub_tj"][dev], cnt,
+                    dpad=self.dpad, chunk=self.chunk,
+                    probe_shorter=self.probe_shorter,
+                    sentinel=self.sentinel,
+                )
+        return out
+
+
+# ======================================================================
 # building the counting function
 # ======================================================================
 def build_engine_fn(
@@ -666,6 +730,8 @@ def build_engine_fn(
     m_cnt: np.ndarray,
     step_keep: Optional[np.ndarray] = None,
     reduction: Optional[Reduction] = None,
+    batched: bool = False,
+    hub: Optional[HubCount] = None,
 ):
     """Generate the counting function for one composition.
 
@@ -680,22 +746,63 @@ def build_engine_fn(
     device.  ``m_cnt`` is indexed as the schedule reads it
     (:meth:`ShiftSchedule.task_count`: per device for Cannon and SUMMA,
     per (device, owner group) for the ring).  ``step_keep=None`` runs
-    every (device, step) pair.
+    every (device, step) pair.  ``hub`` adds the hub-split partial
+    (:class:`HubCount`) and the ``hub_*`` arrays to the call.
+
+    ``batched=True`` builds the multi-graph variant: every staged tensor,
+    ``m_cnt`` and ``step_keep`` carry a leading batch dimension (graphs
+    padded to shared maxima and stacked by
+    :mod:`repro_torch.pipeline.batch`), the schedule runs graph by graph,
+    each with its own task counts and mask, and the call returns the
+    ``(batch,)`` int64 vector of global counts.
     """
     reduction = (reduction or Reduction()).resolve()
     m_cnt = np.asarray(m_cnt)
     keep = None if step_keep is None else np.asarray(step_keep, dtype=bool)
     ordered = list(store.names)
+    if hub is not None:
+        ordered += list(hub.names)
 
-    def call(**arrays):
+    def check(arrays):
         missing = [k for k in ordered if k not in arrays]
         if missing:
             raise KeyError(f"engine call is missing plan arrays {missing}")
         devices = {arrays[k].device for k in ordered}
         if len(devices) != 1:
             raise ValueError(f"plan arrays live on several devices: {devices}")
-        per_device = schedule.run(store, arrays, m_cnt=m_cnt, step_keep=keep)
+
+    def core(arrays, cnt, mask):
+        per_device = schedule.run(store, arrays, m_cnt=cnt, step_keep=mask)
+        if hub is not None:
+            hub.count(arrays, per_device)
         return reduction.apply(per_device)
+
+    if batched:
+        if hub is not None:
+            raise ValueError(
+                "batched engines do not take hub-split plans (per-graph hub "
+                "sides differ; plan with hub_split=False)"
+            )
+        if not reduction.global_sum:
+            raise ValueError("batched engine returns per-graph global counts")
+        if schedule.live_steps is not None:
+            raise ValueError(
+                "batched engines use the scan body (per-graph masks differ; "
+                "compaction would need their union)"
+            )
+
+        def call(**arrays):
+            check(arrays)
+            return torch.stack([
+                core({k: v[b] for k, v in arrays.items()}, m_cnt[b],
+                     None if keep is None else keep[b])
+                for b in range(m_cnt.shape[0])
+            ])
+    else:
+
+        def call(**arrays):
+            check(arrays)
+            return core(arrays, m_cnt, keep)
 
     call.ordered = ordered
     return call

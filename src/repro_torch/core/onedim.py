@@ -58,7 +58,11 @@ class OneDPlan:
     # tasks per group need dmax probes, the rest fit in ``d_small``)
     n_long: Optional[int] = None
     d_small: Optional[int] = None
-    # hub-split side; always None until the hub-split stage is ported
+    # hub-split side (repro_torch.pipeline.hubsplit.HubSide) when the
+    # planner cut the heavy-tailed suffix off the schedule; its arrays
+    # join device_arrays() and the engine adds its partial
+    # (engine.HubCount).  The plan's own arrays then cover only the
+    # residual graph.
     hub: Optional[object] = None
 
     def device_arrays(self) -> Dict[str, np.ndarray]:
@@ -71,6 +75,8 @@ class OneDPlan:
         )
         if self.step_keep is not None:
             out["step_keep"] = self.step_keep
+        if self.hub is not None:
+            out.update(self.hub.device_arrays())
         return out
 
 
@@ -92,6 +98,7 @@ def build_oned_fn(
     use_step_mask: Optional[bool] = None,
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
+    batched: bool = False,
 ):
     """Build the ring's counting function: RingSchedule × OneDCSRStore ×
     kernel over the plan's ``(p,)`` ring.
@@ -104,6 +111,8 @@ def build_oned_fn(
     with the 2D build functions: a ring has no pod axis, so ``"tree"`` is
     refused.  ``method="fused"`` needs a maxfrag-split plan and runs its
     long bucket with the padded search's function (global column ids).
+    A hub-split plan adds its hub partial; ``batched=True`` builds the
+    multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
     """
     from . import engine
     from .engine import OneDCSRStore, Reduction, RingSchedule, make_csr_kernel
@@ -111,7 +120,7 @@ def build_oned_fn(
 
     plan = as_plan(plan)
     use_step_mask = resolve_step_mask(plan, use_step_mask)
-    live = resolve_compact_steps(plan, compact)
+    live = resolve_compact_steps(plan, compact, batched=batched)
     if method == "fused":
         engine.check_fused_split(plan)
     kernel = make_csr_kernel(
@@ -137,4 +146,6 @@ def build_oned_fn(
         m_cnt=plan.t_cnt,
         step_keep=plan.step_keep if use_step_mask else None,
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
+        batched=batched,
+        hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
     )

@@ -113,16 +113,19 @@ def compact_live_steps(step_keep: np.ndarray) -> CompactSchedule:
     )
 
 
-def resolve_compact_steps(plan, compact) -> Optional[Tuple[int, ...]]:
+def resolve_compact_steps(
+    plan, compact, *, batched: bool = False
+) -> Optional[Tuple[int, ...]]:
     """Resolve a ``compact`` request against the plan.
 
     ``None`` auto-enables compaction iff the planner staged a
-    :class:`CompactSchedule` that actually elides something.  An
-    explicit ``True`` on a plan without one is an error.
+    :class:`CompactSchedule` that actually elides something and the
+    build is not batched (per-graph masks differ, so a batch keeps the
+    full loop).  An explicit ``True`` that cannot be honored is an error.
     """
     cs = getattr(as_plan(plan), "compact", None)
     if compact is None:
-        if cs is None or cs.n_elided == 0:
+        if cs is None or batched or cs.n_elided == 0:
             return None
     elif not compact:
         return None
@@ -132,29 +135,41 @@ def resolve_compact_steps(plan, compact) -> Optional[Tuple[int, ...]]:
                 "plan carries no compacted schedule; re-plan through the "
                 "pipeline with step_masks=True (or leave compact=None)"
             )
+        if batched:
+            raise ValueError(
+                "compact=True is not supported for batched or multi-pod "
+                "engines; pass compact=False (or None for auto)"
+            )
     return cs.live_steps
 
 
-def resolve_broadcast(plan, broadcast) -> str:
+def resolve_broadcast(plan, broadcast, *, batched: bool = False) -> str:
     """Resolve a ``broadcast`` request of ``build_summa_fn`` against the
     plan.
 
     ``None`` defers to the strategy the plan was staged for (its
     ``broadcast`` field; ``"auto"`` when it has none); ``"auto"``
-    resolves to ``"chain"``, as the JAX package resolves it for an
-    unbatched engine.  On one device both strategies are the same gather
-    (:class:`~repro_torch.core.engine.SummaCSRStore`); the name is kept
-    so plans, cache keys and errors stay the reference's.
+    resolves to ``"chain"`` for a plain engine and ``"onehot"`` for a
+    batched one, and an explicit ``"chain"`` is refused for a batched
+    one, as in the JAX package.  On one device both strategies are the
+    same gather (:class:`~repro_torch.core.engine.SummaCSRStore`); the
+    name is kept so plans, cache keys and errors stay the reference's.
     """
     b = broadcast
     if b is None:
         b = getattr(as_plan(plan), "broadcast", None) or "auto"
     if b == "auto":
-        return "chain"
+        return "onehot" if batched else "chain"
     if b not in ("onehot", "chain"):
         raise ValueError(
             f"unknown broadcast strategy {b!r}; "
             "expected 'onehot', 'chain', or 'auto'"
+        )
+    if b == "chain" and batched:
+        raise ValueError(
+            "broadcast='chain' is not supported for batched engines "
+            "(chain rounds need the unrolled body); pass 'onehot' "
+            "(or 'auto')"
         )
     return b
 
@@ -292,7 +307,11 @@ class TCPlan:
     d_small: Optional[int] = None
     # padded-probe waste accounting from bucketize_plan
     bucket_stats: Optional[dict] = None
-    # hub-split side; always None until the hub-split stage is ported
+    # hub-split side (repro_torch.pipeline.hubsplit.HubSide) when the
+    # planner cut the heavy-tailed suffix off the schedule; its arrays
+    # join device_arrays() and the engine adds its partial
+    # (engine.HubCount).  The plan's own arrays then cover only the
+    # residual graph.
     hub: Optional[object] = None
 
     # ------------------------------------------------------------------
@@ -310,6 +329,8 @@ class TCPlan:
             out["step_keep"] = self.step_keep
         if self.b_aug is not None:
             out["b_aug"] = self.b_aug
+        if self.hub is not None:
+            out.update(self.hub.device_arrays())
         return out
 
     def dense_blocks(self) -> Dict[str, np.ndarray]:

@@ -69,7 +69,11 @@ class SummaPlan:
     # "chain") — a planner cache-key component, resolved by build_summa_fn
     # via repro_torch.core.plan.resolve_broadcast
     broadcast: str = "auto"
-    # hub-split side; always None until the hub-split stage is ported
+    # hub-split side (repro_torch.pipeline.hubsplit.HubSide) when the
+    # planner cut the heavy-tailed suffix off the schedule; its arrays
+    # join device_arrays() and the engine adds its partial
+    # (engine.HubCount).  The plan's own arrays then cover only the
+    # residual graph.
     hub: Optional[object] = None
 
     def device_arrays(self) -> Dict[str, np.ndarray]:
@@ -84,6 +88,8 @@ class SummaPlan:
         )
         if self.step_keep is not None:
             out["step_keep"] = self.step_keep
+        if self.hub is not None:
+            out.update(self.hub.device_arrays())
         return out
 
 
@@ -108,6 +114,7 @@ def build_summa_fn(
     compact: Optional[bool] = None,
     broadcast: Optional[str] = None,
     reduce_strategy: str = "auto",
+    batched: bool = False,
 ):
     """Build the counting function for ``plan`` on its ``(r, c)`` grid:
     SummaSchedule × SummaCSRStore × kernel.
@@ -121,7 +128,9 @@ def build_summa_fn(
     ``"auto"``, or ``None`` for the plan's own) is resolved and checked
     as in the JAX package (:func:`~repro_torch.core.plan.resolve_broadcast`);
     on one device every strategy gives the same count.  ``method`` is any
-    registered CSR kernel; ``"fused"`` needs a maxfrag-split plan.
+    registered CSR kernel; ``"fused"`` needs a maxfrag-split plan.  A
+    hub-split plan adds its hub partial; ``batched=True`` builds the
+    multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
     """
     from . import engine
     from .engine import Reduction, SummaCSRStore, SummaSchedule, make_csr_kernel
@@ -134,8 +143,8 @@ def build_summa_fn(
 
     plan = as_plan(plan)
     use_step_mask = resolve_step_mask(plan, use_step_mask)
-    live = resolve_compact_steps(plan, compact)
-    broadcast = resolve_broadcast(plan, broadcast)
+    live = resolve_compact_steps(plan, compact, batched=batched)
+    broadcast = resolve_broadcast(plan, broadcast, batched=batched)
     if method == "fused":
         engine.check_fused_split(plan)
     kernel = make_csr_kernel(
@@ -155,4 +164,6 @@ def build_summa_fn(
         m_cnt=plan.m_cnt,
         step_keep=plan.step_keep if use_step_mask else None,
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
+        batched=batched,
+        hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
     )

@@ -4,18 +4,26 @@
         --method fused --verify --json
     python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
         --schedule summa --broadcast chain --method auto --verify
+    python -m repro_torch.launch.tc_run --graph powerlaw:20000,2.2 \\
+        --grid 4 --schedule oned --method fused --hub-split --rebalance 3
+    python -m repro_torch.launch.tc_run --graphs named:karate,rmat:12 \\
+        --grid 2 --verify --json
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
 broadcast rounds; ``--schedule oned``: the 1D ring over ``q²`` devices)
 and reports the paper's split: ``ppt_seconds`` (host planning + staging)
-and ``tct_seconds`` (the count).  Runs on the GPU unless ``--device cpu``
-is given.
+and ``tct_seconds`` (the count).  ``--rebalance N`` and ``--hub-split
+[C]`` add the planner's skip-aware rebalance and hub-split stages;
+``--graphs a,b,c`` counts a whole *batch* of graphs in one engine call
+(``count_triangles_many``).  Runs on the GPU unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 
 
@@ -24,6 +32,19 @@ def main(argv=None):
     ap.add_argument("--graph", default="rmat:14",
                     help="rmat:<scale>[,<ef>[,<seed>]] | er:<n>,<deg> | "
                          "cliques:<k>,<size> | star:<n> | named:<id>")
+    ap.add_argument("--graphs", default=None,
+                    help="a list of specs (';'- or ','-separated): batched "
+                         "count via count_triangles_many (one engine call)")
+    ap.add_argument("--rebalance", type=int, default=0,
+                    help="skip-aware rebalance trials: search this many "
+                         "relabeling seeds for the lowest masked critical "
+                         "path (any schedule)")
+    ap.add_argument("--hub-split", nargs="?", const=True, default=None,
+                    type=float, metavar="C", dest="hub_split",
+                    help="hub-split planning: count rows with degree > C x "
+                         "the average degree (bare flag = the default C) "
+                         "as column-strided fragments outside the "
+                         "schedule; the residual takes the normal path")
     ap.add_argument("--grid", type=int, default=1, help="sqrt(p): grid is q x q")
     ap.add_argument("--schedule", default="cannon",
                     help="cannon | summa | oned (resolved by the schedule "
@@ -62,6 +83,27 @@ def main(argv=None):
     )
     from ..pipeline import default_cache
 
+    if args.rebalance and args.graphs:
+        raise SystemExit(
+            "--rebalance is not supported with --graphs; rebalance "
+            "single full-engine runs"
+        )
+    if args.hub_split is not None:
+        if args.graphs:
+            raise SystemExit(
+                "--hub-split is a single-graph pipeline stage; the "
+                "batched engine shares one set of statics across graphs "
+                "and takes no hub side — drop --graphs"
+            )
+        if args.method in ("dense", "tile"):
+            raise SystemExit(
+                f"--hub-split is not supported with --method "
+                f"{args.method}: the {args.method} operand store stages "
+                "its own blocks and would drop the hub-split partial"
+            )
+    if args.graphs:
+        return _run_batched(args)
+
     g = graph_from_spec(args.graph)
     report = {"graph": args.graph, "n": g.n, "m": g.m}
 
@@ -78,6 +120,10 @@ def main(argv=None):
             probe_shorter=not args.no_probe_shorter,
             use_step_mask=False if args.no_skip_mask else None,
             compact=False if args.no_compact else None,
+            rebalance_trials=args.rebalance,
+            hub_split=(
+                args.hub_split if args.hub_split is not None else False
+            ),
             device=args.device,
         )
         times.append(res.count_seconds)
@@ -94,6 +140,10 @@ def main(argv=None):
     report.update(_skip_fields(res.plan, args.no_skip_mask))
     report.update(_compact_fields(res.plan))
     report.update(_autotune_fields(res.plan))
+    if res.rebalance is not None:
+        report.update(_rebalance_fields(res.rebalance))
+    if args.hub_split is not None:
+        report.update(_hub_fields(res.hub))
     if res.autotune_mode is not None:
         report["autotune_mode"] = res.autotune_mode
     report["schedules"] = available_schedules()
@@ -139,6 +189,111 @@ def _compact_fields(plan) -> dict:
         return {}
     ndev = sk.size // max(1, cs.n_total)
     return dict(live_steps=cs.n_live, elided_steps=cs.n_elided * ndev)
+
+
+def _hub_fields(hub: "dict | None") -> dict:
+    """Flatten a TCResult.hub report into report fields.
+
+    ``hub is None`` with the flag on means no row crossed the threshold
+    (the stage no-opped) — reported as ``hub_rows=0`` rather than
+    omitted, so scripted consumers can tell "off" from "found nothing".
+    """
+    if hub is None:
+        return dict(hub_rows=0, hub_nnz_frac=0.0)
+    out = dict(
+        hub_rows=int(hub["hub_rows"]),
+        hub_nnz_frac=round(float(hub["hub_nnz_frac"]), 4),
+    )
+    if hub.get("residual_mcp") is not None:
+        out["residual_mcp"] = hub["residual_mcp"]
+    return out
+
+
+def _rebalance_fields(rb: dict) -> dict:
+    """Flatten a pipeline rebalance report into report fields:
+    masked-critical-path improvement and the skipped-step delta vs the
+    seed-0 baseline."""
+    impr = rb["improvement"]
+    return dict(
+        rebalance_trials=len(rb["trials"]),
+        rebalance_best_seed=rb["best_seed"],
+        rebalance_baseline_critical_path=rb["baseline_masked_critical_path"],
+        rebalance_masked_critical_path=rb["best_masked_critical_path"],
+        # inf (best path hit literal zero) is not valid JSON: emit null
+        rebalance_improvement=round(impr, 4) if math.isfinite(impr) else None,
+        rebalance_skipped_delta=(
+            rb["skipped_steps"] - rb["baseline_skipped_steps"]
+        ),
+    )
+
+
+def _run_batched(args):
+    """Batched mode: count every spec in --graphs with one engine call."""
+    from ..core import count_triangles_many, triangle_count_oracle
+    from ..core.generators import graph_from_spec, split_specs
+
+    if args.no_skip_mask:
+        raise SystemExit(
+            "--no-skip-mask is not supported with --graphs (the batched "
+            "engine always follows the plans' staged masks); use "
+            "single-graph runs to A/B the lever"
+        )
+    if args.method == "fused":
+        raise SystemExit(
+            "--method fused is not supported with --graphs (the batched "
+            "engine plans without the two-sided maxfrag split the fused "
+            "kernel needs); use single-graph runs"
+        )
+    if args.broadcast == "chain":
+        raise SystemExit(
+            "--broadcast chain is not supported with --graphs (a batched "
+            "engine resolves broadcast='auto' to 'onehot' and refuses "
+            "'chain', as the JAX package does); use single-graph runs"
+        )
+    specs = split_specs(args.graphs)
+    graphs = [graph_from_spec(s) for s in specs]
+    # the batched engine keeps the full loop (per-graph masks differ, so
+    # there is no shared live-step list to compact) and takes only CSR
+    # kernels: resolve 'auto' to the flat search path
+    method = "search" if args.method == "auto" else args.method
+    t0 = time.perf_counter()
+    for _ in range(max(1, args.repeat)):  # later rounds hit the program cache
+        res = count_triangles_many(
+            graphs,
+            q=args.grid,
+            schedule=args.schedule,
+            method=method,
+            chunk=args.chunk,
+            probe_shorter=not args.no_probe_shorter,
+            device=args.device,
+        )
+    report = {
+        "graphs": specs,
+        "batch": res.batch,
+        "triangles": res.triangles,
+        "ppt_seconds": round(res.plan_seconds, 4),
+        "tct_seconds": round(res.count_seconds, 4),
+        "total_seconds": round(time.perf_counter() - t0, 4),
+        "padding_overhead": round(res.padding_overhead, 4),
+        "grid": res.grid,
+        "schedule": res.schedule,
+        "method": res.method,
+        "device": res.device,
+        "cache_hit": res.cache_hit,
+    }
+    if args.verify:
+        expected = [triangle_count_oracle(g) for g in graphs]
+        report["expected"] = expected
+        report["correct"] = bool(res.triangles == expected)
+    if args.json:
+        print(json.dumps(report))
+    else:
+        for k, v in report.items():
+            print(f"{k}: {v}")
+    if args.verify and not report["correct"]:
+        raise SystemExit(
+            f"count mismatch: got {res.triangles}, expected {expected}"
+        )
 
 
 def _autotune_fields(plan) -> dict:

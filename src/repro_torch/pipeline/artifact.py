@@ -48,11 +48,16 @@ class PlanArtifact:
     kind: str
     digest: str
     key: Tuple
-    graph: Graph  # relabeled graph actually planned
+    graph: Graph  # relabeled graph (the full one for a hub-split plan)
     perm: Optional[np.ndarray]  # composed relabeling, old id -> new id
     plan: Any  # TCPlan, SummaPlan or OneDPlan
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     cache_hit: bool = False
+    # skip-aware rebalance search report: trial history, winning seed,
+    # baseline/best masked critical path, skipped steps; None when the
+    # plan was not rebalanced.  The trials knob is part of ``key``, so
+    # rebalanced and plain artifacts never collide.
+    rebalance: Optional[dict] = None
     # planner knobs this artifact was built with
     config: Optional[dict] = None
     _memo: Dict = dataclasses.field(default_factory=dict, repr=False)
@@ -76,6 +81,14 @@ class PlanArtifact:
         """The deterministic kernel-shape autotune report (chunk,
         ``d_small``/``n_long`` split, ``tail_heavy``), or ``None``."""
         return getattr(self.plan, "autotune", None)
+
+    @property
+    def hubsplit(self) -> Optional[dict]:
+        """The hub-split stage report (``h0``, ``hub_rows``,
+        ``hub_nnz_frac``, …), or ``None`` when the stage was off or no row
+        crossed the threshold."""
+        hub = getattr(self.plan, "hub", None)
+        return None if hub is None else hub.report()
 
     def memo(self, key, build: Callable):
         """Build-once storage for derived per-artifact state (staged

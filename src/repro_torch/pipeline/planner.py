@@ -1,5 +1,6 @@
-"""Cached pipeline entry point: one call = ingest → relabel → decompose →
-pack (→ stage, lazily), all behind the content-addressed cache.
+"""Cached pipeline entry point: one call = ingest → relabel (→ hub split
+→ rebalance) → decompose → pack (→ stage, lazily), all behind the
+content-addressed cache.
 
 ``plan_cannon`` / ``plan_summa`` / ``plan_oned`` are what the schedule
 runners in :mod:`repro_torch.core.api` call; each returns a
@@ -18,6 +19,8 @@ from ..core.graph import Graph
 from ..core.plan import bucketize_plan
 from .artifact import PlanArtifact
 from .cache import PlanCache, default_cache, graph_digest
+from .hubsplit import hubsplit_stage, normalize_hub_split
+from .rebalance import rebalance_stage
 from .stages import (
     autotune_oned_plan,
     autotune_summa_plan,
@@ -47,6 +50,72 @@ def relabel_cached(
     )
 
 
+def _rebalanced(g2, perm, trials, reorder, pack_trial, seconds):
+    """Run the rebalance stage between relabel and pack (no-op when off).
+
+    Trials pack lean (stats + masks only); the returned winner plan is
+    reused by callers whose flags match the trial flags, and re-packed
+    otherwise — so the stage composes with any pack configuration
+    (keep_blocks, bucketize, step_masks=False, ...).
+    """
+    if not trials:
+        return g2, perm, None, None
+    if not reorder:
+        raise ValueError(
+            "rebalance_trials requires reorder=True: trial relabelings "
+            "shuffle within equal-degree runs of the degree ordering"
+        )
+    t0 = time.perf_counter()
+    g2, perm, best_plan, report = rebalance_stage(g2, perm, trials, pack_trial)
+    seconds["rebalance"] = time.perf_counter() - t0
+    return g2, perm, best_plan, report
+
+
+def _hub_knob(hub_split, reorder, cyclic_p):
+    """Validate + canonicalize the hub-split knob (None | threshold c).
+
+    The suffix-cut decomposition needs the degree ordering: hub
+    detection is a ``searchsorted`` on the sorted degrees, and the cut
+    ``[h0, n)`` is only the hub set because hubs get the highest ids.
+    """
+    hub_c = normalize_hub_split(hub_split)
+    if hub_c is None:
+        return None
+    if not reorder:
+        raise ValueError(
+            "hub_split requires reorder=True: the hub cut is a suffix "
+            "of the degree ordering"
+        )
+    if cyclic_p is not None:
+        raise ValueError(
+            "hub_split composes with the degree ordering only; the "
+            "cyclic redistribution (cyclic_p) breaks the degree-suffix "
+            "property the cut relies on"
+        )
+    return hub_c
+
+
+def _hub_stage(g2, grid, hub_c, chunk, seconds):
+    """Run the hub-split stage (no-op when off / nothing crosses)."""
+    if hub_c is None:
+        return g2, None
+    t0 = time.perf_counter()
+    g2, hub = hubsplit_stage(g2, grid, c=hub_c, chunk=chunk)
+    seconds["hubsplit"] = time.perf_counter() - t0
+    return g2, hub
+
+
+def _artifact_graph(graph, g2, perm, hub, rb):
+    """The graph an artifact carries: the planned one, or — for a hub
+    plan, whose arrays cover only the residual — the *full* relabeled
+    graph.  Marks whether the hub side's id space survived rebalance
+    (trial seed 0 = yes)."""
+    if hub is None:
+        return g2
+    hub.aligned = rb is None or int(rb.get("best_seed", 0)) == 0
+    return graph.relabel(perm)
+
+
 def _drive(kind, graph, key_tail, cache, pack):
     """Shared front half: ingest (digest + cache probe) then relabel + pack."""
     cache = cache if cache is not None else default_cache()
@@ -65,20 +134,6 @@ def _drive(kind, graph, key_tail, cache, pack):
     art.stage_seconds.update(seconds)
     cache.put(key, art)
     return art
-
-
-def _not_ported(what: str, roadmap_item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({roadmap_item} in "
-        "ROADMAP.md); the JAX package repro.pipeline has it"
-    )
-
-
-def _refuse_later_stages(rebalance_trials, hub_split):
-    if rebalance_trials:
-        _not_ported("rebalance_trials > 0 (skip-aware rebalance)", "Queue A-9")
-    if hub_split is not None and hub_split is not False:
-        _not_ported("hub_split (hub-split decomposition)", "Queue A-9")
 
 
 def plan_cannon(
@@ -120,13 +175,14 @@ def plan_cannon(
     string ``"fused"`` for the two-sided maxfrag split the fused kernel
     requires; ``aug_keys`` stages the row-encoded B intersection keys for
     the ``global`` and ``search2`` kernels.  All are cache-key components.
-
-    ``rebalance_trials > 0`` and ``hub_split`` are accepted in the
-    signature (they are cache-key components) and raise
-    ``NotImplementedError`` until their stages are ported.
+    ``rebalance_trials > 0`` runs the skip-aware rebalance stage over that
+    many relabeling seeds (the winner's report lands on the artifact's
+    ``rebalance``); ``hub_split`` (False | True | threshold multiplier c)
+    runs the hub-split stage between relabel and rebalance: the
+    heavy-tailed id suffix is cut off into column-strided fragments
+    (``plan.hub``) and every later stage sees only the residual graph.
     """
-    _refuse_later_stages(rebalance_trials, hub_split)
-    hub_c = None
+    hub_c = _hub_knob(hub_split, reorder, cyclic_p)
 
     def pack(digest, key, seconds, cache_):
         t0 = time.perf_counter()
@@ -134,6 +190,15 @@ def plan_cannon(
             graph, digest, reorder=reorder, cyclic_p=cyclic_p, cache=cache_
         )
         seconds["relabel"] = time.perf_counter() - t0
+        g2, hub = _hub_stage(g2, (q, q), hub_c, chunk, seconds)
+        g2, perm, best_plan, rb = _rebalanced(
+            g2, perm, rebalance_trials, reorder,
+            lambda gt: pack_tc_plan(
+                gt, q, skew=skew, chunk=chunk, with_stats=True,
+                keep_blocks=False, step_masks=True,
+            ),
+            seconds,
+        )
         t1 = time.perf_counter()
         pack_kwargs = dict(
             skew=skew,
@@ -143,7 +208,13 @@ def plan_cannon(
             step_masks=step_masks,
             aug_keys=aug_keys,
         )
-        plan = pack_tc_plan(g2, q, **pack_kwargs)
+        if best_plan is not None and (
+            with_stats and not (keep_blocks or bucketize) and step_masks
+            and not aug_keys
+        ):  # caller flags == trial flags: the winner pack is the plan
+            plan = best_plan
+        else:
+            plan = pack_tc_plan(g2, q, **pack_kwargs)
         if compact and skew:
             plan = compact_stage(
                 plan,
@@ -155,10 +226,12 @@ def plan_cannon(
             plan = bucketize_plan(plan, d_small=d_small)
         if autotune:
             plan = autotune_tc_plan(plan, two_sided=(autotune == "fused"))
+        plan.hub = hub
         seconds["decompose+pack"] = time.perf_counter() - t1
         return PlanArtifact(
-            kind="cannon", digest=digest, key=key, graph=g2,
-            perm=perm, plan=plan, config=config,
+            kind="cannon", digest=digest, key=key,
+            graph=_artifact_graph(graph, g2, perm, hub, rb),
+            perm=perm, plan=plan, rebalance=rb, config=config,
         )
 
     config = dict(
@@ -200,10 +273,9 @@ def plan_summa(
     records the panel-broadcast strategy the plan is staged for
     (``"auto"``/``"onehot"``/``"chain"``, resolved by ``build_summa_fn``) — like
     every planner knob it is a cache-key component.
-    ``rebalance_trials > 0`` and ``hub_split`` raise
-    ``NotImplementedError`` until their stages are ported."""
-    _refuse_later_stages(rebalance_trials, hub_split)
-    hub_c = None
+    ``rebalance_trials`` and ``hub_split`` run the rebalance and hub-split
+    stages as in :func:`plan_cannon`."""
+    hub_c = _hub_knob(hub_split, reorder, cyclic_p)
 
     def pack(digest, key, seconds, cache_):
         t0 = time.perf_counter()
@@ -211,20 +283,33 @@ def plan_summa(
             graph, digest, reorder=reorder, cyclic_p=cyclic_p, cache=cache_
         )
         seconds["relabel"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        plan = pack_summa_plan(
-            g2, r, c, chunk=chunk, step_masks=step_masks,
-            with_stats=bool(rebalance_trials),
+        g2, hub = _hub_stage(g2, (r, c), hub_c, chunk, seconds)
+        g2, perm, best_plan, rb = _rebalanced(
+            g2, perm, rebalance_trials, reorder,
+            lambda gt: pack_summa_plan(
+                gt, r, c, chunk=chunk, step_masks=True, with_stats=True
+            ),
+            seconds,
         )
+        t1 = time.perf_counter()
+        if best_plan is not None and step_masks:
+            plan = best_plan  # caller flags == trial flags
+        else:
+            plan = pack_summa_plan(
+                g2, r, c, chunk=chunk, step_masks=step_masks,
+                with_stats=bool(rebalance_trials),
+            )
         if compact:
             plan = compact_stage(plan)  # rounds have no free visit order
         if autotune:
             plan = autotune_summa_plan(plan, two_sided=(autotune == "fused"))
         plan.broadcast = broadcast
+        plan.hub = hub
         seconds["decompose+pack"] = time.perf_counter() - t1
         return PlanArtifact(
-            kind="summa", digest=digest, key=key, graph=g2,
-            perm=perm, plan=plan, config=config,
+            kind="summa", digest=digest, key=key,
+            graph=_artifact_graph(graph, g2, perm, hub, rb),
+            perm=perm, plan=plan, rebalance=rb, config=config,
         )
 
     config = dict(
@@ -260,10 +345,11 @@ def plan_oned(
     fused multi-hop rotations); ``autotune`` tunes the chunk (the ring's
     global-id columns rule out the two-level split), and with
     ``"fused"`` lands the maxfrag split and long-first reorder the fused
-    kernel needs.  ``rebalance_trials > 0`` and ``hub_split`` raise
-    ``NotImplementedError`` until their stages are ported."""
-    _refuse_later_stages(rebalance_trials, hub_split)
-    hub_c = None
+    kernel needs.  ``rebalance_trials`` and ``hub_split`` run the
+    rebalance and hub-split stages as in :func:`plan_cannon` (on the ring
+    the hub tasks go round-robin over ``p`` devices, with full
+    fragments)."""
+    hub_c = _hub_knob(hub_split, reorder, cyclic_p)
 
     def pack(digest, key, seconds, cache_):
         t0 = time.perf_counter()
@@ -271,19 +357,32 @@ def plan_oned(
             graph, digest, reorder=reorder, cyclic_p=cyclic_p, cache=cache_
         )
         seconds["relabel"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        plan = pack_oned_plan(
-            g2, p, chunk=chunk, step_masks=step_masks,
-            with_stats=bool(rebalance_trials),
+        g2, hub = _hub_stage(g2, (p,), hub_c, chunk, seconds)
+        g2, perm, best_plan, rb = _rebalanced(
+            g2, perm, rebalance_trials, reorder,
+            lambda gt: pack_oned_plan(
+                gt, p, chunk=chunk, step_masks=True, with_stats=True
+            ),
+            seconds,
         )
+        t1 = time.perf_counter()
+        if best_plan is not None and step_masks:
+            plan = best_plan  # caller flags == trial flags
+        else:
+            plan = pack_oned_plan(
+                g2, p, chunk=chunk, step_masks=step_masks,
+                with_stats=bool(rebalance_trials),
+            )
         if compact:
             plan = compact_stage(plan)  # ring steps have no free order
         if autotune:
             plan = autotune_oned_plan(plan, two_sided=(autotune == "fused"))
+        plan.hub = hub
         seconds["decompose+pack"] = time.perf_counter() - t1
         return PlanArtifact(
-            kind="oned", digest=digest, key=key, graph=g2,
-            perm=perm, plan=plan, config=config,
+            kind="oned", digest=digest, key=key,
+            graph=_artifact_graph(graph, g2, perm, hub, rb),
+            perm=perm, plan=plan, rebalance=rb, config=config,
         )
 
     config = dict(

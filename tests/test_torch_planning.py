@@ -187,8 +187,16 @@ def test_graph_digest_and_cache_behaviour():
     ids=["rebalance", "hub_split"],
 )
 def test_later_stages_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.plan_cannon(tc.rmat(7, 8), 2, cache=tp.PlanCache(), **kw)
+    """The rebalance and hub-split stages, once refused with
+    ``NotImplementedError``, now plan: no stage raises, and the artifact
+    has the reference's key, reports and arrays."""
+    a = jp.plan_cannon(jc.rmat(7, 8), 2, cache=jp.PlanCache(), **kw)
+    b = tp.plan_cannon(tc.rmat(7, 8), 2, cache=tp.PlanCache(), **kw)
+    assert b.key == a.key
+    assert b.rebalance == a.rebalance and b.hubsplit == a.hubsplit
+    da, db = a.plan.device_arrays(), b.plan.device_arrays()
+    assert list(db) == list(da)
+    assert all(db[k].tobytes() == da[k].tobytes() for k in da)
 
 
 def test_plan_from_numpy_round_trip():

@@ -438,12 +438,17 @@ def test_grid_and_plan_kind_are_checked():
                                 dict(hub_split=True)],
                          ids=["rebalance", "hub_split"])
 def test_later_stages_raise_not_implemented(kind, kw):
-    g = tc.rmat(7, 8)
-    with pytest.raises(NotImplementedError, match="Queue A-9"):
-        if kind == "summa":
-            tp.plan_summa(g, 2, 2, cache=tp.PlanCache(), **kw)
-        else:
-            tp.plan_oned(g, 4, cache=tp.PlanCache(), **kw)
+    """The rebalance and hub-split stages, once refused with
+    ``NotImplementedError`` on SUMMA and the ring, now plan: no stage
+    raises, and the artifact has the reference's key and reports."""
+    if kind == "summa":
+        a = jp.plan_summa(jc.rmat(7, 8), 2, 2, cache=jp.PlanCache(), **kw)
+        b = tp.plan_summa(tc.rmat(7, 8), 2, 2, cache=tp.PlanCache(), **kw)
+    else:
+        a = jp.plan_oned(jc.rmat(7, 8), 4, cache=jp.PlanCache(), **kw)
+        b = tp.plan_oned(tc.rmat(7, 8), 4, cache=tp.PlanCache(), **kw)
+    assert b.key == a.key
+    assert b.rebalance == a.rebalance and b.hubsplit == a.hubsplit
 
 
 def test_warm_count_hits_the_cache_and_reuses_staged_tensors():
