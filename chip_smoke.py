@@ -36,6 +36,22 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
+   ``delta_path`` — a 10-round edge-delta stream on the main graph through
+                    ``count_triangles_delta`` (Cannon q = 4, ``method=
+                    "fused"``, ``rebase_every=8``; the base a plan-cache
+                    hit): 4-edit rounds that splice, a 4,096-edit round
+                    that repacks, a rebase at depth 9; each round's level,
+                    dirty blocks, replanned stages, inherited engine,
+                    times and reused buffers, its kernel launches (one a
+                    counted device-step) and its count against an
+                    incremental scipy oracle sharing no code with the
+                    package; then the replay of round 1 (a lineage-cache
+                    hit), a profiled warm count of round 1's spliced plan
+                    (no ``searchsorted``), the final graph counted cold,
+                    and ``tc_run --stream --verify`` on ``rmat:14``; then
+                    the fused kernel's ``"cannon_delta"`` row, held to its
+                    plain route on every device-step of round 1's spliced
+                    plan that reads a dirty block;
    ``rebalance_path`` — the main graph with ``rebalance_trials=3``: the
                     rebalance report, one kernel launch a counted
                     device-step, warm counts of the plain and the
@@ -68,10 +84,10 @@ What it does, in order, printing one JSON object per line:
                     the ring with ``search``, ``global``, ``fused``,
                     ``auto``, against the exact per-edge oracle;
    ``many_path``  — ``count_triangles_many`` over ``rmat(16..18, 16)`` and
-                    two named graphs, ``method="search"``, Cannon q = 4
-                    and the ring p = 16, chunks 512 and 8192: cold, warm
-                    (a program-cache hit), equal to ``count_triangles``
-                    graph by graph and to the oracle;
+                    two named graphs, ``method="search"``, Cannon q = 4 at
+                    chunk 8192 and the ring p = 16 at chunks 512 and 8192:
+                    cold, warm (a program-cache hit), equal to
+                    ``count_triangles`` graph by graph and to the oracle;
 7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against
                     their plain versions and the reference on small inputs
                     built to hit the edge cases (exact equality; the tests
@@ -882,9 +898,12 @@ def schedule_step_inputs(art, dev, kind, idx, step):
     (block-local ids, the row-encoded keys' long bucket); ring device
     ``d`` at step ``t`` counts its own block against owner ``(d + t) % p``'s
     with that owner's task group (global ids, the padded search's long
-    bucket).  Returns ``(args, tcount, kw, split)`` as ``step_inputs``."""
+    bucket).  A Cannon device ``(x, y)`` is ``step_inputs``'.  Returns
+    ``(args, tcount, kw, split)`` as ``step_inputs``."""
     from repro_torch.kernels.tc_fused import fused_split_sizes, fused_tile_for
 
+    if kind == "cannon":
+        return step_inputs(art, dev, *idx, step)
     plan = art.plan
     st = art.staged(dev)
     if kind == "summa":
@@ -1074,8 +1093,8 @@ def schedule_kernel_report(kind, art, dev, launches, steps, path=None):
         ms=ms,
         plain_ms=plain_ms,
         plain_note="count_pair_fused_plain: count_pair_search_global "
-                   "(summa) / count_pair_search (oned) on the long bucket, "
-                   "fused_short_counts_plain on the short",
+                   "(cannon, summa) / count_pair_search (oned) on the long "
+                   "bucket, fused_short_counts_plain on the short",
         library_ms=None,
         library_note="no single PyTorch call computes a batched "
                      "sorted-set intersection over CSR rows",
@@ -1108,7 +1127,11 @@ DEFAULT_CHUNK = 512  # count_triangles' and tc_run's default chunk
 REBALANCE_TRIALS = 3
 MANY_SCALES = (16, 17, 18)
 MANY_NAMED = ("named:karate", "named:k10")
-MANY_GRIDS = (("cannon", (GRID, GRID)), ("oned", (GRID, GRID)))
+# (schedule, grid, chunk) of each batch: the ring at both chunks keeps the
+# chunk-512 reading on the card; Cannon's chunk-512 batch (about 98 s a
+# run, PERF.md section 5) is left out to make room for the delta path
+MANY_CELLS = (("cannon", (GRID, GRID), 8192), ("oned", (GRID, GRID), 512),
+              ("oned", (GRID, GRID), 8192))
 
 
 def synced(fn):
@@ -1300,8 +1323,9 @@ def rebalance_path(g, oracle, dev, q):
 
 def many_path(dev, seed, scales=MANY_SCALES):
     """``count_triangles_many`` over rmat graphs of ``scales`` and two
-    small named graphs, ``method="search"``, on Cannon q = 4 and the ring
-    p = 16 at chunks 512 and 8192: cold (planning, padding, staging),
+    small named graphs, ``method="search"``, on each of ``MANY_CELLS``
+    (Cannon q = 4 at chunk 8192, the ring p = 16 at chunks 512 and
+    8192): cold (planning, padding, staging),
     warm (a program-cache hit), against ``count_triangles`` graph by graph
     and the scipy oracle.  No hand-written kernel runs here: the batch is
     the plain search's."""
@@ -1317,41 +1341,335 @@ def many_path(dev, seed, scales=MANY_SCALES):
     oracles = [scipy_triangle_oracle(x.n, x.edges) for x in graphs]
     oracle_s = time.perf_counter() - t0
     rows, bad = {}, []
-    for kind, grid in MANY_GRIDS:
-        for chunk in (DEFAULT_CHUNK, HUB_CHUNK):
-            cache = PlanCache()
-            kw = dict(grid=grid, schedule=kind, method="search", chunk=chunk,
-                      cache=cache)
-            res = rt.count_triangles_many(graphs, **kw)
-            res2 = rt.count_triangles_many(graphs, **kw)
-            if res.cache_hit or not res2.cache_hit:
-                fail(f"the {kind} batch at chunk {chunk}: cold hit "
-                     f"{res.cache_hit}, warm hit {res2.cache_hit}")
-            per = [rt.count_triangles(x, **kw) for x in graphs]
-            rows[f"{kind}/chunk{chunk}"] = dict(
-                grid=list(res.grid), batch=res.batch,
-                triangles=res.triangles, triangles_repeat=res2.triangles,
-                triangles_per_graph=[p.triangles for p in per],
-                padding_overhead=res.padding_overhead,
-                plan_seconds=res.plan_seconds,
-                warm_plan_seconds=res2.plan_seconds,
-                count_seconds=res.count_seconds,
-                warm_count_seconds=res2.count_seconds,
-                per_graph_count_seconds=[p.count_seconds for p in per],
-                per_graph_count_seconds_sum=sum(p.count_seconds for p in per),
-                per_graph_preprocess_seconds_sum=sum(
-                    p.preprocess_seconds for p in per),
-            )
-            if not (res.triangles == res2.triangles
-                    == [p.triangles for p in per] == oracles):
-                bad.append((kind, chunk, res.triangles,
-                            [p.triangles for p in per]))
+    for kind, grid, chunk in MANY_CELLS:
+        cache = PlanCache()
+        kw = dict(grid=grid, schedule=kind, method="search", chunk=chunk,
+                  cache=cache)
+        res = rt.count_triangles_many(graphs, **kw)
+        res2 = rt.count_triangles_many(graphs, **kw)
+        if res.cache_hit or not res2.cache_hit:
+            fail(f"the {kind} batch at chunk {chunk}: cold hit "
+                 f"{res.cache_hit}, warm hit {res2.cache_hit}")
+        per = [rt.count_triangles(x, **kw) for x in graphs]
+        rows[f"{kind}/chunk{chunk}"] = dict(
+            grid=list(res.grid), batch=res.batch,
+            triangles=res.triangles, triangles_repeat=res2.triangles,
+            triangles_per_graph=[p.triangles for p in per],
+            padding_overhead=res.padding_overhead,
+            plan_seconds=res.plan_seconds,
+            warm_plan_seconds=res2.plan_seconds,
+            count_seconds=res.count_seconds,
+            warm_count_seconds=res2.count_seconds,
+            per_graph_count_seconds=[p.count_seconds for p in per],
+            per_graph_count_seconds_sum=sum(p.count_seconds for p in per),
+            per_graph_preprocess_seconds_sum=sum(
+                p.preprocess_seconds for p in per),
+        )
+        if not (res.triangles == res2.triangles
+                == [p.triangles for p in per] == oracles):
+            bad.append((kind, chunk, res.triangles,
+                        [p.triangles for p in per]))
     emit("many_path", ok=not bad, graphs=specs, device=str(dev),
          triangles_scipy_oracle=oracles, oracle_seconds=oracle_s,
          mismatches=bad, **rows)
     if bad:
         fail(f"batched counts disagree with count_triangles / the oracle: "
              f"{bad}")
+
+
+# ----------------------------------------------------------------------
+# the delta ladder on the card: a stream of edge edits on the main graph
+# ----------------------------------------------------------------------
+# edits a round: 4 (2 removals of existing edges, 2 additions of absent
+# pairs) dirty at most 4 of Cannon's 16 blocks, so they splice; 4,096
+# dirty every block, so round 7 repacks; round 9 is depth 9 > 8: rebase
+DELTA_ROUNDS = (4, 4, 4, 4, 4, 4, 4096, 4, 4, 4)
+DELTA_PLANNED = ("splice",) * 6 + ("repack", "splice", "rebase", "splice")
+DELTA_REBASE_EVERY = 8
+STREAM_GRAPH = "rmat:14"  # tc_run --stream, end to end
+STREAM_ROUNDS = (4, 4, 512, 4)
+
+
+class EdgeKeys:
+    """The script's own host copy of a mutating graph: its canonical edge
+    keys ``lo * n + hi``, sorted, and its symmetric scipy CSR adjacency
+    (sorted rows).  Shares no code with the package."""
+
+    def __init__(self, n, edges):
+        import scipy.sparse as sp
+
+        self.n = int(n)
+        lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
+        hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
+        self.keys = np.unique(lo * self.n + hi)
+        self.adj = self._sym(self.keys, 1, sp)
+        self.adj.sort_indices()
+
+    def _sym(self, keys, sign, sp):
+        lo, hi = keys // self.n, keys % self.n
+        return sp.csr_matrix(
+            (np.full(2 * keys.size, sign, dtype=np.int8),
+             (np.concatenate([lo, hi]), np.concatenate([hi, lo]))),
+            shape=(self.n, self.n))
+
+    def pairs(self, keys):
+        return np.stack([keys // self.n, keys % self.n], axis=1)
+
+    def has(self, u, v):
+        ip, ix = self.adj.indptr, self.adj.indices
+        row = ix[ip[u]:ip[u + 1]]
+        i = np.searchsorted(row, v)
+        return bool(i < row.size and row[i] == v)
+
+    def draw(self, rng, k):
+        """``k // 2`` existing edges to remove and ``k - k // 2`` absent
+        pairs to add, uniformly at random, as key arrays."""
+        rem = self.keys[rng.choice(self.keys.size, size=k // 2,
+                                   replace=False)]
+        add = np.zeros(0, dtype=np.int64)
+        while add.size < k - k // 2:
+            u = rng.integers(0, self.n, size=2 * k + 8)
+            v = rng.integers(0, self.n, size=2 * k + 8)
+            cand = np.minimum(u, v) * self.n + np.maximum(u, v)
+            cand = cand[u != v]
+            pos = np.minimum(np.searchsorted(self.keys, cand),
+                             self.keys.size - 1)
+            cand = np.concatenate([add, cand[self.keys[pos] != cand]])
+            _, first = np.unique(cand, return_index=True)
+            add = cand[np.sort(first)]
+        return rem, add[:k - k // 2]
+
+    def apply(self, rem, add):
+        """Remove then add; returns the change of the triangle count,
+        ``tri(G, R)`` lost and ``tri(G - R + A, A)`` gained."""
+        import scipy.sparse as sp
+
+        lost = self.through(self.pairs(rem))
+        self.keys = np.delete(self.keys, np.searchsorted(self.keys, rem))
+        self.adj = self.adj + self._sym(rem, -1, sp)
+        self.adj.eliminate_zeros()
+        add = np.sort(add)
+        self.keys = np.insert(self.keys, np.searchsorted(self.keys, add),
+                              add)
+        self.adj = (self.adj + self._sym(add, 1, sp)).tocsr()
+        self.adj.sort_indices()
+        return self.through(self.pairs(add)) - lost
+
+    def through(self, pairs):
+        """Triangles of the current graph holding at least one edge of
+        ``pairs`` (all present): ``sum |N(u) ∩ N(v)|`` over the pairs
+        counts a triangle once for each of its edges among them, so those
+        with two such edges are taken off once and those with three
+        twice."""
+        ip, ix = self.adj.indptr, self.adj.indices
+        total = 0
+        nbr = {}
+        for u, v in pairs.tolist():
+            total += np.intersect1d(ix[ip[u]:ip[u + 1]], ix[ip[v]:ip[v + 1]],
+                                    assume_unique=True).size
+            nbr.setdefault(u, []).append(v)
+            nbr.setdefault(v, []).append(u)
+        inside = {tuple(p) for p in pairs.tolist()}
+        two = three = 0
+        for ys in nbr.values():
+            for i in range(len(ys)):
+                for j in range(i + 1, len(ys)):
+                    a, b = min(ys[i], ys[j]), max(ys[i], ys[j])
+                    if (a, b) in inside:
+                        three += 1  # seen once at each of its 3 apexes
+                    elif self.has(a, b):
+                        two += 1
+        return total - two - 2 * (three // 3)
+
+
+def delta_stream(edges_n, rounds, seed):
+    """The rounds' deltas, each ``(remove, add)`` as ``(k, 2)`` int64
+    arrays in original ids, drawn from ``seed``, and the oracle's change
+    of the triangle count each round: ``(deltas, changes, final_keys)``."""
+    n, edges = edges_n
+    rng = np.random.default_rng(seed)
+    cur = EdgeKeys(n, edges)
+    deltas, changes = [], []
+    for k in rounds:
+        rem, add = cur.draw(rng, k)
+        deltas.append((cur.pairs(rem), cur.pairs(add)))
+        changes.append(cur.apply(rem, add))
+    return deltas, changes, cur
+
+
+def dirty_device_steps(plan, steps, pairs):
+    """The counted Cannon device-steps whose A block, B block or task
+    block holds an edited edge (``pairs`` in the plan's ids): after ``s``
+    shifts device ``(x, y)`` reads canonical blocks ``(x, z)`` and
+    ``(y, z)`` with ``z = σ[(x + y + s) % q]`` and its own ``(x, y)``."""
+    q = plan.q
+    sp = (list(plan.skew_perm) if plan.skew_perm is not None
+          else list(range(q)))
+    lo, hi = np.minimum(pairs[:, 0], pairs[:, 1]), np.maximum(
+        pairs[:, 0], pairs[:, 1])
+    dirty = set(zip((lo % q).tolist(), (hi % q).tolist()))
+    out = []
+    for (x, y), s in steps:
+        z = sp[(x + y + s) % q]
+        if {(x, z), (y, z), (x, y)} & dirty:
+            out.append(((x, y), s))
+    return out
+
+
+def stream_cli(dev, seed):
+    """``python -m repro_torch.launch.tc_run --stream`` end to end on
+    ``STREAM_GRAPH`` at q = 2, ``method="fused"``, ``--verify``: exit 0 and
+    every round correct.  The delta file goes to the build directory."""
+    import repro_torch as rt
+    from repro_torch.kernels import _build
+
+    g = rt.graph_from_spec(STREAM_GRAPH)
+    deltas, _, _ = delta_stream((g.n, g.edges), STREAM_ROUNDS, seed)
+    path = _build.build_dir() / "chip_smoke_stream.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(
+        json.dumps({"add": a.tolist(), "remove": r.tolist()}) + "\n"
+        for r, a in deltas))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tc_run", "--graph",
+         STREAM_GRAPH, "--grid", "2", "--method", "fused", "--stream",
+         str(path), "--verify", "--json", "--device", str(dev)],
+        env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"tc_run --stream exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    rounds = report["rounds"]
+    return dict(graph=STREAM_GRAPH, seconds=seconds,
+                rounds=len(rounds),
+                levels=[r["level"] for r in rounds],
+                correct=all(r["correct"] for r in rounds)
+                and len(rounds) == len(STREAM_ROUNDS))
+
+
+def delta_path(g, oracle, dev, q, seed):
+    """``count_triangles_delta`` over a 10-round stream on the main graph
+    (Cannon q = 4, ``method="fused"``, ``rebase_every=8``), each round
+    against the incremental oracle; then the replay of round 1, a
+    profiled warm count of round 1's spliced plan, the final graph
+    counted cold, and ``tc_run --stream``.  Returns the fused kernel's
+    ``"cannon_delta"`` row."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.pipeline import (
+        EdgeDelta,
+        PlanCache,
+        apply_delta,
+        default_cache,
+    )
+
+    t_phase = time.perf_counter()
+    deltas, changes, final = delta_stream((g.n, g.edges), DELTA_ROUNDS, seed)
+    oracle_s = time.perf_counter() - t_phase
+
+    hits0 = default_cache().hits
+    base = rt.count_triangles(g, q=q, method="fused")  # the main path's
+    if not (base.artifact.cache_hit and default_cache().hits > hits0):
+        fail("the delta path's base count missed the main path's plan")
+    stream_cache = PlanCache(maxsize=16)
+    art, want, rows, bad, firsts = base.artifact, oracle, [], [], None
+    kmod.reset_launch_count()
+    for i, ((rem, add), change) in enumerate(zip(deltas, changes)):
+        delta = EdgeDelta(add=add, remove=rem)
+        before = kmod.launch_count()
+        t1 = time.perf_counter()
+        res = rt.count_triangles_delta(
+            g, delta, artifact=art, cache=stream_cache, q=q, method="fused",
+            rebase_every=DELTA_REBASE_EVERY)
+        round_s = time.perf_counter() - t1
+        launches = kmod.launch_count() - before
+        art, rep, want = res.artifact, res.delta, want + change
+        steps = schedule_device_steps(art.plan, "cannon")
+        if i == 0:
+            firsts = (delta, art, steps)
+        st = art.stage_seconds
+        rows.append(dict(
+            round=i + 1, edits=delta.k, level=rep["level"],
+            planned_level=DELTA_PLANNED[i], reason=rep.get("reason"),
+            depth=rep["depth"], dirty_blocks=rep["dirty_blocks"],
+            dirty_block_fraction=rep["dirty_block_fraction"],
+            dirty_cell_fraction=rep["dirty_cell_fraction"],
+            replanned_stages=rep["replanned_stages"],
+            fn_inherited=rep["fn_inherited"],
+            apply_delta_seconds=st.get("apply_delta"),
+            stage_seconds=st.get("stage"),
+            stage_reused_buffers=st.get("stage_reused_buffers"),
+            preprocess_seconds=res.preprocess_seconds,
+            count_seconds=res.count_seconds, round_seconds=round_s,
+            nnz_pad=art.plan.nnz_pad, dmax=art.plan.dmax,
+            n_long=art.plan.n_long, d_small=art.plan.d_small,
+            kernel_launches=launches, device_steps_counted=len(steps),
+            triangles=res.triangles, expected=want))
+        if res.triangles != want:
+            bad.append((i + 1, res.triangles, want))
+        if launches != len(steps):
+            fail(f"delta round {i + 1} launched the fused kernel "
+                 f"{launches} times, not once for each of the {len(steps)} "
+                 "device-steps that count")
+    launches = kmod.launch_count()
+    if launches <= 0:
+        fail("the delta path launched the fused kernel no time")
+
+    delta1, art1, steps1 = firsts
+    replay = apply_delta(base.artifact, delta1, cache=stream_cache)
+    replay_hit = replay is art1 and bool(replay.cache_hit)
+    if not replay_hit:
+        fail("replaying round 1 on the base artifact missed the lineage "
+             "cache")
+    prof = profile_count(
+        lambda: rt.count_triangles(art1.graph, plan=art1, q=q,
+                                   method="fused"), len(steps1))
+    if prof.get("searchsorted_launches"):
+        fail(f"the warm count of a spliced plan ran "
+             f"{prof['searchsorted_launches']} searchsorted launches")
+    if prof.get("device_seconds", 0) > 0 and not prof["complete"]:
+        fail("the warm count of a spliced plan did not launch the kernel "
+             "once a counted device-step")
+
+    gf = rt.Graph(n=final.n, edges=final.pairs(final.keys), name="final")
+    cold = rt.count_triangles(gf, q=q, method="fused", cache=PlanCache())
+    if cold.triangles != rows[-1]["triangles"]:
+        bad.append(("cold", cold.triangles, rows[-1]["triangles"]))
+    cli = stream_cli(dev, seed)
+    if not cli["correct"]:
+        bad.append(("tc_run --stream", cli))
+
+    levels = [r["level"] for r in rows]
+    emit("delta_path", ok=not bad, q=q, device=base.device,
+         rebase_every=DELTA_REBASE_EVERY, triangles_base=base.triangles,
+         base_cache_hit=True, levels=levels,
+         levels_as_planned=levels == list(DELTA_PLANNED),
+         rounds=rows, mismatches=bad, incremental_oracle_seconds=oracle_s,
+         kernel_launches=launches, replay_cache_hit=replay_hit,
+         spliced_warm_count_profile=prof,
+         final_cold=dict(triangles=cold.triangles,
+                         preprocess_seconds=cold.preprocess_seconds,
+                         count_seconds=cold.count_seconds),
+         tc_run_stream=cli, seconds=time.perf_counter() - t_phase)
+    if bad:
+        fail(f"delta-path counts disagree with the incremental oracle: "
+             f"{bad}")
+    pairs = np.concatenate([delta1.add, delta1.remove])
+    perm = art1.perm
+    steps = dirty_device_steps(
+        art1.plan, steps1, pairs if perm is None else perm[pairs])
+    if not steps:
+        fail("round 1 dirtied no counted device-step")
+    rec = schedule_kernel_report("cannon", art1, dev, launches, steps,
+                                 path="cannon_delta")
+    rec["compared_note"] = ("every counted device-step of round 1's "
+                            "spliced plan that reads a dirty block")
+    stream_cache.clear()
+    return rec
 
 
 def small_graphs():
@@ -1956,6 +2274,7 @@ def main():
                                          GRID, dev)
     kernels = [kernel_report(art, dev, launches)]
     del art
+    kernels.append(delta_path(g, oracle, dev, GRID, args.seed))
     rebalance_path(g, oracle, dev, GRID)
     search2_phase(g, oracle, GRID)
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"

@@ -11,6 +11,7 @@ from .core import (  # noqa: F401
     TCResult,
     available_schedules,
     count_triangles,
+    count_triangles_delta,
     count_triangles_many,
     graph_from_spec,
     named_graph,

@@ -3,7 +3,8 @@
 Public surface:
 
 * :func:`count_triangles` — full pipeline (preprocess -> plan -> schedule);
-  :func:`count_triangles_many` — many graphs in one engine call.
+  :func:`count_triangles_many` — many graphs in one engine call;
+  :func:`count_triangles_delta` — a re-count after a batch of edge edits.
 * :class:`Graph`, generators (:func:`rmat`, :func:`erdos_renyi`, ...).
 * :func:`build_plan` / :func:`plan_from_numpy` — host planner.
 * schedules: :mod:`.cannon` (the paper's), :mod:`.summa` (rectangular
@@ -14,6 +15,7 @@ from .api import (  # noqa: F401
     TCResult,
     available_schedules,
     count_triangles,
+    count_triangles_delta,
     count_triangles_many,
     get_schedule,
     register_schedule,

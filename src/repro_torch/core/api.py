@@ -23,7 +23,9 @@ receive the *raw* graph plus the relabel options on the
 :class:`RunContext` (``reorder``/``cyclic_p``) and the planner stages
 (``rebalance_trials``/``hub_split``) — relabeling happens inside the
 pipeline so the cache can skip it.  ``count_triangles_many`` batches
-several graphs into one engine call.
+several graphs into one engine call; ``count_triangles_delta`` re-counts
+a graph after a batch of edge edits through the delta ladder of
+:mod:`repro_torch.pipeline.delta`.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ __all__ = [
     "RunContext",
     "check_count_overflow",
     "count_triangles",
+    "count_triangles_delta",
     "count_triangles_many",
     "register_schedule",
     "get_schedule",
@@ -96,6 +99,11 @@ class TCResult:
     # hub_nnz / hub_nnz_frac / hub_tasks / hub_dpad plus residual_mcp (the
     # residual plan's masked critical path; None when no stats were kept)
     hub: Optional[dict] = None
+    # apply_delta report (level, dirty blocks/cells, replanned stages,
+    # rebased, fn_inherited) when the count came through
+    # count_triangles_delta; ``artifact`` is then the derived artifact,
+    # to thread into the next count_triangles_delta call
+    delta: Optional[dict] = None
 
 
 # ----------------------------------------------------------------------
@@ -663,6 +671,64 @@ def _hub_report(plan, artifact) -> Optional[dict]:
     else:
         rep["residual_mcp"] = None
     return rep
+
+
+def count_triangles_delta(
+    graph: Graph,
+    delta,
+    *,
+    artifact=None,
+    cache=None,
+    rebase_every: int = 8,
+    **kwargs,
+) -> TCResult:
+    """Count triangles of ``graph`` mutated by ``delta``, incrementally.
+
+    ``delta`` is a :class:`repro_torch.pipeline.EdgeDelta` in **original**
+    vertex ids.  The base plan is taken from ``artifact`` (the
+    ``TCResult.artifact`` of a previous count — thread it through to
+    stream deltas) or planned fresh from ``graph`` with ``kwargs``
+    (``q`` / ``grid``, ``schedule``, ``method``, ``device``, ... as for
+    :func:`count_triangles`); :func:`repro_torch.pipeline.apply_delta`
+    then splices / re-packs only what the delta dirtied and the count
+    runs from the derived artifact, reusing unchanged device tensors and
+    (rebound) engine fns.  The result's ``delta`` field carries the apply
+    report and its ``artifact`` the derived artifact for the next round;
+    ``triangles`` is exact — identical to a cold count of the mutated
+    graph.
+    """
+    from ..pipeline.delta import apply_delta
+
+    if kwargs.get("autotune") == "measured":
+        raise ValueError(
+            "autotune='measured' re-times shapes per plan; the delta "
+            "path reuses engines and is keyed analytically — use the "
+            "default percentile mode"
+        )
+    if artifact is None:
+        base = count_triangles(graph, cache=cache, **kwargs)
+        artifact = base.artifact
+        if artifact is None:
+            raise ValueError(
+                "count_triangles_delta needs a pipeline-planned base "
+                "(schedule registered with plans_itself=True and no "
+                "caller-supplied raw plan)"
+            )
+    art2 = apply_delta(
+        artifact, delta, cache=cache, rebase_every=rebase_every
+    )
+    # the derived artifact already fixed its relabeling, rebalance seed
+    # and hub cut at plan time — re-count kwargs that would re-plan are
+    # dropped (hub_split included: the derived plan either carries its
+    # repacked hub side or was rebased with the config's knob)
+    for drop in ("reorder", "cyclic_p", "rebalance_trials", "hub_split"):
+        kwargs.pop(drop, None)
+    res = count_triangles(
+        art2.graph, plan=art2, reorder=False, rebalance_trials=0,
+        cache=cache, **kwargs,
+    )
+    res.delta = art2.delta_report
+    return res
 
 
 def count_triangles_many(graphs, **kwargs):

@@ -33,8 +33,9 @@ Carried over here: the CSR-kernel registry (``search``, ``search2``,
 :class:`SummaCSRStore`, :class:`OneDCSRStore`, :class:`DenseStore`,
 :class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule`,
 :class:`SummaSchedule` and :class:`RingSchedule` (plain and compacted),
-:class:`Reduction` (``flat``), the hub-split partial (:class:`HubCount`)
-and :func:`build_engine_fn`, batched or not.  Where the JAX package maps
+:class:`Reduction` (``flat``), the hub-split partial (:class:`HubCount`),
+:func:`build_engine_fn`, batched or not, and the delta path's
+:func:`restage_device_arrays`.  Where the JAX package maps
 the schedule over a batch of graphs with ``lax.map``, the batched
 function here loops over the staged tensors' leading batch dimension,
 each graph with its own host task counts and skip mask.
@@ -74,6 +75,7 @@ __all__ = [
     "check_fused_split",
     "masked_count",
     "build_engine_fn",
+    "restage_device_arrays",
     "shift_perm",
 ]
 
@@ -91,6 +93,46 @@ def _roll_tree(tree, k: int, dim: int):
     """Apply a :func:`shift_perm` of distance ``k`` to every stacked
     tensor of a payload along grid dimension ``dim``."""
     return tuple(torch.roll(t, shifts=-k, dims=dim) for t in tree)
+
+
+def restage_device_arrays(
+    prev_host: Dict[str, np.ndarray],
+    prev_staged: Dict[str, torch.Tensor],
+    new_host: Dict[str, np.ndarray],
+    device,
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Stage ``new_host`` arrays on ``device``, reusing the parent's
+    tensors (``prev_staged``, staged there from ``prev_host``) for every
+    array an edge delta left unchanged.
+
+    The splice in ``apply_delta`` copies only the arrays it touches, so a
+    clean array is often the *same object* as the parent's (identity
+    fast path); otherwise a value comparison against the parent's host
+    array decides — e.g. ``step_keep`` frequently survives a delta
+    byte-identical even though it was recomputed.  Returns the staged
+    dict and how many tensors were reused (skipped uploads).
+    """
+    from ..pipeline.artifact import stage_arrays
+
+    out: Dict[str, torch.Tensor] = {}
+    fresh: Dict[str, np.ndarray] = {}
+    for name, host in new_host.items():
+        prev = prev_host.get(name)
+        staged = prev_staged.get(name)
+        same = (
+            staged is not None
+            and prev is not None
+            and prev.shape == host.shape
+            and prev.dtype == host.dtype
+            and (prev is host or np.array_equal(prev, host))
+        )
+        if same:
+            out[name] = staged
+        else:
+            fresh[name] = host
+    reused = len(out)
+    out.update(stage_arrays(fresh, device))
+    return {name: out[name] for name in new_host}, reused
 
 
 # ======================================================================
@@ -755,8 +797,33 @@ def build_engine_fn(
     :mod:`repro_torch.pipeline.batch`), the schedule runs graph by graph,
     each with its own task counts and mask, and the call returns the
     ``(batch,)`` int64 vector of global counts.
+
+    The host arrays are bound into the call; ``call.rebind(m_cnt=...,
+    step_keep=..., hub=...)`` returns the same composition over other
+    host arrays (a spliced plan's, in the delta path).
     """
     reduction = (reduction or Reduction()).resolve()
+    if batched:
+        if hub is not None:
+            raise ValueError(
+                "batched engines do not take hub-split plans (per-graph hub "
+                "sides differ; plan with hub_split=False)"
+            )
+        if not reduction.global_sum:
+            raise ValueError("batched engine returns per-graph global counts")
+        if schedule.live_steps is not None:
+            raise ValueError(
+                "batched engines use the scan body (per-graph masks differ; "
+                "compaction would need their union)"
+            )
+    return _bind_engine_fn(store, schedule, reduction, batched, m_cnt,
+                           step_keep, hub)
+
+
+def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
+                    hub):
+    """The counting function of :func:`build_engine_fn` over one set of
+    host arrays (task counts, skip mask, hub side)."""
     m_cnt = np.asarray(m_cnt)
     keep = None if step_keep is None else np.asarray(step_keep, dtype=bool)
     ordered = list(store.names)
@@ -778,18 +845,6 @@ def build_engine_fn(
         return reduction.apply(per_device)
 
     if batched:
-        if hub is not None:
-            raise ValueError(
-                "batched engines do not take hub-split plans (per-graph hub "
-                "sides differ; plan with hub_split=False)"
-            )
-        if not reduction.global_sum:
-            raise ValueError("batched engine returns per-graph global counts")
-        if schedule.live_steps is not None:
-            raise ValueError(
-                "batched engines use the scan body (per-graph masks differ; "
-                "compaction would need their union)"
-            )
 
         def call(**arrays):
             check(arrays)
@@ -804,5 +859,21 @@ def build_engine_fn(
             check(arrays)
             return core(arrays, m_cnt, keep)
 
+    def rebind(*, m_cnt, step_keep=None, hub=None):
+        """This function over other host arrays: a new callable with the
+        same store (and so the same bound kernel), schedule (the same
+        compacted live list) and reduction that reads ``m_cnt``, the skip
+        mask ``step_keep`` and the hub side ``hub`` (a :class:`HubCount`
+        or ``None``).  A function built without the skip mask stays
+        without it, whatever ``step_keep`` is.  The delta path hands a
+        parent artifact's functions to a spliced plan this way."""
+        return _bind_engine_fn(
+            store, schedule, reduction, batched, m_cnt,
+            None if keep is None else step_keep, hub,
+        )
+
     call.ordered = ordered
+    call.store, call.schedule = store, schedule
+    call.m_cnt, call.step_keep = m_cnt, keep
+    call.rebind = rebind
     return call

@@ -8,6 +8,8 @@
         --grid 4 --schedule oned --method fused --hub-split --rebalance 3
     python -m repro_torch.launch.tc_run --graphs named:karate,rmat:12 \\
         --grid 2 --verify --json
+    python -m repro_torch.launch.tc_run --graph rmat:14 --grid 2 \\
+        --method fused --stream deltas.jsonl --rebase-every 8 --verify --json
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
@@ -16,8 +18,10 @@ and reports the paper's split: ``ppt_seconds`` (host planning + staging)
 and ``tct_seconds`` (the count).  ``--rebalance N`` and ``--hub-split
 [C]`` add the planner's skip-aware rebalance and hub-split stages;
 ``--graphs a,b,c`` counts a whole *batch* of graphs in one engine call
-(``count_triangles_many``).  Runs on the GPU unless ``--device cpu`` is
-given.
+(``count_triangles_many``); ``--stream DELTA_FILE`` counts ``--graph``
+once, then re-counts it after each line's edge delta through the delta
+ladder (``count_triangles_delta``).  Runs on the GPU unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -45,6 +49,16 @@ def main(argv=None):
                          "the average degree (bare flag = the default C) "
                          "as column-strided fragments outside the "
                          "schedule; the residual takes the normal path")
+    ap.add_argument("--stream", default=None, metavar="DELTA_FILE",
+                    help="streaming mode: count --graph once, then apply "
+                         "each JSONL line ({\"add\": [[u,v],...], "
+                         "\"remove\": [...]}, original vertex ids) as an "
+                         "edge delta via the incremental re-plan path and "
+                         "re-count; the report carries per-round "
+                         "dirty-block / replanned-stage accounting")
+    ap.add_argument("--rebase-every", type=int, default=8,
+                    help="streaming: cold re-plan (rebase the delta "
+                         "lineage) after this many chained deltas")
     ap.add_argument("--grid", type=int, default=1, help="sqrt(p): grid is q x q")
     ap.add_argument("--schedule", default="cannon",
                     help="cannon | summa | oned (resolved by the schedule "
@@ -83,6 +97,11 @@ def main(argv=None):
     )
     from ..pipeline import default_cache
 
+    if args.stream and args.graphs:
+        raise SystemExit(
+            "--stream composes with single-graph pipeline runs only: "
+            "drop --graphs"
+        )
     if args.rebalance and args.graphs:
         raise SystemExit(
             "--rebalance is not supported with --graphs; rebalance "
@@ -105,6 +124,8 @@ def main(argv=None):
         return _run_batched(args)
 
     g = graph_from_spec(args.graph)
+    if args.stream:
+        return _run_stream(g, args)
     report = {"graph": args.graph, "n": g.n, "m": g.m}
 
     t0 = time.perf_counter()
@@ -163,6 +184,110 @@ def main(argv=None):
         raise SystemExit(
             f"count mismatch: got {res.triangles}, expected {expected}"
         )
+
+
+def _run_stream(g, args):
+    """Streaming mode: one base count, then one incremental re-count per
+    delta line.
+
+    Each JSONL line of ``--stream`` is an
+    :class:`repro_torch.pipeline.EdgeDelta` in **original** vertex ids
+    (the lineage's composed relabeling is applied internally).  The
+    derived artifact is threaded round to round, so unchanged device
+    tensors and engine fns carry over; after ``--rebase-every`` chained
+    deltas the lineage rebases onto a cold re-plan.  ``--verify`` checks
+    every round against the host oracle of the mutated graph.
+    """
+    from ..core import count_triangles, count_triangles_delta
+    from ..core.graph import triangle_count_oracle
+    from ..pipeline import EdgeDelta, default_cache
+
+    kwargs = dict(
+        q=args.grid,
+        schedule=args.schedule,
+        method=args.method,
+        broadcast=args.broadcast,
+        chunk=args.chunk,
+        probe_shorter=not args.no_probe_shorter,
+        use_step_mask=False if args.no_skip_mask else None,
+        compact=False if args.no_compact else None,
+        device=args.device,
+    )
+    t0 = time.perf_counter()
+    base = count_triangles(
+        g, rebalance_trials=args.rebalance,
+        hub_split=args.hub_split if args.hub_split is not None else False,
+        **kwargs,
+    )
+    report = {
+        "graph": args.graph, "n": g.n, "m": g.m, "stream": args.stream,
+        "triangles_base": base.triangles,
+        "base_seconds": round(time.perf_counter() - t0, 4),
+        "grid": base.grid, "schedule": base.schedule, "method": base.method,
+        "device": base.device,
+    }
+    if args.hub_split is not None:
+        report.update(_hub_fields(base.hub))
+    if args.verify:
+        exp = triangle_count_oracle(g)
+        report["expected_base"] = exp
+        if base.triangles != exp:
+            raise SystemExit(
+                f"base count mismatch: got {base.triangles}, expected {exp}"
+            )
+
+    art, g_cur, rounds = base.artifact, g, []
+    with open(args.stream) as fh:
+        lines = [ln for ln in (s.strip() for s in fh) if ln]
+    for i, line in enumerate(lines):
+        spec = json.loads(line)
+        delta = EdgeDelta(
+            add=spec.get("add") or None, remove=spec.get("remove") or None
+        )
+        t1 = time.perf_counter()
+        res = count_triangles_delta(
+            g_cur, delta, artifact=art,
+            rebase_every=args.rebase_every, **kwargs,
+        )
+        dt = time.perf_counter() - t1
+        art, rep = res.artifact, res.delta
+        g_cur = delta.apply_to(g_cur)
+        entry = dict(
+            round=i,
+            triangles=res.triangles,
+            edges_added=rep["edges_added"],
+            edges_removed=rep["edges_removed"],
+            level=rep["level"],
+            dirty_blocks=rep["dirty_blocks"],
+            replanned_stages=rep["replanned_stages"],
+            rebased=rep["rebased"],
+            fn_inherited=rep["fn_inherited"],
+            round_seconds=round(dt, 4),
+        )
+        if args.verify:
+            exp = triangle_count_oracle(g_cur)
+            entry["expected"] = exp
+            entry["correct"] = bool(res.triangles == exp)
+        rounds.append(entry)
+
+    last = rounds[-1] if rounds else {}
+    report.update(
+        rounds=rounds,
+        deltas_applied=len(rounds),
+        triangles=last.get("triangles", base.triangles),
+        dirty_blocks=last.get("dirty_blocks", 0),
+        replanned_stages=last.get("replanned_stages", []),
+        rebased=last.get("rebased", False),
+        plan_cache=default_cache().stats(),
+    )
+    if args.json:
+        print(json.dumps(report))
+    else:
+        for k, v in report.items():
+            print(f"{k}: {v}")
+    wrong = [r["round"] for r in rounds if not r.get("correct", True)]
+    if wrong:
+        raise SystemExit(f"count mismatch in stream rounds {wrong}")
 
 
 def _skip_fields(plan, no_skip_mask: bool) -> dict:

@@ -9,6 +9,8 @@ Public surface:
   the content-addressed plan cache.
 * :func:`count_triangles_many` — batched front end: many graphs, one
   engine call.
+* :class:`EdgeDelta` / :func:`apply_delta` — incremental re-plans of an
+  artifact after a batch of edge edits (splice / repack / rebase).
 * :func:`rebalance_stage` / :func:`hubsplit_stage` — the skip-aware
   rebalance and hub-split stages the planners run on request.
 * :mod:`.stages` — the individual stage functions (vectorized packer,
@@ -22,6 +24,7 @@ from .cache import (  # noqa: F401
     graph_digest,
     set_default_cache,
 )
+from .delta import EdgeDelta, apply_delta  # noqa: F401
 from .hubsplit import HubSide, hubsplit_stage  # noqa: F401
 from .planner import plan_cannon, plan_oned, plan_summa, relabel_cached  # noqa: F401
 from .rebalance import (  # noqa: F401
@@ -32,6 +35,8 @@ from .rebalance import (  # noqa: F401
 from .stages import relabel_stage  # noqa: F401
 
 __all__ = [
+    "EdgeDelta",
+    "apply_delta",
     "relabel_stage",
     "relabel_cached",
     "rebalance_stage",

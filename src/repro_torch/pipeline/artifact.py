@@ -9,8 +9,11 @@ per-call host work — planning and host→device staging.
 
 Artifacts are what the schedule runners and ``build_*_fn`` functions consume;
 ``repro_torch.core.plan.as_plan`` coerces an artifact (or a raw plan) to
-its plan object, so each of them accepts either.  Not carried over yet:
-the delta lineage and its ``restage_from`` buffer reuse.
+its plan object, so each of them accepts either.  Artifacts derived by
+:func:`~repro_torch.pipeline.delta.apply_delta` carry their delta
+``lineage`` (which keys their cache entry), the ``delta_report`` and a
+re-stage handoff (``restage_from``) through which unchanged device
+tensors of the parent are reused instead of uploaded again.
 """
 from __future__ import annotations
 
@@ -58,8 +61,22 @@ class PlanArtifact:
     # plan was not rebalanced.  The trials knob is part of ``key``, so
     # rebalanced and plain artifacts never collide.
     rebalance: Optional[dict] = None
-    # planner knobs this artifact was built with
+    # planner knobs this artifact was built with, recorded so the delta
+    # path can re-pack stages or rebase with identical flags
     config: Optional[dict] = None
+    # delta lineage: dict(root_digest, chain, depth) joining the cache
+    # key of incrementally-derived artifacts; None for cold plans
+    lineage: Optional[dict] = None
+    # per-delta report (level, dirty blocks/cells, replanned stages,
+    # rebased, fn_inherited) attached by ``apply_delta``; None for cold
+    # plans
+    delta_report: Optional[dict] = None
+    # re-stage handoff from the parent artifact: (its host arrays, {str
+    # device: its staged tensors on that device}), consumed lazily by
+    # ``staged(device)`` so unchanged tensors are reused, not re-uploaded
+    restage_from: Optional[Tuple[Dict, Dict]] = dataclasses.field(
+        default=None, repr=False
+    )
     _memo: Dict = dataclasses.field(default_factory=dict, repr=False)
     _memo_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False
@@ -104,12 +121,28 @@ class PlanArtifact:
         """The plan arrays as ``torch`` tensors on ``device``, memoized per
         device (the pipeline's ``stage`` step); records its first-call
         wall time.  The numpy arrays stay on the plan: the engine reads
-        ``m_cnt`` and ``step_keep`` from them on the host."""
+        ``m_cnt`` and ``step_keep`` from them on the host.
+
+        A delta-derived artifact whose parent was staged on ``device``
+        goes through the engine's re-stage path: every array the delta
+        left unchanged keeps the parent's tensor, and the number of
+        reused tensors lands in ``stage_seconds["stage_reused_buffers"]``.
+        """
         device = torch.device(device)
 
         def build():
             t0 = time.perf_counter()
-            out = stage_arrays(self.device_arrays(), device)
+            handoff = self.restage_from
+            prev = None if handoff is None else handoff[1].get(str(device))
+            if prev is not None:
+                from ..core.engine import restage_device_arrays
+
+                out, reused = restage_device_arrays(
+                    handoff[0], prev, self.device_arrays(), device
+                )
+                self.stage_seconds["stage_reused_buffers"] = float(reused)
+            else:
+                out = stage_arrays(self.device_arrays(), device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self.stage_seconds["stage"] = time.perf_counter() - t0
@@ -118,9 +151,11 @@ class PlanArtifact:
         return self.memo(("staged_arrays", str(device)), build)
 
     def release(self) -> None:
-        """Drop memoized device state (staged tensors, engine fns).
-        Called by ``PlanCache`` on LRU eviction so pinned device memory
-        does not outlive the cache entry while serving threads still hold
-        the artifact; the next use simply rebuilds the memo entries."""
+        """Drop memoized device state (staged tensors, engine fns) and the
+        re-stage handoff.  Called by ``PlanCache`` on LRU eviction so
+        pinned device memory does not outlive the cache entry while
+        serving threads still hold the artifact; the next use simply
+        rebuilds the memo entries."""
         with self._memo_lock:
             self._memo.clear()
+            self.restage_from = None

@@ -16,6 +16,17 @@ import repro.core.count as jcount
 import repro_torch.core.count as tcount
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny,
+    and under pytest-xdist every worker's full-width thread pool would
+    oversubscribe the cores (the counts do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _random_csr(rng, nrows, maxd, ncols, pad):
     """A CSR block as the planner packs it: sorted duplicate-free rows,
     padding positions holding the ``ncols`` sentinel."""

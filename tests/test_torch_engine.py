@@ -22,6 +22,18 @@ import repro_torch.pipeline as tp
 from repro_torch.core.cannon import build_cannon_fn
 from repro_torch.core.engine import CannonSchedule, shift_perm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny,
+    and under pytest-xdist every worker's full-width thread pool would
+    oversubscribe the cores (the counts do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIXTURES = {
     "karate": "named:karate",
     "rmat8": "rmat:8,8,5",

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jc
 import repro.pipeline as jp
@@ -17,6 +18,18 @@ import repro_torch.core as tc
 import repro_torch.pipeline as tp
 from repro.core.plan import _build_plan_loops as j_build_plan_loops
 from repro_torch.core.plan import _build_plan_loops as t_build_plan_loops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny,
+    and under pytest-xdist every worker's full-width thread pool would
+    oversubscribe the cores (the counts do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SPECS = [
     "rmat:8,8,5",

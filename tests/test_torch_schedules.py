@@ -25,6 +25,18 @@ from repro_torch.core.onedim import OneDPlan, build_oned_fn
 from repro_torch.core.summa import SummaPlan, build_summa_fn
 from repro_torch.pipeline.stages import pack_oned_plan, pack_summa_plan
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny,
+    and under pytest-xdist every worker's full-width thread pool would
+    oversubscribe the cores (the counts do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIXTURES = {
     "karate": "named:karate",
     "rmat8": "rmat:8,8,5",

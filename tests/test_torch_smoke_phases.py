@@ -1,7 +1,8 @@
 """Rehearse ``chip_smoke.py``'s planner-stage phases on the CPU.
 
-The script runs only on a GPU; its ``hub_path``, ``rebalance_path`` and
-``many_path`` phases are called here at a tiny scale with ``dev=cpu``,
+The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
+``many_path`` and ``delta_path`` phases are called here at a tiny scale
+with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -13,6 +14,7 @@ import json
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -140,8 +142,57 @@ def test_many_path_phase(on_cpu, capsys):
     line = _line(capsys, "many_path")
     assert line["ok"] and not line["mismatches"]
     assert len(line["graphs"]) == 5
-    for kind, _ in chip_smoke.MANY_GRIDS:
-        for chunk in (chip_smoke.DEFAULT_CHUNK, chip_smoke.HUB_CHUNK):
-            row = line[f"{kind}/chunk{chunk}"]
-            assert row["triangles"] == line["triangles_scipy_oracle"]
-            assert row["padding_overhead"] > 0
+    for kind, _, chunk in chip_smoke.MANY_CELLS:
+        row = line[f"{kind}/chunk{chunk}"]
+        assert row["triangles"] == line["triangles_scipy_oracle"]
+        assert row["padding_overhead"] > 0
+    assert ("oned", (chip_smoke.GRID, chip_smoke.GRID),
+            chip_smoke.DEFAULT_CHUNK) in chip_smoke.MANY_CELLS
+
+
+def test_delta_path_phase(on_cpu, graph, capsys, monkeypatch):
+    g, oracle = graph
+    monkeypatch.setattr(chip_smoke, "STREAM_GRAPH", "rmat:9")
+    rt.count_triangles(g, q=chip_smoke.GRID, method="fused")
+    rec = chip_smoke.delta_path(g, oracle, CPU, chip_smoke.GRID, 1)
+    line = _line(capsys, "delta_path")
+    assert line["ok"] and not line["mismatches"]
+    assert line["levels"] == list(chip_smoke.DELTA_PLANNED)
+    assert line["levels_as_planned"] and line["replay_cache_hit"]
+    for row in line["rounds"]:
+        assert row["triangles"] == row["expected"]
+        assert row["kernel_launches"] == row["device_steps_counted"] > 0
+    assert line["final_cold"]["triangles"] == line["rounds"][-1]["triangles"]
+    assert line["tc_run_stream"]["correct"]
+    assert rec["path"] == "cannon_delta" and rec["equal"]
+    assert rec["launches"] == line["kernel_launches"] > 0
+    assert 0 < rec["compared_device_steps"] <= chip_smoke.GRID ** 3
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "source", "replaces", "route"):
+        assert key in rec
+
+
+@pytest.mark.parametrize("spec,rounds", [
+    ("named:karate", (4, 6, 20)),
+    ("rmat:8,8,3", (4, 64, 2)),
+    ("er:60,12,1", (10, 30)),
+    ("cliques:3,12", (6, 6)),
+])
+def test_incremental_oracle_matches_the_exact_count(spec, rounds):
+    """The delta path's oracle, round by round, against
+    ``triangle_count_oracle`` of the mutated graph."""
+    g = rt.graph_from_spec(spec)
+    deltas, changes, cur = chip_smoke.delta_stream((g.n, g.edges), rounds, 5)
+    want = rt.triangle_count_oracle(g)
+    keys = chip_smoke.EdgeKeys(g.n, g.edges)
+    for (rem, add), change, k in zip(deltas, changes, rounds):
+        assert rem.shape[0] + add.shape[0] == k
+        want += change
+        for a, b in rem.tolist():
+            assert keys.has(a, b)
+        for a, b in add.tolist():
+            assert not keys.has(a, b)
+        keys.apply(rem[:, 0] * g.n + rem[:, 1], add[:, 0] * g.n + add[:, 1])
+        mutated = rt.Graph(n=g.n, edges=keys.pairs(keys.keys))
+        assert want == rt.triangle_count_oracle(mutated)
+    assert np.array_equal(keys.keys, cur.keys)

@@ -47,6 +47,18 @@ from repro_torch.kernels.tc_tile import (
 from repro_torch.kernels.tc_tile import tc_tile as kmod
 from repro_torch.kernels.tc_tile.tc_tile import dense_threshold
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny,
+    and under pytest-xdist every worker's full-width thread pool would
+    oversubscribe the cores (the counts do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # chip_smoke.py builds the tile kernels' trap cases; it imports nothing at
 # module level but numpy and torch
