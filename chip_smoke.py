@@ -13,6 +13,10 @@ What it does, in order, printing one JSON object per line:
                     process per source, started together) and reports each
                     kernel's registers, shared memory and spills as
                     ``nvcc -Xptxas -v`` gives them;
+   ``hw``         — the card's memory and bf16 rates as measured
+                    (``repro_torch.launch.roofline.measure_hw``: a 1 GiB
+                    device-to-device copy, a bf16 8192³ matmul) beside
+                    the data-sheet ``HW`` every bound here divides by;
 3. ``traps``      — holds the fused kernel on the short bucket
                     (``fused_short_counts``) against its plain PyTorch
                     version on small inputs built to hit the edge cases
@@ -36,6 +40,25 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
+   ``pod_path``   — the main graph's cached plan counted with 2.5D pods
+                    (``npods`` 2 with ``flat`` and ``tree``, 4 with
+                    ``tree`` and ``auto``): pod-staging seconds, cold and
+                    warm counts, one kernel launch a counted pod
+                    device-step, staged and peak device bytes against the
+                    single pod, each equal to the oracle; then the fused
+                    kernel's ``"cannon_pods"`` row, held to its plain
+                    route on device-steps of pods t >= 1 (the rolled
+                    copies);
+   ``measured_path`` — ``method="auto"`` under ``autotune="measured"`` on
+                    Cannon q = 4 (right after ``pod_path``), SUMMA 2 x 8
+                    and the ring p = 16 (each right after its
+                    ``*_path``), the plans from the cache and the table in
+                    a temporary directory: a table miss then a hit, the
+                    entry (baseline and candidate seconds, winner,
+                    roofline prediction), what ``auto`` resolved to, the
+                    counts against the oracle, and the kernel against its
+                    plain route at every candidate shape on the busiest
+                    block (one JSON line after the ring);
    ``delta_path`` — a 10-round edge-delta stream on the main graph through
                     ``count_triangles_delta`` (Cannon q = 4, ``method=
                     "fused"``, ``rebase_every=8``; the base a plan-cache
@@ -57,9 +80,10 @@ What it does, in order, printing one JSON object per line:
                     device-step, warm counts of the plain and the
                     rebalanced plan in turns, each equal to the oracle;
    ``search2``    — the main graph with ``method="search2"`` (cold and
-                    warm, the bucketizer's ``bucket_stats``) and
-                    ``method="auto"`` (what it resolved to), each equal to
-                    the oracle;
+                    warm, the bucketizer's ``bucket_stats``), and
+                    ``method="auto"`` on ``rmat(scale - 2, 16)`` (what the
+                    percentile report resolved it to), each equal to its
+                    graph's oracle;
    ``summa_path`` / ``oned_path`` — the main graph on the SUMMA schedule
                     (``grid=(2, 8)``) and on the 1D ring (p = 16) with
                     ``method="fused"``: cold (one kernel launch a counted
@@ -71,8 +95,7 @@ What it does, in order, printing one JSON object per line:
                     every device-step the path counted;
    ``hub_path``   — the main graph with ``hub_split=True`` on the ring
                     (p = 16) and on Cannon (q = 4), ``method="fused"``:
-                    cold, warm (on the ring profiled, the ``tc_hub``
-                    range apart), ``method="search"``, the hub partial
+                    cold, warm, ``method="search"``, the hub partial
                     and the residual schedule alone (the ring's hub
                     partial also at chunk 512), all equal to the
                     oracle; then the fused
@@ -105,6 +128,7 @@ What it does, in order, printing one JSON object per line:
                     equal to the plain version and timed, and where the
                     two kernels' times cross.
 
+The ``total`` line gives the whole run's seconds and each phase's.
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
 device the script exits non-zero before printing any result.  The last
@@ -117,13 +141,19 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+from repro_torch.launch.roofline import HW  # noqa: E402
+
+# the card's data-sheet rates (H100 SXM), one yardstick for every bound
+HBM_BYTES_PER_S = HW["hbm_bw"]
+FP32_OPS_PER_S = HW["fp32_ops"]
 # H100 SXM: 132 SMs at up to 1,980 MHz; population count (__popc) runs at
 # 16 results a clock per SM on compute capability 9.0 (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions)
@@ -682,7 +712,7 @@ def kernel_report(art, dev, launches):
 # phases
 # ----------------------------------------------------------------------
 def profile_count(count, expect, kernel="fused_counts_kernel",
-                  label="fused", annotation=None):
+                  label="fused"):
     """Where a warm count's device time goes: ``count`` under
     ``torch.profiler``, once as the profiler's warm-up cycle and once
     recorded; device time summed by kernel name, and that of the kernels
@@ -691,10 +721,7 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     the count made.  Tracing slows the host down, so the busy share is
     taken against the recorded run's own wall time and says so.
     ``device_seconds`` of 0 means the profiler saw no device activity
-    here, and nothing was measured.  ``annotation`` names a
-    ``record_function`` range (``tc_hub``): its host time and, where the
-    profiler reports one, its device span are given apart and kept out
-    of the kernel sums."""
+    here, and nothing was measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -713,19 +740,8 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
         (ev.key, ev.self_device_time_total * 1e-6, ev.count)
         for ev in events
         if ev.device_type == DeviceType.CUDA
-        and not ev.key.startswith("ProfilerStep") and ev.key != annotation
+        and not ev.key.startswith("ProfilerStep")
     ]
-    spans = {}
-    if annotation is not None:
-        mine_ev = [ev for ev in events if ev.key == annotation]
-        spans = {
-            f"{annotation}_host_seconds": sum(
-                ev.cpu_time_total for ev in mine_ev
-                if ev.device_type == DeviceType.CPU) * 1e-6,
-            f"{annotation}_device_span_seconds": sum(
-                ev.device_time_total for ev in mine_ev
-                if ev.device_type == DeviceType.CUDA) * 1e-6,
-        }
     kernels.sort(key=lambda kv: -kv[1])
     total = sum(t for _, t, _ in kernels)
     searchsorted = int(sum(n for k, _, n in kernels
@@ -742,7 +758,6 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
         f"{label}_kernel_launches_expected": int(expect),
         "complete": seen == expect,
         "device_busy_share_of_profiled_wall": (total / wall) if wall > 0 else None,
-        **spans,
         "top": [dict(kernel=k[:80], seconds=t, launches=int(n))
                 for k, t, n in kernels[:6]],
     }
@@ -835,22 +850,35 @@ def main_path(scale, edge_factor, seed, q, dev):
 SUMMA_GRID = (2, 8)  # 16 logical devices, 8 broadcast rounds
 
 
-def search2_phase(g, oracle, q):
+AUTO_SCALE_CUT = 2  # the percentile auto count runs two scales down
+
+
+def search2_phase(g, oracle, q, scale, seed):
     """``method="search2"`` (bucketized plan, staged keys; cold, then
-    warm) and ``method="auto"`` (resolved from the autotune report; cold
-    only: at this graph it resolves to ``search`` at the autotuned chunk,
-    which takes tens of seconds a count) on the main path's graph: each
-    equal to the oracle."""
+    warm) on the main path's graph, and ``method="auto"`` (resolved from
+    the percentile autotune report; cold only) on ``rmat(scale - 2, 16)``:
+    there, as on the main graph, it resolves to ``search`` at the
+    autotuned chunk, which takes tens of seconds a count at the main
+    scale (the measured mode's ``auto`` runs at full width in
+    ``measured_path``).  Each equal to its graph's oracle."""
     import repro_torch as rt
 
+    small = rt.rmat(scale - AUTO_SCALE_CUT, EDGE_FACTOR, seed=seed)
+    t0 = time.perf_counter()
+    small_oracle = scipy_triangle_oracle(small.n, small.edges)
+    small_oracle_s = time.perf_counter() - t0
     rows, bad = {}, []
-    for method in ("search2", "auto"):
-        r = rt.count_triangles(g, q=q, method=method, chunk=8192)
+    for method, graph, want in (("search2", g, oracle),
+                                ("auto", small, small_oracle)):
+        r = rt.count_triangles(graph, q=q, method=method, chunk=8192)
         r2 = (rt.count_triangles(g, q=q, method=method, chunk=8192)
               if method == "search2" else r)
         plan = r.plan
         rows[method] = dict(
+            graph=f"rmat:{scale - (method == 'auto') * AUTO_SCALE_CUT},"
+                  f"{EDGE_FACTOR},{seed}",
             resolved=r.method, triangles=r.triangles,
+            triangles_scipy_oracle=want,
             triangles_repeat=r2.triangles, cache_hit=bool(
                 r2 is not r and r2.artifact.cache_hit),
             preprocess_seconds=r.preprocess_seconds,
@@ -862,10 +890,10 @@ def search2_phase(g, oracle, q):
             chunk=plan.chunk, bucket_stats=plan.bucket_stats,
             autotune=plan.autotune,
         )
-        if not r.triangles == r2.triangles == oracle:
+        if not r.triangles == r2.triangles == want:
             bad.append((method, r.triangles, r2.triangles))
-    emit("search2", ok=not bad, q=q, triangles_scipy_oracle=oracle,
-         mismatches=bad, **rows)
+    rows["auto"]["oracle_seconds"] = small_oracle_s
+    emit("search2", ok=not bad, q=q, mismatches=bad, **rows)
     if bad:
         fail(f"search2 / auto disagree with the oracle: {bad}")
 
@@ -1119,6 +1147,295 @@ def schedule_kernel_report(kind, art, dev, launches, steps, path=None):
 
 
 # ----------------------------------------------------------------------
+# 2.5D pods and the measured autotune table on the card
+# ----------------------------------------------------------------------
+# (npods, reduce_strategy) of each pod count on the main graph
+POD_RUNS = ((2, "flat"), (2, "tree"), (4, "tree"), (4, "auto"))
+POD_COMPARE = 8  # device-steps of pods t >= 1 held to the plain route a count
+
+
+def pod_device_steps(plan, npods):
+    """``(t, x, y, s)`` of every device-step a pod count launches: pod
+    ``t``'s loop step ``s`` is global step ``t + s * npods``, where the
+    mask is read, and its tasks are ``(x, y)``'s."""
+    q, keep = plan.q, plan.step_keep
+    return [(t, x, y, s) for s in range(q // npods) for t in range(npods)
+            for x in range(q) for y in range(q)
+            if plan.m_cnt[x, y] > 0
+            and (keep is None or keep[x, y, t + s * npods])]
+
+
+def pod_step_inputs(art, staged, dev, npods, t, x, y, s):
+    """What device ``(x, y)`` of pod ``t`` hands ``count_pair_fused`` at
+    its loop step ``s``: the pod's rolled copies after ``s * npods``
+    shifts (A block ``(x, y + s * npods)`` and B block ``(x + s * npods,
+    y)`` of pod ``t``'s stack) and the task list of ``(x, y)``.  Returns
+    ``step_inputs``' tuple and whether the operands equal the single-pod
+    blocks at global step ``t + s * npods``."""
+    plan = art.plan
+    q = plan.q
+    k = s * npods
+    a_ptr = staged["a_indptr"][t, x, (y + k) % q]
+    a_idx = staged["a_indices"][t, x, (y + k) % q]
+    b_ptr = staged["b_indptr"][t, (x + k) % q, y]
+    b_idx = staged["b_indices"][t, (x + k) % q, y]
+    args, tcount, kw, split = step_inputs(art, dev, x, y, t + k)
+    rolled_equal = all(torch.equal(u, v) for u, v in
+                       zip((a_ptr, a_idx, b_ptr, b_idx), args[:4]))
+    return ((a_ptr, a_idx, b_ptr, b_idx, staged["m_ti"][x, y],
+             staged["m_tj"][x, y]), tcount, kw, split), rolled_equal
+
+
+def staged_bytes(staged, shared=None):
+    """Device bytes of staged tensors by group: the A/B operands, the task
+    lists and the rest; tensors that are ``shared``'s own are not
+    counted (a pod count reuses the single-pod task lists)."""
+    groups = {"ab": 0, "tasks": 0, "other": 0}
+    for k, v in staged.items():
+        if shared is not None and shared.get(k) is v:
+            continue
+        g = ("ab" if k.startswith(("a_", "b_")) else
+             "tasks" if k in ("m_ti", "m_tj") else "other")
+        groups[g] += v.numel() * v.element_size()
+    return groups
+
+
+def pod_path(g, oracle, dev, q):
+    """``count_triangles(g, q=q, npods=..., method="fused",
+    reduce_strategy=...)`` on the main path's cached plan for each of
+    ``POD_RUNS``: pod-staging seconds, cold and warm ``count_seconds``,
+    one kernel launch a counted pod device-step (q³ less the skipped),
+    the staged bytes by group, the count's own peak device bytes and the
+    bytes it left allocated, against the single-pod count; and the whole
+    device footprint of one count of the raw plan (nothing memoised) at
+    one pod and at each pod count.  Every count equals the oracle.
+    Returns the
+    fused kernel's ``"cannon_pods"`` row, held to its plain route on
+    ``POD_COMPARE`` device-steps of pods t >= 1 per pod count, whose
+    operands are the rolled copies."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+        fused_step_counts,
+    )
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+
+    def peak_of(fn):
+        """``fn()``, its own peak device bytes above what was allocated
+        before it, and the bytes it left allocated (what it staged)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, int(torch.cuda.max_memory_allocated() - base),
+                int(torch.cuda.memory_allocated() - base))
+
+    one, one_peak, _ = peak_of(lambda: rt.count_triangles(g, q=q,
+                                                          method="fused"))
+    art = one.artifact
+    if not art.cache_hit:
+        fail("the pod path missed the main path's cached plan")
+    single = art.staged(dev)
+    # the whole device footprint of one count at each pod count, on the
+    # raw plan (nothing memoised: all it stages is freed after it)
+    footprint = {}
+    for npods in sorted({1} | {n for n, _ in POD_RUNS}):
+        r, peak, kept = peak_of(lambda: rt.count_triangles(
+            g, q=q, npods=npods, method="fused", plan=art.plan))
+        if r.triangles != oracle:
+            fail(f"the {npods}-pod count of the raw plan gave {r.triangles}, "
+                 f"not {oracle}")
+        footprint[str(npods)] = dict(peak_device_bytes=peak,
+                                     left_allocated_bytes=kept)
+    rows, bad, launches_all, seen = [], [], 0, set()
+    compared, max_abs_err, unequal, not_rolled, timed = 0, 0, [], [], None
+    t_cmp = 0.0
+    for npods, strategy in POD_RUNS:
+        def count():
+            return rt.count_triangles(g, q=q, npods=npods, method="fused",
+                                      reduce_strategy=strategy)
+
+        kmod.reset_launch_count()
+        r, peak, kept = peak_of(count)
+        launches = kmod.launch_count()
+        steps = pod_device_steps(r.plan, npods)
+        if launches <= 0 or launches != len(steps):
+            fail(f"the {npods}-pod fused count launched its kernel "
+                 f"{launches} times, not once for each of the {len(steps)} "
+                 "pod device-steps that count")
+        launches_all += launches
+        r2 = count()
+        staged = art._memo[("pod_staged", npods, str(dev))]
+        rows.append(dict(
+            npods=npods, reduce_strategy=strategy, grid=list(r.grid),
+            triangles=r.triangles, triangles_warm=r2.triangles,
+            pod_stage_seconds=art.stage_seconds.get(f"pod_stage_{npods}"),
+            preprocess_seconds=r.preprocess_seconds,
+            count_seconds=r.count_seconds, warm_count_seconds=r2.count_seconds,
+            kernel_launches=launches, device_steps_counted=len(steps),
+            device_steps_skipped=q ** 3 - len(steps),
+            staged_bytes=staged_bytes(staged, shared=single),
+            peak_device_bytes_of_count=peak,
+            bytes_left_allocated_by_count=kept,
+        ))
+        if not r.triangles == r2.triangles == oracle:
+            bad.append((npods, strategy, r.triangles, r2.triangles))
+        if npods in seen:
+            continue  # the steps of a pod count are compared once
+        seen.add(npods)
+        t0 = time.perf_counter()
+        for t, x, y, s in [st for st in steps if st[0] >= 1][:POD_COMPARE]:
+            (args, tcount, kw, split), rolled = pod_step_inputs(
+                art, staged, dev, npods, t, x, y, s)
+            got = int(count_pair_fused(*args, tcount, **kw))
+            want = int(count_pair_fused_plain(*args, tcount, **kw))
+            max_abs_err = max(max_abs_err, abs(got - want))
+            if got != want:
+                unequal.append((npods, t, x, y, s))
+            if not rolled:
+                not_rolled.append((npods, t, x, y, s))
+            compared += 1
+            if timed is None:
+                timed = (npods, t, x, y, s, args, tcount, kw, split)
+        t_cmp += time.perf_counter() - t0
+    emit("pod_path", ok=not bad and not unequal and not not_rolled,
+         q=q, device=one.device, mismatches=bad,
+         single_pod=dict(count_seconds=one.count_seconds,
+                         staged_bytes=staged_bytes(single),
+                         peak_device_bytes_of_count=one_peak),
+         pods=rows, footprint_by_npods=footprint,
+         triangles_scipy_oracle=oracle)
+    if bad:
+        fail(f"pod counts disagree with the oracle: {bad}")
+    if not_rolled:
+        fail(f"a pod's rolled operands are not the single-pod blocks at "
+             f"its global step: {not_rolled}")
+
+    npods, t, x, y, s, args, tcount, kw, split = timed
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_cold(lambda: fused_step_counts(*args, tcount, **split), 10,
+                   flush)
+    plain_ms = time_cold(lambda: count_pair_fused_plain(*args, tcount, **kw),
+                         2, flush)
+    rec = dict(
+        name="tc_fused.fused_step_counts",
+        path="cannon_pods",
+        route="cuda",
+        source=KERNEL_SOURCE,
+        replaces=KERNEL_REPLACES,
+        also_replaces="src/repro/kernels/tc_fused/ops.py:126 (the lax long "
+                      "bucket)",
+        launches=launches_all,
+        launches_note="kernel launches of the cold pod counts of POD_RUNS "
+                      "together, one a counted pod device-step",
+        max_abs_err=max_abs_err,
+        equal=not unequal,
+        compared_device_steps=compared,
+        compare_seconds=t_cmp,
+        tolerance="exact (integer counts, the whole step)",
+        ms=ms,
+        plain_ms=plain_ms,
+        plain_note="count_pair_fused_plain: count_pair_search_global on "
+                   "the long bucket, fused_short_counts_plain on the short",
+        library_ms=None,
+        library_note="no single PyTorch call computes a batched "
+                     "sorted-set intersection over CSR rows",
+        timed=f"{npods} pods: pod {t}, device ({x}, {y}), loop step {s} "
+              f"(global step {t + s * npods}), both buckets, cold L2, "
+              "median of 10 (plain: of 2)",
+        shape=dict(tasks=int(tcount), tmax=int(args[4].shape[0]),
+                   n_long_c=split["n_long"], tile=split["tile"],
+                   d_short=split["d_short"], d_long=split["d_long"]),
+    )
+    rec.update(kernel_bound(args, tcount, split))
+    rec["bound_share"] = rec["bound_ms"] / ms if ms > 0 else None
+    if unequal:
+        print(json.dumps({"kernels": [rec]}), flush=True)
+        fail(f"fused kernel != plain route on pod device-steps {unequal}")
+    return rec
+
+
+def candidate_checks(plan, dev, entry):
+    """The fused kernel at every candidate shape of a measured-table entry
+    (the analytic tile, the half tile, the widened panel ``d2``) against
+    its plain route on the plan's busiest block, the block the table
+    timed."""
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+    )
+    from repro_torch.kernels.tc_fused.autotune import _busiest_arrays
+
+    *host, cnt, sentinel, kind = _busiest_arrays(plan)
+    arrs = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in host]
+    out = []
+    for c in entry["candidates"]:
+        kw = dict(n_long=plan.n_long, d_small=c["d_small"],
+                  dpad_long=plan.dmax, chunk=c["chunk"], tile=c["tile"],
+                  long_fallback="search" if kind == "oned" else "global",
+                  sentinel=sentinel)
+        got = int(count_pair_fused(*arrs, cnt, **kw))
+        want = int(count_pair_fused_plain(*arrs, cnt, **kw))
+        out.append(dict(tile=c["tile"], d_small=c["d_small"], tasks=cnt,
+                        kernel=got, plain=want, equal=got == want))
+    return out
+
+
+def measured_count(kind, g, oracle, dev, grid, table_dir):
+    """``count_triangles(g, grid=grid, schedule=kind, method="auto",
+    autotune="measured")`` twice, the plan from the cache of the phase
+    before: a table miss (the entry timed on the card and written), then
+    a hit.  Returns the row: the entry (the baseline's and each
+    candidate's seconds, the winner, the roofline prediction from the
+    data-sheet rates), what ``auto`` resolved to, the counts (each equal
+    to the oracle), the warm count's kernel launches (one a counted
+    device-step when it resolved to ``fused``), and the kernel held to
+    its plain route at every candidate shape on the busiest block."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import measured_entry
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+
+    def count():
+        return rt.count_triangles(g, grid=grid, schedule=kind, method="auto",
+                                  autotune="measured",
+                                  measured_dir=table_dir)
+
+    r1 = count()
+    kmod.reset_launch_count()
+    r2 = count()
+    launches = kmod.launch_count()
+    entry, hit = measured_entry(r1.plan, device=dev, table_dir=table_dir)
+    if not hit:
+        fail(f"the {kind} measured entry is not on disk after a count")
+    steps = schedule_device_steps(r2.plan, kind)
+    if r2.method == "fused" and launches != len(steps):
+        fail(f"the measured {kind} count resolved to fused but launched its "
+             f"kernel {launches} times, not {len(steps)}")
+    checks = candidate_checks(r1.plan, dev, entry)
+    row = dict(
+        schedule=kind, grid=list(r1.grid),
+        plan_cache_hit=bool(r1.artifact.cache_hit),
+        measured_table_hit=[r1.measured_table_hit, r2.measured_table_hit],
+        resolved=[r1.method, r2.method],
+        triangles=[r1.triangles, r2.triangles],
+        preprocess_seconds=[r1.preprocess_seconds, r2.preprocess_seconds],
+        count_seconds=[r1.count_seconds, r2.count_seconds],
+        warm_kernel_launches=launches, device_steps_counted=len(steps),
+        entry={k: entry[k] for k in ("key", "kind", "backend", "impl",
+                                      "baseline", "t_baseline", "t_fused",
+                                      "best", "candidates", "winner",
+                                      "roofline")},
+        candidate_checks=checks,
+    )
+    ok = (r1.triangles == r2.triangles == oracle
+          and r1.measured_table_hit is False and r2.measured_table_hit
+          and all(c["equal"] for c in checks))
+    return row, ok
+
+
+# ----------------------------------------------------------------------
 # the planner stages on the card: hub split, rebalance, batched counts
 # ----------------------------------------------------------------------
 HUB_GRIDS = (("oned", (GRID, GRID)), ("cannon", (GRID, GRID)))
@@ -1177,11 +1494,12 @@ def residual_count(art, kind, dev):
 def hub_path(g, oracle, dev, graph):
     """``count_triangles(g, hub_split=True, method="fused", chunk=8192)``
     on the ring p = 16 and on Cannon q = 4: cold (one kernel launch a
-    counted residual device-step), warm (a plan-cache hit; on the ring
-    profiled with the ``tc_hub`` range apart), ``method="search"`` on the
-    same artifact, and the two halves alone — the hub partial (on the ring
-    also at the default chunk 512) and the residual schedule — all equal
-    to the oracle.  Returns the ring's ``oned_hub`` row of the fused kernel,
+    counted residual device-step), warm (a plan-cache hit),
+    ``method="search"`` on the same artifact, and the two halves alone —
+    the hub partial (on the ring also at the default chunk 512) and the
+    residual schedule — all equal to the oracle.  (The ring's profiled
+    warm count, about a minute a run, is cut: the halves alone give the
+    same split.)  Returns the ring's ``oned_hub`` row of the fused kernel,
     held to its plain route on every residual device-step."""
     import repro_torch as rt
     from repro_torch.kernels.tc_fused import tc_fused as kmod
@@ -1214,12 +1532,6 @@ def hub_path(g, oracle, dev, graph):
                      and default_cache().hits > hits0)
         if not cache_hit:
             fail(f"second {kind} hub-split count missed the plan cache")
-        prof = None
-        if kind == "oned":  # tracing Cannon's ~320,000 launches costs minutes
-            t0 = time.perf_counter()
-            prof = profile_count(lambda: count(method="fused"), launches,
-                                 annotation="tc_hub")
-            prof["profile_call_seconds"] = time.perf_counter() - t0
         rs = rt.count_triangles(g, plan=art, schedule=kind, method="search")
         hub_t, hub_s = hub_partial(art, dev)
         res_t, res_s = residual_count(art, kind, dev)
@@ -1246,7 +1558,6 @@ def hub_path(g, oracle, dev, graph):
             if hub_s + res_s > 0 else None,
             kernel_launches=launches, device_steps_counted=len(steps),
             cache_hit=cache_hit, peak_device_bytes=int(peak),
-            warm_count_profile=prof,
         )
         row["tasks_past_stage_limit"], row["longest_task_row"] = (
             tasks_past_stage_limit(plan, kind))
@@ -1633,7 +1944,9 @@ def delta_path(g, oracle, dev, q, seed):
              f"{prof['searchsorted_launches']} searchsorted launches")
     if prof.get("device_seconds", 0) > 0 and not prof["complete"]:
         fail("the warm count of a spliced plan did not launch the kernel "
-             "once a counted device-step")
+             "once a counted device-step: the profile saw "
+             f"{prof['fused_kernel_launches_seen']} of {len(steps1)}: "
+             f"{json.dumps(prof)}")
 
     gf = rt.Graph(n=final.n, edges=final.pairs(final.keys), name="final")
     cold = rt.count_triangles(gf, q=q, method="fused", cache=PlanCache())
@@ -2245,8 +2558,6 @@ def main():
               "False); this script only runs on a GPU", file=sys.stderr)
         sys.exit(2)
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -2265,36 +2576,70 @@ def main():
     emit("build", seconds=build_s, kernels=_build.kernel_names(),
          flags=" ".join(_build.NVCC_FLAGS), build_dir=str(_build.build_dir()),
          ptxas=finish_ptxas(ptxas, _build))
+    from repro_torch.launch.roofline import measure_hw
+
+    emit("hw", gpu=smi, **measure_hw(dev))
 
     emit("traps", ok=True, checked=run_traps(dev))
     emit("fused_traps", ok=True, checked=run_fused_traps(dev),
          cases=list(fused_trap_cases()))
 
-    art, launches, g, oracle = main_path(args.scale, EDGE_FACTOR, args.seed,
-                                         GRID, dev)
-    kernels = [kernel_report(art, dev, launches)]
-    del art
-    kernels.append(delta_path(g, oracle, dev, GRID, args.seed))
-    rebalance_path(g, oracle, dev, GRID)
-    search2_phase(g, oracle, GRID)
-    graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
-    for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
-        sart, slaunches, steps = schedule_path(kind, g, oracle, dev, grid,
-                                               graph)
-        kernels.append(schedule_kernel_report(kind, sart, dev, slaunches,
-                                              steps))
-    del sart
-    kernels += hub_path(g, oracle, dev, graph)
-    del g
-    small_graphs()
-    many_path(dev, args.seed,
-              tuple(s - (20 - args.scale) for s in MANY_SCALES))
-    run_tile_traps(dev)
-    tile_scale = min(TILE_SCALE, args.scale - 2)
-    kernels += tile_path(tile_scale, args.seed, GRID, dev)
-    tile_density(dev, args.seed)
+    phases = {}
 
-    emit("total", seconds=time.perf_counter() - t_start)
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    art, launches, g, oracle = phase("main_path", main_path, args.scale,
+                                     EDGE_FACTOR, args.seed, GRID, dev)
+    kernels = [phase("kernels", kernel_report, art, dev, launches)]
+    del art
+    kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
+    measured, measured_ok = {}, True
+    with tempfile.TemporaryDirectory(prefix="tc_measured_") as table_dir:
+        # each schedule's measured counts run while the plan of the phase
+        # before is still in the plan cache
+        def measure(kind, grid):
+            nonlocal measured_ok
+            measured[kind], ok = phase("measured_path", measured_count, kind,
+                                       g, oracle, dev, grid, table_dir)
+            measured_ok = measured_ok and ok
+
+        measure("cannon", (GRID, GRID))
+        kernels.append(phase("delta_path", delta_path, g, oracle, dev, GRID,
+                             args.seed))
+        phase("rebalance_path", rebalance_path, g, oracle, dev, GRID)
+        phase("search2", search2_phase, g, oracle, GRID, args.scale,
+              args.seed)
+        graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
+        for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
+            sart, slaunches, steps = phase(f"{kind}_path", schedule_path,
+                                           kind, g, oracle, dev, grid, graph)
+            kernels.append(phase(f"{kind}_path", schedule_kernel_report,
+                                 kind, sart, dev, slaunches, steps))
+            del sart
+            measure(kind, grid)
+    emit("measured_path", ok=measured_ok, graph=graph,
+         triangles_scipy_oracle=oracle,
+         seconds=phases["measured_path"], **measured)
+    if not measured_ok:
+        fail("the measured autotune path miscounted, missed or hit its "
+             "table wrongly, or a candidate shape disagreed with the plain "
+             "route")
+    kernels += phase("hub_path", hub_path, g, oracle, dev, graph)
+    del g
+    phase("small_graphs", small_graphs)
+    phase("many_path", many_path, dev, args.seed,
+          tuple(s - (20 - args.scale) for s in MANY_SCALES))
+    phase("tile_traps", run_tile_traps, dev)
+    tile_scale = min(TILE_SCALE, args.scale - 2)
+    kernels += phase("tile_path", tile_path, tile_scale, args.seed, GRID,
+                     dev)
+    phase("tile_density", tile_density, dev, args.seed)
+
+    emit("total", seconds=time.perf_counter() - t_start, phases=phases)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -25,7 +25,11 @@ receive the *raw* graph plus the relabel options on the
 pipeline so the cache can skip it.  ``count_triangles_many`` batches
 several graphs into one engine call; ``count_triangles_delta`` re-counts
 a graph after a batch of edge edits through the delta ladder of
-:mod:`repro_torch.pipeline.delta`.
+:mod:`repro_torch.pipeline.delta`.  ``npods`` adds the 2.5D pod
+dimension (Cannon's replicated, skew-offset blocks) and
+``reduce_strategy`` its tree reduction; ``autotune="measured"`` resolves
+``method="auto"`` from the persisted timing table of
+:mod:`repro_torch.kernels.tc_fused.autotune`.
 """
 from __future__ import annotations
 
@@ -86,8 +90,11 @@ class TCResult:
     grid: tuple
     device: str = "cpu"
     # which autotune flavor governed kernel-shape selection for this run
-    # ("percentile"; None when no autotune stage ran)
+    # ("percentile" | "measured"; None when the method was explicit and no
+    # autotune stage ran)
     autotune_mode: Optional[str] = None
+    # measured mode only: did the shape-bucket entry come off disk?
+    measured_table_hit: Optional[bool] = None
     # the PlanArtifact this count ran from (None for caller-supplied raw
     # plans or schedules registered without plans_itself)
     artifact: Optional[object] = None
@@ -140,6 +147,7 @@ class RunContext:
     chunk: int
     probe_shorter: bool
     device: torch.device
+    npods: int = 1
     plan: Optional[TCPlan] = None
     # engine knobs: sparsity-aware step skipping (None = auto from the
     # plan's staged masks), the double-buffer knob (same count either
@@ -161,8 +169,17 @@ class RunContext:
     # number = the threshold multiplier c
     hub_split: object = False
     cache: Optional[object] = None  # PlanCache; None -> default_cache()
+    # autotune flavor for method 'auto'/'fused': "percentile" = the
+    # analytic stage; "measured" = consult (and populate) the persisted
+    # timing table keyed per shape bucket
+    autotune: str = "percentile"
+    measured_dir: Optional[str] = None  # measured-table dir override
+    # fused-kernel tile override (measured mode feeds the table's best
+    # shape through here)
+    fused_tile: Optional[int] = None
     # resolved reporting fields (land on TCResult)
     autotune_mode: Optional[str] = None
+    measured_table_hit: Optional[bool] = None
     artifact: Optional[object] = None  # PlanArtifact set by the runner
     # set via mark_counting(): host-side planning/staging before this
     # point is reported as preprocess time, not count time
@@ -238,8 +255,11 @@ def _count_derived(plan, ctx: RunContext):
         return out
 
     knobs = dict(use_step_mask=ctx.use_step_mask,
-                 double_buffer=ctx.double_buffer, compact=ctx.compact,
-                 reduce_strategy=ctx.reduce_strategy)
+                 double_buffer=ctx.double_buffer, compact=ctx.compact)
+    # neither path has a pod dimension (pods would replicate whole
+    # rounds); as in the JAX package's runner the tile path sums flat
+    # whatever reduce_strategy says, and the dense path takes it (so it
+    # refuses "tree")
     if ctx.method == "tile":
         tp = ctx.memo("tile_plan", lambda: timed(
             "tile_plan", lambda: build_tile_plan(plan)))
@@ -247,6 +267,7 @@ def _count_derived(plan, ctx: RunContext):
             "tile_stage", lambda: stage_tile_plan(tp, ctx.device)))
         build = lambda: cannon_mod.build_cannon_tile_fn(plan, **knobs)
     else:
+        knobs["reduce_strategy"] = ctx.reduce_strategy
         staged = ctx.memo(("dense_staged", str(ctx.device)), lambda: (
             stage_arrays(plan.dense_blocks(), ctx.device)))
         build = lambda: cannon_mod.build_cannon_dense_fn(plan, **knobs)
@@ -269,6 +290,44 @@ def _resolve_auto_method(plan, fallback: str = "search") -> str:
     return fallback
 
 
+def _consult_measured(ctx: RunContext, plan) -> dict:
+    """Measured-autotune table lookup for a maxfrag-split plan: records
+    ``autotune_mode``/``measured_table_hit`` on the context and returns
+    the entry (timing it into the table on a miss — the one-time cost
+    measured mode trades for shape-bucket-warm later runs)."""
+    from ..kernels.tc_fused import measured_entry
+
+    entry, hit = measured_entry(plan, device=ctx.device,
+                                table_dir=ctx.measured_dir)
+    ctx.autotune_mode = "measured"
+    ctx.measured_table_hit = hit
+    return entry
+
+
+def _resolve_measured(ctx: RunContext, plan, fallback: Callable[[], str]):
+    """``method`` ``auto`` or ``fused`` under ``autotune="measured"``:
+    ``fused`` takes the table entry's best tile; ``auto`` becomes ``fused``
+    with it where the table's verdict is the fused kernel, else
+    ``fallback()`` (the schedule's percentile resolution)."""
+    from ..kernels.tc_fused import predict_fused_wins
+
+    entry = _consult_measured(ctx, plan)
+    if ctx.method == "fused" or predict_fused_wins(entry):
+        ctx.method = "fused"
+        ctx.fused_tile = entry["best"]["tile"]
+    else:
+        ctx.method = fallback()
+
+
+def _fused_split(ctx: RunContext) -> bool:
+    """Plan with the two-sided maxfrag split: the fused kernel needs it,
+    and the measured table is only defined over such plans, so
+    ``method="auto"`` under measured mode plans the same way."""
+    return ctx.method == "fused" or (
+        ctx.method == "auto" and ctx.autotune == "measured"
+    )
+
+
 def _check_plan_kind(plan, cls, schedule: str) -> None:
     if not isinstance(plan, cls):
         raise ValueError(
@@ -287,6 +346,41 @@ def _staged(plan, ctx: RunContext):
     return stage_arrays(plan.device_arrays(), ctx.device)
 
 
+def _pod_staged(plan, ctx: RunContext):
+    """The plan's tensors with A and B stacked over ``ctx.npods`` pods
+    (:func:`~repro_torch.core.cannon.pod_stack_arrays`) on the run's
+    device, memoised per (pod count, device).  The single-pod A and B are
+    never staged for it.  The arrays that are not stacked (task lists,
+    task counts, hub side) are the single-pod tensors where the artifact
+    already staged them on this device, else uploaded once for the pod
+    count.  The stacked ``step_keep`` stays on the host, where the engine
+    reads it.  The first call's seconds land in the artifact's
+    ``stage_seconds["pod_stage_<npods>"]``."""
+    from ..pipeline.artifact import stage_arrays
+
+    # outside the memo: the artifact's memo lock is not reentrant
+    single = (None if ctx.artifact is None
+              else ctx.artifact.staged_if_any(ctx.device)) or {}
+
+    def build():
+        t0 = time.perf_counter()
+        host = plan.device_arrays()
+        pods = cannon_mod.pod_stack_arrays(host, ctx.npods, plan.q)
+        pods.pop("step_keep", None)
+        fresh = stage_arrays(
+            {k: v for k, v in pods.items()
+             if v is not host[k] or k not in single}, ctx.device)
+        out = {k: fresh[k] if k in fresh else single[k] for k in pods}
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+        if ctx.artifact is not None:
+            ctx.artifact.stage_seconds[f"pod_stage_{ctx.npods}"] = (
+                time.perf_counter() - t0)
+        return out
+
+    return ctx.memo(("pod_staged", ctx.npods, str(ctx.device)), build)
+
+
 def _run_cannon(graph: Graph, grid, ctx: RunContext):
     methods = sorted(set(CSR_KERNELS) | set(_DERIVED_METHODS) | {"auto"})
     if ctx.method not in methods:
@@ -297,6 +391,8 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     plan = ctx.plan  # a caller-supplied plan is already relabeled and
     if plan is None:  # wins over the pipeline (reorder/cyclic_p unused)
         from ..pipeline import plan_cannon
+
+        fused_split = _fused_split(ctx)
 
         def plan_with(aug: bool, method: str):
             return plan_cannon(
@@ -311,9 +407,7 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
                 bucketize=(method == "search2"),
                 rebalance_trials=ctx.rebalance_trials,
                 compact=ctx.compact is not False,
-                # the fused kernel needs the two-sided maxfrag split;
-                # auto resolves from the percentile report
-                autotune="fused" if method == "fused" else (method == "auto"),
+                autotune="fused" if fused_split else (method == "auto"),
                 aug_keys=aug,
                 hub_split=ctx.hub_split,
                 cache=ctx.cache,
@@ -323,16 +417,20 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
         ctx.artifact = plan_with(ctx.method in ("global", "search2"),
                                  ctx.method)
         plan = ctx.artifact.plan
+        auto = ctx.method == "auto"
         if ctx.method in ("auto", "fused"):
             ctx.autotune_mode = "percentile"
+            if ctx.autotune == "measured":
+                _resolve_measured(ctx, plan,
+                                  lambda: _resolve_auto_method(plan))
         if ctx.method == "auto":
             ctx.method = _resolve_auto_method(plan)
-            if ctx.method == "search2":
-                # auto resolved to a key-consuming kernel: re-plan with
-                # staged keys (deterministic, so only the keys differ;
-                # its own cache entry serves repeat counts warm)
-                ctx.artifact = plan_with(True, "auto")
-                plan = ctx.artifact.plan
+        if auto and ctx.method == "search2":
+            # auto resolved to a key-consuming kernel: re-plan with
+            # staged keys (deterministic, so only the keys differ; its
+            # own cache entry serves repeat counts warm)
+            ctx.artifact = plan_with(True, "auto")
+            plan = ctx.artifact.plan
     else:
         _check_plan_kind(plan, TCPlan, "cannon")
         if ctx.method == "auto":
@@ -340,10 +438,12 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
 
     if ctx.method in _DERIVED_METHODS:
         return _count_derived(plan, ctx)
-    staged = _staged(plan, ctx)
+    # the fn first: it refuses a pod count that does not divide q before
+    # anything is staged for it
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.double_buffer, ctx.compact, ctx.reduce_strategy),
+         ctx.double_buffer, ctx.compact, ctx.reduce_strategy, ctx.npods,
+         ctx.fused_tile),
         lambda: cannon_mod.build_cannon_fn(
             plan,
             method=ctx.method,
@@ -352,8 +452,12 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
             double_buffer=ctx.double_buffer,
             compact=ctx.compact,
             reduce_strategy=ctx.reduce_strategy,
+            npods=ctx.npods,
+            fused_tile=ctx.fused_tile,
         ),
     )
+    staged = (_pod_staged(plan, ctx) if ctx.npods > 1
+              else _staged(plan, ctx))
     ctx.mark_counting()
     # the one device→host crossing of a count
     return int(fn(**staged)), plan
@@ -368,7 +472,7 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
             graph, *grid, chunk=ctx.chunk, reorder=ctx.reorder,
             cyclic_p=ctx.cyclic_p, rebalance_trials=ctx.rebalance_trials,
             compact=ctx.compact is not False,
-            autotune="fused" if ctx.method == "fused"
+            autotune="fused" if _fused_split(ctx)
             else (ctx.method == "auto"),
             broadcast=ctx.broadcast or "auto",
             hub_split=ctx.hub_split,
@@ -377,14 +481,21 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
         splan = ctx.artifact.plan
         if ctx.method in ("auto", "fused"):
             ctx.autotune_mode = "percentile"
+            if ctx.autotune == "measured":
+                _resolve_measured(ctx, splan,
+                                  lambda: _resolve_auto_method(splan))
     else:
         _check_plan_kind(splan, SummaPlan, "summa")
     if ctx.method == "auto":
         ctx.method = _resolve_auto_method(splan)
     staged = _staged(splan, ctx)
+    # SUMMA has no pod dimension: as in the JAX package, where every pod
+    # runs the whole broadcast schedule and the grid sum is taken per
+    # pod, pods and reduce_strategy leave the count as it is — the
+    # schedule runs once and sums flat
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.compact, ctx.broadcast, ctx.reduce_strategy),
+         ctx.compact, ctx.broadcast, ctx.fused_tile),
         lambda: build_summa_fn(
             splan,
             method=ctx.method,
@@ -392,7 +503,7 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
             use_step_mask=ctx.use_step_mask,
             compact=ctx.compact,
             broadcast=ctx.broadcast,
-            reduce_strategy=ctx.reduce_strategy,
+            fused_tile=ctx.fused_tile,
         ),
     )
     ctx.mark_counting()
@@ -400,7 +511,8 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
 
 
 def _run_oned(graph: Graph, grid, ctx: RunContext):
-    p = math.prod(grid)
+    # the ring runs over every device of the grid, pods included
+    p = math.prod(grid) * ctx.npods
     oplan = ctx.plan  # a caller-supplied plan wins over the pipeline
     if oplan is None:
         from ..pipeline import plan_oned
@@ -409,7 +521,7 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
             graph, p, chunk=ctx.chunk, reorder=ctx.reorder,
             cyclic_p=ctx.cyclic_p, rebalance_trials=ctx.rebalance_trials,
             compact=ctx.compact is not False,
-            autotune="fused" if ctx.method == "fused"
+            autotune="fused" if _fused_split(ctx)
             else (ctx.method == "auto"),
             hub_split=ctx.hub_split,
             cache=ctx.cache,
@@ -417,6 +529,10 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
         oplan = ctx.artifact.plan
         if ctx.method in ("auto", "fused"):
             ctx.autotune_mode = "percentile"
+            if ctx.autotune == "measured":
+                # the ring's global-id columns rule out the two-level
+                # kernel: the percentile fallback is plain search
+                _resolve_measured(ctx, oplan, lambda: "search")
     else:
         _check_plan_kind(oplan, OneDPlan, "oned")
     if ctx.method == "auto":
@@ -425,7 +541,7 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
     staged = _staged(oplan, ctx)
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.compact, ctx.reduce_strategy),
+         ctx.compact, ctx.reduce_strategy, ctx.fused_tile),
         lambda: build_oned_fn(
             oplan,
             method=ctx.method,
@@ -433,6 +549,7 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
             use_step_mask=ctx.use_step_mask,
             compact=ctx.compact,
             reduce_strategy=ctx.reduce_strategy,
+            fused_tile=ctx.fused_tile,
         ),
     )
     ctx.mark_counting()
@@ -471,6 +588,7 @@ def count_triangles(
     grid: Optional[tuple] = None,
     method: str = "search",
     schedule: str = "cannon",
+    npods: int = 1,
     probe_shorter: bool = True,
     chunk: int = 512,
     reorder: bool = True,
@@ -486,6 +604,7 @@ def count_triangles(
     broadcast: Optional[str] = None,
     cache=None,
     autotune: str = "percentile",
+    measured_dir: Optional[str] = None,
     device=None,
 ) -> TCResult:
     """Count triangles with the paper's 2D algorithm.
@@ -499,7 +618,20 @@ def count_triangles(
     :func:`available_schedules`): ``"cannon"`` needs a square grid,
     ``"summa"`` runs ``r x c`` (``q x q`` with ``q`` alone), ``"oned"``
     the ring of ``p = r * c`` devices (``q²``).  ``TCResult.grid`` is
-    the grid that ran: ``(q, q)``, ``(r, c)`` or ``(p,)``.
+    the grid that ran: ``(q, q)``, ``(r, c)`` or ``(p,)``; with pods
+    ``(npods, q, q)`` (or ``(npods, r, c)``).
+    ``npods > 1`` adds the 2.5D pod dimension, as the JAX package's
+    ``(pod, row, col)`` mesh does: on Cannon the A and B blocks are
+    replicated over the pods with per-pod skew offsets and pod ``t`` runs
+    every ``npods``-th shift (``npods`` must divide ``q``; compaction is
+    off, ``compact=True`` refused; the task lists are not replicated); the
+    ring runs over all ``npods * r * c`` devices; SUMMA, ``tile`` and
+    ``dense`` have no pod dimension and count as on one pod.
+    ``reduce_strategy`` picks the final sum: ``"flat"``, ``"tree"`` (a
+    joint sum per pod, then the binomial tree over the pods; needs a
+    power-of-two pod count > 1) or ``"auto"`` (tree whenever it applies).
+    As in the JAX package, SUMMA and ``tile`` sum flat whatever it says,
+    and ``dense`` and the ring refuse ``"tree"``.
     ``method`` picks the count kernel (``"search"``, ``"search2"``,
     ``"global"``, ``"fused"``, ``"auto"``, and on Cannon ``"tile"``,
     ``"dense"``).  ``method="auto"`` plans through the deterministic
@@ -544,14 +676,31 @@ def count_triangles(
     Counts are exact: accumulation is int64 everywhere and
     ``TCResult.triangles`` is a Python ``int``.  ``count_dtype`` may be
     ``torch.int32`` to demand a count that fits 32 bits — one that does
-    not raises ``OverflowError``.  ``autotune`` must be ``"percentile"``
-    (the measured-table mode is not carried over yet).
+    not raises ``OverflowError``.
+    ``autotune`` selects the shape-selection flavour for ``method`` in
+    (``"auto"``, ``"fused"``): ``"percentile"`` (the analytic stage) or
+    ``"measured"`` (consult, or populate on a miss, the persisted timing
+    table of :mod:`repro_torch.kernels.tc_fused.autotune`: ``auto``
+    resolves to ``fused`` exactly where the table's timing says it beats
+    the baseline, and ``fused`` takes the table's tile; ``measured_dir``
+    overrides the table directory; ``TCResult.measured_table_hit`` says
+    whether the entry came off disk).  Measured mode plans with the
+    two-sided split and refuses a caller-supplied plan.
     """
-    if autotune != "percentile":
+    if autotune not in ("percentile", "measured"):
         raise ValueError(
-            f"unknown autotune mode {autotune!r}: only 'percentile' is "
-            "available in repro_torch (the measured mode is not ported yet)"
+            f"unknown autotune mode {autotune!r}: "
+            "expected percentile | measured"
         )
+    if autotune == "measured" and plan is not None:
+        raise ValueError(
+            "autotune='measured' needs pipeline planning (the table is "
+            "keyed off the planned shape bucket); drop the "
+            "caller-supplied plan"
+        )
+    npods = int(npods)
+    if npods < 1:
+        raise ValueError(f"npods must be >= 1, got {npods}")
     if count_dtype is None:
         count_dtype = torch.int64
     if count_dtype not in (torch.int32, torch.int64):
@@ -611,6 +760,7 @@ def count_triangles(
         chunk=chunk,
         probe_shorter=probe_shorter,
         device=device,
+        npods=npods,
         plan=plan,
         use_step_mask=use_step_mask,
         double_buffer=double_buffer,
@@ -622,6 +772,8 @@ def count_triangles(
         rebalance_trials=rebalance_trials,
         hub_split=hub_split,
         cache=cache,
+        autotune=autotune,
+        measured_dir=measured_dir,
     )
     if artifact is not None:
         ctx.artifact = artifact
@@ -640,9 +792,11 @@ def count_triangles(
         count_seconds=t2 - t1,
         method=ctx.method,
         schedule=schedule,
-        grid=_plan_grid(out_plan) or grid,
+        grid=((npods, *grid) if npods > 1
+              else _plan_grid(out_plan) or grid),
         device=str(device),
         autotune_mode=ctx.autotune_mode,
+        measured_table_hit=ctx.measured_table_hit,
         artifact=ctx.artifact,
         rebalance=getattr(ctx.artifact, "rebalance", None),
         hub=_hub_report(out_plan, ctx.artifact),

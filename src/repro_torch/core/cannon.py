@@ -10,12 +10,19 @@ This module is a thin *configuration* of :mod:`repro_torch.core.engine`:
 :class:`~repro_torch.core.engine.CannonSchedule`, a count kernel and a
 Reduction — the schedule body lives in the engine, once.
 ``build_cannon_tile_fn`` swaps in the bit-tile store and
-``build_cannon_dense_fn`` the dense oracle store.  Single pod only:
-``pod_stack_arrays`` and the 2.5D path are not carried over yet.
+``build_cannon_dense_fn`` the dense oracle store.
+
+Multi-pod (2.5D): with ``npods`` pods the A and B blocks are replicated
+over a leading pod dimension, pod ``t`` starts at skew offset ``t``
+(:func:`pod_stack_arrays`) and runs every ``npods``-th shift; the task
+lists are not replicated.  Memory ×npods for A and B, shifts ÷npods.
+Only the CSR path takes pods, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
+
+import numpy as np
 
 from . import engine
 from .engine import (
@@ -28,17 +35,47 @@ from .engine import (
 )
 from .plan import as_plan, resolve_compact_steps, resolve_step_mask
 
-__all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn"]
+__all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn",
+           "pod_stack_arrays"]
+
+
+def pod_stack_arrays(arrays: Dict, npods: int, q: int) -> Dict:
+    """Stack A/B operands with per-pod skew offsets (numpy, host side).
+
+    ``A0_t[x, y] = A0[x, (y+t) % q]`` and ``B0_t[x, y] = B0[(x+t) % q, y]``
+    put pod ``t`` at Cannon skew offset ``t`` so it can execute shifts
+    ``t, t+npods, ...`` only.  The planner's ``step_keep`` mask is
+    pod-strided the same way: pod ``t``'s local step ``s`` is global
+    shift ``t + s * npods``, so its mask slice is ``step_keep[..., t::npods]``.
+    Task lists and the hub side are not stacked: the mask block is
+    stationary.
+    """
+    out = dict(arrays)
+    for key in ("a_indptr", "a_indices"):
+        out[key] = np.stack(
+            [np.roll(arrays[key], -t, axis=1) for t in range(npods)]
+        )
+    for key in ("b_indptr", "b_indices", "b_aug"):
+        if key not in arrays:
+            continue
+        out[key] = np.stack(
+            [np.roll(arrays[key], -t, axis=0) for t in range(npods)]
+        )
+    if "step_keep" in arrays:
+        out["step_keep"] = np.stack(
+            [arrays["step_keep"][:, :, t::npods] for t in range(npods)]
+        )
+    return out
 
 
 def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
-               compact, reduce_strategy, batched=False, hub=None):
+               compact, reduce_strategy, batched=False, hub=None, npods=1):
     """The engine composition shared by every ``build_cannon_*`` fn: the skip
     mask and the compacted schedule come from the CSR plan."""
     use_step_mask = resolve_step_mask(plan, use_step_mask)
-    live = resolve_compact_steps(plan, compact, batched=batched)
+    live = resolve_compact_steps(plan, compact, batched=batched, npods=npods)
     schedule = CannonSchedule(
-        q=plan.q, double_buffer=double_buffer, live_steps=live
+        q=plan.q, double_buffer=double_buffer, live_steps=live, npods=npods
     )
     return engine.build_engine_fn(
         store,
@@ -69,8 +106,11 @@ def build_cannon_fn(
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
     batched: bool = False,
+    npods: int = 1,
+    fused_tile: Optional[int] = None,
 ):
-    """Build the counting function for ``plan`` on its ``(q, q)`` grid.
+    """Build the counting function for ``plan`` on its ``(q, q)`` grid, or
+    on the ``(npods, q, q)`` grid of ``npods`` 2.5D pods.
 
     ``plan`` may be a raw :class:`~repro_torch.core.plan.TCPlan` or a
     pipeline :class:`~repro_torch.pipeline.artifact.PlanArtifact`.
@@ -99,6 +139,13 @@ def build_cannon_fn(
     ``batched=True`` builds the multi-graph function of
     :mod:`repro_torch.pipeline.batch` (``plan.m_cnt`` / ``step_keep``
     then carry the leading batch dimension).
+    ``npods > 1`` runs the 2.5D schedule over tensors staged by
+    :func:`pod_stack_arrays` (``npods`` must divide ``q``; compaction is
+    off unless refused by ``compact=True``); ``reduce_strategy`` picks the
+    final sum: ``"flat"``, ``"tree"`` (joint grid sum, then the binomial
+    tree over the pods; needs a power-of-two pod count > 1) or ``"auto"``
+    (tree whenever it applies).  ``fused_tile`` overrides the fused
+    kernel's tile (the measured autotune passes its table's best).
     """
     plan = as_plan(plan)
     if method == "fused":
@@ -111,6 +158,7 @@ def build_cannon_fn(
         probe_shorter=probe_shorter,
         n_long=n_long,
         d_small=getattr(plan, "d_small", None),
+        fused_tile=fused_tile,
     )
     store = CSRStore(
         kernel,
@@ -122,6 +170,7 @@ def build_cannon_fn(
         double_buffer=double_buffer, compact=compact,
         reduce_strategy=reduce_strategy, batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
+        npods=npods,
     )
 
 

@@ -22,6 +22,11 @@ SUMMA, ``(p,)`` for the 1D ring — so
 * a SUMMA panel broadcast is a view: device ``(x, y)`` reads round
   ``z``'s panels where their owners store them, nothing is copied;
 * the global sum is a sum over the grid dimensions;
+* a 2.5D pod is one more leading grid dimension: Cannon's staged A and B
+  tensors are ``(npods, q, q, ...)`` (pod ``t`` holds them rolled to skew
+  offset ``t``, :func:`~repro_torch.core.cannon.pod_stack_arrays`), its
+  task lists stay ``(q, q, ...)``, and pod ``t``'s local step ``s`` is
+  the global step ``t + s * npods``;
 * the scan over schedule steps is a host loop, and the per-(device, step)
   skip is a host ``if`` on the plan's *numpy* ``step_keep`` / task counts
   (reading a device bool per step would synchronise once per
@@ -33,16 +38,16 @@ Carried over here: the CSR-kernel registry (``search``, ``search2``,
 :class:`SummaCSRStore`, :class:`OneDCSRStore`, :class:`DenseStore`,
 :class:`TileStore`, :func:`masked_count`, :class:`CannonSchedule`,
 :class:`SummaSchedule` and :class:`RingSchedule` (plain and compacted),
-:class:`Reduction` (``flat``), the hub-split partial (:class:`HubCount`),
-:func:`build_engine_fn`, batched or not, and the delta path's
-:func:`restage_device_arrays`.  Where the JAX package maps
+Cannon's 2.5D pods, :class:`Reduction` (``flat``, and ``tree``: the
+binomial tree over the pods of :func:`pod_tree_allreduce`), the hub-split
+partial (:class:`HubCount`), :func:`build_engine_fn`, batched or not, and
+the delta path's :func:`restage_device_arrays`.  Where the JAX package maps
 the schedule over a batch of graphs with ``lax.map``, the batched
 function here loops over the staged tensors' leading batch dimension,
 each graph with its own host task counts and skip mask.
 Not carried over yet: blob packing and uint16 length compression of the
 shifted payload (a communication optimisation with nothing to serialise
-on one device), the 2.5D pod axis and the tree reduction, and the
-stepper.
+on one device), and the stepper.
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ __all__ = [
     "OneDCSRStore",
     "RingSchedule",
     "Reduction",
+    "pod_tree_allreduce",
     "HubCount",
     "CSR_KERNELS",
     "register_csr_kernel",
@@ -356,16 +362,18 @@ class CSRStore(OperandStore):
 
     def count(self, state, arrays, dev, step, cnt):
         del step  # the task list is the same at every step
-        x, y = dev
+        # ``dev`` is ``(x, y)``, or ``(t, x, y)`` on a pod grid: the
+        # operands are pod t's, the task list is (x, y)'s in every pod
+        x, y = dev[-2:]
         (a_ptr, a_idx), b_state = state
         extra = {}
         if self.with_aug:
             b_ptr, b_idx, aug = b_state
-            extra = dict(aug_b=aug[x, y])
+            extra = dict(aug_b=aug[dev])
         else:
             b_ptr, b_idx = b_state
         return self.kernel(
-            a_ptr[x, y], a_idx[x, y], b_ptr[x, y], b_idx[x, y],
+            a_ptr[dev], a_idx[dev], b_ptr[dev], b_idx[dev],
             arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
             **extra,
         )
@@ -495,18 +503,21 @@ class OneDCSRStore(OperandStore):
 # ======================================================================
 # shift schedules
 # ======================================================================
-def masked_count(store, state, arrays, dev, step, cnt, step_keep):
+def masked_count(store, state, arrays, dev, step, cnt, step_keep, home=None):
     """One logical device's count for one schedule step, short-circuited
     on the host by the planner's mask.
 
     ``dev`` is the device's index tuple into the grid; ``step_keep`` is
     the plan's numpy ``(*grid, nsteps)`` bool array (True = this step's
-    incoming operands can contribute) or ``None``; returns ``None`` when
-    the step is masked off or the device has no tasks that step, so no
-    kernel is launched at all.  Shifts stay outside — the whole grid
-    rolls together whether or not a device counts.
+    incoming operands can contribute) or ``None``, read at ``home`` (the
+    index of the device's task list; ``dev`` itself unless it is a pod's
+    device) and the ORIGINAL step; returns ``None`` when the step is
+    masked off or the device has no tasks that step, so no kernel is
+    launched at all.  Shifts stay outside — the whole grid rolls together
+    whether or not a device counts.
     """
-    if step_keep is not None and not step_keep[dev + (step,)]:
+    home = dev if home is None else home
+    if step_keep is not None and not step_keep[home + (step,)]:
         return None
     if cnt <= 0:
         return None
@@ -541,14 +552,22 @@ class ShiftSchedule:
         del step  # the task list is the same at every step
         return int(m_cnt[dev])
 
+    def locate(self, dev, step):
+        """``(home, original step)`` of grid position ``dev`` at loop step
+        ``step``: the index of its task list and skip-mask row, and the
+        schedule step it counts.  Only a pod's device differs from
+        ``(dev, step)`` (:class:`CannonSchedule`)."""
+        return dev, step
+
     def _shift_k(self, payload, hop: int):
         raise NotImplementedError
 
     def _count_grid(self, store, payload, arrays, step, m_cnt, step_keep, out):
         for dev in np.ndindex(*self.grid):
+            home, s = self.locate(dev, step)
             c = masked_count(
-                store, payload, arrays, dev, step,
-                self.task_count(m_cnt, dev, step), step_keep,
+                store, payload, arrays, dev, s,
+                self.task_count(m_cnt, home, s), step_keep, home=home,
             )
             if c is not None:
                 out[dev] += c
@@ -591,6 +610,16 @@ class CannonSchedule(ShiftSchedule):
     current count by carrying two payload generations; in an eager loop
     on one device there is no collective to overlap (a roll is an
     ordinary kernel on the same stream), so one generation is carried.
+
+    2.5D pods (``npods > 1``): the grid is ``(npods, q, q)``, the A and B
+    payload tensors carry the pod as their leading dimension, pod ``t``
+    starts at skew offset ``t`` (staged by
+    :func:`~repro_torch.core.cannon.pod_stack_arrays`) and runs every
+    ``npods``-th shift: ``q // npods`` loop steps, each a roll by
+    ``npods`` positions.  Pod ``t``'s loop step ``s`` is the global step
+    ``t + s * npods``: the skip mask is read there, and the task counts
+    and lists at ``(x, y)`` (:meth:`locate`).  Memory ×npods for A and B,
+    shifts ÷npods — the communication-avoiding trade.
     """
 
     q: int
@@ -598,23 +627,42 @@ class CannonSchedule(ShiftSchedule):
     # compacted schedule: original indices of the globally-live steps
     # (strictly increasing); ``run`` then visits only them
     live_steps: Optional[Tuple[int, ...]] = None
+    npods: int = 1
+
+    def __post_init__(self):
+        if self.npods < 1 or self.q % self.npods:
+            raise ValueError(
+                f"pods must divide the grid dimension: q={self.q}, "
+                f"npods={self.npods}"
+            )
 
     @property
     def grid(self) -> Tuple[int, ...]:
+        if self.npods > 1:
+            return (self.npods, self.q, self.q)
         return (self.q, self.q)
 
     @property
     def nsteps(self) -> int:
-        return self.q
+        return self.q // self.npods
+
+    def locate(self, dev, step):
+        if self.npods == 1:
+            return dev, step
+        t, x, y = dev
+        return (x, y), t + step * self.npods
 
     def _shift_k(self, payload, hop: int):
         """Fused shift of ``hop`` schedule steps (one roll per tensor
-        regardless of hop — the multi-hop fusion)."""
-        k = hop % self.q
+        regardless of hop — the multi-hop fusion); a pod's step is
+        ``npods`` Cannon shifts."""
+        k = (hop * self.npods) % self.q
         if k == 0:
             return payload
+        lead = 1 if self.npods > 1 else 0  # the pod dimension
         a_state, b_state = payload
-        return (_roll_tree(a_state, k, 1), _roll_tree(b_state, k, 0))
+        return (_roll_tree(a_state, k, 1 + lead),
+                _roll_tree(b_state, k, 0 + lead))
 
 
 @dataclasses.dataclass
@@ -674,33 +722,95 @@ class RingSchedule(ShiftSchedule):
 # ======================================================================
 # reductions
 # ======================================================================
+def pod_tree_allreduce(x, n: int):
+    """Binomial-tree all-reduce over the pod dimension: dim 0 of ``x``,
+    of size ``n`` (a power of two).
+
+    The JAX package's collective of the same name, as index arithmetic on
+    one tensor: log2(n) reduce rounds funnel the partials to position 0
+    (in round ``k`` every position ``t`` with ``t % 2k == k`` sends to
+    ``t - k``, and a position that receives nothing adds zero, as a
+    ``ppermute`` delivers), then log2(n) broadcast rounds in reverse send
+    the sum back (``t % 2k == 0`` sends to ``t + k``, which replaces its
+    stale partial).  Every position ends holding the sum.
+    """
+    if n == 1:
+        return x
+    if n & (n - 1):
+        raise ValueError("tree reduce needs a power-of-two axis size")
+    rounds = []
+    k = 1
+    while k < n:
+        rounds.append(k)
+        k *= 2
+    pos = torch.arange(n, device=x.device).view(-1, *([1] * (x.dim() - 1)))
+    for k in rounds:
+        src = [t for t in range(n) if t % (2 * k) == k]
+        recv = torch.zeros_like(x)
+        recv[[t - k for t in src]] = x[src]
+        x = x + recv
+    for k in reversed(rounds):
+        src = [t for t in range(n) if t % (2 * k) == 0]
+        recv = torch.zeros_like(x)
+        recv[[t + k for t in src]] = x[src]
+        x = torch.where(pos % (2 * k) == k, recv, x)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class Reduction:
     """Global sum of the per-device partials, or per-device outputs.
 
-    Only the ``"flat"`` strategy exists here (``"auto"`` resolves to it):
-    a sum over the grid dimensions.  The 2.5D ``"tree"`` reduction needs
-    a pod axis, which this package does not have yet.
+    ``strategy`` selects how the global sum is formed:
+
+    * ``"flat"`` — one sum over every grid dimension;
+    * ``"tree"`` — the 2.5D staged reduce: one joint sum over each pod's
+      ``(q, q)`` grid, then the binomial tree over the pods
+      (:func:`pod_tree_allreduce`).  Needs a power-of-two pod count > 1
+      — :meth:`resolve` enforces this;
+    * ``"auto"`` — ``tree`` whenever it is applicable, else ``flat``.
+
+    The build functions pass the unresolved knob;
+    :func:`build_engine_fn` binds it against the schedule's pod count via
+    :meth:`resolve`.
     """
 
     global_sum: bool = True
-    strategy: str = "auto"  # "flat" | "auto"
+    strategy: str = "auto"  # "flat" | "tree" | "auto"
+    npods: int = 1  # pod count, bound by resolve()
 
-    def resolve(self) -> "Reduction":
-        if self.strategy == "tree":
+    def resolve(self, npods: int = 1) -> "Reduction":
+        """Bind ``strategy`` and the pod count (1: no pod dimension)."""
+        pow2 = npods > 1 and (npods & (npods - 1)) == 0
+        strategy = self.strategy
+        if strategy == "auto":
+            strategy = "tree" if pow2 else "flat"
+        elif strategy == "tree":
+            if npods <= 1:
+                raise ValueError(
+                    "reduce strategy 'tree' needs a pod axis with "
+                    "npods > 1; use 'flat' (or 'auto') on single-pod "
+                    "grids and rings"
+                )
+            if not pow2:
+                raise ValueError(
+                    f"reduce strategy 'tree' needs a power-of-two pod "
+                    f"count, got npods={npods}"
+                )
+        elif strategy != "flat":
             raise ValueError(
-                "reduce strategy 'tree' needs a pod axis with npods > 1; "
-                "use 'flat' (or 'auto') on single-pod grids"
+                f"unknown reduce strategy {strategy!r}; "
+                "expected 'flat', 'tree', or 'auto'"
             )
-        if self.strategy not in ("flat", "auto"):
-            raise ValueError(
-                f"unknown reduce strategy {self.strategy!r}; "
-                "expected 'flat' or 'auto'"
-            )
-        return dataclasses.replace(self, strategy="flat")
+        return dataclasses.replace(self, strategy=strategy, npods=npods)
 
     def apply(self, per_device):
-        return per_device.sum() if self.global_sum else per_device
+        if not self.global_sum:
+            return per_device
+        if self.strategy == "tree":
+            per_pod = per_device.flatten(1).sum(dim=1)
+            return pod_tree_allreduce(per_pod, self.npods)[0]
+        return per_device.sum()
 
 
 # ======================================================================
@@ -718,6 +828,9 @@ class HubCount:
     A and B alike), and the per-device partials are added to the
     schedule's before the :class:`Reduction` — so skip masks and schedule
     compaction compose untouched (hub work never revives an elided step).
+    On a pod grid the hub side is pod 0's alone (the JAX package replicates
+    it over the pods and zeroes it on every other): counted once, added to
+    pod 0's partials, so the global sum holds it once.
     The work sits inside ``torch.profiler.record_function("tc_hub")``, so
     a profile splits it from the schedule.  ``hub_cnt`` is the hub side's
     *host* task counts, read like the plan's ``m_cnt``.
@@ -745,14 +858,16 @@ class HubCount:
 
     def count(self, arrays, out):
         """Add every logical device's hub partial to ``out`` (the
-        grid-shaped int64 per-device counts) in place."""
+        grid-shaped int64 per-device counts; on a pod grid pod 0's) in
+        place."""
         ptr, idx = arrays["hub_indptr"], arrays["hub_indices"]
+        pod0 = out if out.dim() == self.hub_cnt.ndim else out[0]
         with torch.profiler.record_function("tc_hub"):
             for dev in np.ndindex(*self.hub_cnt.shape):
                 cnt = int(self.hub_cnt[dev])
                 if cnt <= 0:
                     continue
-                out[dev] += count_mod.count_pair_search(
+                pod0[dev] += count_mod.count_pair_search(
                     ptr[dev], idx[dev], ptr[dev], idx[dev],
                     arrays["hub_ti"][dev], arrays["hub_tj"][dev], cnt,
                     dpad=self.dpad, chunk=self.chunk,
@@ -802,7 +917,8 @@ def build_engine_fn(
     step_keep=..., hub=...)`` returns the same composition over other
     host arrays (a spliced plan's, in the delta path).
     """
-    reduction = (reduction or Reduction()).resolve()
+    reduction = (reduction or Reduction()).resolve(
+        getattr(schedule, "npods", 1))
     if batched:
         if hub is not None:
             raise ValueError(

@@ -99,6 +99,7 @@ def build_oned_fn(
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
     batched: bool = False,
+    fused_tile: Optional[int] = None,
 ):
     """Build the ring's counting function: RingSchedule × OneDCSRStore ×
     kernel over the plan's ``(p,)`` ring.
@@ -113,6 +114,7 @@ def build_oned_fn(
     long bucket with the padded search's function (global column ids).
     A hub-split plan adds its hub partial; ``batched=True`` builds the
     multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
+    ``fused_tile`` overrides the fused kernel's tile.
     """
     from . import engine
     from .engine import OneDCSRStore, Reduction, RingSchedule, make_csr_kernel
@@ -137,6 +139,7 @@ def build_oned_fn(
         # past every global id (padding n + 1 included)
         fused_long_fallback="search",
         key_base=plan.n + 2,
+        fused_tile=fused_tile,
     )
     store = OneDCSRStore(kernel, p=plan.p)
     schedule = RingSchedule(p=plan.p, live_steps=live)

@@ -114,18 +114,20 @@ def compact_live_steps(step_keep: np.ndarray) -> CompactSchedule:
 
 
 def resolve_compact_steps(
-    plan, compact, *, batched: bool = False
+    plan, compact, *, batched: bool = False, npods: int = 1
 ) -> Optional[Tuple[int, ...]]:
     """Resolve a ``compact`` request against the plan.
 
     ``None`` auto-enables compaction iff the planner staged a
     :class:`CompactSchedule` that actually elides something and the
-    build is not batched (per-graph masks differ, so a batch keeps the
-    full loop).  An explicit ``True`` that cannot be honored is an error.
+    build is a plain (non-batched, single-pod) engine — a batch's
+    per-graph masks differ, and pods stride the mask (pod ``t`` runs the
+    global steps ``t, t + npods, ...``), so both keep the full loop.  An
+    explicit ``True`` that cannot be honored is an error.
     """
     cs = getattr(as_plan(plan), "compact", None)
     if compact is None:
-        if cs is None or batched or cs.n_elided == 0:
+        if cs is None or batched or npods != 1 or cs.n_elided == 0:
             return None
     elif not compact:
         return None
@@ -135,7 +137,7 @@ def resolve_compact_steps(
                 "plan carries no compacted schedule; re-plan through the "
                 "pipeline with step_masks=True (or leave compact=None)"
             )
-        if batched:
+        if batched or npods != 1:
             raise ValueError(
                 "compact=True is not supported for batched or multi-pod "
                 "engines; pass compact=False (or None for auto)"

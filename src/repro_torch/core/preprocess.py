@@ -8,10 +8,11 @@ Steps, mirroring the paper:
    wires it in as the optional first relabel stage
    (``repro_torch.pipeline.stages.relabel_stage(..., cyclic_p=p)``).
 2. *reorder vertices in non-decreasing degree* via counting sort.  The host
-   path (:func:`degree_order`) is a stable counting sort; the distributed
-   formulation the paper describes (local histograms, global max-degree
-   reduction, prefix sums over degree buckets) is not part of this package
-   yet.
+   path (:func:`degree_order`) is a stable counting sort;
+   :func:`distributed_degree_rank` is the distributed formulation the
+   paper describes (local histograms, a global histogram, prefix sums over
+   degree buckets and over shards), with the shards as a leading tensor
+   dimension.
 3. *split the adjacency matrix into U and L*.  Because L = Uᵀ, the planner
    only materializes U blocks; the ⟨j,i,k⟩ task set over L's nonzeros is the
    transposed view of the same blocks.
@@ -21,12 +22,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from .graph import Graph
 
 __all__ = [
     "degree_order",
     "cyclic_relabel",
+    "distributed_degree_rank",
     "preprocess",
 ]
 
@@ -66,3 +69,53 @@ def preprocess(graph: Graph) -> Tuple[Graph, np.ndarray]:
     """Degree-order the graph; return (relabeled graph, perm)."""
     perm = degree_order(graph)
     return graph.relabel(perm, name=graph.name + "+degord"), perm
+
+
+# ----------------------------------------------------------------------
+# Distributed counting sort — the paper's §5.3/§5.4, shards as dim 0
+# ----------------------------------------------------------------------
+def distributed_degree_rank(degrees) -> torch.Tensor:
+    """Per-shard degree ranks via the paper's distributed counting sort.
+
+    ``degrees`` is a ``(p, chunk)`` integer tensor: shard ``s`` holds the
+    degrees of vertices ``s * chunk ... (s + 1) * chunk - 1``.  The JAX
+    package runs the same steps inside ``shard_map`` over a 1D axis; here
+    the shards are the leading dimension, so its collectives become sums
+    and scans over dim 0:
+
+    (a) a local histogram per shard;
+    (b) the global histogram (the paper's all-reduce: ``psum`` there, a
+        sum over dim 0 here) and its exclusive scan over degree buckets;
+    (c) for each degree, the vertices of it held by *earlier* shards (the
+        paper's prefix sum over shards, cost ``d_max log p``: there an
+        ``all_gather`` and a masked sum, here an exclusive cumsum over
+        dim 0);
+    (d) stable within-shard offsets: a stable sort of the shard's degrees
+        against the shard's own exclusive bucket starts.
+
+    (The global max-degree reduction of the paper's cost model is
+    subsumed by the static bucket bound: a degree is below ``p * chunk``.)
+    Returns the global rank (= new vertex id) of each vertex as a
+    ``(p, chunk)`` int64 tensor, stable by (shard, local position) — the
+    permutation :func:`degree_order` gives.
+    """
+    deg = torch.as_tensor(degrees)
+    if deg.dim() != 2:
+        raise ValueError(
+            f"degrees must be (p, chunk), got shape {tuple(deg.shape)}"
+        )
+    deg = deg.long()
+    p, chunk = deg.shape
+    nbuckets = chunk * p + 1
+    hist = torch.zeros((p, nbuckets), dtype=torch.int64, device=deg.device)
+    hist.scatter_add_(1, deg, torch.ones_like(deg))
+    ghist = hist.sum(dim=0)
+    bucket_starts = torch.cumsum(ghist, 0) - ghist
+    before = torch.cumsum(hist, 0) - hist
+    order = torch.argsort(deg, dim=1, stable=True)
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(chunk, device=deg.device).expand(
+        p, chunk).contiguous())
+    local_starts = torch.cumsum(hist, 1) - hist
+    within = pos - torch.gather(local_starts, 1, deg)
+    return bucket_starts[deg] + torch.gather(before, 1, deg) + within

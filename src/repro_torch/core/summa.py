@@ -115,6 +115,7 @@ def build_summa_fn(
     broadcast: Optional[str] = None,
     reduce_strategy: str = "auto",
     batched: bool = False,
+    fused_tile: Optional[int] = None,
 ):
     """Build the counting function for ``plan`` on its ``(r, c)`` grid:
     SummaSchedule × SummaCSRStore × kernel.
@@ -131,6 +132,7 @@ def build_summa_fn(
     registered CSR kernel; ``"fused"`` needs a maxfrag-split plan.  A
     hub-split plan adds its hub partial; ``batched=True`` builds the
     multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
+    ``fused_tile`` overrides the fused kernel's tile.
     """
     from . import engine
     from .engine import Reduction, SummaCSRStore, SummaSchedule, make_csr_kernel
@@ -155,6 +157,7 @@ def build_summa_fn(
         sentinel=plan.nb_c + 1,
         n_long=getattr(plan, "n_long", None),
         d_small=getattr(plan, "d_small", None),
+        fused_tile=fused_tile,
     )
     store = SummaCSRStore(kernel, r=plan.r, c=plan.c, broadcast=broadcast)
     schedule = SummaSchedule(r=plan.r, c=plan.c, live_steps=live)

@@ -10,6 +10,10 @@
         --grid 2 --verify --json
     python -m repro_torch.launch.tc_run --graph rmat:14 --grid 2 \\
         --method fused --stream deltas.jsonl --rebase-every 8 --verify --json
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 --pods 2 \\
+        --method fused --reduce-strategy tree --verify
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
+        --method auto --autotune measured --measured-dir /tmp/tc_table
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
@@ -20,8 +24,12 @@ and ``tct_seconds`` (the count).  ``--rebalance N`` and ``--hub-split
 ``--graphs a,b,c`` counts a whole *batch* of graphs in one engine call
 (``count_triangles_many``); ``--stream DELTA_FILE`` counts ``--graph``
 once, then re-counts it after each line's edge delta through the delta
-ladder (``count_triangles_delta``).  Runs on the GPU unless ``--device
-cpu`` is given.
+ladder (``count_triangles_delta``).  ``--pods N`` adds the 2.5D pod
+dimension (Cannon: blocks replicated over N pods, each running every
+N-th shift; the ring: N * grid² devices) and ``--reduce-strategy`` its
+final sum; ``--autotune measured`` resolves ``--method auto`` from the
+measured timing table (in ``--measured-dir``).  Runs on the GPU unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -60,6 +68,16 @@ def main(argv=None):
                     help="streaming: cold re-plan (rebase the delta "
                          "lineage) after this many chained deltas")
     ap.add_argument("--grid", type=int, default=1, help="sqrt(p): grid is q x q")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="2.5D pods: Cannon's blocks replicated over this "
+                         "many pods, pod t starting at skew offset t and "
+                         "running every pods-th shift (must divide --grid)")
+    ap.add_argument("--reduce-strategy", default="auto",
+                    choices=["auto", "flat", "tree"],
+                    help="the final sum: 'flat' over every grid dimension; "
+                         "'tree' a joint grid sum per pod, then the "
+                         "binomial tree over the pods (needs a power-of-two "
+                         "--pods > 1); 'auto' picks tree when it applies")
     ap.add_argument("--schedule", default="cannon",
                     help="cannon | summa | oned (resolved by the schedule "
                          "registry; a bad name lists the registered ones)")
@@ -70,6 +88,18 @@ def main(argv=None):
                          "autotune stage and picks search2 on "
                          "heavy-tailed graphs; 'fused' is the CUDA "
                          "intersection kernel (two-sided maxfrag split)")
+    ap.add_argument("--autotune", default="percentile",
+                    choices=["percentile", "measured"],
+                    help="'percentile' derives kernel shapes analytically "
+                         "from the probe-length distribution; 'measured' "
+                         "times fused vs the baseline candidates once per "
+                         "shape bucket, persists the verdict to the "
+                         "measured table, and lets --method auto resolve "
+                         "to 'fused' where the table says it wins")
+    ap.add_argument("--measured-dir", default=None,
+                    help="measured-autotune table directory (default "
+                         "$REPRO_TORCH_TC_MEASURED_DIR or "
+                         "~/.cache/repro_torch/tc_measured)")
     ap.add_argument("--broadcast", default=None,
                     choices=["auto", "onehot", "chain"],
                     help="summa's panel-broadcast strategy (the same "
@@ -97,10 +127,10 @@ def main(argv=None):
     )
     from ..pipeline import default_cache
 
-    if args.stream and args.graphs:
+    if args.stream and (args.graphs or args.autotune == "measured"):
         raise SystemExit(
             "--stream composes with single-graph pipeline runs only: "
-            "drop --graphs"
+            "drop --graphs/--autotune measured"
         )
     if args.rebalance and args.graphs:
         raise SystemExit(
@@ -134,9 +164,11 @@ def main(argv=None):
         res = count_triangles(
             g,
             q=args.grid,
+            npods=args.pods,
             schedule=args.schedule,
             method=args.method,
             broadcast=args.broadcast,
+            reduce_strategy=args.reduce_strategy,
             chunk=args.chunk,
             probe_shorter=not args.no_probe_shorter,
             use_step_mask=False if args.no_skip_mask else None,
@@ -145,6 +177,8 @@ def main(argv=None):
             hub_split=(
                 args.hub_split if args.hub_split is not None else False
             ),
+            autotune=args.autotune,
+            measured_dir=args.measured_dir,
             device=args.device,
         )
         times.append(res.count_seconds)
@@ -167,6 +201,8 @@ def main(argv=None):
         report.update(_hub_fields(res.hub))
     if res.autotune_mode is not None:
         report["autotune_mode"] = res.autotune_mode
+    if res.measured_table_hit is not None:
+        report["measured_table_hit"] = res.measured_table_hit
     report["schedules"] = available_schedules()
     report["plan_cache"] = default_cache().stats()
 
@@ -204,9 +240,11 @@ def _run_stream(g, args):
 
     kwargs = dict(
         q=args.grid,
+        npods=args.pods,
         schedule=args.schedule,
         method=args.method,
         broadcast=args.broadcast,
+        reduce_strategy=args.reduce_strategy,
         chunk=args.chunk,
         probe_shorter=not args.no_probe_shorter,
         use_step_mask=False if args.no_skip_mask else None,
@@ -369,11 +407,26 @@ def _run_batched(args):
             "engine plans without the two-sided maxfrag split the fused "
             "kernel needs); use single-graph runs"
         )
+    if args.autotune == "measured":
+        raise SystemExit(
+            "--autotune measured is not supported with --graphs: the "
+            "measured table is keyed per shape bucket, so a mixed batch "
+            "would hit a cold table (and pay a timing run) per graph "
+            "inside the one engine call; warm the table with "
+            "single-graph runs first, then batch with --autotune "
+            "percentile"
+        )
     if args.broadcast == "chain":
         raise SystemExit(
             "--broadcast chain is not supported with --graphs (a batched "
             "engine resolves broadcast='auto' to 'onehot' and refuses "
             "'chain', as the JAX package does); use single-graph runs"
+        )
+    if args.reduce_strategy != "auto":
+        raise SystemExit(
+            "--reduce-strategy is not supported with --graphs (the "
+            "batched engine counts every graph on one pod and sums flat); "
+            "use single-graph runs"
         )
     specs = split_specs(args.graphs)
     graphs = [graph_from_spec(s) for s in specs]

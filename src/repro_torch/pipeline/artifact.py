@@ -150,6 +150,12 @@ class PlanArtifact:
 
         return self.memo(("staged_arrays", str(device)), build)
 
+    def staged_if_any(self, device) -> Optional[Dict[str, torch.Tensor]]:
+        """The tensors :meth:`staged` memoised on ``device``, or ``None``
+        when nothing was staged there yet; stages nothing itself."""
+        with self._memo_lock:
+            return self._memo.get(("staged_arrays", str(torch.device(device))))
+
     def release(self) -> None:
         """Drop memoized device state (staged tensors, engine fns) and the
         re-stage handoff.  Called by ``PlanCache`` on LRU eviction so

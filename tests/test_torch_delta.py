@@ -628,10 +628,12 @@ def test_rebase_composes_the_permutation():
 # ----------------------------------------------------------------------
 # the inherited engine: rebound onto the spliced plan's own arrays
 # ----------------------------------------------------------------------
+# the Cannon runner's memo key: method, probe_shorter, use_step_mask,
+# double_buffer, compact, reduce_strategy, npods, fused_tile
 _FN_KEYS = {
-    "search": ("fn", "search", True, None, True, None, "auto"),
-    "global": ("fn", "global", True, None, True, None, "auto"),
-    "fused": ("fn", "fused", True, None, True, None, "auto"),
+    "search": ("fn", "search", True, None, True, None, "auto", 1, None),
+    "global": ("fn", "global", True, None, True, None, "auto", 1, None),
+    "fused": ("fn", "fused", True, None, True, None, "auto", 1, None),
 }
 
 

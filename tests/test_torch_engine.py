@@ -260,5 +260,10 @@ def test_unknown_method_and_schedule_list_what_is_registered():
                        match=r"registered: \['cannon', 'oned', 'summa'\]"):
         rt.count_triangles(g, schedule="bogus", device="cpu")
     with pytest.raises(ValueError, match="autotune"):
-        rt.count_triangles(g, autotune="measured", device="cpu")
+        rt.count_triangles(g, autotune="bogus", device="cpu")
+    # the measured mode is a mode now; it governs only auto and fused, so
+    # an explicit search runs no autotune stage, as in the JAX package
+    r = rt.count_triangles(g, autotune="measured", device="cpu")
+    assert r.triangles == 45 and r.autotune_mode is None
+    assert r.measured_table_hit is None
     assert rt.available_schedules() == ["cannon", "oned", "summa"]

@@ -1,8 +1,8 @@
 """Rehearse ``chip_smoke.py``'s planner-stage phases on the CPU.
 
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
-``many_path`` and ``delta_path`` phases are called here at a tiny scale
-with ``dev=cpu``,
+``many_path``, ``delta_path``, ``pod_path`` and ``measured_path`` phases
+and its ``search2`` phase are called here at a tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -66,6 +66,7 @@ def on_cpu(monkeypatch):
                         lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
                         lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     plain = tf.count_pair_fused
 
@@ -77,16 +78,12 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "profile_count", _profile_on_cpu)
 
 
-def _profile_on_cpu(count, expect, annotation=None, **kw):
-    """``profile_count`` with the CPU activity only: the ``tc_hub`` range
-    must show up in the trace."""
+def _profile_on_cpu(count, expect, **kw):
+    """``profile_count`` with the CPU activity only."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]):
         count()
-    keys = {ev.key for ev in prof.key_averages()}
-    if annotation is not None:
-        assert annotation in keys
     return {"expected_launches": int(expect), "cpu_only": True}
 
 
@@ -196,3 +193,64 @@ def test_incremental_oracle_matches_the_exact_count(spec, rounds):
         mutated = rt.Graph(n=g.n, edges=keys.pairs(keys.keys))
         assert want == rt.triangle_count_oracle(mutated)
     assert np.array_equal(keys.keys, cur.keys)
+
+
+def test_pod_path_phase(on_cpu, graph, capsys):
+    g, oracle = graph
+    rt.count_triangles(g, q=chip_smoke.GRID, method="fused")
+    rec = chip_smoke.pod_path(g, oracle, CPU, chip_smoke.GRID)
+    line = _line(capsys, "pod_path")
+    assert line["ok"] and not line["mismatches"]
+    assert [(r["npods"], r["reduce_strategy"]) for r in line["pods"]] == [
+        tuple(run) for run in chip_smoke.POD_RUNS]
+    for row in line["pods"]:
+        assert row["triangles"] == row["triangles_warm"] == oracle
+        assert row["grid"] == [row["npods"], chip_smoke.GRID, chip_smoke.GRID]
+        assert row["kernel_launches"] == row["device_steps_counted"] > 0
+        assert row["device_steps_skipped"] == (
+            chip_smoke.GRID ** 3 - row["device_steps_counted"])
+        # A and B are uploaded per pod count, the task lists are shared
+        assert row["staged_bytes"]["tasks"] == 0
+        assert row["staged_bytes"]["ab"] == row["npods"] * line[
+            "single_pod"]["staged_bytes"]["ab"]
+    # one count's whole footprint on the raw plan, one pod and each pod
+    # count of POD_RUNS
+    assert sorted(line["footprint_by_npods"], key=int) == [
+        str(n) for n in sorted({1} | {n for n, _ in chip_smoke.POD_RUNS})]
+    for row in line["pods"]:
+        assert "bytes_left_allocated_by_count" in row
+    assert rec["path"] == "cannon_pods" and rec["equal"]
+    assert rec["compared_device_steps"] == 2 * chip_smoke.POD_COMPARE
+    assert rec["launches"] == sum(r["kernel_launches"] for r in line["pods"])
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "source", "replaces", "route"):
+        assert key in rec
+
+
+@pytest.mark.parametrize("kind,grid", [("cannon", (4, 4)), ("summa", (2, 8)),
+                                       ("oned", (4, 4))])
+def test_measured_count_phase(on_cpu, graph, tmp_path, kind, grid):
+    g, oracle = graph
+    rt.count_triangles(g, grid=grid, schedule=kind, method="fused")
+    row, ok = chip_smoke.measured_count(kind, g, oracle, CPU, grid,
+                                        str(tmp_path))
+    assert ok and row["plan_cache_hit"]
+    assert row["measured_table_hit"] == [False, True]
+    assert row["triangles"] == [oracle, oracle]
+    assert row["resolved"][0] == row["resolved"][1]
+    assert row["entry"]["baseline"] == ("search" if kind == "oned"
+                                        else "search2")
+    assert len(row["candidate_checks"]) == len(row["entry"]["candidates"])
+    assert all(c["equal"] for c in row["candidate_checks"])
+    if row["resolved"][1] == "fused":
+        assert row["warm_kernel_launches"] == row["device_steps_counted"]
+
+
+def test_search2_phase(on_cpu, graph, capsys):
+    g, oracle = graph
+    chip_smoke.search2_phase(g, oracle, chip_smoke.GRID, SCALE, 1)
+    line = _line(capsys, "search2")
+    assert line["ok"] and not line["mismatches"]
+    assert line["search2"]["graph"] == f"rmat:{SCALE},16,1"
+    assert line["auto"]["graph"] == f"rmat:{SCALE - 2},16,1"
+    assert line["auto"]["triangles"] == line["auto"]["triangles_scipy_oracle"]
