@@ -49,8 +49,30 @@ What it does, in order, printing one JSON object per line:
                     kernel's ``"cannon_pods"`` row, held to its plain
                     route on device-steps of pods t >= 1 (the rolled
                     copies);
+   ``search2``    — the main graph with ``method="search2"`` (cold and
+                    warm, the bucketizer's ``bucket_stats``), and
+                    ``method="auto"`` on ``rmat(scale - 2, 16)`` (what the
+                    percentile report resolved it to), each equal to its
+                    graph's oracle;
+   ``runtime_path`` — the runtime on the main graph: ``tc_run --ckpt-dir``
+                    in this process (Cannon q = 4, chunk 8192, the
+                    checkpointed stepper) with a step fault and a
+                    corrupted checkpoint, then with ``--fail-at-shift 2``,
+                    then resumed from its last checkpoint (each save's
+                    bytes and seconds); ``supervised_count`` with
+                    transient faults at ``plan_stage``, ``device_stage``
+                    and ``step@1`` (three restarts, one kernel launch a
+                    counted device-step, the count's own peak device bytes
+                    within 5 % of an unsupervised count's, both staging
+                    the plan from nothing), with a persistent fault of the
+                    fused factory (the ladder demotes to ``search2``) and
+                    with 7 of the 16 logical devices lost (re-planned and
+                    counted on Cannon 3 x 3); every count equal to the
+                    oracle; then the fused kernel's ``"cannon_regrid"``
+                    row, held to its plain route on every counted
+                    device-step of the 3 x 3 plan;
    ``measured_path`` — ``method="auto"`` under ``autotune="measured"`` on
-                    Cannon q = 4 (right after ``pod_path``), SUMMA 2 x 8
+                    Cannon q = 4 (right after ``runtime_path``), SUMMA 2 x 8
                     and the ring p = 16 (each right after its
                     ``*_path``), the plans from the cache and the table in
                     a temporary directory: a table miss then a hit, the
@@ -79,18 +101,12 @@ What it does, in order, printing one JSON object per line:
                     rebalance report, one kernel launch a counted
                     device-step, warm counts of the plain and the
                     rebalanced plan in turns, each equal to the oracle;
-   ``search2``    — the main graph with ``method="search2"`` (cold and
-                    warm, the bucketizer's ``bucket_stats``), and
-                    ``method="auto"`` on ``rmat(scale - 2, 16)`` (what the
-                    percentile report resolved it to), each equal to its
-                    graph's oracle;
    ``summa_path`` / ``oned_path`` — the main graph on the SUMMA schedule
                     (``grid=(2, 8)``) and on the 1D ring (p = 16) with
                     ``method="fused"``: cold (one kernel launch a counted
                     device-step), warm (a plan-cache hit, no
-                    ``searchsorted`` in its profile), ``method="search"``
-                    and on SUMMA each broadcast strategy, all equal to the
-                    oracle; then each path's row of the fused kernel
+                    ``searchsorted`` in its profile) and on SUMMA each
+                    broadcast strategy, all equal to the oracle; then each path's row of the fused kernel
                     (``"path"``), held to ``count_pair_fused_plain`` on
                     every device-step the path counted;
    ``hub_path``   — the main graph with ``hub_split=True`` on the ring
@@ -137,7 +153,10 @@ line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -995,9 +1014,11 @@ def tasks_past_stage_limit(plan, kind):
 def schedule_path(kind, g, oracle, dev, grid, graph):
     """``count_triangles(g, grid=grid, schedule=kind, method="fused")``
     cold (one kernel launch a counted device-step), warm (a plan-cache
-    hit, profiled: no ``searchsorted``), then with ``method="search"``
-    and — on SUMMA — each broadcast strategy by name: all equal to the
-    main path's oracle."""
+    hit, profiled: no ``searchsorted``), then — on SUMMA — each broadcast
+    strategy by name: all equal to the main path's oracle.  (The plain
+    search on these schedules is checked by ``small_graphs``; at the main
+    scale it took 24–25 s on SUMMA and 10 s on the ring, a cold plan each,
+    and was cut for the runtime phase.)"""
     import repro_torch as rt
     from repro_torch.kernels.tc_fused import tc_fused as kmod
     from repro_torch.pipeline import default_cache
@@ -1034,8 +1055,6 @@ def schedule_path(kind, g, oracle, dev, grid, graph):
         for b in ("onehot", "chain"):
             others[f"fused_broadcast_{b}"] = count(method="fused",
                                                    broadcast=b).triangles
-    rs = count(method="search", chunk=8192)
-    others["search"] = rs.triangles
     past, longest = tasks_past_stage_limit(plan, kind)
     sk = plan.step_keep
     cs = plan.compact
@@ -1049,8 +1068,6 @@ def schedule_path(kind, g, oracle, dev, grid, graph):
         count_seconds=r.count_seconds,
         warm_preprocess_seconds=r2.preprocess_seconds,
         warm_count_seconds=r2.count_seconds,
-        search_preprocess_seconds=rs.preprocess_seconds,
-        search_count_seconds=rs.count_seconds,
         dmax=plan.dmax, d_small=plan.d_small, n_long=plan.n_long,
         chunk=plan.chunk, autotune=plan.autotune,
         schedule_steps=int(sk.size), skipped_steps=int(sk.size - sk.sum()),
@@ -1069,8 +1086,8 @@ def schedule_path(kind, g, oracle, dev, grid, graph):
           and all(v == oracle for v in others.values()))
     emit(f"{kind}_path", ok=ok, **info)
     if not ok:
-        fail(f"{kind} path counts disagree (fused / search / broadcasts / "
-             "scipy oracle)")
+        fail(f"{kind} path counts disagree (fused / broadcasts / scipy "
+             "oracle)")
     return r.artifact, launches, steps
 
 
@@ -1200,6 +1217,18 @@ def staged_bytes(staged, shared=None):
     return groups
 
 
+def peak_of(fn):
+    """``fn()``, its own peak device bytes above what was allocated
+    before it, and the bytes it left allocated (what it staged)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, int(torch.cuda.max_memory_allocated() - base),
+            int(torch.cuda.memory_allocated() - base))
+
+
 def pod_path(g, oracle, dev, q):
     """``count_triangles(g, q=q, npods=..., method="fused",
     reduce_strategy=...)`` on the main path's cached plan for each of
@@ -1220,17 +1249,6 @@ def pod_path(g, oracle, dev, q):
         fused_step_counts,
     )
     from repro_torch.kernels.tc_fused import tc_fused as kmod
-
-    def peak_of(fn):
-        """``fn()``, its own peak device bytes above what was allocated
-        before it, and the bytes it left allocated (what it staged)."""
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        return (out, int(torch.cuda.max_memory_allocated() - base),
-                int(torch.cuda.memory_allocated() - base))
 
     one, one_peak, _ = peak_of(lambda: rt.count_triangles(g, q=q,
                                                           method="fused"))
@@ -1355,6 +1373,221 @@ def pod_path(g, oracle, dev, q):
         print(json.dumps({"kernels": [rec]}), flush=True)
         fail(f"fused kernel != plain route on pod device-steps {unequal}")
     return rec
+
+
+# ----------------------------------------------------------------------
+# the runtime: supervision, the ladder, the regrid, the checkpointed loop
+# ----------------------------------------------------------------------
+RUNTIME_TRANSIENT = "plan_stage;device_stage;step@1"
+RUNTIME_PERSISTENT = "fused=stepfault*-1"
+RUNTIME_LOST = 7  # of 16 logical devices: 9 survive, Cannon 3 x 3
+CLI_FAULTS = "step@1;ckpt_save=ckptcorrupt"
+# the checkpointed stepper runs the plain search: at the default chunk 512
+# it takes 10-15x its time at 8192 (PERF.md section 5)
+CKPT_CHUNK = 8192
+PEAK_SLACK = 1.05  # a supervised count's peak over an unsupervised one's
+
+
+@contextlib.contextmanager
+def cli_hooks(g, spec):
+    """While ``tc_run`` runs in this process: its ``--graph spec``
+    resolves to the graph in hand (generating rmat 20 again takes as long
+    as the main path's generation), and each checkpoint save is timed and
+    sized into the yielded list."""
+    import repro_torch.ckpt.manager as manager
+    import repro_torch.core as core
+
+    saves = []
+    gen, save = core.graph_from_spec, manager.save_checkpoint
+
+    def from_spec(text):
+        return g if text == spec else gen(text)
+
+    def timed_save(directory, step, tree, **kw):
+        t0 = time.perf_counter()
+        out = save(directory, step, tree, **kw)
+        saves.append(dict(step=step, seconds=time.perf_counter() - t0,
+                          bytes=os.path.getsize(os.path.join(
+                              directory, f"step_{step:010d}.npz"))))
+        return out
+
+    core.graph_from_spec, manager.save_checkpoint = from_spec, timed_save
+    try:
+        yield saves
+    finally:
+        core.graph_from_spec, manager.save_checkpoint = gen, save
+
+
+def run_cli(argv):
+    """``tc_run.main(argv)`` in this process: its standard output, its
+    JSON report (the last line that is one) and its seconds."""
+    from repro_torch.launch import tc_run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tc_run.main(argv)
+    text = buf.getvalue()
+    report = json.loads([ln for ln in text.splitlines()
+                         if ln.startswith("{")][-1])
+    return text, report, time.perf_counter() - t0
+
+
+def checkpointed_cli(g, oracle, dev, q, graph):
+    """``tc_run --ckpt-dir`` three times: with ``CLI_FAULTS`` (a step
+    fault and a corrupted checkpoint, under the supervisor), then with
+    ``--fail-at-shift 2`` in a fresh directory, then again in that
+    directory, which resumes from its last checkpoint.  Returns the
+    phase's record and the names of its failed checks."""
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="tc_ckpt_") as tmp:
+        faults, resume = os.path.join(tmp, "faults"), os.path.join(tmp, "resume")
+        base = ["--graph", graph, "--grid", str(q), "--chunk", str(CKPT_CHUNK),
+                "--device", str(dev), "--json"]
+        runs = {}
+        with cli_hooks(g, graph) as saves:
+            for name, extra in (
+                    ("faults", ["--ckpt-dir", faults,
+                                "--inject-faults", CLI_FAULTS]),
+                    ("fail_at_shift", ["--ckpt-dir", resume,
+                                       "--fail-at-shift", "2"]),
+                    ("resume", ["--ckpt-dir", resume])):
+                text, rep, sec = run_cli(base + extra)
+                runs[name] = dict(
+                    seconds=sec, triangles=rep["triangles"],
+                    checkpointed=rep.get("checkpointed"),
+                    ppt_seconds=rep["ppt_seconds"],
+                    tct_seconds=rep["tct_seconds"],
+                    live_steps=rep.get("live_steps"),
+                    schedule_shifts=rep.get("schedule_shifts"),
+                    printed=[ln for ln in text.splitlines()
+                             if not ln.startswith("{")],
+                    saves=list(saves),
+                    restarts=rep.get("supervision_restarts"),
+                    fault_log=rep.get("supervision_fault_log"))
+                saves.clear()
+                if rep["triangles"] != oracle or not rep.get("checkpointed"):
+                    bad.append(f"cli_{name}_count")
+        corrupt = sorted(f for f in os.listdir(faults)
+                         if f.endswith(".corrupt"))
+    runs["faults"]["corrupt_files"] = corrupt
+    if not ((runs["faults"]["restarts"] or 0) >= 1 and corrupt and any(
+            e["fault"] == "CkptCorrupt" for e in runs["faults"]["fault_log"]
+            or ())):
+        bad.append("cli_faults_recovery")
+    if "(injected failure at shift 2; restarting from ckpt)" not in runs[
+            "fail_at_shift"]["printed"]:
+        bad.append("cli_fail_at_shift")
+    if f"resumed at shift {q}" not in runs["resume"]["printed"] or runs[
+            "resume"]["saves"]:
+        bad.append("cli_resume")
+    return runs, bad
+
+
+def runtime_path(g, oracle, dev, q, graph):
+    """The runtime on the main graph (Cannon ``q x q``, ``method=
+    "fused"``), each count against the oracle: the checkpointed stepper
+    through ``tc_run`` (:func:`checkpointed_cli`; first, while the main
+    path's plain-search plan at chunk 8192 is cached), then
+    ``supervised_count`` with the transient faults of
+    ``RUNTIME_TRANSIENT`` (one restart each, one attempt record each,
+    one kernel launch a counted device-step in the attempt that counts,
+    and the count's own peak device bytes within ``PEAK_SLACK`` of an
+    unsupervised count's, both staging the plan from nothing), with a
+    persistent fault of the fused factory (demoted to ``search2`` after
+    two) and with the loss of ``RUNTIME_LOST`` logical devices at step 0
+    (re-planned on 3 x 3).  Returns the fused kernel's
+    ``"cannon_regrid"`` row, held to its plain route on every counted
+    device-step of the 3 x 3 plan."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.runtime import FaultPlan, Supervisor, supervised_count
+
+    t0 = time.perf_counter()
+    cli, bad = checkpointed_cli(g, oracle, dev, q, graph)
+    cli_s = time.perf_counter() - t0
+
+    def supervised(spec, **kw):
+        plan = FaultPlan.parse(spec)
+        t1 = time.perf_counter()
+        r = supervised_count(g, q=q, method="fused", fault_plan=plan,
+                             supervisor=Supervisor(max_restarts=5), **kw)
+        return r, time.perf_counter() - t1
+
+    # 1. transient faults, both counts staging the plan from nothing
+    art = rt.count_triangles(g, q=q, method="fused").artifact
+    if not art.cache_hit:
+        fail("the runtime path missed the main path's cached plan")
+    art.release()
+    cold, cold_peak, _ = peak_of(
+        lambda: rt.count_triangles(g, q=q, method="fused"))
+    art.release()
+    kmod.reset_launch_count()
+    (r1, s1), peak1, _ = peak_of(lambda: supervised(RUNTIME_TRANSIENT))
+    launches1 = kmod.launch_count()
+    steps1 = schedule_device_steps(r1.plan, "cannon")
+    sup1 = r1.supervision
+    faulted = [a for a in sup1["attempts"] if a["outcome"] == "fault"]
+    transient = dict(
+        spec=RUNTIME_TRANSIENT, seconds=s1, triangles=r1.triangles,
+        restarts=sup1["restarts"], attempts=sup1["attempts"],
+        fault_log=sup1["fault_log"], kernel_launches=launches1,
+        device_steps_counted=len(steps1), peak_device_bytes_of_count=peak1,
+        unsupervised_peak_device_bytes=cold_peak,
+        unsupervised_count_seconds=cold.count_seconds,
+        count_seconds=r1.count_seconds)
+    if not (r1.triangles == cold.triangles == oracle
+            and sup1["restarts"] == 3 and len(faulted) == 3
+            and [a.get("point") for a in faulted] == [
+                "plan_stage", "device_stage", "step"]):
+        bad.append("transient")
+    if launches1 <= 0 or launches1 != len(steps1):
+        bad.append("transient_launches")
+    if peak1 > PEAK_SLACK * cold_peak:
+        bad.append("transient_peak")
+
+    # 2. a persistent fault of the fused factory: the ladder demotes
+    r2, s2 = supervised(RUNTIME_PERSISTENT, chunk=CKPT_CHUNK, demote_after=2)
+    demos = r2.supervision["demotions"]
+    persistent = dict(
+        spec=RUNTIME_PERSISTENT, seconds=s2, triangles=r2.triangles,
+        method=r2.method, chunk=CKPT_CHUNK, demotions=demos,
+        restarts=r2.supervision["restarts"],
+        attempts=r2.supervision["attempts"], count_seconds=r2.count_seconds)
+    if not (r2.triangles == oracle and r2.method == "search2" and demos
+            and (demos[0]["frm"], demos[0]["to"]) == ("fused", "search2")):
+        bad.append("persistent")
+
+    # 3. device loss: re-planned and counted on the survivors
+    lost_spec = f"step@0=devicelost:{RUNTIME_LOST}"
+    kmod.reset_launch_count()
+    r3, s3 = supervised(lost_spec)
+    launches3 = kmod.launch_count()
+    steps3 = schedule_device_steps(r3.plan, "cannon")
+    r = math.isqrt(q * q - RUNTIME_LOST)
+    regrids = r3.supervision["regrids"]
+    lost = dict(
+        spec=lost_spec, seconds=s3, triangles=r3.triangles,
+        grid=list(r3.grid), regrids=regrids,
+        restarts=r3.supervision["restarts"],
+        preprocess_seconds=r3.preprocess_seconds,
+        count_seconds=r3.count_seconds, kernel_launches=launches3,
+        device_steps_counted=len(steps3))
+    if not (r3.triangles == oracle and regrids == [
+            dict(lost=RUNTIME_LOST, grid=[r, r], schedule="cannon")]
+            and tuple(r3.grid) == (r, r)):
+        bad.append("device_lost")
+    if launches3 <= 0 or launches3 != len(steps3):
+        bad.append("device_lost_launches")
+
+    emit("runtime_path", ok=not bad, failed=bad, graph=graph, q=q,
+         device=r1.device, triangles_scipy_oracle=oracle,
+         checkpointed_cli=cli, checkpointed_cli_seconds=cli_s,
+         transient=transient, persistent=persistent, device_lost=lost)
+    if bad:
+        fail(f"the runtime path failed its checks: {bad}")
+    return schedule_kernel_report("cannon", r3.artifact, dev, launches3,
+                                  steps3, path="cannon_regrid")
 
 
 def candidate_checks(plan, dev, entry):
@@ -2597,6 +2830,12 @@ def main():
     kernels = [phase("kernels", kernel_report, art, dev, launches)]
     del art
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
+    graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
+    # search2 first: the runtime's persistent-fault count is demoted to
+    # its cached plan
+    phase("search2", search2_phase, g, oracle, GRID, args.scale, args.seed)
+    kernels.append(phase("runtime_path", runtime_path, g, oracle, dev, GRID,
+                         graph))
     measured, measured_ok = {}, True
     with tempfile.TemporaryDirectory(prefix="tc_measured_") as table_dir:
         # each schedule's measured counts run while the plan of the phase
@@ -2611,9 +2850,6 @@ def main():
         kernels.append(phase("delta_path", delta_path, g, oracle, dev, GRID,
                              args.seed))
         phase("rebalance_path", rebalance_path, g, oracle, dev, GRID)
-        phase("search2", search2_phase, g, oracle, GRID, args.scale,
-              args.seed)
-        graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
         for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
             sart, slaunches, steps = phase(f"{kind}_path", schedule_path,
                                            kind, g, oracle, dev, grid, graph)

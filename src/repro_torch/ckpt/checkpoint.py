@@ -1,0 +1,160 @@
+"""Atomic checkpoint save/restore of nested trees of tensors.
+
+The on-disk format is the JAX package's: one ``step_{step:010d}.npz``
+payload whose entries are the tree's leaves keyed by their path (``a/b/0``
+stored as ``a__b__0``), and a ``step_{step:010d}.json`` manifest with
+``step``, ``payload``, ``sha256`` (of the payload's bytes), ``keys`` and
+``extra``; both written atomically (``mkstemp`` + ``fsync`` +
+``os.replace``).  A checkpoint written by either package loads in the
+other.
+
+A tree is a nest of dicts, lists and tuples whose leaves are tensors or
+numpy arrays.  The port flattens it itself, in the order the JAX package's
+``tree_util`` does (dict keys sorted, sequences by index; ``None`` holds
+no leaf).  The JAX package's ``mesh=``/``specs=`` re-sharding on restore
+has no counterpart on one device and is left out: a restored leaf goes to
+the device of its ``like`` tensor, with the payload's dtype.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import tempfile
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "latest_step",
+    "quarantine_step",
+]
+
+
+def _flatten(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
+    """``(path key, leaf)`` pairs of ``tree`` in ``tree_util`` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [("/".join(str(p) for p in prefix), tree)]
+    out = []
+    for k, sub in items:
+        out += _flatten(sub, prefix + (k,))
+    return out
+
+
+def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple = ()):
+    """``like``'s structure with each leaf replaced by ``leaves[path]``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves, prefix + (k,)) for k in like}
+    if isinstance(like, (list, tuple)):
+        out = [_unflatten(v, leaves, prefix + (i,)) for i, v in enumerate(like)]
+        return type(like)(out) if isinstance(like, list) else tuple(out)
+    return leaves["/".join(str(p) for p in prefix)]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree, *,
+                    extra: Optional[dict] = None) -> str:
+    """Atomically save a tree: npz payload + manifest with its sha256.
+    Returns the manifest's path."""
+    os.makedirs(directory, exist_ok=True)
+    flat = {k: _host(v) for k, v in _flatten(tree)}
+    payload_name = f"step_{step:010d}.npz"
+    manifest_name = f"step_{step:010d}.json"
+
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    with os.fdopen(fd, "wb") as f:
+        np.savez(f, **{k.replace("/", "__"): v for k, v in flat.items()})
+        f.flush()
+        os.fsync(f.fileno())
+    with open(tmp, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    os.replace(tmp, os.path.join(directory, payload_name))
+
+    manifest = {
+        "step": step,
+        "payload": payload_name,
+        "sha256": digest,
+        "keys": sorted(flat.keys()),
+        "extra": extra or {},
+    }
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(directory, manifest_name))
+    return os.path.join(directory, manifest_name)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = [
+        int(f[len("step_"):-len(".json")])
+        for f in os.listdir(directory)
+        if f.startswith("step_") and f.endswith(".json")
+    ]
+    return max(steps) if steps else None
+
+
+def quarantine_step(directory: str, step: int) -> list:
+    """Rename a damaged step's files to ``*.corrupt`` so it stops being
+    the latest checkpoint (``latest_step`` matches the ``.json`` suffix)
+    while keeping the bytes on disk for post-mortems.  Returns the
+    quarantined paths."""
+    moved = []
+    for suffix in (".json", ".npz"):
+        p = os.path.join(directory, f"step_{step:010d}{suffix}")
+        if os.path.exists(p):
+            os.replace(p, p + ".corrupt")
+            moved.append(p + ".corrupt")
+    return moved
+
+
+def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
+    """Restore a tree saved by :func:`save_checkpoint`; returns
+    ``(tree, extra)``.
+
+    ``like`` gives the structure: the result has its nesting, and each
+    leaf is the payload's array at that path — a tensor on the device of
+    ``like``'s leaf where that is a tensor, else a numpy array — in the
+    payload's dtype (an int64 accumulator stays int64, int32 keys stay
+    int32).  A path ``like`` has and the payload lacks raises
+    ``KeyError``; ``verify`` checks the payload's sha256 first and raises
+    ``IOError`` on a mismatch.
+    """
+    with open(os.path.join(directory, f"step_{step:010d}.json")) as f:
+        manifest = json.load(f)
+    path = os.path.join(directory, manifest["payload"])
+    if verify:
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != manifest["sha256"]:
+            raise IOError(
+                f"checkpoint corruption detected: {path} sha mismatch"
+            )
+    out = {}
+    with np.load(path) as data:
+        for key, leaf in _flatten(like):
+            arr = data[key.replace("/", "__")]
+            if isinstance(leaf, torch.Tensor):
+                out[key] = torch.from_numpy(arr).to(leaf.device)
+            else:
+                out[key] = arr
+    return _unflatten(like, out), manifest["extra"]

@@ -111,6 +111,9 @@ class TCResult:
     # count_triangles_delta; ``artifact`` is then the derived artifact,
     # to thread into the next count_triangles_delta call
     delta: Optional[dict] = None
+    # supervised_count's record (attempts, restarts, demotions, regrids,
+    # gave_up, total_backoff_seconds, the fault plan's fault_log)
+    supervision: Optional[dict] = None
 
 
 # ----------------------------------------------------------------------
@@ -185,8 +188,20 @@ class RunContext:
     # point is reported as preprocess time, not count time
     counting_started_at: Optional[float] = None
 
-    def mark_counting(self) -> None:
-        """Host planning/staging is done; counting starts now."""
+    def mark_counting(self, plan=None) -> None:
+        """Host planning/staging is done; counting starts now.  Also the
+        fault-injection window for this count: ``device_stage`` fires
+        here, and with a ``plan`` each live original step index fires a
+        ``step`` point before the first dispatch — so a fault armed at an
+        elided step never fires, composing with schedule compaction."""
+        from ..runtime import faultinject
+
+        if faultinject.is_armed():
+            faultinject.fire("device_stage")
+            if plan is not None:
+                compacted = self.compact is not False
+                for s in faultinject.live_step_indices(plan, compacted):
+                    faultinject.fire("step", step=s)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.counting_started_at = time.perf_counter()
@@ -272,7 +287,7 @@ def _count_derived(plan, ctx: RunContext):
             stage_arrays(plan.dense_blocks(), ctx.device)))
         build = lambda: cannon_mod.build_cannon_dense_fn(plan, **knobs)
     fn = ctx.memo((ctx.method + "_fn", *knobs.values()), build)
-    ctx.mark_counting()
+    ctx.mark_counting(plan)
     return int(fn(**staged)), plan
 
 
@@ -439,7 +454,9 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     if ctx.method in _DERIVED_METHODS:
         return _count_derived(plan, ctx)
     # the fn first: it refuses a pod count that does not divide q before
-    # anything is staged for it
+    # anything is staged for it (so a ``fused`` fault site fires before
+    # ``device_stage`` and ``step`` here; the JAX package binds the kernel
+    # after mark_counting)
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
          ctx.double_buffer, ctx.compact, ctx.reduce_strategy, ctx.npods,
@@ -458,7 +475,7 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     )
     staged = (_pod_staged(plan, ctx) if ctx.npods > 1
               else _staged(plan, ctx))
-    ctx.mark_counting()
+    ctx.mark_counting(plan)
     # the one device→host crossing of a count
     return int(fn(**staged)), plan
 
@@ -489,6 +506,7 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
     if ctx.method == "auto":
         ctx.method = _resolve_auto_method(splan)
     staged = _staged(splan, ctx)
+    ctx.mark_counting(splan)
     # SUMMA has no pod dimension: as in the JAX package, where every pod
     # runs the whole broadcast schedule and the grid sum is taken per
     # pod, pods and reduce_strategy leave the count as it is — the
@@ -506,7 +524,6 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
             fused_tile=ctx.fused_tile,
         ),
     )
-    ctx.mark_counting()
     return int(fn(**staged)), splan
 
 
@@ -539,6 +556,7 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
         # the ring's global-id columns rule out the two-level kernel
         ctx.method = "search"
     staged = _staged(oplan, ctx)
+    ctx.mark_counting(oplan)
     fn = ctx.memo(
         ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
          ctx.compact, ctx.reduce_strategy, ctx.fused_tile),
@@ -552,7 +570,6 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
             fused_tile=ctx.fused_tile,
         ),
     )
-    ctx.mark_counting()
     return int(fn(**staged)), oplan
 
 
@@ -605,6 +622,7 @@ def count_triangles(
     cache=None,
     autotune: str = "percentile",
     measured_dir: Optional[str] = None,
+    fault_plan=None,
     device=None,
 ) -> TCResult:
     """Count triangles with the paper's 2D algorithm.
@@ -686,6 +704,10 @@ def count_triangles(
     overrides the table directory; ``TCResult.measured_table_hit`` says
     whether the entry came off disk).  Measured mode plans with the
     two-sided split and refuses a caller-supplied plan.
+    ``fault_plan`` arms a :class:`repro_torch.runtime.FaultPlan` of
+    deterministic typed faults for the duration of this call (testing the
+    recovery paths of :func:`repro_torch.runtime.supervised_count`
+    without real hardware faults).
     """
     if autotune not in ("percentile", "measured"):
         raise ValueError(
@@ -777,7 +799,10 @@ def count_triangles(
     )
     if artifact is not None:
         ctx.artifact = artifact
-    total, out_plan = spec.runner(graph, grid, ctx)
+    from ..runtime import faultinject
+
+    with faultinject.armed(fault_plan):
+        total, out_plan = spec.runner(graph, grid, ctx)
     total = check_count_overflow(total, count_dtype)
     t2 = time.perf_counter()
     # host-side planning/staging counts as preprocessing (paper's ppt);

@@ -10,7 +10,8 @@ This module is a thin *configuration* of :mod:`repro_torch.core.engine`:
 :class:`~repro_torch.core.engine.CannonSchedule`, a count kernel and a
 Reduction — the schedule body lives in the engine, once.
 ``build_cannon_tile_fn`` swaps in the bit-tile store and
-``build_cannon_dense_fn`` the dense oracle store.
+``build_cannon_dense_fn`` the dense oracle store; ``build_cannon_stepper``
+runs the same schedule one shift a call for checkpointed runs.
 
 Multi-pod (2.5D): with ``npods`` pods the A and B blocks are replicated
 over a leading pod dimension, pod ``t`` starts at skew offset ``t``
@@ -36,7 +37,7 @@ from .engine import (
 from .plan import as_plan, resolve_compact_steps, resolve_step_mask
 
 __all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn",
-           "pod_stack_arrays"]
+           "build_cannon_stepper", "pod_stack_arrays"]
 
 
 def pod_stack_arrays(arrays: Dict, npods: int, q: int) -> Dict:
@@ -171,6 +172,62 @@ def build_cannon_fn(
         reduce_strategy=reduce_strategy, batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
         npods=npods,
+    )
+
+
+def build_cannon_stepper(
+    plan,
+    *,
+    method: str = "search",
+    probe_shorter: bool = True,
+    use_step_mask: Optional[bool] = None,
+    double_buffer: bool = True,
+    compact: Optional[bool] = None,
+):
+    """Shift-at-a-time Cannon for fault-tolerant runs.
+
+    Returns ``one_shift(state, statics, step=s) -> state``
+    (:func:`~repro_torch.core.engine.build_engine_stepper`) where ``state
+    = (*carry, partial_counts)`` and ``partial_counts`` is the ``(q, q)``
+    int64 per-device accumulator.  With the default double-buffered
+    schedule the carry is two payload generations ``(a_indptr, a_indices,
+    b_indptr, b_indices) x 2`` (``one_shift.n_carry == 8``), built once
+    from the staged plan tensors by ``one_shift.prime`` (which issues the
+    prologue shift); with ``double_buffer=False`` it is one (4 tensors).
+    The host loop owns the shift index, checkpointing state between
+    shifts so a restarted job resumes mid-loop.  Same store, schedule and
+    kernel as :func:`build_cannon_fn` — only the loop owner differs.
+
+    With a compacted plan (``compact=None`` auto) the host loop iterates
+    ``one_shift.live_steps`` only — still passing original step indices,
+    so checkpointed indices round-trip unchanged — and the carry is a
+    *single* payload generation (4 tensors): each call's fused multi-hop
+    shift lands exactly on the next live step, so there is no in-flight
+    second buffer to keep.
+
+    As in the JAX package the kernel is bound without the plan's bucket
+    split, so ``method="search2"`` and ``method="fused"`` raise, and a
+    hub-split plan is refused (the stepper has no slot for its partial).
+    """
+    plan = as_plan(plan)
+    if getattr(plan, "hub", None) is not None:
+        raise ValueError(
+            "the checkpointed stepper counts one schedule shift at a "
+            "time and has no slot for the hub-split partial; plan with "
+            "hub_split=False for fault-tolerant runs"
+        )
+    use_step_mask = resolve_step_mask(plan, use_step_mask)
+    live = resolve_compact_steps(plan, compact)
+    schedule = CannonSchedule(
+        q=plan.q, double_buffer=double_buffer and live is None,
+        live_steps=live,
+    )
+    kernel = make_csr_kernel(
+        method, dpad=plan.dmax, chunk=plan.chunk, probe_shorter=probe_shorter,
+    )
+    return engine.build_engine_stepper(
+        CSRStore(kernel), schedule, m_cnt=plan.m_cnt,
+        step_keep=plan.step_keep if use_step_mask else None,
     )
 
 

@@ -40,14 +40,15 @@ Carried over here: the CSR-kernel registry (``search``, ``search2``,
 :class:`SummaSchedule` and :class:`RingSchedule` (plain and compacted),
 Cannon's 2.5D pods, :class:`Reduction` (``flat``, and ``tree``: the
 binomial tree over the pods of :func:`pod_tree_allreduce`), the hub-split
-partial (:class:`HubCount`), :func:`build_engine_fn`, batched or not, and
-the delta path's :func:`restage_device_arrays`.  Where the JAX package maps
+partial (:class:`HubCount`), :func:`build_engine_fn`, batched or not, the
+delta path's :func:`restage_device_arrays`, and the shift-at-a-time
+stepper of checkpointed runs (:func:`build_engine_stepper`).  Where the JAX package maps
 the schedule over a batch of graphs with ``lax.map``, the batched
 function here loops over the staged tensors' leading batch dimension,
 each graph with its own host task counts and skip mask.
 Not carried over yet: blob packing and uint16 length compression of the
 shifted payload (a communication optimisation with nothing to serialise
-on one device), and the stepper.
+on one device).
 """
 from __future__ import annotations
 
@@ -81,6 +82,7 @@ __all__ = [
     "check_fused_split",
     "masked_count",
     "build_engine_fn",
+    "build_engine_stepper",
     "restage_device_arrays",
     "shift_perm",
 ]
@@ -230,7 +232,9 @@ def _fused_factory(*, dpad, chunk, probe_shorter, sentinel, n_long, d_small,
             "autotune='fused' providing n_long/d_small"
         )
     from ..kernels.tc_fused import count_pair_fused
+    from ..runtime import faultinject
 
+    faultinject.fire("fused")
     return functools.partial(
         count_pair_fused,
         n_long=n_long,
@@ -609,7 +613,9 @@ class CannonSchedule(ShiftSchedule):
     count: the JAX package overlaps the next shift's collective with the
     current count by carrying two payload generations; in an eager loop
     on one device there is no collective to overlap (a roll is an
-    ordinary kernel on the same stream), so one generation is carried.
+    ordinary kernel on the same stream), so :meth:`run` carries one.  The
+    stepper (:func:`build_engine_stepper`) carries both, so a checkpoint
+    holds what the JAX package's holds.
 
     2.5D pods (``npods > 1``): the grid is ``(npods, q, q)``, the A and B
     payload tensors carry the pod as their leading dimension, pod ``t``
@@ -993,3 +999,108 @@ def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
     call.m_cnt, call.step_keep = m_cnt, keep
     call.rebind = rebind
     return call
+
+
+# ======================================================================
+# the shift-at-a-time stepper (checkpointed runs)
+# ======================================================================
+def _leaves(tree) -> list:
+    """The tensors of a payload (nested tuples), depth first."""
+    if isinstance(tree, tuple):
+        return [t for part in tree for t in _leaves(part)]
+    return [tree]
+
+
+def _unleaves(template, leaves) -> tuple:
+    """``template``'s nesting over ``leaves`` (consumed in order)."""
+    if isinstance(template, tuple):
+        return tuple(_unleaves(part, leaves) for part in template)
+    return leaves.pop(0)
+
+
+def build_engine_stepper(
+    store: OperandStore,
+    schedule: ShiftSchedule,
+    *,
+    m_cnt: np.ndarray,
+    step_keep: Optional[np.ndarray] = None,
+):
+    """One-schedule-step-at-a-time variant for fault-tolerant runs.
+
+    Executes one step of ``schedule`` a call with the loop's carry held
+    by the caller as explicit tensors, so the host loop owns the shift
+    index and can checkpoint state between shifts (a restarted job
+    resumes mid-loop).  Returns ``one_shift(state, statics, step=s) ->
+    state`` where ``state = (*carry, acc)``: ``acc`` is the grid-shaped
+    per-device partial counts (int64 ``(q, q)`` on Cannon; the result
+    keeps the caller's dtype) and ``carry`` the payload tensors, stacked
+    over the grid as the engine stages them.  ``statics`` holds the
+    store's static tensors (``m_ti``, ``m_tj``, ...) on the device;
+    ``m_cnt`` and ``step_keep`` are the plan's *host* arrays, bound here
+    and read on the host as :func:`build_engine_fn` reads them.
+
+    With a ``double_buffer`` schedule (and no compaction) the carry is
+    two payload generations, as in the JAX package's scan body: the
+    current one, counted at step ``s``, and the next one, already shifted
+    for step ``s + 1``; each call counts the first and shifts the second
+    on.  Both round-trip through a checkpoint like any other state (and
+    only the stepper holds a second generation: the whole-count loop of
+    :class:`CannonSchedule` carries one).
+
+    ``one_shift.prime(operands) -> carry`` builds the step-0 carry from
+    the staged operand tensors (issuing the prologue shift);
+    ``one_shift.n_carry`` is the number of carry tensors.  With a
+    *compacted* schedule (``schedule.live_steps`` set) the host loop
+    iterates ``one_shift.live_steps`` only, still passing the
+    **original** step index — mask lookups need no remapping, and a
+    checkpointed step index round-trips unchanged — and each call shifts
+    by the fused hop to the *next* live step (none after the last).
+    """
+    m_cnt = np.asarray(m_cnt)
+    keep = None if step_keep is None else np.asarray(step_keep, dtype=bool)
+    live = schedule.live_steps
+    double = getattr(schedule, "double_buffer", False)
+    if double and live is not None:
+        raise ValueError("the compacted stepper runs single-buffered")
+    op_names = list(store.operand_names)
+    payload0 = store.payload({k: k for k in op_names})
+    template = (payload0, payload0) if double else payload0
+    n_carry = len(_leaves(template))
+
+    def prime(operands):
+        payload = store.payload({k: operands[k] for k in op_names})
+        if live is not None:
+            if live:
+                payload = schedule._shift_k(payload, live[0])
+            return tuple(_leaves(payload))
+        if double:  # prologue: step 1's blocks shifted before step 0 counts
+            return tuple(_leaves((payload, schedule._shift_k(payload, 1))))
+        return tuple(_leaves(payload))
+
+    def one_shift(state, statics, step=0):
+        *carry, acc = state
+        if len(carry) != n_carry:
+            raise ValueError(
+                f"stepper state holds {len(carry)} carry tensors, "
+                f"expected {n_carry}"
+            )
+        step = int(step)
+        hop = 1
+        if live is not None:
+            i = live.index(step)  # the host loop must pass a live step
+            hop = live[i + 1] - live[i] if i + 1 < len(live) else 0
+        carry = _unleaves(template, list(carry))
+        if double:
+            cur, inflight = carry
+            nxt = (inflight, schedule._shift_k(inflight, hop))
+        else:
+            cur = carry
+            nxt = schedule._shift_k(carry, hop)
+        acc = acc.clone()
+        schedule._count_grid(store, cur, statics, step, m_cnt, keep, acc)
+        return tuple(_leaves(nxt)) + (acc,)
+
+    one_shift.prime = prime
+    one_shift.n_carry = n_carry
+    one_shift.live_steps = live
+    return one_shift

@@ -14,6 +14,10 @@
         --method fused --reduce-strategy tree --verify
     python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
         --method auto --autotune measured --measured-dir /tmp/tc_table
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
+        --ckpt-dir /tmp/tc_ckpt --inject-faults "step@1;ckpt_save" --verify
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
+        --method fused --supervise --inject-faults "step@0=devicelost:7"
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
@@ -28,8 +32,12 @@ ladder (``count_triangles_delta``).  ``--pods N`` adds the 2.5D pod
 dimension (Cannon: blocks replicated over N pods, each running every
 N-th shift; the ring: N * grid² devices) and ``--reduce-strategy`` its
 final sum; ``--autotune measured`` resolves ``--method auto`` from the
-measured timing table (in ``--measured-dir``).  Runs on the GPU unless
-``--device cpu`` is given.
+measured timing table (in ``--measured-dir``).  ``--ckpt-dir`` runs
+Cannon one shift at a time with a checkpoint after each (resumable
+mid-loop, ``--fail-at-shift`` injects one failure); ``--inject-faults
+SPEC`` and ``--supervise`` run the count (or the checkpointed loop) under
+the restart supervisor of :mod:`repro_torch.runtime`.  Runs on the GPU
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -110,6 +118,37 @@ def main(argv=None):
                     help="run every (device, step) pair, ignoring step_keep")
     ap.add_argument("--no-compact", action="store_true",
                     help="plan and run without schedule compaction")
+    ap.add_argument("--no-double-buffer", action="store_true",
+                    help="one payload generation in the checkpointed "
+                         "stepper's carry (the count is the same)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="run Cannon shift at a time, checkpointing the "
+                         "stepper's carry and per-device partial counts "
+                         "after each shift into this directory (a rerun "
+                         "resumes from it)")
+    ap.add_argument("--fail-at-shift", type=int, default=None,
+                    help="with --ckpt-dir: inject one failure at this "
+                         "shift, then restore the latest checkpoint")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="deterministic typed fault injection: "
+                         "';'-separated sites "
+                         "point[@STEP][=FAULT[:LOST]][*TIMES] over points "
+                         "plan_stage|device_stage|step|fused|delta_splice|"
+                         "ckpt_save, e.g. 'step@1' or "
+                         "'step@0=devicelost:5;ckpt_save=ckptcorrupt'; "
+                         "implies supervised execution — the run must "
+                         "still produce the exact count")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the restart supervisor (backoff + "
+                         "jitter, restart budget, degradation ladder, "
+                         "DeviceLost regrid) even without injected "
+                         "faults; the report gains supervision_* fields")
+    ap.add_argument("--restart-budget", type=int, default=5,
+                    help="supervised runs: max restarts before giving up")
+    ap.add_argument("--attempt-deadline", type=float, default=None,
+                    help="supervised runs: cooperative per-attempt "
+                         "deadline in seconds (checked at step/attempt "
+                         "boundaries)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="count N times; tct_seconds is the best warm run")
     ap.add_argument("--verify", action="store_true",
@@ -119,23 +158,19 @@ def main(argv=None):
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
-    from ..core import (
-        available_schedules,
-        count_triangles,
-        graph_from_spec,
-        triangle_count_oracle,
-    )
+    from ..core import available_schedules, count_triangles, graph_from_spec
     from ..pipeline import default_cache
 
-    if args.stream and (args.graphs or args.autotune == "measured"):
+    if args.stream and (args.graphs or args.ckpt_dir
+                        or args.autotune == "measured"):
         raise SystemExit(
             "--stream composes with single-graph pipeline runs only: "
-            "drop --graphs/--autotune measured"
+            "drop --graphs/--ckpt-dir/--autotune measured"
         )
-    if args.rebalance and args.graphs:
+    if args.rebalance and (args.graphs or args.ckpt_dir):
         raise SystemExit(
-            "--rebalance is not supported with --graphs; rebalance "
-            "single full-engine runs"
+            "--rebalance is not supported with --graphs or --ckpt-dir; "
+            "rebalance single full-engine runs"
         )
     if args.hub_split is not None:
         if args.graphs:
@@ -144,12 +179,30 @@ def main(argv=None):
                 "batched engine shares one set of statics across graphs "
                 "and takes no hub side — drop --graphs"
             )
+        if args.ckpt_dir:
+            raise SystemExit(
+                "--hub-split is not supported with --ckpt-dir: the "
+                "checkpointed stepper counts one shift at a time and "
+                "has no slot for the hub-split partial"
+            )
         if args.method in ("dense", "tile"):
             raise SystemExit(
                 f"--hub-split is not supported with --method "
                 f"{args.method}: the {args.method} operand store stages "
                 "its own blocks and would drop the hub-split partial"
             )
+    supervised = bool(args.inject_faults or args.supervise)
+    if supervised and (args.graphs or args.stream):
+        raise SystemExit(
+            "--inject-faults/--supervise cover single-graph engine runs "
+            "and --ckpt-dir stepper runs; drop --graphs/--stream"
+        )
+    fault_plan = None
+    if args.inject_faults:
+        from ..runtime import FaultPlan
+
+        fault_plan = FaultPlan.parse(args.inject_faults)
+
     if args.graphs:
         return _run_batched(args)
 
@@ -157,31 +210,51 @@ def main(argv=None):
     if args.stream:
         return _run_stream(g, args)
     report = {"graph": args.graph, "n": g.n, "m": g.m}
+    if args.ckpt_dir:
+        total, fields = _run_checkpointed(g, args, fault_plan=fault_plan)
+        report.update(fields)
+        report["plan_cache"] = default_cache().stats()
+        return _finish(g, args, report, total)
 
     t0 = time.perf_counter()
+    count_kwargs = dict(
+        q=args.grid,
+        npods=args.pods,
+        schedule=args.schedule,
+        method=args.method,
+        broadcast=args.broadcast,
+        reduce_strategy=args.reduce_strategy,
+        chunk=args.chunk,
+        probe_shorter=not args.no_probe_shorter,
+        use_step_mask=False if args.no_skip_mask else None,
+        double_buffer=not args.no_double_buffer,
+        compact=False if args.no_compact else None,
+        rebalance_trials=args.rebalance,
+        hub_split=(
+            args.hub_split if args.hub_split is not None else False
+        ),
+        autotune=args.autotune,
+        measured_dir=args.measured_dir,
+        device=args.device,
+    )
     times = []
-    for _ in range(max(1, args.repeat)):
-        res = count_triangles(
-            g,
-            q=args.grid,
-            npods=args.pods,
-            schedule=args.schedule,
-            method=args.method,
-            broadcast=args.broadcast,
-            reduce_strategy=args.reduce_strategy,
-            chunk=args.chunk,
-            probe_shorter=not args.no_probe_shorter,
-            use_step_mask=False if args.no_skip_mask else None,
-            compact=False if args.no_compact else None,
-            rebalance_trials=args.rebalance,
-            hub_split=(
-                args.hub_split if args.hub_split is not None else False
-            ),
-            autotune=args.autotune,
-            measured_dir=args.measured_dir,
-            device=args.device,
+    if supervised:
+        from ..runtime import BackoffPolicy, Supervisor, supervised_count
+
+        sup = Supervisor(
+            max_restarts=args.restart_budget,
+            attempt_deadline=args.attempt_deadline,
+            backoff=BackoffPolicy(base=0.02, max_delay=0.5),
+        )
+        res = supervised_count(
+            g, supervisor=sup, fault_plan=fault_plan, **count_kwargs
         )
         times.append(res.count_seconds)
+        report.update(_supervision_fields(res.supervision))
+    else:
+        for _ in range(max(1, args.repeat)):
+            res = count_triangles(g, **count_kwargs)
+            times.append(res.count_seconds)
     report.update(
         triangles=res.triangles,
         ppt_seconds=round(res.preprocess_seconds, 4),
@@ -205,11 +278,18 @@ def main(argv=None):
         report["measured_table_hit"] = res.measured_table_hit
     report["schedules"] = available_schedules()
     report["plan_cache"] = default_cache().stats()
+    return _finish(g, args, report, res.triangles)
+
+
+def _finish(g, args, report, total):
+    """``--verify`` against the host oracle, then print the report; a
+    mismatch exits non-zero after the report is out."""
+    from ..core import triangle_count_oracle
 
     if args.verify:
         expected = triangle_count_oracle(g)
         report["expected"] = expected
-        report["correct"] = bool(res.triangles == expected)
+        report["correct"] = bool(total == expected)
 
     if args.json:
         print(json.dumps(report))
@@ -218,8 +298,227 @@ def main(argv=None):
             print(f"{k}: {v}")
     if args.verify and not report["correct"]:
         raise SystemExit(
-            f"count mismatch: got {res.triangles}, expected {expected}"
+            f"count mismatch: got {total}, expected {report['expected']}"
         )
+
+
+def _run_checkpointed(g, args, fault_plan=None):
+    """Shift-at-a-time Cannon with mid-loop checkpoint/restart.
+
+    The checkpointed state is the stepper's carry (with the
+    double-buffered body: two payload generations, built once by
+    ``stepper.prime``) plus the ``(q, q)`` int64 per-device partial
+    counts; the host loop owns the shift index and passes it to each step
+    so the skip mask stays aligned after a resume.  Under a compacted
+    plan the loop iterates ``stepper.live_steps`` only (one generation,
+    one fused hop a call).  A checkpoint stores the *original* next-shift
+    index plus the step-list signature, the collective strategy and the
+    grid: a same-mode resume filters the step list to ``>= saved``, while
+    a *cross-mode* restore (compacted checkpoint under ``--no-compact``,
+    double- vs single-buffered carry, another ``--reduce-strategy``) is
+    refused loudly — a silent resume would count misaligned blocks.
+
+    Supervised runs (``--inject-faults``/``--supervise``) drive the same
+    loop under :class:`repro_torch.runtime.Supervisor`: each restart
+    restores the latest intact checkpoint (the manager quarantines corrupt
+    steps) and a ``DeviceLost`` re-factorizes the surviving logical
+    devices (``--grid``² less the event's ``lost``) to the largest square
+    via :func:`repro_torch.runtime.best_grid`, re-plans through the
+    pipeline and restarts the count on the smaller grid — mid-schedule
+    per-device partials are **refused** across grids, so the regrid
+    counts from shift 0 into a fresh ``regrid_{q}x{q}`` subdirectory.
+    The plan's tensors are staged once per grid (the artifact's memoised
+    staging), however many attempts run.
+    """
+    import os
+
+    import torch
+
+    from ..ckpt import CheckpointManager
+    from ..core.cannon import build_cannon_stepper
+    from ..device import resolve_device
+    from ..pipeline import plan_cannon
+    from ..runtime import faultinject
+    from ..runtime.supervisor import check_partials_portable
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    cross_mode = (
+        "checkpoint in {d} was written by a run with a different "
+        "schedule shape ({why}) — the saved carry's position and arity "
+        "do not transfer across step sequences (compacted vs "
+        "--no-compact, double- vs single-buffered), and partial counts "
+        "accumulated under one collective strategy must not be summed "
+        "under another: resume with the original flags or start from a "
+        "fresh --ckpt-dir"
+    )
+    coll_sig = (
+        f"reduce={args.reduce_strategy},broadcast={args.broadcast or 'auto'}"
+    )
+
+    def setup(q, ckpt_dir):
+        """Plan + stepper + checkpoint manager for one grid size.  Runs
+        once up front and again per DeviceLost regrid."""
+        # no blocks kept (the stepper reads none): the plan is the one
+        # count_triangles(method="search") makes, and shares its cache entry
+        art = plan_cannon(g, q, chunk=args.chunk, keep_blocks=False,
+                          compact=not args.no_compact)
+        stepper = build_cannon_stepper(
+            art.plan,
+            use_step_mask=False if args.no_skip_mask else None,
+            double_buffer=not args.no_double_buffer,
+            compact=False if args.no_compact else None,
+        )
+        arrays = art.staged(device)
+        steps = (list(stepper.live_steps) if stepper.live_steps is not None
+                 else list(range(q)))
+        n_carry = stepper.n_carry
+        # shape/dtype/device template for restore: carry leaves are
+        # operand-shaped (two payload generations when double-buffered)
+        ops = [arrays[k] for k in ("a_indptr", "a_indices", "b_indptr",
+                                   "b_indices")]
+        state_like = {f"carry{i}": ops[i % len(ops)] for i in range(n_carry)}
+        state_like["acc"] = torch.zeros((q, q), dtype=torch.int64,
+                                        device=device)
+        return dict(
+            q=q, ckpt_dir=ckpt_dir, stepper=stepper, arrays=arrays,
+            steps=steps, n_carry=n_carry, state_like=state_like,
+            mgr=CheckpointManager(ckpt_dir, keep=2, async_save=False),
+            step_sig=",".join(map(str, steps)), grid_sig=f"{q}x{q}",
+        )
+
+    env = setup(args.grid, args.ckpt_dir)
+    t1 = time.perf_counter()
+
+    def restore_or_prime(env):
+        try:
+            _, restored, extra = env["mgr"].restore_latest(env["state_like"])
+        except KeyError as e:  # carry arity mismatch: fewer/more leaves
+            raise SystemExit(
+                cross_mode.format(d=env["ckpt_dir"], why=f"missing {e}")
+            ) from e
+        if restored is None:
+            carry0 = env["stepper"].prime(env["arrays"])
+            st = {f"carry{i}": c for i, c in enumerate(carry0)}
+            st["acc"] = env["state_like"]["acc"]
+            return st, 0
+        check_partials_portable(extra, env["grid_sig"])
+        for key, mine in (("steps", env["step_sig"]),
+                          ("collectives", coll_sig)):
+            if extra.get(key, mine) != mine:
+                raise SystemExit(cross_mode.format(
+                    d=env["ckpt_dir"],
+                    why=f"{key} [{extra[key]}] vs [{mine}]",
+                ))
+        start = int(extra["shift"])
+        print(f"resumed at shift {start}")
+        return restored, start
+
+    failed = {"done": False}
+
+    def attempt(attempt_index, guard):
+        st, start = restore_or_prime(env)
+        stepper, arrays = env["stepper"], env["arrays"]
+        n_carry, mgr, steps = env["n_carry"], env["mgr"], env["steps"]
+        todo = [s for s in steps if s >= start]
+        while todo:
+            guard()
+            s = todo.pop(0)
+            if (args.fail_at_shift is not None and s == args.fail_at_shift
+                    and not failed["done"]):
+                failed["done"] = True
+                print(f"(injected failure at shift {s}; restarting from "
+                      "ckpt)")
+                _, restored, extra = mgr.restore_latest(env["state_like"])
+                if restored is not None:
+                    st = restored
+                    saved = int(extra["shift"])  # next shift to execute
+                    todo = [t for t in steps if t >= saved]
+                    s = todo.pop(0)
+            faultinject.fire("step", step=s)
+            out = stepper(
+                tuple(st[f"carry{i}"] for i in range(n_carry)) + (st["acc"],),
+                arrays, step=s,
+            )
+            st = {f"carry{i}": out[i] for i in range(n_carry)}
+            st["acc"] = out[n_carry]
+            mgr.save(
+                s + 1, st,
+                extra={"shift": s + 1, "steps": env["step_sig"],
+                       "collectives": coll_sig, "grid": env["grid_sig"]},
+            )
+        return st
+
+    sup_dict = None
+    if fault_plan is not None or args.supervise:
+        from ..runtime import BackoffPolicy, DeviceLost, Supervisor, best_grid
+        from ..runtime.supervisor import GridTransferRefused
+
+        sup = Supervisor(
+            max_restarts=args.restart_budget,
+            attempt_deadline=args.attempt_deadline,
+            backoff=BackoffPolicy(base=0.02, max_delay=0.5),
+        )
+
+        def on_fault(e, rec):
+            if fault_plan is not None and fault_plan.log:
+                last = fault_plan.log[-1]
+                rec.point, rec.step = last.get("point"), last.get("step")
+            if not isinstance(e, DeviceLost):
+                return None
+            # the logical grid the run started on, less this event's loss
+            remaining = args.grid ** 2 - e.lost
+            if remaining < 1:
+                raise RuntimeError(
+                    f"cannot regrid: {e.lost} devices lost, "
+                    f"{remaining} remaining"
+                )
+            # the stepper is Cannon-only: square survivors
+            r, _ = best_grid(remaining, require_square=True)
+            # surface the refusal loudly: probe the old grid's latest
+            # checkpoint against the new signature, then drop it
+            try:
+                _, restored, extra = env["mgr"].restore_latest(
+                    env["state_like"])
+                if restored is not None:
+                    check_partials_portable(extra, f"{r}x{r}")
+            except GridTransferRefused as refuse:
+                print(f"(device lost: {refuse})")
+            except KeyError:  # another mode's carry: nothing to move
+                pass
+            env["mgr"].close()
+            new_dir = os.path.join(args.ckpt_dir, f"regrid_{r}x{r}")
+            env.clear()
+            env.update(setup(r, new_dir))
+            sup.report.regrids.append(
+                dict(lost=e.lost, grid=[r, r], ckpt_dir=new_dir))
+            return f"regrid to {r}x{r}"
+
+        with faultinject.armed(fault_plan):
+            st = sup.run(attempt, on_fault=on_fault)
+        sup_dict = sup.report.to_dict()
+        if fault_plan is not None:
+            sup_dict["fault_log"] = list(fault_plan.log)
+    else:
+        st = attempt(0, lambda: None)
+
+    total = int(st["acc"].sum())  # the one device→host crossing
+    t2 = time.perf_counter()
+    env["mgr"].close()
+    out = dict(
+        triangles=total,
+        ppt_seconds=round(t1 - t0, 4),
+        tct_seconds=round(t2 - t1, 4),
+        checkpointed=True,
+        live_steps=len(env["steps"]),
+        schedule_shifts=env["q"],
+        device=str(device),
+    )
+    if sup_dict is not None:
+        if sup_dict.get("regrids"):
+            out["final_grid"] = [env["q"], env["q"]]
+        out.update(_supervision_fields(sup_dict))
+    return total, out
 
 
 def _run_stream(g, args):
@@ -326,6 +625,29 @@ def _run_stream(g, args):
     wrong = [r["round"] for r in rounds if not r.get("correct", True)]
     if wrong:
         raise SystemExit(f"count mismatch in stream rounds {wrong}")
+
+
+def _supervision_fields(sup: "dict | None") -> dict:
+    """Flatten a TCResult.supervision record (or a SupervisionReport
+    dict) into report fields.  Attempt-by-attempt detail stays nested
+    under ``supervision_attempts``; demotions/regrids are emitted only
+    when non-empty so fault-free supervised runs stay compact."""
+    if not sup:
+        return {}
+    out = dict(
+        supervision_attempts=sup.get("attempts", []),
+        supervision_restarts=sup.get("restarts", 0),
+        supervision_backoff_seconds=sup.get("total_backoff_seconds", 0.0),
+    )
+    if sup.get("demotions"):
+        out["supervision_demotions"] = sup["demotions"]
+    if sup.get("regrids"):
+        out["supervision_regrids"] = sup["regrids"]
+    if sup.get("fault_log"):
+        out["supervision_fault_log"] = sup["fault_log"]
+    if sup.get("gave_up"):
+        out["supervision_gave_up"] = True
+    return out
 
 
 def _skip_fields(plan, no_skip_mask: bool) -> dict:

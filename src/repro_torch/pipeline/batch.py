@@ -29,6 +29,7 @@ import torch
 
 from ..core.graph import Graph
 from ..device import resolve_device
+from ..runtime import faultinject
 from .artifact import stage_arrays
 from .cache import PlanCache, default_cache, graph_digest
 from .planner import relabel_cached
@@ -294,6 +295,7 @@ def count_triangles_many(
     if method == "search2" and schedule != "cannon":
         raise ValueError("method 'search2' is a cannon-schedule path")
 
+    faultinject.fire("plan_stage", kind="many")
     t0 = time.perf_counter()
     device = resolve_device(device)
     if grid is None:
@@ -330,6 +332,7 @@ def count_triangles_many(
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
 
+    faultinject.fire("device_stage")
     totals = prog.fn(**prog.staged).tolist()  # the one device→host crossing
     counts = [check_count_overflow(int(t), count_dtype) for t in totals]
     t2 = time.perf_counter()

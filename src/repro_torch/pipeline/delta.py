@@ -65,6 +65,7 @@ from ..core.plan import (
     compact_live_steps,
     host_aug_keys,
 )
+from ..runtime import faultinject
 from .artifact import PlanArtifact
 from .cache import PlanCache, default_cache
 from .hubsplit import hubsplit_stage
@@ -307,6 +308,7 @@ def apply_delta(
                 # have no splice path) — refuse loudly, repack instead
                 splice_refused = "hub_split"
             else:
+                faultinject.fire("delta_splice")
                 art = _splice_cannon(
                     artifact, g2, eff, eff_add, eff_rem, depth, chain,
                     dirty_limit, lineage,

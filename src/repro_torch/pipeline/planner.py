@@ -17,6 +17,7 @@ from typing import Optional
 
 from ..core.graph import Graph
 from ..core.plan import bucketize_plan
+from ..runtime import faultinject
 from .artifact import PlanArtifact
 from .cache import PlanCache, default_cache, graph_digest
 from .hubsplit import hubsplit_stage, normalize_hub_split
@@ -117,7 +118,10 @@ def _artifact_graph(graph, g2, perm, hub, rb):
 
 
 def _drive(kind, graph, key_tail, cache, pack):
-    """Shared front half: ingest (digest + cache probe) then relabel + pack."""
+    """Shared front half: ingest (digest + cache probe) then relabel + pack.
+    The ``plan_stage`` injection point fires first, before the cache
+    probe, so a retried plan hits the cache."""
+    faultinject.fire("plan_stage", kind=kind)
     cache = cache if cache is not None else default_cache()
     seconds = {}
     t0 = time.perf_counter()

@@ -254,3 +254,39 @@ def test_search2_phase(on_cpu, graph, capsys):
     assert line["search2"]["graph"] == f"rmat:{SCALE},16,1"
     assert line["auto"]["graph"] == f"rmat:{SCALE - 2},16,1"
     assert line["auto"]["triangles"] == line["auto"]["triangles_scipy_oracle"]
+
+
+def test_runtime_path_phase(on_cpu, graph, capsys):
+    g, oracle = graph
+    rt.count_triangles(g, q=chip_smoke.GRID, method="fused")
+    spec = f"rmat:{SCALE},{chip_smoke.EDGE_FACTOR},1"
+    rec = chip_smoke.runtime_path(g, oracle, CPU, chip_smoke.GRID, spec)
+    line = _line(capsys, "runtime_path")
+    assert line["ok"] and not line["failed"]
+    tr = line["transient"]
+    assert tr["triangles"] == oracle and tr["restarts"] == 3
+    assert [a["point"] for a in tr["attempts"][:3]] == [
+        "plan_stage", "device_stage", "step"]
+    assert tr["kernel_launches"] == tr["device_steps_counted"] > 0
+    per = line["persistent"]
+    assert per["method"] == "search2" and per["triangles"] == oracle
+    assert per["demotions"][0]["frm"] == "fused"
+    lost = line["device_lost"]
+    assert lost["grid"] == [3, 3] and lost["triangles"] == oracle
+    assert lost["regrids"] == [
+        {"lost": chip_smoke.RUNTIME_LOST, "grid": [3, 3],
+         "schedule": "cannon"}]
+    cli = line["checkpointed_cli"]
+    assert cli["faults"]["corrupt_files"] and cli["faults"]["restarts"] >= 1
+    assert {r["triangles"] for r in cli.values()} == {oracle}
+    # one save a shift (the faults run also saves the corrupted step 1
+    # and redoes shift 0); the resume only restores
+    assert [s["step"] for s in cli["fail_at_shift"]["saves"]] == [1, 2, 3, 4]
+    assert all(s["bytes"] > 0 for s in cli["faults"]["saves"])
+    assert cli["resume"]["saves"] == []
+    assert rec["path"] == "cannon_regrid" and rec["equal"]
+    assert rec["launches"] == lost["kernel_launches"]
+    assert rec["compared_device_steps"] == lost["device_steps_counted"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "source", "replaces", "route"):
+        assert key in rec
