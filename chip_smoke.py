@@ -31,7 +31,7 @@ What it does, in order, printing one JSON object per line:
 4. ``main_path``  — ``repro_torch.count_triangles(rmat(scale, 16), q=4,
                     method="fused")`` on the GPU — one plan, one kernel
                     launch a device-step, no ``searchsorted`` in the warm
-                    count's profile — checked against the same call with
+                    count's profile — checked against one count with
                     ``method="search"`` and against a scipy oracle that
                     shares no code with the package; then the same graph
                     again, which must hit the plan cache;
@@ -81,22 +81,40 @@ What it does, in order, printing one JSON object per line:
                     counts against the oracle, and the kernel against its
                     plain route at every candidate shape on the busiest
                     block (one JSON line after the ring);
-   ``delta_path`` — a 10-round edge-delta stream on the main graph through
+   ``delta_path`` — a 4-round edge-delta stream on the main graph through
                     ``count_triangles_delta`` (Cannon q = 4, ``method=
-                    "fused"``, ``rebase_every=8``; the base a plan-cache
-                    hit): 4-edit rounds that splice, a 4,096-edit round
-                    that repacks, a rebase at depth 9; each round's level,
+                    "fused"``, ``rebase_every=3``; the base a plan-cache
+                    hit): a 4-edit splice, a 4,096-edit repack, a 4-edit
+                    splice, a rebase at depth 4; each round's level,
                     dirty blocks, replanned stages, inherited engine,
                     times and reused buffers, its kernel launches (one a
                     counted device-step) and its count against an
                     incremental scipy oracle sharing no code with the
                     package; then the replay of round 1 (a lineage-cache
                     hit), a profiled warm count of round 1's spliced plan
-                    (no ``searchsorted``), the final graph counted cold,
-                    and ``tc_run --stream --verify`` on ``rmat:14``; then
-                    the fused kernel's ``"cannon_delta"`` row, held to its
+                    (no ``searchsorted``), and ``tc_run --stream
+                    --verify`` on ``rmat:14`` in this process; then the
+                    fused kernel's ``"cannon_delta"`` row, held to its
                     plain route on every device-step of round 1's spliced
                     plan that reads a dirty block;
+   ``serve_path`` — the front ends: the main plan's warm fused count with
+                    the shifted payload as separate arrays and as blobs
+                    (the default), in turns, each profiled (rolls,
+                    packing, kernel) with its peak and moved bytes;
+                    ``serve --tc-stream`` on the main graph in memory
+                    (Cannon q = 4, fused, 4 rounds of 4 flips, a step
+                    fault at round 0 retried), each round against the
+                    incremental oracle; ``serve --tc-graphs`` over
+                    karate, rmat 12 and rmat 14 at 8 on a 2 x 2 grid with
+                    ``--verify`` (rounds 1 and later warm); ``tc_run
+                    --opt`` on ``rmat(18, 16)`` and ``tc_run --time-split``
+                    on the three schedules at ``rmat(16, 16)`` (chunk 8192),
+                    each against the scipy oracle (each result a line of
+                    its own: ``serve_blob``, ``serve_stream``,
+                    ``serve_batch``, ``tc_run_opt``, ``tc_run_time_split``);
+                    then the fused kernel's ``"serve_stream"`` row, held
+                    to its plain route on the last round's first counted
+                    device-step;
    ``rebalance_path`` — the main graph with ``rebalance_trials=3``: the
                     rebalance report, one kernel launch a counted
                     device-step, warm counts of the plain and the
@@ -731,7 +749,7 @@ def kernel_report(art, dev, launches):
 # phases
 # ----------------------------------------------------------------------
 def profile_count(count, expect, kernel="fused_counts_kernel",
-                  label="fused"):
+                  label="fused", spans=()):
     """Where a warm count's device time goes: ``count`` under
     ``torch.profiler``, once as the profiler's warm-up cycle and once
     recorded; device time summed by kernel name, and that of the kernels
@@ -740,7 +758,9 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     the count made.  Tracing slows the host down, so the busy share is
     taken against the recorded run's own wall time and says so.
     ``device_seconds`` of 0 means the profiler saw no device activity
-    here, and nothing was measured."""
+    here, and nothing was measured.  ``spans`` names more kernels (by a
+    substring of their names) whose device seconds and launches are
+    summed under ``spans``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -779,6 +799,11 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
         "device_busy_share_of_profiled_wall": (total / wall) if wall > 0 else None,
         "top": [dict(kernel=k[:80], seconds=t, launches=int(n))
                 for k, t, n in kernels[:6]],
+        "spans": {
+            name: dict(seconds=sum(t for k, t, _ in kernels if name in k),
+                       launches=int(sum(n for k, _, n in kernels
+                                        if name in k)))
+            for name in spans},
     }
 
 
@@ -823,7 +848,6 @@ def main_path(scale, edge_factor, seed, q, dev):
              "searchsorted launches: the long bucket left the kernel")
 
     rs = rt.count_triangles(g, q=q, method="search", chunk=8192)
-    rs2 = rt.count_triangles(g, q=q, method="search", chunk=8192)
 
     t0 = time.perf_counter()
     oracle = scipy_triangle_oracle(g.n, g.edges)
@@ -843,7 +867,6 @@ def main_path(scale, edge_factor, seed, q, dev):
         warm_count_seconds=r2.count_seconds,
         search_preprocess_seconds=rs.preprocess_seconds,
         search_count_seconds=rs.count_seconds,
-        search_warm_count_seconds=rs2.count_seconds,
         stage_seconds={k: float(v) for k, v in r.artifact.stage_seconds.items()},
         nb=plan.nb, tmax=plan.tmax, dmax=plan.dmax,
         d_small=plan.d_small, n_long=plan.n_long, chunk=plan.chunk,
@@ -856,7 +879,7 @@ def main_path(scale, edge_factor, seed, q, dev):
         peak_device_bytes=int(peak),
         warm_count_profile=prof,
     )
-    ok = r.triangles == r2.triangles == rs.triangles == rs2.triangles == oracle
+    ok = r.triangles == r2.triangles == rs.triangles == oracle
     emit("main_path", ok=ok, **info)
     if not ok:
         fail("main path counts disagree (fused / search / scipy oracle)")
@@ -1418,19 +1441,24 @@ def cli_hooks(g, spec):
         core.graph_from_spec, manager.save_checkpoint = gen, save
 
 
+def capture(fn, *args):
+    """``fn(*args)`` with its standard output captured: ``(result, lines,
+    seconds)``."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
 def run_cli(argv):
     """``tc_run.main(argv)`` in this process: its standard output, its
     JSON report (the last line that is one) and its seconds."""
     from repro_torch.launch import tc_run
 
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        tc_run.main(argv)
-    text = buf.getvalue()
-    report = json.loads([ln for ln in text.splitlines()
-                         if ln.startswith("{")][-1])
-    return text, report, time.perf_counter() - t0
+    _, lines, seconds = capture(tc_run.main, argv)
+    report = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    return "\n".join(lines), report, seconds
 
 
 def checkpointed_cli(g, oracle, dev, q, graph):
@@ -1927,9 +1955,9 @@ def many_path(dev, seed, scales=MANY_SCALES):
 # edits a round: 4 (2 removals of existing edges, 2 additions of absent
 # pairs) dirty at most 4 of Cannon's 16 blocks, so they splice; 4,096
 # dirty every block, so round 7 repacks; round 9 is depth 9 > 8: rebase
-DELTA_ROUNDS = (4, 4, 4, 4, 4, 4, 4096, 4, 4, 4)
-DELTA_PLANNED = ("splice",) * 6 + ("repack", "splice", "rebase", "splice")
-DELTA_REBASE_EVERY = 8
+DELTA_ROUNDS = (4, 4096, 4, 4)
+DELTA_PLANNED = ("splice", "repack", "splice", "rebase")
+DELTA_REBASE_EVERY = 3
 STREAM_GRAPH = "rmat:14"  # tc_run --stream, end to end
 STREAM_ROUNDS = (4, 4, 512, 4)
 
@@ -1945,7 +1973,8 @@ class EdgeKeys:
         self.n = int(n)
         lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
         hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
-        self.keys = np.unique(lo * self.n + hi)
+        keys = np.sort(lo * self.n + hi)  # np.unique is far slower here
+        self.keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
         self.adj = self._sym(self.keys, 1, sp)
         self.adj.sort_indices()
 
@@ -2060,10 +2089,24 @@ def dirty_device_steps(plan, steps, pairs):
     return out
 
 
+@contextlib.contextmanager
+def fresh_plan_cache():
+    """A fresh default plan cache while the block runs: a front end driven
+    in this process plans from nothing and evicts nothing of the phases'
+    cached plans."""
+    from repro_torch.pipeline import PlanCache, set_default_cache
+
+    prev = set_default_cache(PlanCache())
+    try:
+        yield
+    finally:
+        set_default_cache(prev)
+
+
 def stream_cli(dev, seed):
-    """``python -m repro_torch.launch.tc_run --stream`` end to end on
-    ``STREAM_GRAPH`` at q = 2, ``method="fused"``, ``--verify``: exit 0 and
-    every round correct.  The delta file goes to the build directory."""
+    """``tc_run --stream`` end to end, in this process, on
+    ``STREAM_GRAPH`` at q = 2, ``method="fused"``, ``--verify``: every
+    round correct.  The delta file goes to the build directory."""
     import repro_torch as rt
     from repro_torch.kernels import _build
 
@@ -2074,19 +2117,11 @@ def stream_cli(dev, seed):
     path.write_text("".join(
         json.dumps({"add": a.tolist(), "remove": r.tolist()}) + "\n"
         for r, a in deltas))
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.tc_run", "--graph",
-         STREAM_GRAPH, "--grid", "2", "--method", "fused", "--stream",
-         str(path), "--verify", "--json", "--device", str(dev)],
-        env=env, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"tc_run --stream exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    with fresh_plan_cache():
+        _, report, seconds = run_cli(
+            ["--graph", STREAM_GRAPH, "--grid", "2", "--method", "fused",
+             "--stream", str(path), "--verify", "--json", "--device",
+             str(dev)])
     rounds = report["rounds"]
     return dict(graph=STREAM_GRAPH, seconds=seconds,
                 rounds=len(rounds),
@@ -2096,11 +2131,11 @@ def stream_cli(dev, seed):
 
 
 def delta_path(g, oracle, dev, q, seed):
-    """``count_triangles_delta`` over a 10-round stream on the main graph
-    (Cannon q = 4, ``method="fused"``, ``rebase_every=8``), each round
-    against the incremental oracle; then the replay of round 1, a
-    profiled warm count of round 1's spliced plan, the final graph
-    counted cold, and ``tc_run --stream``.  Returns the fused kernel's
+    """``count_triangles_delta`` over a 4-round stream on the main graph
+    (Cannon q = 4, ``method="fused"``, ``rebase_every=3``: splice,
+    repack, splice, rebase), each round against the incremental oracle;
+    then the replay of round 1, a profiled warm count of round 1's
+    spliced plan, and ``tc_run --stream``.  Returns the fused kernel's
     ``"cannon_delta"`` row."""
     import repro_torch as rt
     from repro_torch.kernels.tc_fused import tc_fused as kmod
@@ -2112,7 +2147,7 @@ def delta_path(g, oracle, dev, q, seed):
     )
 
     t_phase = time.perf_counter()
-    deltas, changes, final = delta_stream((g.n, g.edges), DELTA_ROUNDS, seed)
+    deltas, changes, _ = delta_stream((g.n, g.edges), DELTA_ROUNDS, seed)
     oracle_s = time.perf_counter() - t_phase
 
     hits0 = default_cache().hits
@@ -2181,10 +2216,6 @@ def delta_path(g, oracle, dev, q, seed):
              f"{prof['fused_kernel_launches_seen']} of {len(steps1)}: "
              f"{json.dumps(prof)}")
 
-    gf = rt.Graph(n=final.n, edges=final.pairs(final.keys), name="final")
-    cold = rt.count_triangles(gf, q=q, method="fused", cache=PlanCache())
-    if cold.triangles != rows[-1]["triangles"]:
-        bad.append(("cold", cold.triangles, rows[-1]["triangles"]))
     cli = stream_cli(dev, seed)
     if not cli["correct"]:
         bad.append(("tc_run --stream", cli))
@@ -2197,9 +2228,6 @@ def delta_path(g, oracle, dev, q, seed):
          rounds=rows, mismatches=bad, incremental_oracle_seconds=oracle_s,
          kernel_launches=launches, replay_cache_hit=replay_hit,
          spliced_warm_count_profile=prof,
-         final_cold=dict(triangles=cold.triangles,
-                         preprocess_seconds=cold.preprocess_seconds,
-                         count_seconds=cold.count_seconds),
          tc_run_stream=cli, seconds=time.perf_counter() - t_phase)
     if bad:
         fail(f"delta-path counts disagree with the incremental oracle: "
@@ -2215,6 +2243,230 @@ def delta_path(g, oracle, dev, q, seed):
     rec["compared_note"] = ("every counted device-step of round 1's "
                             "spliced plan that reads a dirty block")
     stream_cache.clear()
+    return rec
+
+
+# ----------------------------------------------------------------------
+# the front ends: serve (stream and batch), tc_run --opt / --time-split,
+# and what the blob shifts cost the main path
+# ----------------------------------------------------------------------
+SERVE_ROUNDS = 4
+SERVE_DELTA_EDGES = 4
+SERVE_FAULTS = "step@1"  # round 0's first attempt fails at step 1
+SERVE_BATCH = "named:karate;rmat:12;rmat:14,8,1"
+SERVE_BATCH_GRID = 2
+SERVE_BATCH_ROUNDS = 3
+OPT_GRAPH = "rmat:18,16,1"
+SPLIT_GRAPH = "rmat:16,16,1"
+FRONTEND_CHUNK = 8192
+BLOB_TURNS = ("arrays", "blob", "blob", "arrays") * 2
+
+
+def round_counts(lines):
+    """``{round: triangles}`` and ``{round: ms}`` of serve's round lines."""
+    import re
+
+    counts, ms = {}, {}
+    for ln in lines:
+        m = re.match(r"round (\d+): triangles=(.+?) in ([0-9.]+)ms", ln)
+        if m:
+            counts[int(m.group(1))] = json.loads(m.group(2))
+            ms[int(m.group(1))] = float(m.group(3))
+    return counts, ms
+
+
+def blob_cost(g, oracle, dev, q):
+    """The main plan's warm fused count with the shifted CSR payload as
+    separate arrays and as blobs (the default), in turns: seconds, fused
+    kernel launches, a profile of each (the rolls', the packing's and the
+    kernel's device time), a count's own peak device bytes and the bytes
+    each phase moves."""
+    import repro_torch as rt
+    from repro_torch.core.cannon import build_cannon_fn
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.launch.roofline import collective_phases
+
+    art = rt.count_triangles(g, q=q, method="fused").artifact
+    staged = art.staged(dev)
+    fns = {"arrays": build_cannon_fn(art.plan, method="fused",
+                                     use_blob=False),
+           "blob": build_cannon_fn(art.plan, method="fused")}
+    rows = {name: dict(warm_count_seconds=[]) for name in fns}
+    bad = []
+    for name, fn in fns.items():  # warm-up, launches and peak of each
+        int(fn(**staged))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kmod.reset_launch_count()
+        got = int(fn(**staged))
+        rows[name].update(kernel_launches=kmod.launch_count(),
+                          count_peak_bytes=int(
+                              torch.cuda.max_memory_allocated() - base),
+                          moved_bytes=collective_phases(fn, staged))
+        if got != oracle:
+            bad.append((name, got))
+    for name in BLOB_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = int(fns[name](**staged))
+        rows[name]["warm_count_seconds"].append(time.perf_counter() - t0)
+        if got != oracle:
+            bad.append((name, got))
+    for name, fn in fns.items():
+        rows[name]["profile"] = profile_count(
+            lambda: int(fn(**staged)), rows[name]["kernel_launches"],
+            spans=("roll_cuda_kernel", "CatArray"))
+        rows[name]["warm_count_seconds_min"] = min(
+            rows[name]["warm_count_seconds"])
+    return dict(rows, turns=list(BLOB_TURNS), mismatches=bad)
+
+
+def serve_stream(g, oracle, dev, q, graph):
+    """``serve --tc-stream`` on the main graph (already in memory):
+    Cannon q = 4, ``method="fused"``, ``SERVE_ROUNDS`` rounds of
+    ``SERVE_DELTA_EDGES`` flips, ``SERVE_FAULTS`` injected.  Each round's
+    count against the oracle updated by the round's flips
+    (``EdgeDelta.random_flips(g, k, seed=round)`` makes them
+    deterministic).  Returns the record and the last round's artifact."""
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.launch import serve
+    from repro_torch.pipeline import EdgeDelta
+
+    args = serve.build_parser().parse_args([
+        "--tc-stream", graph, "--grid", str(q), "--method", "fused",
+        "--rounds", str(SERVE_ROUNDS),
+        "--delta-edges", str(SERVE_DELTA_EDGES),
+        "--inject-faults", SERVE_FAULTS, "--device", str(dev)])
+    kmod.reset_launch_count()
+    (live, res), lines, seconds = capture(serve._serve_tc_stream, args, g)
+    launches = kmod.launch_count()
+    counts, ms = round_counts(lines)
+
+    t0 = time.perf_counter()
+
+    def keys(pairs):
+        pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        return (np.minimum(pairs[:, 0], pairs[:, 1]) * g.n
+                + np.maximum(pairs[:, 0], pairs[:, 1]))
+
+    cur, want, mine = EdgeKeys(g.n, g.edges), oracle, g
+    expected = {0: oracle}
+    for rnd in range(1, SERVE_ROUNDS):
+        if rnd not in counts:  # a failed round leaves the graph as it was
+            continue
+        delta = EdgeDelta.random_flips(mine, SERVE_DELTA_EDGES, seed=rnd)
+        mine = delta.apply_to(mine)
+        want += cur.apply(keys(delta.remove), keys(delta.add))
+        expected[rnd] = want
+    oracle_s = time.perf_counter() - t0
+    steps = schedule_device_steps(res.artifact.plan, "cannon")
+    rec = dict(
+        graph=graph, q=q, method="fused", rounds=SERVE_ROUNDS,
+        delta_edges=SERVE_DELTA_EDGES, faults=SERVE_FAULTS,
+        triangles=counts, expected=expected, round_ms=ms,
+        supervision=lines[-1], lines=lines, seconds=seconds,
+        incremental_oracle_seconds=oracle_s, kernel_launches=launches,
+        device_steps_counted_last_round=len(steps),
+        last_level=res.delta["level"] if res.delta else None,
+        live_edges=int(live.m), oracle_edges=int(mine.m),
+    )
+    ok = (counts == expected and len(counts) == SERVE_ROUNDS
+          and "1 restarts" in lines[-1] and live.m == mine.m
+          and launches > 0)
+    return ok, rec, res.artifact, steps
+
+
+def serve_batch(dev):
+    """``serve --tc-graphs SERVE_BATCH --grid 2 --rounds 3 --verify`` from
+    a fresh plan cache: every round verified, rounds 1 and later warm."""
+    from repro_torch.launch import serve
+
+    with fresh_plan_cache():
+        _, lines, seconds = capture(serve.main, [
+            "--tc-graphs", SERVE_BATCH, "--grid", str(SERVE_BATCH_GRID),
+            "--rounds", str(SERVE_BATCH_ROUNDS), "--verify", "--device",
+            str(dev)])
+    counts, ms = round_counts(lines)
+    rounds = [ln for ln in lines if ln.startswith("round ")]
+    warm = [("warm" in ln) for ln in rounds]
+    # --verify held every round to the package's host oracle
+    ok = (len(counts) == len(rounds) == SERVE_BATCH_ROUNDS and not warm[0]
+          and all(warm[1:]) and len({str(c) for c in counts.values()}) == 1)
+    return ok, dict(graphs=SERVE_BATCH, grid=SERVE_BATCH_GRID,
+                    triangles=counts, round_ms=ms, warm=warm, lines=lines,
+                    seconds=seconds)
+
+
+def frontend_cli(dev, q):
+    """``tc_run --opt`` on ``OPT_GRAPH`` (q = 4, chunk 8192, ``--repeat
+    2``) and ``tc_run --time-split`` on the three schedules at
+    ``SPLIT_GRAPH`` (chunk 8192), each from a fresh plan cache, against
+    the scipy oracle."""
+    import repro_torch as rt
+
+    out, ok = {}, True
+    og = rt.graph_from_spec(OPT_GRAPH)
+    want = scipy_triangle_oracle(og.n, og.edges)
+    with fresh_plan_cache(), cli_hooks(og, OPT_GRAPH):
+        _, rep, seconds = run_cli([
+            "--graph", OPT_GRAPH, "--grid", str(q), "--chunk",
+            str(FRONTEND_CHUNK), "--opt", "--repeat", "2", "--json",
+            "--device", str(dev)])
+    out["opt"] = dict(rep, triangles_scipy_oracle=want, seconds=seconds)
+    ok = ok and rep["triangles"] == want and rep.get("optimized") is True
+    sg = rt.graph_from_spec(SPLIT_GRAPH)
+    want = scipy_triangle_oracle(sg.n, sg.edges)
+    for kind in ("cannon", "summa", "oned"):
+        with fresh_plan_cache(), cli_hooks(sg, SPLIT_GRAPH):
+            _, rep, seconds = run_cli([
+                "--graph", SPLIT_GRAPH, "--grid", str(q), "--schedule",
+                kind, "--chunk", str(FRONTEND_CHUNK), "--time-split",
+                "--json", "--device", str(dev)])
+        only = "tct_broadcast_only" if kind == "summa" else "tct_shift_only"
+        keys = (only, "tct_count_only", "coll_shift_bytes",
+                "coll_broadcast_bytes", "coll_reduce_bytes",
+                "coll_other_bytes")
+        row = {k: rep.get(k) for k in keys}
+        row.update(triangles=rep["triangles"], triangles_scipy_oracle=want,
+                   tct_seconds=rep["tct_seconds"], seconds=seconds)
+        out[f"time_split_{kind}"] = row
+        ok = (ok and rep["triangles"] == want
+              and all(rep.get(k) is not None for k in keys)
+              and (rep["coll_shift_bytes"] > 0) == (kind != "summa"))
+    return ok, out
+
+
+def serve_path(g, oracle, dev, q, graph):
+    """The front ends on the card: the blob cost on the main plan,
+    ``serve --tc-stream`` on the main graph, ``serve --tc-graphs``,
+    ``tc_run --opt`` and ``--time-split``, each result on a JSON line of
+    its own (``serve_blob``, ``serve_stream``, ``serve_batch``,
+    ``tc_run_opt``, ``tc_run_time_split``), then the ``serve_path`` line.
+    Returns the fused kernel's ``"serve_stream"`` row, held to its plain
+    route on one device-step of the last round's plan."""
+    t_phase = time.perf_counter()
+    blob = blob_cost(g, oracle, dev, q)
+    emit("serve_blob", ok=not blob["mismatches"], **blob)
+    stream_ok, stream, art, steps = serve_stream(g, oracle, dev, q, graph)
+    emit("serve_stream", ok=stream_ok, **stream)
+    batch_ok, batch = serve_batch(dev)
+    emit("serve_batch", ok=batch_ok, **batch)
+    cli_ok, cli = frontend_cli(dev, q)
+    emit("tc_run_opt", **cli.pop("opt"))
+    emit("tc_run_time_split", **cli)
+    ok = (stream_ok and batch_ok and cli_ok and not blob["mismatches"])
+    emit("serve_path", ok=ok, blob=not blob["mismatches"], stream=stream_ok,
+         batch=batch_ok, tc_run=cli_ok,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        fail("the front ends miscounted, missed a retry or a warm round, "
+             "or left a field out (serve_path line)")
+    rec = schedule_kernel_report("cannon", art, dev,
+                                 stream["kernel_launches"], steps[:1],
+                                 path="serve_stream")
+    rec["compared_note"] = ("the first counted device-step of the last "
+                            "stream round's plan")
     return rec
 
 
@@ -2849,6 +3101,8 @@ def main():
         measure("cannon", (GRID, GRID))
         kernels.append(phase("delta_path", delta_path, g, oracle, dev, GRID,
                              args.seed))
+        kernels.append(phase("serve_path", serve_path, g, oracle, dev, GRID,
+                             graph))
         phase("rebalance_path", rebalance_path, g, oracle, dev, GRID)
         for kind, grid in (("summa", SUMMA_GRID), ("oned", (GRID, GRID))):
             sart, slaunches, steps = phase(f"{kind}_path", schedule_path,

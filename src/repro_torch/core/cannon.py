@@ -70,13 +70,15 @@ def pod_stack_arrays(arrays: Dict, npods: int, q: int) -> Dict:
 
 
 def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
-               compact, reduce_strategy, batched=False, hub=None, npods=1):
+               compact, reduce_strategy, batched=False, hub=None, npods=1,
+               elide_shifts=False):
     """The engine composition shared by every ``build_cannon_*`` fn: the skip
     mask and the compacted schedule come from the CSR plan."""
     use_step_mask = resolve_step_mask(plan, use_step_mask)
     live = resolve_compact_steps(plan, compact, batched=batched, npods=npods)
     schedule = CannonSchedule(
-        q=plan.q, double_buffer=double_buffer, live_steps=live, npods=npods
+        q=plan.q, double_buffer=double_buffer, live_steps=live, npods=npods,
+        elide_shifts=elide_shifts,
     )
     return engine.build_engine_fn(
         store,
@@ -109,6 +111,9 @@ def build_cannon_fn(
     batched: bool = False,
     npods: int = 1,
     fused_tile: Optional[int] = None,
+    use_blob: bool = True,
+    compress_lengths: bool = False,
+    elide_shifts: bool = False,
 ):
     """Build the counting function for ``plan`` on its ``(q, q)`` grid, or
     on the ``(npods, q, q)`` grid of ``npods`` 2.5D pods.
@@ -147,6 +152,11 @@ def build_cannon_fn(
     tree over the pods; needs a power-of-two pod count > 1) or ``"auto"``
     (tree whenever it applies).  ``fused_tile`` overrides the fused
     kernel's tile (the measured autotune passes its table's best).
+    ``use_blob`` (default on) shifts each operand as one blob packed at
+    every count; ``compress_lengths`` ships the rows' lengths as uint16
+    pairs in the blob instead of the int32 indptr (needs ``use_blob`` and
+    ``plan.dmax < 65536``).  ``elide_shifts`` is a timing probe (counts
+    are wrong for q > 1): ``tc_run --time-split``'s count-only run.
     """
     plan = as_plan(plan)
     if method == "fused":
@@ -163,6 +173,9 @@ def build_cannon_fn(
     )
     store = CSRStore(
         kernel,
+        use_blob=use_blob,
+        compress_lengths=compress_lengths,
+        dmax=plan.dmax,
         with_aug=(method in ("global", "search2")
                   and getattr(plan, "b_aug", None) is not None),
     )
@@ -171,7 +184,7 @@ def build_cannon_fn(
         double_buffer=double_buffer, compact=compact,
         reduce_strategy=reduce_strategy, batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
-        npods=npods,
+        npods=npods, elide_shifts=elide_shifts,
     )
 
 
@@ -208,6 +221,8 @@ def build_cannon_stepper(
     As in the JAX package the kernel is bound without the plan's bucket
     split, so ``method="search2"`` and ``method="fused"`` raise, and a
     hub-split plan is refused (the stepper has no slot for its partial).
+    The carry holds the unpacked arrays (no blob, as in the JAX package),
+    so either package loads the other's checkpoints.
     """
     plan = as_plan(plan)
     if getattr(plan, "hub", None) is not None:
@@ -226,7 +241,7 @@ def build_cannon_stepper(
         method, dpad=plan.dmax, chunk=plan.chunk, probe_shorter=probe_shorter,
     )
     return engine.build_engine_stepper(
-        CSRStore(kernel), schedule, m_cnt=plan.m_cnt,
+        CSRStore(kernel, use_blob=False), schedule, m_cnt=plan.m_cnt,
         step_keep=plan.step_keep if use_step_mask else None,
     )
 

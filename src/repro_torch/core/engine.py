@@ -46,12 +46,23 @@ stepper of checkpointed runs (:func:`build_engine_stepper`).  Where the JAX pack
 the schedule over a batch of graphs with ``lax.map``, the batched
 function here loops over the staged tensors' leading batch dimension,
 each graph with its own host task counts and skip mask.
-Not carried over yet: blob packing and uint16 length compression of the
-shifted payload (a communication optimisation with nothing to serialise
-on one device).
+The shifted CSR payload travels as blobs (:mod:`repro_torch.core.blob`:
+one stacked buffer an operand, so a shift is one roll per operand),
+optionally with uint16 row-length pairs in place of the indptr
+(``CSRStore(compress_lengths=True)``).  The timing probes of the JAX
+package's ``--time-split`` are here too: ``elide_shifts`` on
+:class:`CannonSchedule` and :class:`RingSchedule`, ``elide_broadcast`` on
+:class:`SummaCSRStore` (counts are wrong past one device).  Where the JAX
+package reads the bytes its collectives move from the compiled program,
+the port counts them where it moves them: every rolled tensor under
+``shift``, the blob packing under ``other`` and the final sum's reads
+under ``reduce``, into the tally of :func:`tally_moved_bytes` (a SUMMA
+broadcast is a view and moves nothing).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -61,6 +72,7 @@ import torch
 
 from ..kernels.tc_tile import tile_pair_count
 from . import count as count_mod
+from .blob import blob_layout, pack_blob, unpack_blob
 
 __all__ = [
     "OperandStore",
@@ -85,6 +97,7 @@ __all__ = [
     "build_engine_stepper",
     "restage_device_arrays",
     "shift_perm",
+    "tally_moved_bytes",
 ]
 
 
@@ -97,9 +110,42 @@ def shift_perm(size: int, k: int):
     return [(s, (s - k) % size) for s in range(size)]
 
 
+_PHASES = ("shift", "broadcast", "reduce", "other")
+_MOVED: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moved_bytes", default=None)
+
+
+@contextlib.contextmanager
+def tally_moved_bytes():
+    """Count the bytes the engine moves while the block runs.
+
+    Yields a dict of bytes (``numel * element_size``) under ``shift``,
+    ``broadcast``, ``reduce`` and ``other``: every tensor a shift rolls
+    under ``shift`` (read and written once, counted once, as a
+    collective's payload is), the blobs the CSR stores pack before a
+    count under ``other``, and the per-device partials the final sum
+    reads under ``reduce`` (with each tree round's sent partials).  A
+    SUMMA panel broadcast is a view of the owner's slice and moves
+    nothing, so ``broadcast`` stays 0.  Outside the block nothing is
+    counted."""
+    tally = dict.fromkeys(_PHASES, 0)
+    token = _MOVED.set(tally)
+    try:
+        yield tally
+    finally:
+        _MOVED.reset(token)
+
+
+def _tally(phase: str, *tensors) -> None:
+    tally = _MOVED.get()
+    if tally is not None:
+        tally[phase] += sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _roll_tree(tree, k: int, dim: int):
     """Apply a :func:`shift_perm` of distance ``k`` to every stacked
     tensor of a payload along grid dimension ``dim``."""
+    _tally("shift", *tree)
     return tuple(torch.roll(t, shifts=-k, dims=dim) for t in tree)
 
 
@@ -339,45 +385,118 @@ class OperandStore:
 
 
 class CSRStore(OperandStore):
-    """CSR-block operands, shifted as the stacked tensors they are.
+    """CSR-block operands.
 
-    ``with_aug=True`` adds the planner-staged row-encoded intersection
-    keys (``b_aug``) as an extra payload leaf travelling with the B
-    operand: the keys shift with the blocks, so the ``global`` and
-    ``search2`` kernels never rebuild them on the device.  The fused
-    kernel reads no keys.
+    With ``use_blob=True`` (the default, as in the JAX package) each
+    operand's ``indptr`` and ``indices`` travel as one blob
+    (:func:`~repro_torch.core.blob.pack_blob`, packed from the staged
+    tensors at every count), so a shift is one roll an operand; with
+    ``compress_lengths=True`` the blob carries the rows' lengths as uint16
+    pairs in place of the int32 indptr, and each count rebuilds the
+    indptr with one cumsum.  ``with_aug=True`` adds the planner-staged
+    row-encoded intersection keys (``b_aug``) as an extra payload leaf
+    travelling with the B operand: the keys shift with the blocks, so the
+    ``global`` and ``search2`` kernels never rebuild them on the device.
+    The aug leaf stays outside the int32 blob (its dtype may be int64).
+    The fused kernel reads no keys.
+
+    The store holds no per-call state: the blob layout follows from the
+    shapes of the staged arrays each count is given, so a delta path's
+    rebound function packs its blobs from the spliced plan's tensors.
     """
 
     operand_names = ("a_indptr", "a_indices", "b_indptr", "b_indices")
     static_names = ("m_ti", "m_tj", "m_cnt")
 
-    def __init__(self, kernel, *, with_aug: bool = False):
+    def __init__(self, kernel, *, use_blob: bool = True,
+                 compress_lengths: bool = False, dmax: Optional[int] = None,
+                 with_aug: bool = False):
+        if compress_lengths:
+            if not use_blob:
+                raise ValueError(
+                    "length compression only applies to blob shifts")
+            if dmax is None or dmax >= 65536:
+                raise ValueError("uint16 length compression needs d < 2^16")
         self.kernel = kernel
+        self.use_blob = use_blob
+        self.compress_lengths = compress_lengths
         self.with_aug = with_aug
         if with_aug:
             self.operand_names = self.operand_names + ("b_aug",)
 
+    # -- uint16 length compression ------------------------------------
+    @staticmethod
+    def _pack_lengths(ptr):
+        """``(..., nb + 1)`` indptr -> ``(..., ceil(nb / 2))`` int32 of
+        uint16 length pairs ``lo | hi << 16`` (an odd ``nb`` padded with a
+        zero length)."""
+        lens = torch.diff(ptr, dim=-1).to(torch.int32)
+        if lens.shape[-1] % 2:
+            lens = torch.nn.functional.pad(lens, (0, 1))
+        return lens[..., 0::2] | (lens[..., 1::2] << 16)
+
+    @staticmethod
+    def _unpack_lengths(packed, nb: int):
+        """The indptr of :meth:`_pack_lengths`'s pairs: a pair with a
+        length of 2^15 or more is a negative int32, and ``>>`` is
+        arithmetic, so the mask after it is what recovers ``hi``."""
+        lo = packed & 0xFFFF
+        hi = (packed >> 16) & 0xFFFF
+        lens = torch.stack([lo, hi], dim=-1).flatten(-2)[..., :nb]
+        return torch.nn.functional.pad(
+            torch.cumsum(lens, dim=-1, dtype=torch.int32), (1, 0))
+
+    # -- pack / unpack -------------------------------------------------
+    def _layout(self, arrays, side):
+        """``(layout, nb)`` of one side's blob from the staged shapes."""
+        nb = arrays[f"{side}_indptr"].shape[-1] - 1
+        head = (nb + 1) // 2 if self.compress_lengths else nb + 1
+        layout, _ = blob_layout(
+            [(head,), (arrays[f"{side}_indices"].shape[-1],)])
+        return layout, nb
+
+    def _pack(self, arrays, side):
+        ptr, idx = arrays[f"{side}_indptr"], arrays[f"{side}_indices"]
+        head = self._pack_lengths(ptr) if self.compress_lengths else ptr
+        blob = pack_blob([head, idx], lead=ptr.dim() - 1)
+        _tally("other", blob)
+        return blob
+
+    def _unpack(self, blob, arrays, side):
+        layout, nb = self._layout(arrays, side)
+        head, idx = unpack_blob(blob, layout)
+        if self.compress_lengths:
+            head = self._unpack_lengths(head, nb)
+        return head, idx
+
     def payload(self, arrays):
-        a_state = (arrays["a_indptr"], arrays["a_indices"])
-        b_state = (arrays["b_indptr"], arrays["b_indices"])
-        if self.with_aug:
-            b_state = b_state + (arrays["b_aug"],)
-        return (a_state, b_state)
+        """``(a_state, b_state)``: each a tuple, ``(blob,)`` or ``(indptr,
+        indices)``, the B side with ``b_aug`` last when staged."""
+        aug = (arrays["b_aug"],) if self.with_aug else ()
+        if self.use_blob:
+            return ((self._pack(arrays, "a"),),
+                    (self._pack(arrays, "b"),) + aug)
+        return ((arrays["a_indptr"], arrays["a_indices"]),
+                (arrays["b_indptr"], arrays["b_indices"]) + aug)
 
     def count(self, state, arrays, dev, step, cnt):
         del step  # the task list is the same at every step
         # ``dev`` is ``(x, y)``, or ``(t, x, y)`` on a pod grid: the
         # operands are pod t's, the task list is (x, y)'s in every pod
         x, y = dev[-2:]
-        (a_ptr, a_idx), b_state = state
+        a_state, b_state = state
         extra = {}
         if self.with_aug:
-            b_ptr, b_idx, aug = b_state
+            *b_state, aug = b_state
             extra = dict(aug_b=aug[dev])
+        if self.use_blob:
+            a_ptr, a_idx = self._unpack(a_state[0][dev], arrays, "a")
+            b_ptr, b_idx = self._unpack(b_state[0][dev], arrays, "b")
         else:
-            b_ptr, b_idx = b_state
+            a_ptr, a_idx = (t[dev] for t in a_state)
+            b_ptr, b_idx = (t[dev] for t in b_state)
         return self.kernel(
-            a_ptr[dev], a_idx[dev], b_ptr[dev], b_idx[dev],
+            a_ptr, a_idx, b_ptr, b_idx,
             arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
             **extra,
         )
@@ -443,12 +562,18 @@ class SummaCSRStore(OperandStore):
     owner's panel to every device of its row or column; with the grid on
     one device both come down to the same read of the owner's slice, so
     the count is the same and only the name is checked and kept.
+
+    ``elide_broadcast=True`` is the count-only timing probe (mirroring
+    Cannon's ``elide_shifts``): every device counts its *local* panel
+    pair, ``a[x, y]`` against ``b[x, y, z // r]`` — counts are wrong for
+    grids past 1 x 1.
     """
 
     operand_names = ("a_indptr", "a_indices", "b_indptr", "b_indices")
     static_names = ("m_ti", "m_tj", "m_cnt")
 
-    def __init__(self, kernel, *, r: int, c: int, broadcast: str = "onehot"):
+    def __init__(self, kernel, *, r: int, c: int, broadcast: str = "onehot",
+                 elide_broadcast: bool = False):
         if broadcast not in ("onehot", "chain"):
             raise ValueError(
                 f"unknown broadcast strategy {broadcast!r}; "
@@ -458,6 +583,7 @@ class SummaCSRStore(OperandStore):
         self.r = r
         self.c = c
         self.broadcast = broadcast
+        self.elide_broadcast = elide_broadcast
 
     def payload(self, arrays):  # SUMMA carries no shift state
         del arrays
@@ -467,10 +593,12 @@ class SummaCSRStore(OperandStore):
         del state
         x, y = dev
         z = step
-        bx, slot = z % self.r, z // self.r
+        ax, bx, slot = z % self.c, z % self.r, z // self.r
+        if self.elide_broadcast:
+            ax, bx = y, x
         return self.kernel(
-            arrays["a_indptr"][x, z % self.c],
-            arrays["a_indices"][x, z % self.c],
+            arrays["a_indptr"][x, ax],
+            arrays["a_indices"][x, ax],
             arrays["b_indptr"][bx, y, slot],
             arrays["b_indices"][bx, y, slot],
             arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
@@ -479,10 +607,10 @@ class SummaCSRStore(OperandStore):
 
 class OneDCSRStore(OperandStore):
     """1D-ring operands: each device's own row-block CSR stays put (the A
-    side) while a copy of every block rotates around the ring (the B
-    side); tasks are grouped by owner-of-j, and device ``d`` at ring step
-    ``t`` counts its group ``(d, (d + t) % p)`` against the block it then
-    holds."""
+    side) while a copy of every block rotates around the ring as one blob
+    (the B side, as in the JAX package); tasks are grouped by owner-of-j,
+    and device ``d`` at ring step ``t`` counts its group ``(d, (d + t) %
+    p)`` against the block it then holds."""
 
     operand_names = ("indptr", "indices")
     static_names = ("t_i", "t_j", "t_cnt")
@@ -492,14 +620,18 @@ class OneDCSRStore(OperandStore):
         self.p = p
 
     def payload(self, arrays):
-        return (arrays["indptr"], arrays["indices"])
+        blob = pack_blob([arrays["indptr"], arrays["indices"]], lead=1)
+        _tally("other", blob)
+        return (blob,)
 
     def count(self, state, arrays, dev, step, cnt):
         (d,) = dev
         o = (d + step) % self.p
-        b_ptr, b_idx = state
+        layout, _ = blob_layout([arrays["indptr"].shape[1:],
+                                 arrays["indices"].shape[1:]])
+        b_ptr, b_idx = unpack_blob(state[0][d], layout)
         return self.kernel(
-            arrays["indptr"][d], arrays["indices"][d], b_ptr[d], b_idx[d],
+            arrays["indptr"][d], arrays["indices"][d], b_ptr, b_idx,
             arrays["t_i"][d, o], arrays["t_j"][d, o], cnt,
         )
 
@@ -617,6 +749,10 @@ class CannonSchedule(ShiftSchedule):
     stepper (:func:`build_engine_stepper`) carries both, so a checkpoint
     holds what the JAX package's holds.
 
+    ``elide_shifts=True`` is a timing probe: every shift is left out, so
+    each device counts the blocks it started with (counts are wrong for
+    q > 1; ``tc_run --time-split``'s count-only run).
+
     2.5D pods (``npods > 1``): the grid is ``(npods, q, q)``, the A and B
     payload tensors carry the pod as their leading dimension, pod ``t``
     starts at skew offset ``t`` (staged by
@@ -634,6 +770,7 @@ class CannonSchedule(ShiftSchedule):
     # (strictly increasing); ``run`` then visits only them
     live_steps: Optional[Tuple[int, ...]] = None
     npods: int = 1
+    elide_shifts: bool = False
 
     def __post_init__(self):
         if self.npods < 1 or self.q % self.npods:
@@ -663,7 +800,7 @@ class CannonSchedule(ShiftSchedule):
         regardless of hop — the multi-hop fusion); a pod's step is
         ``npods`` Cannon shifts."""
         k = (hop * self.npods) % self.q
-        if k == 0:
+        if k == 0 or self.elide_shifts:
             return payload
         lead = 1 if self.npods > 1 else 0  # the pod dimension
         a_state, b_state = payload
@@ -701,10 +838,13 @@ class RingSchedule(ShiftSchedule):
     through every device once.  A rotation by ``k`` is ``torch.roll`` by
     ``-k`` on dim 0 (the sign of :class:`CannonSchedule`'s shifts), so at
     step ``t`` device ``d`` holds owner ``(d + t) % p``'s block; the task
-    count is that of its group ``(d, (d + t) % p)``."""
+    count is that of its group ``(d, (d + t) % p)``.  ``elide_shifts=True``
+    is the timing probe of :class:`CannonSchedule` (counts are wrong for
+    p > 1)."""
 
     p: int
     live_steps: Optional[Tuple[int, ...]] = None
+    elide_shifts: bool = False
 
     @property
     def grid(self) -> Tuple[int, ...]:
@@ -720,7 +860,7 @@ class RingSchedule(ShiftSchedule):
 
     def _shift_k(self, payload, hop: int):
         k = hop % self.p
-        if k == 0:
+        if k == 0 or self.elide_shifts:
             return payload
         return _roll_tree(payload, k, 0)
 
@@ -753,12 +893,14 @@ def pod_tree_allreduce(x, n: int):
     for k in rounds:
         src = [t for t in range(n) if t % (2 * k) == k]
         recv = torch.zeros_like(x)
-        recv[[t - k for t in src]] = x[src]
+        recv[[t - k for t in src]] = sent = x[src]
+        _tally("reduce", sent)
         x = x + recv
     for k in reversed(rounds):
         src = [t for t in range(n) if t % (2 * k) == 0]
         recv = torch.zeros_like(x)
-        recv[[t + k for t in src]] = x[src]
+        recv[[t + k for t in src]] = sent = x[src]
+        _tally("reduce", sent)
         x = torch.where(pos % (2 * k) == k, recv, x)
     return x
 
@@ -813,6 +955,7 @@ class Reduction:
     def apply(self, per_device):
         if not self.global_sum:
             return per_device
+        _tally("reduce", per_device)
         if self.strategy == "tree":
             per_pod = per_device.flatten(1).sum(dim=1)
             return pod_tree_allreduce(per_pod, self.npods)[0]

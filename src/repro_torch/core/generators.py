@@ -180,13 +180,27 @@ def random_edge_flips(graph: Graph, k: int, seed: int):
                 if len(chosen) == k:
                     break
     keys = np.asarray(chosen, dtype=np.int64)
-    base = graph.edges[:, 0] * np.int64(n) + graph.edges[:, 1]
-    present = np.isin(keys, base)
+    present = _has_edge_keys(graph, keys)
     rem, add = keys[present], keys[~present]
     return (
         np.stack([add // n, add % n], axis=1),
         np.stack([rem // n, rem % n], axis=1),
     )
+
+
+def _has_edge_keys(graph: Graph, keys: np.ndarray) -> np.ndarray:
+    """Which ``keys`` (``lo * n + hi``) are edges of ``graph``: a binary
+    search into its edge keys, sorted once if they are not already (a
+    canonical graph's are).  ``np.isin`` against all ``m`` keys would take
+    the ``unique`` of them at every call, which at millions of edges costs
+    seconds a call where this costs one pass over the keys."""
+    base = graph.edges[:, 0] * np.int64(graph.n) + graph.edges[:, 1]
+    if base.size == 0:
+        return np.zeros(keys.shape, dtype=bool)
+    if not np.all(base[1:] > base[:-1]):
+        base = np.sort(base)
+    pos = np.minimum(np.searchsorted(base, keys), base.size - 1)
+    return base[pos] == keys
 
 
 def flip_edges(graph: Graph, k: int, seed: int) -> Graph:

@@ -100,6 +100,7 @@ def build_oned_fn(
     reduce_strategy: str = "auto",
     batched: bool = False,
     fused_tile: Optional[int] = None,
+    elide_shifts: bool = False,
 ):
     """Build the ring's counting function: RingSchedule × OneDCSRStore ×
     kernel over the plan's ``(p,)`` ring.
@@ -114,7 +115,10 @@ def build_oned_fn(
     long bucket with the padded search's function (global column ids).
     A hub-split plan adds its hub partial; ``batched=True`` builds the
     multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
-    ``fused_tile`` overrides the fused kernel's tile.
+    ``fused_tile`` overrides the fused kernel's tile.  ``elide_shifts`` is
+    a timing probe: no rotation, each device counts every group against
+    its own block (counts are wrong for p > 1; ``tc_run --time-split``'s
+    count-only run).
     """
     from . import engine
     from .engine import OneDCSRStore, Reduction, RingSchedule, make_csr_kernel
@@ -142,7 +146,8 @@ def build_oned_fn(
         fused_tile=fused_tile,
     )
     store = OneDCSRStore(kernel, p=plan.p)
-    schedule = RingSchedule(p=plan.p, live_steps=live)
+    schedule = RingSchedule(p=plan.p, live_steps=live,
+                            elide_shifts=elide_shifts)
     return engine.build_engine_fn(
         store,
         schedule,

@@ -116,6 +116,7 @@ def build_summa_fn(
     reduce_strategy: str = "auto",
     batched: bool = False,
     fused_tile: Optional[int] = None,
+    elide_broadcast: bool = False,
 ):
     """Build the counting function for ``plan`` on its ``(r, c)`` grid:
     SummaSchedule × SummaCSRStore × kernel.
@@ -132,7 +133,9 @@ def build_summa_fn(
     registered CSR kernel; ``"fused"`` needs a maxfrag-split plan.  A
     hub-split plan adds its hub partial; ``batched=True`` builds the
     multi-graph function (see :func:`~repro_torch.core.cannon.build_cannon_fn`).
-    ``fused_tile`` overrides the fused kernel's tile.
+    ``fused_tile`` overrides the fused kernel's tile.  ``elide_broadcast``
+    is a timing probe: every device counts its local panel pair (counts
+    are wrong past a 1 x 1 grid; ``tc_run --time-split``'s count-only run).
     """
     from . import engine
     from .engine import Reduction, SummaCSRStore, SummaSchedule, make_csr_kernel
@@ -159,7 +162,8 @@ def build_summa_fn(
         d_small=getattr(plan, "d_small", None),
         fused_tile=fused_tile,
     )
-    store = SummaCSRStore(kernel, r=plan.r, c=plan.c, broadcast=broadcast)
+    store = SummaCSRStore(kernel, r=plan.r, c=plan.c, broadcast=broadcast,
+                          elide_broadcast=elide_broadcast)
     schedule = SummaSchedule(r=plan.r, c=plan.c, live_steps=live)
     return engine.build_engine_fn(
         store,

@@ -8,16 +8,20 @@ peak rate of their type.  :func:`measure_hw` times what one card reaches
 in practice — a device-to-device copy and a bf16 matrix product — so a
 bound can be read against both.
 
-The other half of the JAX package's module (``hlo_cost``,
-``collective_bytes``, ``roofline_from_compiled``) reads compiled XLA
-programs and has no counterpart here: the port has no compiled program to
-read, and it counts its bytes where it moves them.
+The JAX package reads the bytes its collectives move from the compiled
+XLA program (``collective_phases`` over the HLO's named scopes).  The
+port has no compiled program to read: it counts its bytes where it moves
+them (:func:`repro_torch.core.engine.tally_moved_bytes`), and
+:func:`collective_phases` reads that tally over one call of an engine
+function.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-__all__ = ["HW", "measure_hw"]
+__all__ = ["HW", "measure_hw", "collective_phases"]
 
 HW = dict(
     # H100 SXM, device memory (HBM3): 3.35 TB/s (data sheet)
@@ -89,3 +93,18 @@ def measure_hw(device=None) -> dict:
         reps=_REPS,
         datasheet=dict(HW),
     )
+
+
+def collective_phases(fn, arrays) -> Dict[str, int]:
+    """Bytes one call ``fn(**arrays)`` of an engine function moves, by
+    engine phase: always the four keys ``shift`` (every tensor a shift
+    rolls), ``broadcast`` (0: a SUMMA panel broadcast is a view),
+    ``reduce`` (the partials the final sum reads) and ``other`` (the
+    blobs packed before the count).  Each is the whole logical grid's
+    bytes on the one card that holds it; the JAX package charges a
+    permute ``size * npairs / ndev``, one device's share."""
+    from ..core.engine import tally_moved_bytes
+
+    with tally_moved_bytes() as moved:
+        fn(**arrays)
+    return dict(moved)

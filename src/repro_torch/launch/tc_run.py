@@ -18,6 +18,10 @@
         --ckpt-dir /tmp/tc_ckpt --inject-faults "step@1;ckpt_save" --verify
     python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
         --method fused --supervise --inject-faults "step@0=devicelost:7"
+    python -m repro_torch.launch.tc_run --graph rmat:18 --grid 4 \\
+        --chunk 8192 --opt --repeat 2 --verify --json
+    python -m repro_torch.launch.tc_run --graph rmat:16 --grid 4 \\
+        --schedule oned --chunk 8192 --time-split --json
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
@@ -36,8 +40,12 @@ measured timing table (in ``--measured-dir``).  ``--ckpt-dir`` runs
 Cannon one shift at a time with a checkpoint after each (resumable
 mid-loop, ``--fail-at-shift`` injects one failure); ``--inject-faults
 SPEC`` and ``--supervise`` run the count (or the checkpointed loop) under
-the restart supervisor of :mod:`repro_torch.runtime`.  Runs on the GPU
-unless ``--device cpu`` is given.
+the restart supervisor of :mod:`repro_torch.runtime`.  ``--opt`` counts
+a Cannon run with the bucketized ``search2`` kernel over blob shifts that
+carry uint16 row lengths; ``--time-split`` adds a shift-only (or
+broadcast-only) and a count-only timing of the same schedule and the
+bytes each engine phase moves (``coll_*_bytes``).  Runs on the GPU unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -113,6 +121,17 @@ def main(argv=None):
                     help="summa's panel-broadcast strategy (the same "
                          "count on one device)")
     ap.add_argument("--chunk", type=int, default=512)
+    ap.add_argument("--opt", action="store_true",
+                    help="Cannon only: bucketed probes (search2 over the "
+                         "bucketized plan) + blobs with uint16 row lengths")
+    ap.add_argument("--time-split", action="store_true",
+                    help="also time a shift-only run (the masked engine "
+                         "fed an all-False mask: every roll, no count; "
+                         "broadcast-only on summa) and a count-only run "
+                         "(shifts/broadcasts elided), and report the bytes "
+                         "each engine phase moves in the production "
+                         "configuration (coll_{shift,broadcast,reduce,"
+                         "other}_bytes); any schedule")
     ap.add_argument("--no-probe-shorter", action="store_true")
     ap.add_argument("--no-skip-mask", action="store_true",
                     help="run every (device, step) pair, ignoring step_keep")
@@ -161,11 +180,12 @@ def main(argv=None):
     from ..core import available_schedules, count_triangles, graph_from_spec
     from ..pipeline import default_cache
 
-    if args.stream and (args.graphs or args.ckpt_dir
-                        or args.autotune == "measured"):
+    if args.stream and (args.graphs or args.ckpt_dir or args.opt
+                        or args.time_split or args.autotune == "measured"):
         raise SystemExit(
             "--stream composes with single-graph pipeline runs only: "
-            "drop --graphs/--ckpt-dir/--autotune measured"
+            "drop --graphs/--ckpt-dir/--opt/--time-split/"
+            "--autotune measured"
         )
     if args.rebalance and (args.graphs or args.ckpt_dir):
         raise SystemExit(
@@ -185,6 +205,12 @@ def main(argv=None):
                 "checkpointed stepper counts one shift at a time and "
                 "has no slot for the hub-split partial"
             )
+        if args.opt:
+            raise SystemExit(
+                "--hub-split is not wired through the --opt bucketized "
+                "path; use the default path (the hub side composes with "
+                "--rebalance, --no-compact and every schedule there)"
+            )
         if args.method in ("dense", "tile"):
             raise SystemExit(
                 f"--hub-split is not supported with --method "
@@ -192,10 +218,13 @@ def main(argv=None):
                 "its own blocks and would drop the hub-split partial"
             )
     supervised = bool(args.inject_faults or args.supervise)
-    if supervised and (args.graphs or args.stream):
+    if supervised and (args.graphs or args.opt or args.time_split
+                       or args.stream):
         raise SystemExit(
             "--inject-faults/--supervise cover single-graph engine runs "
-            "and --ckpt-dir stepper runs; drop --graphs/--stream"
+            "and --ckpt-dir stepper runs; drop --graphs/--opt/"
+            "--time-split/--stream (the serve front-end has its own "
+            "per-request supervision)"
         )
     fault_plan = None
     if args.inject_faults:
@@ -214,6 +243,11 @@ def main(argv=None):
         total, fields = _run_checkpointed(g, args, fault_plan=fault_plan)
         report.update(fields)
         report["plan_cache"] = default_cache().stats()
+        return _finish(g, args, report, total)
+
+    if args.opt and args.schedule == "cannon":
+        total, fields = _run_opt(g, args)
+        report.update(fields)
         return _finish(g, args, report, total)
 
     t0 = time.perf_counter()
@@ -276,6 +310,8 @@ def main(argv=None):
         report["autotune_mode"] = res.autotune_mode
     if res.measured_table_hit is not None:
         report["measured_table_hit"] = res.measured_table_hit
+    if args.time_split:
+        report.update(_time_split(g, args))
     report["schedules"] = available_schedules()
     report["plan_cache"] = default_cache().stats()
     return _finish(g, args, report, res.triangles)
@@ -300,6 +336,169 @@ def _finish(g, args, report, total):
         raise SystemExit(
             f"count mismatch: got {total}, expected {report['expected']}"
         )
+
+
+def _run_opt(g, args):
+    """``--opt`` (Cannon): plan with the canonical blocks and the B
+    intersection keys, bucketize the tasks at ``d_small = 32``, and count
+    with ``search2`` over blob shifts whose indptr travels as uint16
+    length pairs.  Host planning is ``ppt_seconds``; ``tct_seconds`` is
+    the count (the best warm one under ``--repeat``).  Returns ``(total,
+    report fields)``."""
+    from ..core.cannon import build_cannon_fn
+    from ..core.plan import bucketize_plan
+    from ..device import resolve_device
+    from ..pipeline import plan_cannon
+    from ..pipeline.artifact import stage_arrays
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    art = plan_cannon(
+        g, args.grid, chunk=args.chunk, keep_blocks=True,
+        rebalance_trials=args.rebalance, aug_keys=True,
+        compact=not args.no_compact,
+    )
+    out = _rebalance_fields(art.rebalance) if args.rebalance else {}
+    bplan = bucketize_plan(art.plan)
+    t1 = time.perf_counter()
+    fn = build_cannon_fn(
+        bplan, method="search2", compress_lengths=True,
+        use_step_mask=False if args.no_skip_mask else None,
+        double_buffer=not args.no_double_buffer,
+        compact=False if args.no_compact else None,
+    )
+    staged = stage_arrays(bplan.device_arrays(), device)
+    times = []
+    for _ in range(max(1, args.repeat)):
+        t_run = time.perf_counter()
+        total = int(fn(**staged))
+        times.append(time.perf_counter() - t_run)
+    out.update(
+        triangles=total,
+        ppt_seconds=round(t1 - t0, 4),
+        tct_seconds=round(min(times[1:]) if len(times) > 1 else times[0], 4),
+        optimized=True,
+        bucket_reduction=round(bplan.bucket_stats["reduction"], 3),
+        device=str(device),
+    )
+    out.update(_skip_fields(bplan, args.no_skip_mask))
+    out.update(_compact_fields(bplan))
+    return total, out
+
+
+def _time_split(g, args) -> dict:
+    """Shift/count attribution probes (any schedule):
+
+    * shift-only (``tct_shift_only``; ``tct_broadcast_only`` on SUMMA) —
+      the masked engine fed an all-False skip mask: every roll runs, no
+      count kernel does;
+    * count-only (``tct_count_only``) — the same engine with its shifts
+      or broadcasts elided (``elide_shifts`` / ``elide_broadcast``): every
+      count kernel runs against the blocks each device holds (a timing
+      proxy — counts are wrong past one device, so the result is
+      discarded).
+
+    Both run the *uncompacted* loop with the caller's flags, the best of
+    3 calls after 1 warm one.  The ``coll_*_bytes`` fields are the bytes
+    one call of the *production* configuration moves by engine phase
+    (:func:`repro_torch.launch.roofline.collective_phases`): the whole
+    grid's, on the one card that holds it.
+    """
+    import numpy as np
+
+    from ..device import resolve_device
+    from ..pipeline.artifact import stage_arrays
+    from .roofline import collective_phases
+
+    device = resolve_device(args.device)
+    out = {}
+
+    def timed_min(fn, arrays, warm=1, iters=3):
+        for _ in range(warm):
+            int(fn(**arrays))
+        best = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            int(fn(**arrays))  # synchronises
+            best = min(best, time.perf_counter() - t0)
+        return round(best, 4)
+
+    def all_false(fn):
+        return fn.rebind(m_cnt=fn.m_cnt,
+                         step_keep=np.zeros_like(fn.step_keep))
+
+    mask = dict(use_step_mask=False if args.no_skip_mask else None,
+                compact=False if args.no_compact else None)
+    if args.schedule == "cannon":
+        from ..core.cannon import build_cannon_fn, pod_stack_arrays
+        from ..pipeline import plan_cannon
+
+        art = plan_cannon(g, args.grid, chunk=args.chunk)
+        plan = art.plan
+        if plan.step_keep is None:
+            return {}
+        if args.pods > 1:
+            staged = stage_arrays(
+                pod_stack_arrays(plan.device_arrays(), args.pods, plan.q),
+                device)
+        else:
+            staged = art.staged(device)
+        common = dict(npods=args.pods,
+                      double_buffer=not args.no_double_buffer,
+                      reduce_strategy=args.reduce_strategy)
+        fcomm = build_cannon_fn(plan, use_step_mask=True, compact=False,
+                                **common)
+        out["tct_shift_only"] = timed_min(all_false(fcomm), staged)
+        fcount = build_cannon_fn(plan, use_step_mask=False, compact=False,
+                                 elide_shifts=True, **common)
+        out["tct_count_only"] = timed_min(fcount, staged)
+        fprod = build_cannon_fn(plan, **mask, **common)
+    elif args.schedule == "summa":
+        from ..core.summa import build_summa_fn
+        from ..pipeline import plan_summa
+
+        art = plan_summa(g, args.grid, args.grid, chunk=args.chunk,
+                         broadcast=args.broadcast or "auto")
+        plan = art.plan
+        if plan.step_keep is None:
+            return {}
+        staged = art.staged(device)
+        fcomm = build_summa_fn(plan, broadcast=args.broadcast,
+                               use_step_mask=True, compact=False)
+        out["tct_broadcast_only"] = timed_min(all_false(fcomm), staged)
+        fcount = build_summa_fn(plan, broadcast=args.broadcast,
+                                use_step_mask=False, compact=False,
+                                elide_broadcast=True)
+        out["tct_count_only"] = timed_min(fcount, staged)
+        fprod = build_summa_fn(plan, broadcast=args.broadcast, **mask)
+    elif args.schedule == "oned":
+        from ..core.onedim import build_oned_fn
+        from ..pipeline import plan_oned
+
+        p = args.grid * args.grid * args.pods
+        art = plan_oned(g, p, chunk=args.chunk)
+        plan = art.plan
+        if plan.step_keep is None:
+            return {}
+        staged = art.staged(device)
+        fcomm = build_oned_fn(plan, use_step_mask=True, compact=False)
+        out["tct_shift_only"] = timed_min(all_false(fcomm), staged)
+        fcount = build_oned_fn(plan, use_step_mask=False, compact=False,
+                               elide_shifts=True)
+        out["tct_count_only"] = timed_min(fcount, staged)
+        fprod = build_oned_fn(plan, reduce_strategy=args.reduce_strategy,
+                              **mask)
+    else:  # a registered schedule this probe does not know how to split
+        return {}
+
+    phases = collective_phases(fprod, staged)
+    out.update(
+        coll_shift_bytes=phases["shift"],
+        coll_broadcast_bytes=phases["broadcast"],
+        coll_reduce_bytes=phases["reduce"],
+        coll_other_bytes=phases["other"],
+    )
+    return out
 
 
 def _run_checkpointed(g, args, fault_plan=None):
@@ -722,6 +921,12 @@ def _run_batched(args):
             "--no-skip-mask is not supported with --graphs (the batched "
             "engine always follows the plans' staged masks); use "
             "single-graph runs to A/B the lever"
+        )
+    if args.time_split:
+        raise SystemExit(
+            "--time-split is not supported with --graphs (one engine "
+            "call spans every plan, so there is no per-graph shift/count "
+            "attribution); use single-graph runs"
         )
     if args.method == "fused":
         raise SystemExit(

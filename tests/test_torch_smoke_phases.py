@@ -1,8 +1,9 @@
 """Rehearse ``chip_smoke.py``'s planner-stage phases on the CPU.
 
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
-``many_path``, ``delta_path``, ``pod_path`` and ``measured_path`` phases
-and its ``search2`` phase are called here at a tiny scale with ``dev=cpu``,
+``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
+``measured_path`` phases and its ``search2`` phase are called here at a
+tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -159,11 +160,51 @@ def test_delta_path_phase(on_cpu, graph, capsys, monkeypatch):
     for row in line["rounds"]:
         assert row["triangles"] == row["expected"]
         assert row["kernel_launches"] == row["device_steps_counted"] > 0
-    assert line["final_cold"]["triangles"] == line["rounds"][-1]["triangles"]
     assert line["tc_run_stream"]["correct"]
     assert rec["path"] == "cannon_delta" and rec["equal"]
     assert rec["launches"] == line["kernel_launches"] > 0
     assert 0 < rec["compared_device_steps"] <= chip_smoke.GRID ** 3
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "source", "replaces", "route"):
+        assert key in rec
+
+
+def test_serve_path_phase(on_cpu, graph, capsys, monkeypatch):
+    g, oracle = graph
+    monkeypatch.setattr(chip_smoke, "OPT_GRAPH", "rmat:9,16,1")
+    monkeypatch.setattr(chip_smoke, "SPLIT_GRAPH", "rmat:8,16,1")
+    monkeypatch.setattr(chip_smoke, "SERVE_BATCH", "named:karate;rmat:8")
+    rt.count_triangles(g, q=chip_smoke.GRID, method="fused")
+    spec = f"rmat:{SCALE},{chip_smoke.EDGE_FACTOR},1"
+    rec = chip_smoke.serve_path(g, oracle, CPU, chip_smoke.GRID, spec)
+    out = capsys.readouterr().out
+    lines = {}
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            lines.update(json.loads(ln))
+    assert lines["serve_path"]["ok"]
+    stream = lines["serve_stream"]
+    assert stream["ok"] and len(stream["triangles"]) == chip_smoke.SERVE_ROUNDS
+    assert stream["triangles"] == stream["expected"]
+    assert "1 restarts" in stream["supervision"]
+    batch = lines["serve_batch"]
+    assert batch["ok"] and batch["warm"] == [False, True, True]
+    assert list(batch["triangles"].values()) == [[45, 10843]] * 3
+    opt = lines["tc_run_opt"]
+    assert opt["optimized"] is True
+    assert opt["triangles"] == opt["triangles_scipy_oracle"]
+    for kind in ("cannon", "summa", "oned"):
+        row = lines["tc_run_time_split"][f"time_split_{kind}"]
+        assert row["triangles"] == row["triangles_scipy_oracle"]
+    blob = lines["serve_blob"]
+    assert blob["ok"] and not blob["mismatches"]
+    assert blob["blob"]["kernel_launches"] == blob["arrays"][
+        "kernel_launches"] > 0
+    assert blob["blob"]["moved_bytes"]["shift"] == blob["arrays"][
+        "moved_bytes"]["shift"] > 0
+    assert blob["arrays"]["moved_bytes"]["other"] == 0
+    assert rec["path"] == "serve_stream" and rec["equal"]
+    assert rec["launches"] == stream["kernel_launches"] > 0
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "source", "replaces", "route"):
         assert key in rec
