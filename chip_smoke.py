@@ -40,6 +40,21 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
+   ``dryrun_path`` — ``repro_torch.launch.dryrun``'s 18 cells (the paper's
+                    six graphs x Cannon, 2.5D, ring at q = 16) and
+                    Twitter's ``cannonopt`` / ``cannon2l``, each walked on
+                    meta tensors in this process (a ``dryrun_cell`` line
+                    each, ``fits`` against this card's memory); the walk
+                    of ``rmat(16, 16)``'s real plan (q = 4, ``search``,
+                    chunk 8192) against the count on the card: its staged
+                    bytes equal to the CUDA tensors', its peak within 10 %
+                    below ``max_memory_allocated``; and the main graph's
+                    analytic plan (``nnz_pad``, ``tmax``, ``dmax``) beside
+                    its real one;
+   ``substrate_path`` — 20 AdamW and 20 Adafactor steps, the int8
+                    ``compressed_psum`` over 4 replicas, the segment ops,
+                    ``spmm_edges`` and ``embedding_bag`` on the card, each
+                    against the same call on the CPU;
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
                     (``npods`` 2 with ``flat`` and ``tree``, 4 with
                     ``tree`` and ``auto``): pod-staging seconds, cold and
@@ -2982,6 +2997,235 @@ def tile_density(dev, seed):
 
 
 # ----------------------------------------------------------------------
+# the dry run of the paper's graphs, and the substrate
+# ----------------------------------------------------------------------
+DRYRUN_EXTRA = (("tc-twitter", "cannonopt", "pod"),
+                ("tc-twitter", "cannon2l", "pod"))
+DRYRUN_REAL_SCALE = 16  # the walk against a real count: rmat(16, 16, 1)
+DRYRUN_UNDER = 0.10  # the walk may under-predict the measured peak by this
+
+
+def dryrun_real_plan(dev, scale, q):
+    """The walk of a real plan's count (``method="search"``, chunk 8,192)
+    against the count on the card: the walk's staged bytes against the
+    staged CUDA tensors (``==``), and its peak against
+    ``torch.cuda.max_memory_allocated()`` over one count after
+    ``reset_peak_memory_stats`` (the staged tensors plus the count's own
+    peak)."""
+    import repro_torch as rt
+    from repro_torch.core.cannon import build_cannon_fn
+    from repro_torch.launch.roofline import walk_engine
+
+    g = rt.rmat(scale, EDGE_FACTOR, seed=1)
+    r = rt.count_triangles(g, q=q, method="search", chunk=8192)
+    art = r.artifact
+    staged = art.staged(dev)
+    fn = build_cannon_fn(art, method="search")
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in staged.items()}
+    t0 = time.perf_counter()
+    walk = walk_engine(fn, meta)
+    walk_s = time.perf_counter() - t0
+    staged_bytes = sum(v.numel() * v.element_size() for v in staged.values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total = int(fn(**staged))
+    torch.cuda.synchronize()
+    own = int(torch.cuda.max_memory_allocated() - before)
+    measured = staged_bytes + own
+    oracle = scipy_triangle_oracle(g.n, g.edges)
+    ndev = q * q
+    return dict(
+        graph=f"rmat:{scale},{EDGE_FACTOR},1", q=q, method="search",
+        chunk=art.plan.chunk, triangles=total, triangles_scipy_oracle=oracle,
+        walk_seconds=walk_s, device_steps_walked=walk.device_steps,
+        staged_bytes_cuda=staged_bytes, walk_staged_bytes=walk.staged_bytes,
+        walk_args_per_device=walk.args_per_device,
+        args_equal=(walk.staged_bytes == staged_bytes
+                    == walk.args_per_device * ndev),
+        walk_temps=walk.step_temps, walk_grid_bytes=walk.peak_bytes,
+        count_own_peak_cuda=own, measured_peak=measured,
+        walk_over_measured=walk.peak_bytes / measured,
+    )
+
+
+def dryrun_path(dev, main_plan, scale, real_scale=DRYRUN_REAL_SCALE,
+                q=GRID):
+    """``repro_torch.launch.dryrun``'s 18 cells and Twitter's ``cannonopt``
+    and ``cannon2l`` in this process, each walked on meta tensors (no card
+    memory), one ``dryrun_cell`` line each; the walk of a real plan against
+    the card (:func:`dryrun_real_plan`); and the analytic plan of the main
+    graph beside its real plan (the paper's balance assumption, 1.25
+    slack)."""
+    from repro_torch.core.plan import analytic_plan
+    from repro_torch.launch import dryrun
+
+    bad = []
+    t0 = time.perf_counter()
+    for cell in dryrun.all_cells() + list(DRYRUN_EXTRA):
+        try:
+            row = dryrun.run_cell(*cell)
+            row["status"] = "ok"
+        except Exception as e:  # noqa: BLE001 — report every cell, then fail
+            row = {"name": ":".join(cell), "status": "error",
+                   "error": f"{type(e).__name__}: {e}"}
+            bad.append(row["name"])
+        emit("dryrun_cell", **row)
+    cells_s = time.perf_counter() - t0
+    real = dryrun_real_plan(dev, real_scale, q)
+    n, m = main_plan.n, main_plan.m
+    dmax_est = max(64, int(4 * math.sqrt(m) / q))  # tc_graphs' budget at q
+    ana = analytic_plan(n, m, q, dmax_block=dmax_est)
+    balance = {f: dict(analytic=getattr(ana, f), real=getattr(main_plan, f),
+                       real_over_analytic=getattr(main_plan, f)
+                       / getattr(ana, f))
+               for f in ("nnz_pad", "tmax", "dmax")}
+    under = real["walk_over_measured"] < 1 - DRYRUN_UNDER
+    right = real["triangles"] == real["triangles_scipy_oracle"]
+    ok = not bad and real["args_equal"] and not under and right
+    emit("dryrun_path", ok=ok, cells=len(dryrun.all_cells())
+         + len(DRYRUN_EXTRA), failed_cells=bad, cells_seconds=cells_s,
+         real_plan=real,
+         main_graph=dict(graph=f"rmat:{scale},{EDGE_FACTOR},1", n=n, m=m,
+                         q=q, dmax_block_est=dmax_est, **balance))
+    if bad:
+        fail(f"dry-run cells failed: {bad}")
+    if not real["args_equal"]:
+        fail("the walk's staged bytes differ from the staged CUDA tensors'")
+    if under:
+        fail(f"the walk under-predicts the measured peak: "
+             f"{real['walk_over_measured']:.4f} of it")
+    if not right:
+        fail("the real plan's count differs from the scipy oracle")
+
+
+SUBSTRATE_STEPS = 20
+# float32 on two devices: reduction order and the last bit of a division
+# or an rsqrt differ; the tests' tolerances.  A sparse op's sums are added
+# in another order on the card (atomics), so its error is held to
+# SPARSE_TOL of the sum of the absolute terms (the op on |inputs|), not
+# of a result that cancels
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
+SPARSE_TOL = 1e-6
+
+
+def _substrate_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.normal(size=(256, 128)).astype(np.float32),
+              "b": rng.normal(size=(128,)).astype(np.float32),
+              "t": rng.normal(size=(4, 16, 32)).astype(np.float32)}
+    grads = [{k: (np.random.default_rng(100 + i).normal(size=v.shape)
+                  * (1 + i % 5)).astype(np.float32)
+              for k, v in params.items()} for i in range(SUBSTRATE_STEPS)]
+    return params, grads
+
+
+def _tree_err(a, b):
+    """Largest |a - b| / (atol + rtol |b|) over two trees of tensors (1.0
+    is the tolerance's edge)."""
+    if isinstance(a, dict):
+        return max(_tree_err(a[k], b[k]) for k in a)
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / (OPT_ATOL + OPT_RTOL * b.abs())).max())
+
+
+def substrate_path(dev):
+    """The optimisers, the compressed sum, the segment ops and
+    ``embedding_bag`` on the card, each against the same call on the CPU:
+    20 AdamW and 20 Adafactor steps (params and states within the tests'
+    ``rtol=1e-6, atol=1e-7``), ``compressed_psum`` over 4 replicas
+    (``==``), ``segment_sum`` / ``segment_softmax`` / ``degree`` /
+    ``spmm_edges`` and ``embedding_bag`` within ``1e-6`` of one plus the
+    sum of the absolute terms (``err_over_tol``; ``rel_err_over_tol``
+    holds the error to one plus the result's own magnitude)."""
+    import repro_torch.optim as to
+    import repro_torch.sparse as tsp
+    from repro_torch.sparse.embedding_bag import flatten_ids, table_offsets
+
+    cpu = torch.device("cpu")
+    params0, grads = _substrate_inputs()
+    rows, bad = {}, []
+    for name in ("adamw", "adafactor"):
+        out = []
+        for d in (dev, cpu):
+            init, update = to.make_optimizer(
+                name, to.cosine_schedule(0.01, 5, SUBSTRATE_STEPS))
+            p = {k: torch.from_numpy(v).to(d) for k, v in params0.items()}
+            s = init(p)
+            for i, g in enumerate(grads):
+                p, s, _ = update({k: torch.from_numpy(v).to(d)
+                                  for k, v in g.items()}, s, p, i)
+            out.append((p, s))
+        err = max(_tree_err(out[0][0], out[1][0]),
+                  _tree_err(out[0][1], out[1][1]))
+        rows[name] = dict(steps=SUBSTRATE_STEPS, err_over_tol=err)
+        if not err <= 1.0:
+            bad.append(name)
+
+    x = np.random.default_rng(1).normal(size=(4, 3000)).astype(np.float32)
+    sums = [to.compressed_psum({"w": torch.from_numpy(x).to(d)})["w"].cpu()
+            for d in (dev, cpu)]
+    equal = torch.equal(sums[0], sums[1])
+    rows["compressed_psum"] = dict(replicas=4, numel=3000, equal=equal,
+                                   rel_err_to_plain_sum=float(
+                                       (sums[0] - torch.from_numpy(x).sum(0))
+                                       .norm() / torch.from_numpy(x).sum(0)
+                                       .norm()))
+    if not equal:
+        bad.append("compressed_psum")
+
+    rng = np.random.default_rng(2)
+    n, e = 1000, 20000
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    feats = rng.normal(size=(n, 16)).astype(np.float32)
+    w = rng.normal(size=(e,)).astype(np.float32)
+    sizes = (700, 13, 5000)
+    table = rng.normal(size=(sum(sizes), 32)).astype(np.float32)
+    ids = np.stack([rng.integers(0, s, size=(64, 4)) for s in sizes],
+                   axis=1).astype(np.int32)
+
+    def sparse_ops(d, absolute=False):
+        t = lambda a: torch.from_numpy(  # noqa: E731
+            np.abs(a) if absolute and a.dtype == np.float32 else a).to(d)
+        out = {
+            "segment_sum": tsp.segment_sum(t(feats[src]), t(dst), n),
+            "segment_softmax": tsp.segment_softmax(t(w), t(dst), n),
+            "degree": tsp.degree(t(dst), n),
+        }
+        for red in ("sum", "mean", "max"):
+            out[f"spmm_{red}"] = tsp.spmm_edges(
+                t(feats), t(src), t(dst), n, edge_weight=t(w), reduce=red)
+        flat = flatten_ids(t(ids), table_offsets(sizes))
+        for comb in ("sum", "mean", "max"):
+            out[f"embedding_bag_{comb}"] = tsp.embedding_bag(
+                t(table), flat, combiner=comb)
+        return {k: v.cpu() for k, v in out.items()}
+
+    on_card, on_cpu = sparse_ops(dev), sparse_ops(cpu)
+    magnitude = sparse_ops(cpu, absolute=True)
+    for k in on_card:
+        a, b = on_card[k], on_cpu[k]
+        fin = torch.isfinite(b)
+        same_inf = torch.equal(torch.isfinite(a), fin) and torch.equal(
+            a[~fin], b[~fin])
+        diff, mag = (a - b)[fin].abs(), b[fin].abs()
+        terms = torch.maximum(mag, magnitude[k][fin].abs())
+        err = float((diff / (SPARSE_TOL * (1 + terms))).max())
+        rel = float((diff / (SPARSE_TOL * (1 + mag))).max())
+        rows[k] = dict(shape=list(a.shape), err_over_tol=err,
+                       rel_err_over_tol=rel)
+        if not (same_inf and err <= 1.0):
+            bad.append(k)
+    ok = not bad
+    emit("substrate_path", ok=ok, device=str(dev), failed=bad,
+         rtol=OPT_RTOL, atol=OPT_ATOL, sparse_tol=SPARSE_TOL, **rows)
+    if not ok:
+        fail(f"substrate ops on the card differ from the CPU: {bad}")
+
+
+# ----------------------------------------------------------------------
 # what ptxas says of each kernel
 # ----------------------------------------------------------------------
 def start_ptxas(_build):
@@ -3080,7 +3324,9 @@ def main():
     art, launches, g, oracle = phase("main_path", main_path, args.scale,
                                      EDGE_FACTOR, args.seed, GRID, dev)
     kernels = [phase("kernels", kernel_report, art, dev, launches)]
+    phase("dryrun_path", dryrun_path, dev, art.plan, args.scale)
     del art
+    phase("substrate_path", substrate_path, dev)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     # search2 first: the runtime's persistent-fault count is demoted to

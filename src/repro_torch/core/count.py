@@ -27,6 +27,8 @@ without synchronising.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import warnings
 from typing import Optional
 
@@ -42,6 +44,7 @@ __all__ = [
     "count_pair_search_global",
     "count_pair_search_two_level",
     "gather_rows",
+    "sample_task_chunks",
 ]
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -79,9 +82,33 @@ def gather_rows(indptr, indices, rows, dpad: int, sentinel: int):
     return torch.where(valid, vals, vals.new_full((), sentinel)), length
 
 
+# the dry run's chunk sampler (``repro_torch.launch.roofline``): when
+# set, :func:`_task_chunks` hands the chunks out through it
+_CHUNK_SAMPLER: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_chunk_sampler", default=None)
+
+
+@contextlib.contextmanager
+def sample_task_chunks(sampler):
+    """While the block runs, every task-chunk loop of this module yields
+    ``sampler(n_live, chunk)``'s chunks in place of all of them.  The dry
+    run's walk passes a sampler that yields the first two full chunks and
+    the ragged last one, each weighted by how many chunks it stands
+    for."""
+    token = _CHUNK_SAMPLER.set(sampler)
+    try:
+        yield
+    finally:
+        _CHUNK_SAMPLER.reset(token)
+
+
 def _task_chunks(tmax: int, tcount: int, chunk: int):
     """``(lo, n_valid)`` for every chunk that holds a real task."""
     live = min(int(tcount), tmax)
+    sampler = _CHUNK_SAMPLER.get()
+    if sampler is not None:
+        yield from sampler(live, chunk)
+        return
     for lo in range(0, live, chunk):
         yield lo, min(lo + chunk, live) - lo
 

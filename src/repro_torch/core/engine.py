@@ -1139,7 +1139,7 @@ def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
 
     call.ordered = ordered
     call.store, call.schedule = store, schedule
-    call.m_cnt, call.step_keep = m_cnt, keep
+    call.m_cnt, call.step_keep, call.hub = m_cnt, keep, hub
     call.rebind = rebind
     return call
 

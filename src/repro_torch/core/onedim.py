@@ -13,7 +13,6 @@ are built on the base ``n + 2`` (the JAX package builds them on
 Here the ring sits on one device: device ``d``'s block is
 ``indptr[d]``/``indices[d]`` and a rotation is a ``torch.roll`` of a copy
 of them (:class:`~repro_torch.core.engine.RingSchedule`).
-``shape_structs`` (the dry run) is not carried over.
 """
 from __future__ import annotations
 
@@ -78,6 +77,16 @@ class OneDPlan:
         if self.hub is not None:
             out.update(self.hub.device_arrays())
         return out
+
+    def shape_structs(self, device="meta") -> Dict[str, "torch.Tensor"]:
+        """Shape-only stand-ins for every device array
+        (:func:`~repro_torch.core.plan.shape_structs_of`; ``meta`` tensors
+        by default)."""
+        from .plan import shape_structs_of
+
+        return shape_structs_of(
+            {k: (v.shape, v.dtype) for k, v in self.device_arrays().items()},
+            device)
 
 
 def build_oned_plan(graph: Graph, p: int, *, chunk: int = 512) -> OneDPlan:

@@ -24,8 +24,11 @@ available from the packer.  The SUMMA and 1D-ring plans live in
 :mod:`.summa` and :mod:`.onedim`; :func:`plan_from_numpy` assembles any of
 the three.
 
-Not carried over yet from the JAX package's module of the same name:
-``shape_structs`` and ``analytic_plan`` (the dry run).
+The dry run (:mod:`repro_torch.launch.dryrun`) sizes graphs too large to
+plan on the host: :func:`analytic_plan` is a shape-only plan, and
+:meth:`TCPlan.shape_structs` gives tensors on the ``meta`` device — the
+counterpart of the JAX package's ``jax.ShapeDtypeStruct`` — that carry
+every staged array's shape and dtype and allocate nothing.
 """
 from __future__ import annotations
 
@@ -33,12 +36,14 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .decomp import BlockCSR, cyclic_blocks
 from .graph import Graph
 
 __all__ = [
     "TCPlan",
+    "analytic_plan",
     "build_plan",
     "plan_from_numpy",
     "PlanStats",
@@ -51,6 +56,7 @@ __all__ = [
     "StepStats",
     "resolve_compact_steps",
     "host_aug_keys",
+    "shape_structs_of",
 ]
 
 
@@ -195,6 +201,20 @@ def resolve_step_mask(plan, use_step_mask) -> bool:
 INT = np.int32
 
 
+def shape_structs_of(shapes, device="meta") -> Dict[str, torch.Tensor]:
+    """``{name: (shape, numpy dtype)}`` -> ``{name: tensor}``: uninitialised
+    tensors of those shapes and dtypes on ``device``.  On ``meta`` (the
+    default) they are shape-only stand-ins, the counterpart of the JAX
+    package's ``jax.ShapeDtypeStruct``: nothing is allocated and no value
+    can be read."""
+    return {
+        k: torch.empty(tuple(shape),
+                       dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                       device=device)
+        for k, (shape, dtype) in shapes.items()
+    }
+
+
 def host_aug_keys(
     indptr: np.ndarray, indices: np.ndarray
 ) -> np.ndarray:
@@ -334,6 +354,19 @@ class TCPlan:
         if self.hub is not None:
             out.update(self.hub.device_arrays())
         return out
+
+    def shape_structs(self, device="meta") -> Dict[str, torch.Tensor]:
+        """Shape-only stand-ins (:func:`shape_structs_of`) for every device
+        array.
+
+        For analytic (shape-only) plans this reflects the *padded* sizes
+        without ever allocating them.
+        """
+        shape_only = getattr(self, "_shape_only", None)
+        if shape_only is None:
+            shape_only = {k: (v.shape, v.dtype)
+                          for k, v in self.device_arrays().items()}
+        return shape_structs_of(shape_only, device)
 
     def dense_blocks(self) -> Dict[str, np.ndarray]:
         """Materialize dense block operands (oracle path, small n only)."""
@@ -722,3 +755,60 @@ def plan_from_numpy(arrays: Dict[str, np.ndarray], meta: dict):
         else tuple(int(v) for v in skew_perm),
         **common,
     )
+
+
+def analytic_plan(
+    n: int,
+    m: int,
+    q: int,
+    *,
+    dmax_block: int,
+    nnz_slack: float = 1.25,
+    chunk: int = 512,
+    name: str = "analytic",
+) -> TCPlan:
+    """Shape-only plan for dry runs on graphs too large to materialize.
+
+    Uses the paper's balance argument (cyclic distribution => per-block nnz
+    ~ m / p with small slack; Table 3 measured <= 6% imbalance, we budget
+    ``nnz_slack``) to size the padded arrays.  Its host arrays are empty
+    placeholders and its ``m_cnt`` is all zeros — the engine skips a
+    device with no tasks, so a walk rebinds the counts to ``tmax``
+    (:mod:`repro_torch.launch.dryrun`).  Dry runs use
+    :meth:`TCPlan.shape_structs` (no allocation).  ``name`` is accepted
+    for the JAX package's signature and not stored.
+    """
+    del name
+    nb = -(-n // q)
+    nnz_pad = max(1, int(np.ceil(m / (q * q) * nnz_slack)))
+    tmax = nnz_pad
+    empty = np.zeros((q, q, 0), dtype=INT)
+    plan = TCPlan(
+        n=n,
+        m=m,
+        q=q,
+        nb=nb,
+        nnz_pad=nnz_pad,
+        tmax=tmax,
+        dmax=max(1, dmax_block),
+        chunk=min(chunk, tmax),
+        a_indptr=empty,
+        a_indices=empty,
+        b_indptr=empty,
+        b_indices=empty,
+        m_ti=empty,
+        m_tj=empty,
+        m_cnt=np.zeros((q, q), dtype=INT),
+        stats=None,
+        blocks=None,
+    )
+    plan._shape_only = dict(  # type: ignore[attr-defined]
+        a_indptr=((q, q, nb + 1), INT),
+        a_indices=((q, q, nnz_pad), INT),
+        b_indptr=((q, q, nb + 1), INT),
+        b_indices=((q, q, nnz_pad), INT),
+        m_ti=((q, q, tmax), INT),
+        m_tj=((q, q, tmax), INT),
+        m_cnt=((q, q), INT),
+    )
+    return plan

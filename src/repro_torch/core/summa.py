@@ -16,7 +16,7 @@ index k is classed by ``k % c`` into ``c`` panels.  Round ``z``:
 Here the whole grid sits on one device, so a broadcast is a read of the
 owner's slice (:class:`~repro_torch.core.engine.SummaCSRStore`): the
 JAX package's ``"onehot"`` and ``"chain"`` strategies give the same
-views.  ``shape_structs`` (the dry run) is not carried over.
+views.
 """
 from __future__ import annotations
 
@@ -91,6 +91,16 @@ class SummaPlan:
         if self.hub is not None:
             out.update(self.hub.device_arrays())
         return out
+
+    def shape_structs(self, device="meta") -> Dict[str, "torch.Tensor"]:
+        """Shape-only stand-ins for every device array
+        (:func:`~repro_torch.core.plan.shape_structs_of`; ``meta`` tensors
+        by default)."""
+        from .plan import shape_structs_of
+
+        return shape_structs_of(
+            {k: (v.shape, v.dtype) for k, v in self.device_arrays().items()},
+            device)
 
 
 def build_summa_plan(graph: Graph, r: int, c: int, *,

@@ -14,14 +14,36 @@ port has no compiled program to read: it counts its bytes where it moves
 them (:func:`repro_torch.core.engine.tally_moved_bytes`), and
 :func:`collective_phases` reads that tally over one call of an engine
 function.
+
+The JAX package's dry run fills a :class:`RooflineReport` from a compiled
+program (``roofline_from_compiled``: XLA's cost and memory analyses and a
+loop-aware walk of the HLO).  The port compiles no program.  Its
+counterpart is :func:`walk_engine`: one call of an engine function over
+``meta`` tensors, run through the engine's real stores, schedules, kernels
+and reduction, with every aten op counted as it is dispatched —
+operations, bytes, the engine's byte tally and the live bytes of every
+tensor it makes — and :func:`roofline_from_walk` fills the report from
+that.  A meta tensor has a shape and a dtype and no data, so the walk
+allocates nothing and reads no value; it is on ``meta`` by design, never
+in place of a card.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import dataclasses
+import functools
+import math
+import weakref
+from collections import Counter
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["HW", "measure_hw", "collective_phases"]
+__all__ = ["HW", "measure_hw", "collective_phases", "RooflineReport",
+           "EngineWalk", "walk_engine", "roofline_from_walk",
+           "card_memory_bytes"]
 
 HW = dict(
     # H100 SXM, device memory (HBM3): 3.35 TB/s (data sheet)
@@ -31,6 +53,9 @@ HW = dict(
     # H100 SXM, 32-bit rate outside the tensor cores: 67 TFLOP/s (data
     # sheet, fp32); the bound of 32-bit integer compares and searches
     fp32_ops=67e12,
+    # H100 SXM, device memory: 80 GB of HBM3 (data sheet); what the dry
+    # run holds a grid against where no card is present
+    hbm_bytes=80e9,
 )
 
 _COPY_BYTES = 1 << 30  # a 1 GiB device-to-device copy
@@ -108,3 +133,457 @@ def collective_phases(fn, arrays) -> Dict[str, int]:
     with tally_moved_bytes() as moved:
         fn(**arrays)
     return dict(moved)
+
+
+# ======================================================================
+# the dry run: a walk of an engine function on meta tensors
+# ======================================================================
+@dataclasses.dataclass
+class RooflineReport:
+    """The JAX package's dry-run row, field for field, plus the two keys
+    that holding the whole logical grid on one card makes necessary:
+    ``grid_bytes`` (the walk's peak live bytes on the card) and ``fits``
+    (``grid_bytes`` against the card's memory)."""
+
+    name: str
+    mesh: str
+    chips: int
+    flops_per_device: float
+    bytes_per_device: float
+    coll_bytes_per_device: float
+    coll_breakdown: Dict[str, float]
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    bottleneck: str
+    model_flops: float = 0.0
+    useful_fraction: float = 0.0
+    memory_per_device: Optional[dict] = None
+    grid_bytes: int = 0
+    fits: bool = False
+
+    def row(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class EngineWalk:
+    """What one walked call of an engine function did, for its whole
+    logical grid.
+
+    ``ops``: one operation per output element of every aten op that is
+    not a view, and ``ceil(log2 width)`` per element of a
+    ``searchsorted`` over rows of ``width``.  ``bytes``: what those ops
+    read and write, each tensor argument and result once, except that a
+    gather reads only the elements it gathers and a search only the
+    ``ceil(log2 width)`` keys a query probes.  ``moved``: the engine's own
+    byte tally (:func:`~repro_torch.core.engine.tally_moved_bytes`:
+    ``shift``, ``broadcast``, ``reduce``, ``other``).  ``staged_bytes``:
+    every argument tensor's bytes; ``args_per_device``: one logical
+    device's share of them.  ``step_temps``: the most bytes live during one
+    device-step above those live when it began.  ``peak_bytes``: the most
+    bytes live at once during the call, arguments included.
+    ``device_steps``: device-steps counted.  ``searched``: searches by
+    the dtype of the keys searched.
+    """
+
+    grid: Tuple[int, ...]
+    ops: float
+    bytes: float
+    moved: Dict[str, int]
+    staged_bytes: int
+    args_per_device: int
+    step_temps: int
+    peak_bytes: int
+    output_bytes: int
+    device_steps: int
+    searched: Dict[str, float]
+    sampled: bool
+
+
+# ops that read a tensor's values: a meta tensor has none
+_VALUE_READS = frozenset({
+    "_local_scalar_dense", "item", "nonzero", "is_nonzero", "equal",
+    "masked_select", "_unique2", "unique_dim", "unique_consecutive",
+    "_assert_async",
+})
+# ops that read only the elements they gather from their first argument
+_GATHERS = frozenset({"index", "gather", "index_select", "take",
+                      "embedding"})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@functools.lru_cache(maxsize=None)
+def _op_kind(func) -> Tuple[str, bool]:
+    """An aten op's base name, and whether it only makes a view (its
+    result aliases an argument it does not write)."""
+    schema = func._schema
+    writes = any(a.alias_info is not None and a.alias_info.is_write
+                 for a in schema.arguments)
+    view = not writes and any(r.alias_info is not None
+                              for r in schema.returns)
+    return func._overloadpacket.__name__, view
+
+
+def _tensors(items, out=None) -> list:
+    """The tensors among ``items`` and in the lists and tuples among them
+    (an aten op's arguments nest one level: ``Tensor?[]``)."""
+    out = [] if out is None else out
+    for o in items:
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif isinstance(o, (list, tuple)):
+            out.extend(t for t in o if isinstance(t, torch.Tensor))
+    return out
+
+
+class _Walk(TorchDispatchMode):
+    """Counts every aten op with a result on ``device`` (ops and bytes, at
+    the current ``weight``) and the live bytes of every storage there."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+        self.weight = 1
+        self.ops = 0.0
+        self.bytes = 0.0
+        self.device_steps = 0
+        self.searched: Counter = Counter()
+        self.live = 0
+        self.peak = 0
+        self.step_temps = 0
+        self.counting = True
+        self._storages: Dict[int, int] = {}
+
+    # -- memory --------------------------------------------------------
+    def track(self, t: torch.Tensor) -> None:
+        if t.device != self.device:
+            return
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return
+        n = st.nbytes()
+        self._storages[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key: int, n: int) -> None:
+        if self._storages.pop(key, None) is not None:
+            self.live -= n
+
+    # -- cost ----------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        base, view = _op_kind(func)
+        ins = _tensors(kwargs.values(), _tensors(args))
+        if base in _VALUE_READS and any(t.device.type == "meta" for t in ins):
+            raise RuntimeError(
+                f"the dry run's walk reached aten.{base}, which reads a "
+                "tensor's values; a meta tensor has none")
+        out = func(*args, **kwargs)
+        outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
+        for t in outs:
+            self.track(t)
+        if self.counting and outs and not view and any(
+                t.device == self.device for t in outs):
+            self._cost(base, args, ins, outs)
+        return out
+
+    def _cost(self, base, args, ins, outs) -> None:
+        n_out = sum(t.numel() for t in outs)
+        wrote = sum(_nbytes(t) for t in outs)
+        if base == "searchsorted":
+            seq = args[0]
+            depth = max(1, math.ceil(math.log2(max(seq.shape[-1], 1))))
+            ops = n_out * depth
+            read = min(_nbytes(seq), n_out * depth * seq.element_size())
+            read += sum(_nbytes(t) for t in ins if t is not seq)
+            self.searched[str(seq.dtype)] += self.weight * n_out
+        elif base in _GATHERS:
+            src = args[0]
+            ops = n_out
+            read = wrote + sum(_nbytes(t) for t in ins if t is not src)
+        else:
+            ops = n_out
+            read = sum(_nbytes(t) for t in ins)
+        self.ops += self.weight * ops
+        self.bytes += self.weight * (read + wrote)
+
+    # -- sampling ------------------------------------------------------
+    def sample_chunks(self, live: int, chunk: int):
+        """The first full chunk, weighted by all full chunks but one, the
+        second, and the ragged last one
+        (:func:`repro_torch.core.count.sample_task_chunks`).  Every full
+        chunk has the same shapes, and a chunk's peak holds what the one
+        before it left live, so the two full chunks and the ragged one
+        give the ops, bytes and peak of them all."""
+        full, ragged = divmod(live, chunk)
+        outer = self.weight
+        try:
+            if full:
+                self.weight = outer * (full - 1) if full > 1 else outer
+                yield 0, chunk
+            if full > 1:
+                self.weight = outer
+                yield chunk, chunk
+            if ragged:
+                self.weight = outer
+                yield full * chunk, ragged
+        finally:
+            self.weight = outer
+
+    def _totals(self, moved):
+        return (self.ops, self.bytes, self.device_steps,
+                dict(moved), Counter(self.searched))
+
+    def replayed(self, method, moved, fresh: bool = False,
+                 real: int = 1):
+        """``method`` run for real on its first ``real`` calls; every later
+        call adds what the last real one added to the counts and the tally
+        and, without running it, returns that call's result — or with
+        ``fresh`` a new uncounted tensor like it, live while the caller
+        holds it, as a per-device count's result is (the shapes are the
+        same).  A second real call sees what the first left live, as every
+        later call would."""
+        rec = None
+        calls = 0
+
+        def wrapper(*args, **kw):
+            nonlocal rec, calls
+            calls += 1
+            if calls <= real:
+                ops, byts, steps, mv, srch = self._totals(moved)
+                out = method(*args, **kw)
+                like = out
+                if fresh:  # hold its shape, not the tensor
+                    like = (tuple(out.shape), out.dtype, out.device)
+                rec = (self.ops - ops, self.bytes - byts,
+                       self.device_steps - steps,
+                       {k: moved[k] - mv[k] for k in moved},
+                       self.searched - srch, like)
+                return out
+            self.ops += rec[0]
+            self.bytes += rec[1]
+            self.device_steps += rec[2]
+            for k, v in rec[3].items():
+                moved[k] += v
+            self.searched.update(rec[4])
+            if fresh:
+                shape, dtype, device = rec[5]
+                self.counting = False
+                try:
+                    return torch.empty(shape, dtype=dtype, device=device)
+                finally:
+                    self.counting = True
+            return rec[5]
+
+        return wrapper
+
+    def device_step(self, count):
+        """``count`` (a store's per-device count) counted as one
+        device-step, with its own peak live bytes."""
+
+        def wrapper(*args, **kw):
+            self.device_steps += self.weight
+            live0, peak0 = self.live, self.peak
+            self.peak = self.live
+            try:
+                return count(*args, **kw)
+            finally:
+                self.step_temps = max(self.step_temps, self.peak - live0)
+                self.peak = max(peak0, self.peak)
+
+        return wrapper
+
+
+@contextlib.contextmanager
+def _on_instance(obj, name, value):
+    """``obj.name`` is ``value`` while the block runs (an instance
+    attribute shadowing the class's method)."""
+    missing = object()
+    old = obj.__dict__.get(name, missing)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        if old is missing:
+            delattr(obj, name)
+        else:
+            setattr(obj, name, old)
+
+
+def _device_share(t: torch.Tensor, grid: Tuple[int, ...]) -> int:
+    """One logical device's bytes of a staged tensor: its slice over the
+    grid, or on a pod grid over the ``(q, q)`` grid the pods share (the
+    task lists are not stacked over the pods)."""
+    n = len(grid)
+    if tuple(t.shape[:n]) == tuple(grid):
+        return _nbytes(t) // math.prod(grid)
+    if n > 1 and tuple(t.shape[:n - 1]) == tuple(grid[1:]):
+        return _nbytes(t) // math.prod(grid[1:])
+    raise ValueError(
+        f"a staged tensor of shape {tuple(t.shape)} does not lead with "
+        f"the grid {grid}")
+
+
+def _check_uniform(fn) -> None:
+    """A sampled walk stands one device-step for all of them: refuse a
+    function whose device-steps can differ."""
+    cnt = np.asarray(fn.m_cnt)
+    if (fn.step_keep is not None or fn.schedule.live_steps is not None
+            or getattr(fn, "hub", None) is not None
+            or (cnt.size and (cnt != cnt.flat[0]).any())):
+        raise ValueError(
+            "a sampled walk is exact only when every device-step has the "
+            "same shapes (equal task counts, no skip mask, no compacted "
+            "schedule, no hub side); walk this function with sample=False")
+
+
+def walk_engine(fn, arrays: Dict[str, torch.Tensor], *,
+                sample: bool = False) -> EngineWalk:
+    """One call ``fn(**arrays)`` of an engine function
+    (:func:`~repro_torch.core.engine.build_engine_fn`) walked op by op:
+    its ops, bytes, the engine's byte tally and its live bytes
+    (:class:`EngineWalk`).
+
+    The call runs the function's own store, schedule, kernel and
+    reduction, so a change to the engine changes the walk.  The dry run
+    passes ``meta`` tensors (a plan's ``shape_structs()``): nothing is
+    allocated, and an op that would read a value raises.  Tensors of a
+    small plan on another device walk the same way, which is how the
+    walk is checked against a real count.  The task counts and skip mask
+    are the function's host arrays, so a function bound to an analytic
+    plan's all-zero ``m_cnt`` counts nothing and is refused: rebind it
+    first (``fn.rebind(m_cnt=...)``).
+
+    ``sample=True`` walks what repeats once and adds it again for every
+    repeat: one device-step (its first two full task chunks and its
+    ragged last one, the first weighted by the full chunks it stands
+    for), the first schedule step over the whole grid, and the first
+    shift.  It is exact where every device-step has the same shapes (an
+    analytic plan), and refused anywhere else.
+    """
+    from ..core import count as count_mod
+    from ..core.engine import tally_moved_bytes
+
+    devices = {v.device for v in arrays.values()}
+    if len(devices) != 1:
+        raise ValueError(f"the walk takes tensors on one device, got "
+                         f"{sorted(map(str, devices))}")
+    if sample:
+        _check_uniform(fn)
+    grid = tuple(fn.schedule.grid)
+    walk = _Walk(devices.pop())
+    for t in arrays.values():
+        walk.track(t)
+    staged = walk.live
+    store, schedule = fn.store, fn.schedule
+    with contextlib.ExitStack() as stack:
+        moved = stack.enter_context(tally_moved_bytes())
+        count = walk.device_step(store.count)
+        if sample:
+            count = walk.replayed(count, moved, fresh=True, real=2)
+            stack.enter_context(count_mod.sample_task_chunks(
+                walk.sample_chunks))
+            for name in ("_count_grid", "_shift_k"):
+                stack.enter_context(_on_instance(
+                    schedule, name,
+                    walk.replayed(getattr(schedule, name), moved)))
+        stack.enter_context(_on_instance(store, "count", count))
+        stack.enter_context(walk)
+        out = fn(**arrays)
+    if walk.device_steps == 0:
+        raise ValueError(
+            "the walk counted no device-step: every task count is 0 (an "
+            "analytic plan's m_cnt is all zeros; rebind it to tmax) or "
+            "every step is masked off")
+    return EngineWalk(
+        grid=grid,
+        ops=walk.ops,
+        bytes=walk.bytes,
+        moved=dict(moved),
+        staged_bytes=staged,
+        args_per_device=sum(_device_share(t, grid) for t in arrays.values()),
+        step_temps=walk.step_temps,
+        peak_bytes=walk.peak,
+        output_bytes=sum(_nbytes(t) for t in _tensors((out,))),
+        device_steps=walk.device_steps,
+        searched=dict(walk.searched),
+        sampled=sample,
+    )
+
+
+def card_memory_bytes() -> int:
+    """The current card's memory where one is present
+    (``torch.cuda.get_device_properties``), else the data sheet's
+    (``HW["hbm_bytes"]``)."""
+    if torch.cuda.is_available():
+        return int(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory)
+    return int(HW["hbm_bytes"])
+
+
+def roofline_from_walk(name: str, walk: EngineWalk, *, mesh_name: str,
+                       chips: int, model_flops: float = 0.0
+                       ) -> RooflineReport:
+    """The dry-run row of one walked call, in place of the JAX package's
+    ``roofline_from_compiled``.
+
+    Per device is the whole grid's count over its logical devices.
+    ``flops_per_device`` / ``bytes_per_device``: the walk's ``ops`` /
+    ``bytes``, every op eager and unfused as the port runs it.
+    ``coll_bytes_per_device`` and ``coll_breakdown``: the engine's byte
+    tally.  ``t_compute``: ops over the 32-bit rate outside the tensor
+    cores (``HW["fp32_ops"]``: the walk's ops are integer compares,
+    gathers and index arithmetic); ``t_memory``: bytes over
+    ``HW["hbm_bw"]``; ``t_collective``: on one card a roll is a copy
+    through device memory, each rolled byte read and written, so twice
+    the tally over ``HW["hbm_bw"]``.  ``memory_per_device``: ``args`` one
+    logical device's staged bytes, ``outputs`` the result's, ``temps``
+    the peak live bytes of one device-step's count, ``aliased`` 0.
+    ``grid_bytes``: the walk's peak live bytes on the card — every
+    logical device's staged bytes, the engine's own buffers (the packed
+    blobs and a shift's rolled copy) and one device-step's temps, as the
+    port counts device-steps one at a time; ``fits``: ``grid_bytes``
+    within :func:`card_memory_bytes`.
+    """
+    ndev = math.prod(walk.grid)
+    flops = walk.ops / ndev
+    byts = walk.bytes / ndev
+    coll = {k: v / ndev for k, v in walk.moved.items()}
+    cbytes = sum(coll.values())
+    t_c = flops / HW["fp32_ops"]
+    t_m = byts / HW["hbm_bw"]
+    t_l = 2 * cbytes / HW["hbm_bw"]
+    bottleneck = max(
+        [("compute", t_c), ("memory", t_m), ("collective", t_l)],
+        key=lambda kv: kv[1],
+    )[0]
+    useful = (
+        model_flops / (flops * chips) if flops > 0 and model_flops else 0.0
+    )
+    return RooflineReport(
+        name=name,
+        mesh=mesh_name,
+        chips=chips,
+        flops_per_device=flops,
+        bytes_per_device=byts,
+        coll_bytes_per_device=cbytes,
+        coll_breakdown=coll,
+        t_compute=t_c,
+        t_memory=t_m,
+        t_collective=t_l,
+        bottleneck=bottleneck,
+        model_flops=model_flops,
+        useful_fraction=useful,
+        memory_per_device=dict(args=walk.args_per_device,
+                               outputs=walk.output_bytes,
+                               temps=walk.step_temps, aliased=0),
+        grid_bytes=walk.peak_bytes,
+        fits=walk.peak_bytes <= card_memory_bytes(),
+    )

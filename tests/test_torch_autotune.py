@@ -311,7 +311,7 @@ def test_unknown_autotune_mode_is_refused_as_the_reference():
 # ----------------------------------------------------------------------
 def test_hw_holds_the_h100_data_sheet_rates():
     assert roofline.HW == dict(hbm_bw=3.35e12, peak_flops=989e12,
-                               fp32_ops=67e12)
+                               fp32_ops=67e12, hbm_bytes=80e9)
 
 
 def test_measure_hw_refuses_the_cpu():

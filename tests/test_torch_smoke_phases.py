@@ -2,8 +2,9 @@
 
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
 ``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
-``measured_path`` phases and its ``search2`` phase are called here at a
-tiny scale with ``dev=cpu``,
+``measured_path`` phases, its ``search2`` phase and its ``dryrun_path``
+and ``substrate_path`` phases are called here at a tiny scale with
+``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -331,3 +332,37 @@ def test_runtime_path_phase(on_cpu, graph, capsys):
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "source", "replaces", "route"):
         assert key in rec
+
+
+def test_dryrun_path_phase(on_cpu, capsys):
+    """The 20 dry-run cells on meta, the walk of a real plan against the
+    count (the CUDA peak is stubbed to 0 here: the staged bytes alone),
+    and the analytic plan of a main graph beside its real plan."""
+    g = rt.rmat(SCALE, chip_smoke.EDGE_FACTOR, seed=1)
+    art = rt.count_triangles(g, q=4, method="fused", device="cpu").artifact
+    chip_smoke.dryrun_path(CPU, art.plan, SCALE, real_scale=SCALE)
+    out = capsys.readouterr().out
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    cells = [r["dryrun_cell"] for r in rows if "dryrun_cell" in r]
+    assert len(cells) == 20 and all(c["status"] == "ok" for c in cells)
+    (line,) = [r["dryrun_path"] for r in rows if "dryrun_path" in r]
+    assert line["ok"] and not line["failed_cells"]
+    real = line["real_plan"]
+    assert real["args_equal"]
+    assert real["triangles"] == real["triangles_scipy_oracle"]
+    assert real["walk_grid_bytes"] >= real["staged_bytes_cuda"]
+    main = line["main_graph"]
+    assert main["nnz_pad"]["real"] == art.plan.nnz_pad
+    assert main["tmax"]["analytic"] == main["nnz_pad"]["analytic"]
+
+
+def test_substrate_path_phase(capsys):
+    chip_smoke.substrate_path(CPU)
+    line = _line(capsys, "substrate_path")
+    assert line["ok"] and not line["failed"]
+    assert line["adamw"]["steps"] == line["adafactor"]["steps"] == 20
+    assert line["compressed_psum"]["equal"]
+    assert line["compressed_psum"]["rel_err_to_plain_sum"] < 0.02
+    for k in ("segment_sum", "segment_softmax", "degree", "spmm_max",
+              "embedding_bag_mean"):
+        assert line[k]["err_over_tol"] == 0.0
