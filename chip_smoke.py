@@ -55,6 +55,23 @@ What it does, in order, printing one JSON object per line:
                     ``compressed_psum`` over 4 replicas, the segment ops,
                     ``spmm_edges`` and ``embedding_bag`` on the card, each
                     against the same call on the CPU;
+   ``lm_path``    — the LM family's serving path (no hand-written kernel:
+                    the JAX package has none there): the five ``-smoke``
+                    configs in float32 and bfloat16, card against CPU
+                    (hidden states, logits, the loss and its metrics,
+                    eight decode steps' logits and caches, greedy tokens,
+                    the router teacher-forced by the CPU's choices and its
+                    own held to them but for ties); qwen2-0.5b at its
+                    published widths in bfloat16 on the card (a 2,048-token
+                    prefill, 8 prompts of 64 tokens prefilled and decoded
+                    — every decode step against the forward pass at its
+                    position, the first 16 against the same steps on the
+                    CPU, and again with a planted mask fault that the CPU
+                    check must catch —, 64 greedy
+                    steps of ``serve``'s LM loop, a decode step's launches
+                    from the profiler, prefill and decode times beside
+                    their bounds, ``max_memory_allocated``) and in float32
+                    card against CPU;
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
                     (``npods`` 2 with ``flat`` and ``tree``, 4 with
                     ``tree`` and ``auto``): pod-staging seconds, cold and
@@ -155,7 +172,7 @@ What it does, in order, printing one JSON object per line:
                     ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
                     the ring with ``search``, ``global``, ``fused``,
                     ``auto``, against the exact per-edge oracle;
-   ``many_path``  — ``count_triangles_many`` over ``rmat(16..18, 16)`` and
+   ``many_path``  — ``count_triangles_many`` over ``rmat(16..17, 16)`` and
                     two named graphs, ``method="search"``, Cannon q = 4 at
                     chunk 8192 and the ring p = 16 at chunks 512 and 8192:
                     cold, warm (a program-cache hit), equal to
@@ -206,6 +223,7 @@ from repro_torch.launch.roofline import HW  # noqa: E402
 # the card's data-sheet rates (H100 SXM), one yardstick for every bound
 HBM_BYTES_PER_S = HW["hbm_bw"]
 FP32_OPS_PER_S = HW["fp32_ops"]
+BF16_FLOPS_PER_S = HW["peak_flops"]
 # H100 SXM: 132 SMs at up to 1,980 MHz; population count (__popc) runs at
 # 16 results a clock per SM on compute capability 9.0 (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions)
@@ -1718,7 +1736,7 @@ HUB_GRIDS = (("oned", (GRID, GRID)), ("cannon", (GRID, GRID)))
 HUB_CHUNK = 8192
 DEFAULT_CHUNK = 512  # count_triangles' and tc_run's default chunk
 REBALANCE_TRIALS = 3
-MANY_SCALES = (16, 17, 18)
+MANY_SCALES = (16, 17)  # rmat 18 cut in favour of the LM path
 MANY_NAMED = ("named:karate", "named:k10")
 # (schedule, grid, chunk) of each batch: the ring at both chunks keeps the
 # chunk-512 reading on the card; Cannon's chunk-512 batch (about 98 s a
@@ -3226,6 +3244,515 @@ def substrate_path(dev):
 
 
 # ----------------------------------------------------------------------
+# the LM family's serving path
+# ----------------------------------------------------------------------
+LM_B, LM_S, LM_MAX_LEN, LM_STEPS = 2, 16, 6, 8  # the model tests' sizes
+# the model tests' tolerances, elementwise |card - cpu| <= tol (1 + |cpu|):
+# (hidden states and caches, logits / loss / metrics); and the router's tie
+LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -4, 2 ** -5)}
+LM_TIE = {"float32": 1e-5, "bfloat16": 2 ** -7}
+LM_FULL = "qwen2-0.5b"
+LM_PREFILL_LEN = 2048  # 4 q-chunks x 2 kv-chunks at qwen2's 512 / 1024
+LM_PREFILL_REPS = 3
+LM_PROMPTS, LM_PROMPT_LEN = 8, 64
+LM_GREEDY, LM_SERVE_LEN = 64, 128
+# bfloat16 decode against bfloat16 prefill over 24 layers: two schedules
+# (one-token decode attention, the chunked causal one) and other product
+# shapes round differently at every layer
+LM_FULL_TOL = 2 ** -3
+# the first decode steps of those prompts, the card held to the CPU (the
+# same schedule on both), and again with a planted fault that this check
+# must catch.  The tolerance is the tests' bfloat16 one for hidden states
+# and caches, for the logits too: 24 layers against the smoke configs'
+# two or three add up more rounding differences in the residual stream
+LM_CPU_STEPS = 8
+LM_FULL_CPU_TOL = 2 ** -4
+LM_F32_TOKENS = (2, 16)
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _lm_leaves(tree[k])]
+    return [tree]
+
+
+def _lm_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _lm_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# The parity helpers below are shared with the port's model tests, which
+# hold the port to the JAX package's outputs (numpy arrays, bfloat16 ones
+# too) the way this phase holds the card to the CPU.
+def _lm_host(x):
+    """``x`` (a tensor, or an array of any float dtype) in float64 on the
+    host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().cpu()
+    return torch.from_numpy(np.asarray(x, np.float64))
+
+
+def lm_err(a, b):
+    """Largest ``|a - b| / (1 + |b|)``, on the host in float64."""
+    a, b = _lm_host(a), _lm_host(b)
+    if a.shape != b.shape:
+        fail(f"lm_path: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return float(((a - b).abs() / (1 + b.abs())).max())
+
+
+def lm_decided(logits, tol):
+    """Rows whose top-two margin exceeds twice the logits' tolerance: no
+    rounding within it can swap their argmax."""
+    top2 = torch.topk(_lm_host(logits), 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) > 2 * tol * (1 + top2[:, 0].abs())
+
+
+@contextlib.contextmanager
+def lm_routes(records, seen=None):
+    """Every ``moe.route`` call of the block, in order: recorded into
+    ``records`` (``seen`` None) or handed the recorded choices (the card
+    teacher-forced by the CPU, as the tests force the port by the
+    reference: a near-tie flip cannot cascade through the experts'
+    shared capacity), the port's own choices appended to ``seen``.  A
+    record is ``(top_i, probs)``, tensors or arrays."""
+    from repro_torch.models import moe
+
+    own = moe.route
+    queue = iter(records)
+
+    def route(p, x, top_k):
+        probs, top_p, top_i = own(p, x, top_k)
+        if seen is None:
+            records.append((top_i.cpu(), probs.cpu()))
+            return probs, top_p, top_i
+        ref_i = torch.as_tensor(next(queue)[0]).to(top_i.device, torch.long)
+        if ref_i.shape != top_i.shape:
+            fail(f"lm_path: router choices of shape {tuple(ref_i.shape)} "
+                 f"handed to a call of shape {tuple(top_i.shape)}")
+        seen.append(top_i.cpu())
+        chosen = torch.gather(probs, -1, ref_i)
+        return probs, chosen / chosen.sum(dim=-1, keepdim=True), ref_i
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = own
+    if seen is not None and next(queue, None) is not None:
+        fail("lm_path: fewer router calls than were recorded")
+
+
+def lm_flips(records, seen, tie):
+    """Router choices in ``seen`` that differ from the recorded ones;
+    ``None`` where one is not a tie within ``tie`` of the recorded
+    probabilities."""
+    flips = 0
+    for (ref_i, probs), got in zip(records, seen):
+        ref_i, probs = torch.as_tensor(ref_i).long(), torch.as_tensor(probs)
+        got = torch.as_tensor(got).long()
+        for t in torch.nonzero((ref_i != got).any(dim=-1)).flatten():
+            j = int(torch.nonzero(ref_i[t] != got[t])[0])
+            a = float(probs[t, ref_i[t, j]])
+            b = float(probs[t, got[t, j]])
+            if abs(a - b) > tie * max(a, b):
+                return None
+            flips += 1
+    return flips
+
+
+def _lm_smoke_run(cfg, params, dev, tokens, labels, feed):
+    """Forward, loss and ``LM_STEPS`` decode steps on ``dev``; the decode
+    feeds ``feed`` (the CPU's greedy tokens) where given, else its own."""
+    from repro_torch.models import transformer as tr
+
+    t = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    out = dict(feed=[], step_logits=[], caches=[], greedy=[])
+    with torch.no_grad():
+        h, aux = tr.lm_forward(params, cfg, t)
+        out["hidden"], out["aux"] = h.cpu(), aux.cpu()
+        out["logits"] = tr.lm_logits(params, h).cpu()
+        loss, metrics = tr.lm_loss(params, cfg, t, lab)
+        out["loss"] = loss.cpu()
+        out["metrics"] = {k: v.cpu() for k, v in metrics.items()}
+        cache = tr.init_kv_cache(cfg, LM_B, LM_MAX_LEN, device=dev)
+        tok = t[:, 0]
+        for i in range(LM_STEPS):
+            if feed is not None:
+                tok = feed[i].to(dev)
+            out["feed"].append(tok.cpu())
+            n = torch.full((LM_B,), i, dtype=torch.int32, device=dev)
+            tok, lg, cache = tr.lm_decode_step(params, cfg, tok, cache, n)
+            out["step_logits"].append(lg.cpu())
+            # a copy: on the CPU ``.cpu()`` is the cache itself, which the
+            # next step writes into
+            out["caches"].append({k: v.to("cpu", copy=True)
+                                  for k, v in cache.items()})
+            out["greedy"].append(tok.cpu())
+    return out
+
+
+def lm_smoke_configs(dev, names=None, dtypes=("float32", "bfloat16")):
+    """Each LM ``-smoke`` config in float32 and bfloat16: one parameter
+    set drawn on the CPU from a seed and copied to ``dev``, the same
+    tokens; the card held to the CPU (hidden states, every position's
+    logits, the loss and its metrics, ``LM_STEPS`` decode steps' logits
+    and caches, on a cache of ``LM_MAX_LEN`` slots so the last steps write
+    past its end) within the tests' tolerances; greedy tokens equal where
+    the CPU's margin decides them; the card's own router choices equal to
+    the CPU's or ties.  Returns ``(rows, failed)``."""
+    import dataclasses
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.models import transformer as tr
+
+    cpu = torch.device("cpu")
+    rows, bad = {}, []
+    for name in names or [a + "-smoke" for a in LM_ARCHS]:
+        for dtype in dtypes:
+            cfg = dataclasses.replace(get_config(name), dtype=dtype)
+            params = tr.lm_init(torch.Generator().manual_seed(0), cfg,
+                                device=cpu)
+            rng = np.random.default_rng(0)
+            tokens = rng.integers(0, cfg.vocab, (LM_B, LM_S)).astype(np.int32)
+            labels = rng.integers(0, cfg.vocab, (LM_B, LM_S)).astype(np.int32)
+            records, seen = [], []
+            with lm_routes(records):
+                ref = _lm_smoke_run(cfg, params, cpu, tokens, labels, None)
+            with lm_routes(records, seen):
+                got = _lm_smoke_run(cfg, _lm_to(params, dev), dev, tokens,
+                                    labels, ref["feed"])
+            tol_h, tol_l = LM_TOL[dtype]
+            errs = dict(
+                hidden=lm_err(got["hidden"], ref["hidden"]),
+                caches=max(lm_err(g[k], r[k]) for g, r in
+                           zip(got["caches"], ref["caches"]) for k in r),
+                logits=lm_err(got["logits"], ref["logits"]),
+                step_logits=max(lm_err(g, r) for g, r in
+                                zip(got["step_logits"], ref["step_logits"])),
+                loss=max([lm_err(got["loss"], ref["loss"]),
+                          lm_err(got["aux"], ref["aux"])]
+                         + [lm_err(got["metrics"][k], v)
+                            for k, v in ref["metrics"].items()]))
+            decided = same = 0
+            for g, r, lg in zip(got["greedy"], ref["greedy"],
+                                ref["step_logits"]):
+                d = lm_decided(lg, tol_l)
+                decided += int(d.sum())
+                same += int((g[d] == r[d]).sum())
+            flips = lm_flips(records, seen, LM_TIE[dtype])
+            ok = (errs["hidden"] <= tol_h and errs["caches"] <= tol_h
+                  and max(errs["logits"], errs["step_logits"],
+                          errs["loss"]) <= tol_l
+                  and same == decided and flips is not None
+                  and set(got["metrics"]) == set(ref["metrics"]))
+            rows[f"{name}/{dtype}"] = dict(
+                ok=ok, tol=[tol_h, tol_l], router_calls=len(records),
+                router_flips=flips, tokens_decided=decided,
+                tokens_equal=same, loss_cpu=float(ref["loss"]),
+                **{f"err_{k}": v for k, v in errs.items()})
+            if not ok:
+                bad.append(f"{name}/{dtype}")
+    return rows, bad
+
+
+def _lm_prefill_flops(cfg, params, b, s):
+    """The operations a prefill of ``b x s`` tokens needs: every layer
+    weight matrix once a token, the LM head at the last position, and
+    causal attention's lower triangle (scores and values)."""
+    mats = sum(t.numel() for t in _lm_leaves(params["layers"])
+               if t.dim() == 3)  # (L, d_in, d_out): a dense stack's
+    att = 2 * s * s * cfg.n_heads * cfg.d_head * cfg.n_layers
+    return 2 * b * s * mats + 2 * b * cfg.d_model * cfg.vocab + b * att
+
+
+def _lm_teacher_forced(params, cfg, prompts, dev, steps=None):
+    """The first ``steps`` (all) positions of ``prompts`` fed through
+    decode steps from an empty cache of the prompts' length: each step's
+    logits (float32) and greedy tokens, and the cache after the last."""
+    from repro_torch.models import transformer as tr
+
+    b, s = prompts.shape
+    out = dict(logits=[], tokens=[])
+    with torch.no_grad():
+        cache = tr.init_kv_cache(cfg, b, s, device=dev)
+        for i in range(steps or s):
+            n = torch.full((b,), i, dtype=torch.int32, device=dev)
+            nt, lg, cache = tr.lm_decode_step(params, cfg, prompts[:, i],
+                                              cache, n)
+            out["logits"].append(lg)
+            out["tokens"].append(nt)
+    out["cache"] = cache
+    return out
+
+
+def _lm_margin_decided(logits, other):
+    """Rows of ``logits`` whose top-two margin exceeds twice the row's
+    largest difference from ``other``: no difference that small can swap
+    their argmax."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    diff = (logits - other.to(logits.device)).abs().amax(dim=-1)
+    return ((top2[:, 0] - top2[:, 1]) > 2 * diff).cpu()
+
+
+def _lm_vs_prefill(logits, tokens, full, first):
+    """Teacher-forced decode against the prefill's forward pass at every
+    position: the logits within ``LM_FULL_TOL`` and the argmax equal (the
+    last one to the prefill step's token) wherever the margin decides."""
+    err, decided, equal = 0.0, 0, 0
+    for i, (lg, nt) in enumerate(zip(logits, tokens)):
+        err = max(err, lm_err(lg, full[:, i]))
+        want = (first if i == full.shape[1] - 1
+                else full[:, i].argmax(-1)).cpu()
+        d = _lm_margin_decided(full[:, i], lg)
+        decided += int(d.sum())
+        equal += int((nt.cpu()[d] == want[d]).sum())
+    return dict(steps=len(logits), tol=LM_FULL_TOL, err=err,
+                decided=decided, argmax_equal=equal,
+                ok=err <= LM_FULL_TOL and equal == decided > 0)
+
+
+def _lm_vs_cpu(card, cpu, tol=(LM_FULL_CPU_TOL, LM_FULL_CPU_TOL)):
+    """The card's first decode steps held to the CPU's: the cache and the
+    logits within ``tol``, greedy tokens equal wherever the margin
+    decides."""
+    tol_c, tol_l = tol
+    n = len(cpu["logits"])
+    err_l, decided, equal = 0.0, 0, 0
+    for lg, nt, ref, ref_t in zip(card["logits"], card["tokens"],
+                                  cpu["logits"], cpu["tokens"]):
+        err_l = max(err_l, lm_err(lg, ref))
+        d = _lm_margin_decided(ref, lg)
+        decided += int(d.sum())
+        equal += int((nt.cpu()[d] == ref_t[d]).sum())
+    # the slots those steps wrote (the card may have gone on)
+    err_c = max(lm_err(card["cache"][k][:, :, :n], v[:, :, :n])
+                for k, v in cpu["cache"].items())
+    return dict(steps=n, tol=[tol_c, tol_l], err_logits=err_l,
+                err_cache=err_c, decided=decided, tokens_equal=equal,
+                ok=err_l <= tol_l and err_c <= tol_c and equal == decided > 0)
+
+
+@contextlib.contextmanager
+def _lm_planted_mask_fault():
+    """A decode fault planted for the block: ``decode_attention`` is handed
+    one key fewer than the step has written (its own key left out, at
+    every position but the first)."""
+    from repro_torch.models import transformer as tr
+
+    own = tr.decode_attention
+    tr.decode_attention = lambda q, k, v, n: own(
+        q, k, v, torch.clamp(n - 1, min=1))
+    try:
+        yield
+    finally:
+        tr.decode_attention = own
+
+
+def lm_full_width(dev, name=LM_FULL, seed=0):
+    """qwen2-0.5b at its published widths in bfloat16 on the card:
+    parameters drawn there from a seeded ``torch.Generator``; a prefill
+    of 1 x ``LM_PREFILL_LEN`` tokens through ``build_lm_prefill_step``
+    (timed); ``LM_PROMPTS`` prompts of ``LM_PROMPT_LEN`` tokens through
+    the prefill step and the forward pass, then teacher-forced through as
+    many decode steps: every step's logits held to the forward's at its
+    position (:func:`_lm_vs_prefill`); the first ``LM_CPU_STEPS`` steps
+    held to the same steps on the CPU (:func:`_lm_vs_cpu`), and run again
+    on the card with a planted mask fault that the CPU check must catch;
+    ``LM_GREEDY`` greedy steps through ``serve``'s LM loop (timed, every
+    token in the vocabulary); one decode step's device launches from a
+    profiler window."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.attention import chunk_sizes
+    from repro_torch.models.steps import (build_lm_decode_step,
+                                          build_lm_prefill_step)
+
+    cfg = get_config(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tr.lm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _lm_leaves(params)
+    numel = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.default_rng(seed)
+
+    prefill, _ = build_lm_prefill_step(cfg, device=dev)
+    long = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LM_PREFILL_LEN)).astype(np.int32)).to(dev)
+    prefill_s = []
+    for _ in range(1 + LM_PREFILL_REPS):  # the first call pays cuBLAS set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = prefill(params, long)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    prefill_tok_ok = tok.shape == (1,) and 0 <= int(tok) < cfg.vocab
+    flops = _lm_prefill_flops(cfg, params, 1, LM_PREFILL_LEN)
+    prefill_bound_ms = 1e3 * max(flops / BF16_FLOPS_PER_S,
+                                 param_bytes / HBM_BYTES_PER_S)
+
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN)).astype(np.int32)).to(dev)
+    first = prefill(params, prompts)
+    with torch.no_grad():
+        h, _ = tr.lm_forward(params, cfg, prompts)
+        full = tr.lm_logits(params, h)  # every position's logits
+    del h
+    card = _lm_teacher_forced(params, cfg, prompts, dev)
+    vs_prefill = _lm_vs_prefill(card["logits"], card["tokens"], full, first)
+    cpu = torch.device("cpu")
+    on_cpu = _lm_teacher_forced(_lm_to(params, cpu), cfg, prompts.cpu(), cpu,
+                                LM_CPU_STEPS)
+    vs_cpu = _lm_vs_cpu(card, on_cpu)
+    with _lm_planted_mask_fault():
+        planted = _lm_teacher_forced(params, cfg, prompts, dev, LM_CPU_STEPS)
+    fault = dict(
+        fault="decode mask off by one: the newest key left out",
+        steps=LM_CPU_STEPS,
+        err_vs_cpu=_lm_vs_cpu(planted, on_cpu)["err_logits"],
+        err_vs_prefill=_lm_vs_prefill(planted["logits"], planted["tokens"],
+                                      full, first)["err"])
+    # the CPU check must catch the fault; the looser prefill check is read
+    fault["caught_vs_cpu"] = fault["err_vs_cpu"] > LM_FULL_CPU_TOL
+    fault["caught_vs_prefill"] = fault["err_vs_prefill"] > LM_FULL_TOL
+    del full, card, on_cpu, planted
+
+    serve_runs = []
+    for _ in range(2):  # the first run warms the allocator up
+        toks, secs = serve.serve_lm(cfg, params, batch=LM_PROMPTS,
+                                    gen=LM_GREEDY, max_len=LM_SERVE_LEN,
+                                    device=dev)
+        serve_runs.append((toks, secs))
+    toks, secs = serve_runs[-1]
+    in_vocab = bool((toks >= 0).all() and (toks < cfg.vocab).all())
+
+    decode, _ = build_lm_decode_step(cfg, device=dev)
+    cache = tr.init_kv_cache(cfg, LM_PROMPTS, LM_SERVE_LEN, device=dev)
+    one = torch.ones((LM_PROMPTS,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((LM_PROMPTS,), dtype=torch.int32, device=dev)
+    prof = profile_count(lambda: decode(params, cache, one, zero), 0,
+                         kernel="\0", label="lm")
+    del cache
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    embed = params["embed"]["table"]
+    decode_bytes = (param_bytes - embed.numel() * embed.element_size()
+                    + LM_PROMPTS * cfg.d_model * embed.element_size())
+    row = dict(
+        config=name, dtype=cfg.dtype, param_numel=numel,
+        param_bytes=param_bytes, init_seconds=init_s,
+        prefill_tokens=LM_PREFILL_LEN,
+        prefill_chunks=list(chunk_sizes(LM_PREFILL_LEN, cfg.attn_q_chunk,
+                                        cfg.attn_kv_chunk)),
+        prefill_first_ms=prefill_s[0] * 1e3,
+        prefill_ms=[x * 1e3 for x in prefill_s[1:]],
+        prefill_flops=flops, prefill_bound_ms=prefill_bound_ms,
+        prefill_token_in_vocab=prefill_tok_ok,
+        decode_vs_prefill=vs_prefill, decode_vs_cpu=vs_cpu,
+        planted_fault=fault,
+        serve=dict(batch=LM_PROMPTS, gen=LM_GREEDY, max_len=LM_SERVE_LEN,
+                   seconds=[x[1] for x in serve_runs],
+                   decode_ms_per_step=secs / LM_GREEDY * 1e3,
+                   tokens_per_s=LM_PROMPTS * LM_GREEDY / secs,
+                   tokens_in_vocab=in_vocab,
+                   repeat_equal=bool(np.array_equal(serve_runs[0][0], toks)),
+                   first_sequence=toks[0][:16].tolist()),
+        decode_bytes=decode_bytes,
+        decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_step_profile=dict(
+            device_launches=prof["device_launches"],
+            device_seconds=prof["device_seconds"],
+            profiled_wall_seconds=prof["profiled_wall_seconds"],
+            device_busy_share=prof["device_busy_share_of_profiled_wall"],
+            top=prof["top"]),
+        max_memory_allocated=peak)
+    ok = (prefill_tok_ok and in_vocab and vs_prefill["ok"] and vs_cpu["ok"]
+          and fault["caught_vs_cpu"])
+    del params
+    torch.cuda.empty_cache()
+    return row, ok
+
+
+def lm_full_f32(dev, name=LM_FULL, seed=1):
+    """qwen2-0.5b at its published widths in float32, card against CPU:
+    one parameter set drawn on the CPU (2.5 GB), copied to the card, one
+    forward of ``LM_F32_TOKENS`` tokens on each, then those tokens
+    teacher-forced through as many decode steps; hidden states, every
+    position's logits, every decode step's logits and the cache within
+    the float32 tolerance (TF32 off, torch's default, which nothing in
+    the package flips)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    params = tr.lm_init(torch.Generator().manual_seed(seed), cfg,
+                        device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, LM_F32_TOKENS).astype(np.int32))
+    out = {}
+    for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = params if key == "cpu" else _lm_to(params, d)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            h, _ = tr.lm_forward(p, cfg, tokens.to(d))
+            logits = tr.lm_logits(p, h)
+        secs = time.perf_counter() - t0
+        out[key] = (h.cpu(), logits.cpu(), secs,
+                    _lm_teacher_forced(p, cfg, tokens.to(d), d))
+        del p
+    tol = LM_TOL["float32"]
+    errs = dict(hidden=lm_err(out["card"][0], out["cpu"][0]),
+                logits=lm_err(out["card"][1], out["cpu"][1]))
+    decode = _lm_vs_cpu(out["card"][3], out["cpu"][3], tol)
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    ok = (errs["hidden"] <= tol[0] and errs["logits"] <= tol[1]
+          and decode["ok"] and not tf32)
+    secs = {k: v[2] for k, v in out.items()}
+    del out
+    torch.cuda.empty_cache()
+    return dict(tokens=list(LM_F32_TOKENS), tol=list(tol),
+                matmul_allow_tf32=tf32, cpu_seconds=secs["cpu"],
+                card_seconds=secs["card"], decode_vs_cpu=decode,
+                **{f"err_{k}": v for k, v in errs.items()}), ok
+
+
+def lm_path(dev, smi, full=LM_FULL):
+    """The LM family's serving path: the five ``-smoke`` configs card
+    against CPU (:func:`lm_smoke_configs`), ``full`` (qwen2-0.5b) at its
+    published widths in bfloat16 (:func:`lm_full_width`) and in float32
+    card against CPU (:func:`lm_full_f32`).  No hand-written kernel runs
+    here: the JAX package has no Pallas kernel on this path."""
+    t0 = time.perf_counter()
+    smoke, bad = lm_smoke_configs(dev)
+    smoke_s = time.perf_counter() - t0
+    full_row, full_ok = lm_full_width(dev, full)
+    f32, f32_ok = lm_full_f32(dev, full)
+    ok = not bad and full_ok and f32_ok
+    emit("lm_path", ok=ok, gpu=smi, failed=bad, smoke=smoke,
+         smoke_seconds=smoke_s, full_bf16=full_row, full_f32=f32,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"LM smoke configs on the card differ from the CPU: {bad}")
+    if not full_ok:
+        fail(f"{full} in bfloat16: a token out of the vocabulary, decode "
+             "disagrees with the forward pass or with the CPU, or the "
+             "planted decode fault went unseen")
+    if not f32_ok:
+        fail(f"{full} in float32: the card's forward or decode differs "
+             "from the CPU's (or TF32 is on)")
+
+
+# ----------------------------------------------------------------------
 # what ptxas says of each kernel
 # ----------------------------------------------------------------------
 def start_ptxas(_build):
@@ -3327,6 +3854,7 @@ def main():
     phase("dryrun_path", dryrun_path, dev, art.plan, args.scale)
     del art
     phase("substrate_path", substrate_path, dev)
+    phase("lm_path", lm_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     # search2 first: the runtime's persistent-fault count is demoted to

@@ -1,6 +1,21 @@
-"""Graph configs with a name registry (the JAX package's ``configs``, its
-triangle-count half)."""
-from .base import TCGraphConfig, get_config, list_configs, register  # noqa: F401
+"""Graph and LM configs with a name registry (the JAX package's
+``configs``, its triangle-count and LM halves)."""
+from .base import (  # noqa: F401
+    LM_SHAPES,
+    LMConfig,
+    TCGraphConfig,
+    get_config,
+    list_configs,
+    register,
+)
+
+LM_ARCHS = [
+    "chatglm3-6b",
+    "qwen2-0.5b",
+    "qwen1.5-110b",
+    "grok-1-314b",
+    "deepseek-v3-671b",
+]
 
 TC_GRAPHS = [
     "tc-twitter",

@@ -1,9 +1,14 @@
-"""Triangle-count serving front end.
+"""Serving front ends.
 
-Batch mode — repeated batched counts over a working set of graphs, the
-heavy-traffic shape the planning pipeline is built for (content-addressed
-plan cache + one engine call per batch; round 0 is the cold plan, later
-rounds hit the program cache):
+LM mode — batched KV-cached greedy decode for the LM archs:
+
+    python -m repro_torch.launch.serve --arch qwen2-0.5b-smoke \\
+        --batch 4 --gen 16
+
+Triangle-count batch mode — repeated batched counts over a working set of
+graphs, the heavy-traffic shape the planning pipeline is built for
+(content-addressed plan cache + one engine call per batch; round 0 is the
+cold plan, later rounds hit the program cache):
 
     python -m repro_torch.launch.serve \\
         --tc-graphs "rmat:10;rmat:10,8,1;karate" --grid 1 --rounds 5
@@ -15,11 +20,10 @@ later rounds splice dirty blocks and reuse the engine):
     python -m repro_torch.launch.serve \\
         --tc-stream er:500,8,3 --grid 1 --rounds 5 --delta-edges 4
 
-Every round is one request under its own supervision: bounded retries
-with backoff, an optional cooperative deadline, and a failure budget for
-the session (``--inject-faults`` exercises them).  Runs on the GPU unless
-``--device cpu`` is given.  LM serving (``--arch``) is not ported: this
-package holds no language model.
+In the triangle-count modes every round is one request under its own
+supervision: bounded retries with backoff, an optional cooperative
+deadline, and a failure budget for the session (``--inject-faults``
+exercises them).  Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -234,11 +238,65 @@ def _maybe_verify(args, g, got):
         raise SystemExit(f"count mismatch: {got} != {exp}")
 
 
+def serve_lm(cfg, params, *, batch, gen, max_len, device=None):
+    """The LM mode's decode loop: ``gen`` greedy steps for ``batch``
+    sequences from token 1 on a cache of ``max_len`` slots, through the
+    decode step.  ``params`` is the reference's tree of tensors on
+    ``device`` (a test hands it the JAX package's weights).  Returns the
+    tokens ``(batch, gen)`` as numpy and the seconds the loop took, the
+    device synchronised."""
+    import torch
+
+    from ..device import resolve_device
+    from ..models.steps import build_lm_decode_step
+    from ..models.transformer import init_kv_cache
+
+    dev = resolve_device(device)
+    decode, _ = build_lm_decode_step(cfg, device=dev)
+    cache = init_kv_cache(cfg, batch, max_len, device=dev)
+    tok = torch.ones((batch,), dtype=torch.int32, device=dev)
+    cache_len = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        tok, cache = decode(params, cache, tok, cache_len)
+        cache_len = cache_len + 1
+        outs.append(tok)
+    toks = torch.stack(outs, 1).cpu().numpy()  # waits for the device
+    return toks, time.perf_counter() - t0
+
+
+def _serve_lm(args):
+    import torch
+
+    from ..configs import get_config
+    from ..device import resolve_device
+    from ..models.transformer import lm_init
+
+    cfg = get_config(args.arch)
+    if cfg.family != "lm":
+        raise SystemExit(
+            f"--arch {args.arch}: a {cfg.family!r} config; LM serving takes "
+            "an LM arch (see repro_torch.configs.LM_ARCHS, or a -smoke "
+            "variant)")
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm_init(gen, cfg, device=dev)
+    toks, dt = serve_lm(cfg, params, batch=args.batch, gen=args.gen,
+                        max_len=args.max_len, device=dev)
+    print(
+        f"decoded {args.batch}x{args.gen} tokens in {dt:.2f}s "
+        f"({args.batch*args.gen/dt:.1f} tok/s)"
+    )
+    print("first sequence:", toks[0])
+    return toks
+
+
 def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="LM serving: not ported (this package holds no "
-                         "language model); refused")
+                    help="LM serving: batched KV-cached greedy decode of "
+                         "this LM config, random weights from seed 0")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
@@ -285,13 +343,11 @@ def main(argv=None):
     if args.tc_stream:
         _serve_tc_stream(args)
         return
-    if args.arch:
+    if not args.arch:
         raise SystemExit(
-            f"--arch {args.arch}: LM serving is not ported to repro_torch "
-            "(this package holds no language model); serve triangle "
-            "counts with --tc-graphs or --tc-stream"
+            "pass --arch (LM serving), --tc-graphs, or --tc-stream"
         )
-    raise SystemExit("pass --tc-graphs or --tc-stream")
+    return _serve_lm(args)
 
 
 if __name__ == "__main__":

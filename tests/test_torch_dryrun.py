@@ -116,11 +116,16 @@ def test_graph_configs_equal_the_reference(graph):
 
 
 def test_graph_list_and_registry():
+    """The port registers the reference's names of the ``tc`` and ``lm``
+    families (the GNN and recsys configs come with their slice)."""
     assert tcfg.TC_GRAPHS == jcfg.TC_GRAPHS
-    assert tcfg.list_configs() == sorted(GRAPHS)
+    ref = jcfg.base.list_configs()
+    assert tcfg.list_configs() == sorted(
+        n for n in ref if jcfg.get_config(n).family in ("tc", "lm"))
+    assert set(GRAPHS) <= set(tcfg.list_configs())
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gat-cora", "dlrm-mlperf",
+@pytest.mark.parametrize("name", ["nequip", "gat-cora", "dlrm-mlperf",
                                   "no-such-graph"])
 def test_get_config_of_a_name_the_port_lacks_raises(name):
     with pytest.raises(KeyError, match="tc-twitter"):
@@ -390,8 +395,10 @@ def test_run_cell_refuses_a_model_family(monkeypatch):
                         lambda: types.SimpleNamespace(family="lm"))
     with pytest.raises(ValueError, match="triangle-count cells only"):
         dryrun.run_cell("lm-stub", "train_4k", "pod")
-    with pytest.raises(KeyError):
+    with pytest.raises(ValueError, match="'qwen2-0.5b' is a 'lm' config"):
         dryrun.run_cell("qwen2-0.5b", "train_4k", "pod")
+    with pytest.raises(KeyError):
+        dryrun.run_cell("gat-cora", "train_4k", "pod")
 
 
 # ----------------------------------------------------------------------

@@ -144,9 +144,19 @@ def test_verify_mismatch_is_not_retried(monkeypatch):
 
 
 def test_arch_is_refused():
-    with pytest.raises(SystemExit, match="LM serving is not ported"):
-        serve.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="pass --tc-graphs or --tc-stream"):
+    """``--arch`` serves an LM arch (the LM mode, since the LM family was
+    ported); a config of another family and no mode at all are refused,
+    the latter with the reference's message."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(["--arch", "qwen2-0.5b-smoke", "--batch", "2",
+                           "--gen", "3", "--device", "cpu"])
+    assert buf.getvalue().startswith("decoded 2x3 tokens in ")
+    assert toks.shape == (2, 3)
+    with pytest.raises(SystemExit, match="a 'tc' config; LM serving"):
+        serve.main(["--arch", "tc-twitter", "--device", "cpu"])
+    with pytest.raises(SystemExit, match=re.escape(
+            "pass --arch (LM serving), --tc-graphs, or --tc-stream")):
         serve.main(["--device", "cpu"])
 
 

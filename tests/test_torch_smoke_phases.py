@@ -2,9 +2,9 @@
 
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
 ``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
-``measured_path`` phases, its ``search2`` phase and its ``dryrun_path``
-and ``substrate_path`` phases are called here at a tiny scale with
-``dev=cpu``,
+``measured_path`` phases, its ``search2`` phase, its ``dryrun_path``
+and ``substrate_path`` phases and its ``lm_path`` phase (on ``-smoke``
+configs only) are called here at a tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -366,3 +366,71 @@ def test_substrate_path_phase(capsys):
     for k in ("segment_sum", "segment_softmax", "degree", "spmm_max",
               "embedding_bag_mean"):
         assert line[k]["err_over_tol"] == 0.0
+
+
+def _profile_lm_on_cpu(count, expect, **kw):
+    """``profile_count`` with the CPU activity only, with the keys the LM
+    path reads (no device activity to count here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        count()
+    return {"device_launches": 0, "device_seconds": 0.0,
+            "profiled_wall_seconds": time.perf_counter() - t0,
+            "device_busy_share_of_profiled_wall": None, "top": [],
+            "cpu_only": True}
+
+
+def test_lm_path_phase(on_cpu, capsys, monkeypatch):
+    """The five smoke configs in both dtypes (the CPU against itself, the
+    router teacher-forced as on the card), then the full-width parts on
+    qwen2-0.5b-smoke in its place: a 2,048-token prefill, prompts
+    prefilled and decoded, ``serve``'s loop, a profiled decode step and
+    the float32 comparison."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    chip_smoke.lm_path(CPU, "cpu", full="qwen2-0.5b-smoke")
+    line = _line(capsys, "lm_path")
+    assert line["ok"] and not line["failed"]
+    assert len(line["smoke"]) == 10
+    for key, row in line["smoke"].items():
+        assert row["ok"] and row["router_flips"] == 0, key
+        assert row["err_hidden"] == row["err_logits"] == 0.0, key
+        assert row["tokens_decided"] == row["tokens_equal"] > 0, key
+        moe = key.startswith(("grok", "deepseek"))
+        assert (row["router_calls"] > 0) == moe, key
+    full = line["full_bf16"]
+    assert full["prefill_chunks"] == [512, 1024]
+    assert len(full["prefill_ms"]) == chip_smoke.LM_PREFILL_REPS
+    assert full["param_bytes"] == 2 * full["param_numel"]
+    dvp = full["decode_vs_prefill"]
+    assert dvp["ok"] and dvp["err"] <= dvp["tol"]
+    assert dvp["steps"] == chip_smoke.LM_PROMPT_LEN
+    assert dvp["argmax_equal"] == dvp["decided"] > 0
+    dvc = full["decode_vs_cpu"]  # the CPU against itself: exact
+    assert dvc["ok"] and dvc["err_logits"] == dvc["err_cache"] == 0.0
+    assert dvc["steps"] == chip_smoke.LM_CPU_STEPS
+    assert dvc["tokens_equal"] == dvc["decided"] > 0
+    fault = full["planted_fault"]
+    assert fault["caught_vs_cpu"] and fault["err_vs_cpu"] > dvc["tol"][1]
+    assert full["serve"]["tokens_in_vocab"]
+    assert full["decode_bytes"] < full["param_bytes"]
+    f32 = line["full_f32"]
+    assert f32["err_hidden"] == f32["err_logits"] == 0.0
+    f32_decode = f32["decode_vs_cpu"]
+    assert f32_decode["ok"] and f32_decode["steps"] == 16
+    assert f32_decode["err_logits"] == f32_decode["err_cache"] == 0.0
+    assert not f32["matmul_allow_tf32"]
+
+
+def test_lm_prefill_flops_counts_the_causal_triangle():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("qwen2-0.5b")
+    params = tr.lm_init(None, cfg, device="meta")
+    flops = chip_smoke._lm_prefill_flops(cfg, params, 1, 2048)
+    d, ff, h, dh, kv = 896, 4864, 14, 64, 2
+    mats = 24 * (d * h * dh * 2 + 2 * d * kv * dh + 3 * d * ff)
+    att = 24 * 2 * 2048 ** 2 * h * dh
+    assert flops == 2 * 2048 * mats + 2 * d * 151936 + att
