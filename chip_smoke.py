@@ -72,6 +72,26 @@ What it does, in order, printing one JSON object per line:
                     from the profiler, prefill and decode times beside
                     their bounds, ``max_memory_allocated``) and in float32
                     card against CPU;
+   ``lm_train_path`` — the LM family's training path (a phase of its own,
+                    after ``lm_path``; no hand-written kernel either):
+                    every ``-smoke`` config's ``build_lm_train_step`` in
+                    float32 and bfloat16 (and with Adafactor where its full
+                    config trains with it), 4 x 32 tokens in two
+                    microbatches at step 2000, card against CPU (the loss,
+                    ``grad_norm``, every optimiser state and parameter,
+                    the router teacher-forced, remat's recompute included);
+                    20 float32 steps of qwen2-0.5b-smoke card against CPU,
+                    both curves falling; qwen2-0.5b at its published
+                    widths and depth in bfloat16 (8 steps of 32 x 512 in
+                    two microbatches of 16: losses that fall, step seconds,
+                    tokens/s, one step's launches and busy share,
+                    ``max_memory_allocated`` with remat and without, 6 N
+                    tokens over the step against the bf16 rate); one
+                    float32 full-width step card against CPU, and again
+                    with a planted fault (the second microbatch's gradient
+                    dropped) that the check must catch; ``train
+                    --ckpt-dir`` on the card run to step 10, then resumed
+                    to 20, against an uninterrupted run;
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
                     (``npods`` 2 with ``flat`` and ``tree``, 4 with
                     ``tree`` and ``auto``): pod-staging seconds, cold and
@@ -83,14 +103,14 @@ What it does, in order, printing one JSON object per line:
                     copies);
    ``search2``    — the main graph with ``method="search2"`` (cold and
                     warm, the bucketizer's ``bucket_stats``), and
-                    ``method="auto"`` on ``rmat(scale - 2, 16)`` (what the
+                    ``method="auto"`` on ``rmat(scale - 4, 16)`` (what the
                     percentile report resolved it to), each equal to its
                     graph's oracle;
    ``runtime_path`` — the runtime on the main graph: ``tc_run --ckpt-dir``
                     in this process (Cannon q = 4, chunk 8192, the
                     checkpointed stepper) with a step fault and a
-                    corrupted checkpoint, then with ``--fail-at-shift 2``,
-                    then resumed from its last checkpoint (each save's
+                    corrupted checkpoint, then resumed from its last
+                    checkpoint (each save's
                     bytes and seconds); ``supervised_count`` with
                     transient faults at ``plan_stage``, ``device_stage``
                     and ``step@1`` (three restarts, one kernel launch a
@@ -147,7 +167,7 @@ What it does, in order, printing one JSON object per line:
                     then the fused kernel's ``"serve_stream"`` row, held
                     to its plain route on the last round's first counted
                     device-step;
-   ``rebalance_path`` — the main graph with ``rebalance_trials=3``: the
+   ``rebalance_path`` — the main graph with ``rebalance_trials=2``: the
                     rebalance report, one kernel launch a counted
                     device-step, warm counts of the plain and the
                     rebalanced plan in turns, each equal to the oracle;
@@ -161,10 +181,9 @@ What it does, in order, printing one JSON object per line:
                     every device-step the path counted;
    ``hub_path``   — the main graph with ``hub_split=True`` on the ring
                     (p = 16) and on Cannon (q = 4), ``method="fused"``:
-                    cold, warm, ``method="search"``, the hub partial
-                    and the residual schedule alone (the ring's hub
-                    partial also at chunk 512), all equal to the
-                    oracle; then the fused
+                    cold; on the ring also warm, ``method="search"``, the
+                    hub partial and the residual schedule alone; all
+                    equal to the oracle; then the fused
                     kernel's ``"oned_hub"`` row, held to its plain route
                     on every residual device-step;
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}: Cannon
@@ -173,8 +192,8 @@ What it does, in order, printing one JSON object per line:
                     the ring with ``search``, ``global``, ``fused``,
                     ``auto``, against the exact per-edge oracle;
    ``many_path``  — ``count_triangles_many`` over ``rmat(16..17, 16)`` and
-                    two named graphs, ``method="search"``, Cannon q = 4 at
-                    chunk 8192 and the ring p = 16 at chunks 512 and 8192:
+                    two named graphs, ``method="search"``, Cannon q = 4 and
+                    the ring p = 16 at chunk 8192:
                     cold, warm (a program-cache hit), equal to
                     ``count_triangles`` graph by graph and to the oracle;
 7. ``tile_traps`` — both tile kernels (``popcount``, ``mxu``) against
@@ -255,9 +274,14 @@ def fail(msg):
 # ----------------------------------------------------------------------
 # oracle independent of the package
 # ----------------------------------------------------------------------
-def scipy_triangle_oracle(n, edges, rows_per_block=1 << 16):
+def scipy_triangle_oracle(n, edges, rows_per_block=1 << 12):
     """``sum((U @ U) ∘ U)`` over the degree-ordered upper-triangular
-    adjacency ``U``, with scipy.sparse, in row blocks to bound memory."""
+    adjacency ``U``, with scipy.sparse, in row blocks to bound memory.
+    The blocks run on a thread each (scipy's product leaves the
+    interpreter lock for much of its work); small blocks keep the threads
+    busy, as the high-degree rows gather in the last ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import scipy.sparse as sp
 
     deg = np.bincount(edges[:, 0], minlength=n) + np.bincount(
@@ -270,11 +294,12 @@ def scipy_triangle_oracle(n, edges, rows_per_block=1 << 16):
     u = sp.csr_matrix(
         (np.ones(lo.shape[0], dtype=np.int64), (lo, hi)), shape=(n, n)
     )
-    total = 0
-    for r0 in range(0, n, rows_per_block):
+    def block(r0):
         ub = u[r0 : r0 + rows_per_block]
-        total += int((ub @ u).multiply(ub).sum())
-    return total
+        return int((ub @ u).multiply(ub).sum())
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return sum(pool.map(block, range(0, n, rows_per_block)))
 
 
 # ----------------------------------------------------------------------
@@ -782,7 +807,7 @@ def kernel_report(art, dev, launches):
 # phases
 # ----------------------------------------------------------------------
 def profile_count(count, expect, kernel="fused_counts_kernel",
-                  label="fused", spans=()):
+                  label="fused", spans=(), cpu=True):
     """Where a warm count's device time goes: ``count`` under
     ``torch.profiler``, once as the profiler's warm-up cycle and once
     recorded; device time summed by kernel name, and that of the kernels
@@ -793,11 +818,16 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     ``device_seconds`` of 0 means the profiler saw no device activity
     here, and nothing was measured.  ``spans`` names more kernels (by a
     substring of their names) whose device seconds and launches are
-    summed under ``spans``."""
+    summed under ``spans``.  ``cpu=False`` records the device activity
+    only (a train step's host ops are many, and tracing them costs
+    seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
@@ -925,13 +955,13 @@ def main_path(scale, edge_factor, seed, q, dev):
 SUMMA_GRID = (2, 8)  # 16 logical devices, 8 broadcast rounds
 
 
-AUTO_SCALE_CUT = 2  # the percentile auto count runs two scales down
+AUTO_SCALE_CUT = 4  # the percentile auto count runs four scales down
 
 
 def search2_phase(g, oracle, q, scale, seed):
     """``method="search2"`` (bucketized plan, staged keys; cold, then
     warm) on the main path's graph, and ``method="auto"`` (resolved from
-    the percentile autotune report; cold only) on ``rmat(scale - 2, 16)``:
+    the percentile autotune report; cold only) on ``rmat(scale - 4, 16)``:
     there, as on the main graph, it resolves to ``search`` at the
     autotuned chunk, which takes tens of seconds a count at the main
     scale (the measured mode's ``auto`` runs at full width in
@@ -1495,14 +1525,16 @@ def run_cli(argv):
 
 
 def checkpointed_cli(g, oracle, dev, q, graph):
-    """``tc_run --ckpt-dir`` three times: with ``CLI_FAULTS`` (a step
-    fault and a corrupted checkpoint, under the supervisor), then with
-    ``--fail-at-shift 2`` in a fresh directory, then again in that
-    directory, which resumes from its last checkpoint.  Returns the
-    phase's record and the names of its failed checks."""
+    """``tc_run --ckpt-dir`` twice: with ``CLI_FAULTS`` (a step fault and
+    a corrupted checkpoint, under the supervisor), then again in that
+    directory, which resumes from its last checkpoint.  (A third run with
+    ``--fail-at-shift 2``, ≈ 12 s, was cut for the LM training path: the
+    faults run restarts from a checkpoint too, and the CPU tests drive
+    ``--fail-at-shift``.)  Returns the phase's record and the names of
+    its failed checks."""
     bad = []
     with tempfile.TemporaryDirectory(prefix="tc_ckpt_") as tmp:
-        faults, resume = os.path.join(tmp, "faults"), os.path.join(tmp, "resume")
+        faults = os.path.join(tmp, "faults")
         base = ["--graph", graph, "--grid", str(q), "--chunk", str(CKPT_CHUNK),
                 "--device", str(dev), "--json"]
         runs = {}
@@ -1510,9 +1542,7 @@ def checkpointed_cli(g, oracle, dev, q, graph):
             for name, extra in (
                     ("faults", ["--ckpt-dir", faults,
                                 "--inject-faults", CLI_FAULTS]),
-                    ("fail_at_shift", ["--ckpt-dir", resume,
-                                       "--fail-at-shift", "2"]),
-                    ("resume", ["--ckpt-dir", resume])):
+                    ("resume", ["--ckpt-dir", faults])):
                 text, rep, sec = run_cli(base + extra)
                 runs[name] = dict(
                     seconds=sec, triangles=rep["triangles"],
@@ -1536,9 +1566,6 @@ def checkpointed_cli(g, oracle, dev, q, graph):
             e["fault"] == "CkptCorrupt" for e in runs["faults"]["fault_log"]
             or ())):
         bad.append("cli_faults_recovery")
-    if "(injected failure at shift 2; restarting from ckpt)" not in runs[
-            "fail_at_shift"]["printed"]:
-        bad.append("cli_fail_at_shift")
     if f"resumed at shift {q}" not in runs["resume"]["printed"] or runs[
             "resume"]["saves"]:
         bad.append("cli_resume")
@@ -1733,16 +1760,19 @@ def measured_count(kind, g, oracle, dev, grid, table_dir):
 # the planner stages on the card: hub split, rebalance, batched counts
 # ----------------------------------------------------------------------
 HUB_GRIDS = (("oned", (GRID, GRID)), ("cannon", (GRID, GRID)))
+# the schedule that also runs the warm count, the search recount and the
+# halves; on Cannon (about 20 s a run) they were cut for the LM training
+# path, whose kernel row is the ring's
+HUB_DEEP = "oned"
 HUB_CHUNK = 8192
 DEFAULT_CHUNK = 512  # count_triangles' and tc_run's default chunk
-REBALANCE_TRIALS = 3
+REBALANCE_TRIALS = 2  # 3 until the LM training path needed the seconds
 MANY_SCALES = (16, 17)  # rmat 18 cut in favour of the LM path
 MANY_NAMED = ("named:karate", "named:k10")
-# (schedule, grid, chunk) of each batch: the ring at both chunks keeps the
-# chunk-512 reading on the card; Cannon's chunk-512 batch (about 98 s a
-# run, PERF.md section 5) is left out to make room for the delta path
-MANY_CELLS = (("cannon", (GRID, GRID), 8192), ("oned", (GRID, GRID), 512),
-              ("oned", (GRID, GRID), 8192))
+# (schedule, grid, chunk) of each batch: Cannon's chunk-512 batch (about
+# 98 s a run, PERF.md section 5) was left out to make room for the delta
+# path, the ring's (about 14 s) for the LM training path
+MANY_CELLS = (("cannon", (GRID, GRID), 8192), ("oned", (GRID, GRID), 8192))
 
 
 def synced(fn):
@@ -1754,15 +1784,15 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
-def hub_partial(art, dev, chunk=None):
+def hub_partial(art, dev):
     """The hub side's partial alone, as ``HubCount`` runs it inside a
     count (the plain search over every logical device's fragments), at the
-    plan's chunk or at ``chunk``: ``(triangles, seconds)``."""
+    plan's chunk: ``(triangles, seconds)``."""
     from repro_torch.core.engine import HubCount
 
     h = art.plan.hub
-    hub = HubCount(dpad=h.dpad, chunk=h.chunk if chunk is None else chunk,
-                   sentinel=h.sentinel, hub_cnt=h.hub_cnt)
+    hub = HubCount(dpad=h.dpad, chunk=h.chunk, sentinel=h.sentinel,
+                   hub_cnt=h.hub_cnt)
     st = art.staged(dev)
     out = torch.zeros(h.hub_cnt.shape, dtype=torch.int64, device=dev)
     return synced(lambda: int(hub.count(st, out).sum()))
@@ -1788,13 +1818,15 @@ def residual_count(art, kind, dev):
 def hub_path(g, oracle, dev, graph):
     """``count_triangles(g, hub_split=True, method="fused", chunk=8192)``
     on the ring p = 16 and on Cannon q = 4: cold (one kernel launch a
-    counted residual device-step), warm (a plan-cache hit),
-    ``method="search"`` on the same artifact, and the two halves alone —
-    the hub partial (on the ring also at the default chunk 512) and the
-    residual schedule — all equal to the oracle.  (The ring's profiled
-    warm count, about a minute a run, is cut: the halves alone give the
-    same split.)  Returns the ring's ``oned_hub`` row of the fused kernel,
-    held to its plain route on every residual device-step."""
+    counted residual device-step), equal to the oracle; on the ring
+    (``HUB_DEEP``) also warm (a plan-cache hit), ``method="search"`` on the
+    same artifact, and the two halves alone — the hub partial and the
+    residual schedule — all equal to the oracle.  (Cut to make room: the
+    ring's profiled warm count, about a minute a run, as the halves alone
+    give the same split; for the LM training path, the ring's hub partial
+    at the default chunk 512 and Cannon's warm, search and halves.)
+    Returns the ring's ``oned_hub`` row of the fused kernel, held to its
+    plain route on every residual device-step."""
     import repro_torch as rt
     from repro_torch.kernels.tc_fused import tc_fused as kmod
     from repro_torch.pipeline import default_cache
@@ -1820,20 +1852,10 @@ def hub_path(g, oracle, dev, graph):
             fail(f"the {kind} hub-split fused count launched its kernel "
                  f"{launches} times, not once for each of the {len(steps)} "
                  "residual device-steps that count")
-        hits0 = default_cache().hits
-        r2 = count(method="fused")
-        cache_hit = (r2.artifact is art and bool(r2.artifact.cache_hit)
-                     and default_cache().hits > hits0)
-        if not cache_hit:
-            fail(f"second {kind} hub-split count missed the plan cache")
-        rs = rt.count_triangles(g, plan=art, schedule=kind, method="search")
-        hub_t, hub_s = hub_partial(art, dev)
-        res_t, res_s = residual_count(art, kind, dev)
         h = plan.hub
         row = dict(
             graph=graph, schedule=kind, grid=list(r.grid), device=r.device,
-            triangles=r.triangles, triangles_repeat=r2.triangles,
-            triangles_search=rs.triangles, triangles_scipy_oracle=oracle,
+            triangles=r.triangles, triangles_scipy_oracle=oracle,
             hub=r.hub, hub_chunk=h.chunk, hub_tmax=int(h.hub_ti.shape[-1]),
             hub_indices_pad=int(h.hub_indices.shape[-1]),
             hubsplit_seconds=art.stage_seconds.get("hubsplit"),
@@ -1841,32 +1863,45 @@ def hub_path(g, oracle, dev, graph):
             stage_seconds={k: float(v)
                            for k, v in art.stage_seconds.items()},
             count_seconds=r.count_seconds,
-            warm_preprocess_seconds=r2.preprocess_seconds,
-            warm_count_seconds=r2.count_seconds,
-            search_count_seconds=rs.count_seconds,
-            hub_partial=dict(triangles=hub_t, seconds=hub_s, chunk=h.chunk),
-            residual=dict(triangles=res_t, seconds=res_s, m=plan.m,
-                          dmax=plan.dmax, d_small=plan.d_small,
-                          n_long=plan.n_long, chunk=plan.chunk),
-            hub_share_of_halves=hub_s / (hub_s + res_s)
-            if hub_s + res_s > 0 else None,
             kernel_launches=launches, device_steps_counted=len(steps),
-            cache_hit=cache_hit, peak_device_bytes=int(peak),
+            peak_device_bytes=int(peak),
         )
         row["tasks_past_stage_limit"], row["longest_task_row"] = (
             tasks_past_stage_limit(plan, kind))
-        want = [r.triangles, r2.triangles, rs.triangles, hub_t + res_t]
-        if kind == "oned":
-            t512, s512 = hub_partial(art, dev, chunk=DEFAULT_CHUNK)
-            row["hub_partial_chunk512"] = dict(triangles=t512, seconds=s512,
-                                               chunk=DEFAULT_CHUNK)
-            want.append(t512 + res_t)
+        want = [r.triangles]
+        if kind == HUB_DEEP:
+            hits0 = default_cache().hits
+            r2 = count(method="fused")
+            cache_hit = (r2.artifact is art and bool(r2.artifact.cache_hit)
+                         and default_cache().hits > hits0)
+            if not cache_hit:
+                fail(f"second {kind} hub-split count missed the plan cache")
+            rs = rt.count_triangles(g, plan=art, schedule=kind,
+                                    method="search")
+            hub_t, hub_s = hub_partial(art, dev)
+            res_t, res_s = residual_count(art, kind, dev)
+            row.update(
+                triangles_repeat=r2.triangles,
+                triangles_search=rs.triangles,
+                warm_preprocess_seconds=r2.preprocess_seconds,
+                warm_count_seconds=r2.count_seconds,
+                search_count_seconds=rs.count_seconds,
+                hub_partial=dict(triangles=hub_t, seconds=hub_s,
+                                 chunk=h.chunk),
+                residual=dict(triangles=res_t, seconds=res_s, m=plan.m,
+                              dmax=plan.dmax, d_small=plan.d_small,
+                              n_long=plan.n_long, chunk=plan.chunk),
+                hub_share_of_halves=hub_s / (hub_s + res_s)
+                if hub_s + res_s > 0 else None,
+                cache_hit=cache_hit)
+            want += [r2.triangles, rs.triangles, hub_t + res_t]
             kernel_rows.append(schedule_kernel_report(
                 kind, art, dev, launches, steps, path="oned_hub"))
+            del r2, rs
         if any(v != oracle for v in want):
             bad.append((kind, want))
         rows[kind] = row
-        del art, r, r2, rs
+        del art, r
     emit("hub_path", ok=not bad, mismatches=bad, **rows)
     if bad:
         fail(f"hub-split counts disagree with the oracle: {bad}")
@@ -1874,7 +1909,7 @@ def hub_path(g, oracle, dev, graph):
 
 
 def rebalance_path(g, oracle, dev, q):
-    """``count_triangles(g, q=q, method="fused", rebalance_trials=3)``:
+    """``count_triangles(g, q=q, method="fused", rebalance_trials=2)``:
     the rebalance report and stage seconds, one kernel launch a counted
     device-step, then warm counts of the plain and the rebalanced plan in
     turns (plain, rebalanced, rebalanced, plain): all equal to the
@@ -1992,7 +2027,7 @@ DELTA_ROUNDS = (4, 4096, 4, 4)
 DELTA_PLANNED = ("splice", "repack", "splice", "rebase")
 DELTA_REBASE_EVERY = 3
 STREAM_GRAPH = "rmat:14"  # tc_run --stream, end to end
-STREAM_ROUNDS = (4, 4, 512, 4)
+STREAM_ROUNDS = (4, 512)  # (4, 4, 512, 4) until the LM training path
 
 
 class EdgeKeys:
@@ -3308,6 +3343,15 @@ def lm_decided(logits, tol):
     return (top2[:, 0] - top2[:, 1]) > 2 * tol * (1 + top2[:, 0].abs())
 
 
+def _lm_route_key(x):
+    """The router input's shape, dtype and bits: a layer's recompute under
+    remat hands ``route`` the same bits as its forward did."""
+    import hashlib
+
+    bits = x.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return (tuple(x.shape), str(x.dtype), hashlib.blake2b(bits).digest())
+
+
 @contextlib.contextmanager
 def lm_routes(records, seen=None):
     """Every ``moe.route`` call of the block, in order: recorded into
@@ -3315,22 +3359,47 @@ def lm_routes(records, seen=None):
     teacher-forced by the CPU, as the tests force the port by the
     reference: a near-tie flip cannot cascade through the experts'
     shared capacity), the port's own choices appended to ``seen``.  A
-    record is ``(top_i, probs)``, tensors or arrays."""
+    record is ``(top_i, probs)``, tensors or arrays.
+
+    While grad is enabled, a call whose router input is bit for bit an
+    earlier call's in the block is that layer's recompute under remat (the
+    backward re-runs each checkpointed layer): it takes that call's
+    record, and adds none — so a train step's records are its forward
+    calls only, in order.  A recorded recompute that routes otherwise
+    than its forward fails."""
     from repro_torch.models import moe
 
     own = moe.route
-    queue = iter(records)
+    calls = {}  # router input's key -> index of its record
+    count = [0]
 
     def route(p, x, top_k):
         probs, top_p, top_i = own(p, x, top_k)
+        key = _lm_route_key(x) if torch.is_grad_enabled() else None
+        k = calls.get(key) if key is not None else None
+        fresh = k is None
+        if fresh:
+            k = count[0]
+            count[0] += 1
+            if key is not None:
+                calls[key] = k
         if seen is None:
-            records.append((top_i.cpu(), probs.cpu()))
+            if fresh:
+                records.append((top_i.detach().cpu(),
+                                probs.detach().cpu()))
+            elif not torch.equal(torch.as_tensor(records[k][0]).long(),
+                                 top_i.cpu().long()):
+                fail("lm_path: a recompute under remat routed otherwise "
+                     "than its forward")
             return probs, top_p, top_i
-        ref_i = torch.as_tensor(next(queue)[0]).to(top_i.device, torch.long)
+        if k >= len(records):
+            fail("lm_path: more router calls than were recorded")
+        ref_i = torch.as_tensor(records[k][0]).to(top_i.device, torch.long)
         if ref_i.shape != top_i.shape:
             fail(f"lm_path: router choices of shape {tuple(ref_i.shape)} "
                  f"handed to a call of shape {tuple(top_i.shape)}")
-        seen.append(top_i.cpu())
+        if fresh:
+            seen.append(top_i.cpu())
         chosen = torch.gather(probs, -1, ref_i)
         return probs, chosen / chosen.sum(dim=-1, keepdim=True), ref_i
 
@@ -3339,7 +3408,7 @@ def lm_routes(records, seen=None):
         yield
     finally:
         moe.route = own
-    if seen is not None and next(queue, None) is not None:
+    if seen is not None and count[0] < len(records):
         fail("lm_path: fewer router calls than were recorded")
 
 
@@ -3359,6 +3428,72 @@ def lm_flips(records, seen, tie):
                 return None
             flips += 1
     return flips
+
+
+def _lm_f64(x, device=None):
+    """``x`` in float64: on the host (``device`` None), else on ``device``
+    (a full-width tree is compared on the card)."""
+    if device is None:
+        return _lm_host(x)
+    return torch.as_tensor(x).detach().to(device, torch.float64)
+
+
+def lm_step_errs(got, ref, cfg, step, tol, device=None):
+    """One train step's ``(params, opt_state, metrics)`` held to ``ref``'s
+    (tensors or numpy arrays, in the same trees): the metrics (``loss``,
+    AdamW's ``grad_norm``) as ``|a - b| / (1 + |b|)``; every optimiser
+    state leaf (m, v, or Adafactor's vr / vc / v) as ``‖a - b‖ / ‖b‖``;
+    the parameters elementwise as ``|a - b| / (1 + |b|)``.  AdamW's first
+    step from a fresh state is sign-like (``m̂ / √v̂`` is ±1 at step 0,
+    ±0.447 at step 2000), so an element whose first moment's sign differs
+    between the two — a near-zero gradient that rounded the other way —
+    may move the other way by up to ``2 · lr_t · |m̂ / √v̂|`` (from
+    ``ref``'s moments); such elements over ``tol`` are counted as
+    ``flips``.  ``tol`` maps ``loss``, ``grad_norm``, ``states`` and
+    ``params`` to their bounds; the comparison runs in float64 on the host
+    or on ``device``.  Returns ``(errs, ok)``."""
+    from repro_torch.optim import cosine_schedule
+
+    gp, go, gm = got
+    rp, ro, rm = ref
+    f64 = lambda x: _lm_f64(x, device)  # noqa: E731
+    errs = {k: lm_err(gm[k], rm[k]) for k in sorted(rm) if k in gm}
+    states = 0.0
+    for a, b in zip(_lm_leaves(go), _lm_leaves(ro)):
+        a, b = f64(a), f64(b)
+        if a.shape != b.shape:
+            fail(f"lm_train: state shapes {tuple(a.shape)} and "
+                 f"{tuple(b.shape)}")
+        states = max(states, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    errs["states"] = states
+    adamw = cfg.optimizer == "adamw"
+    if adamw:
+        b1, b2, eps = 0.9, 0.95, 1e-8  # adamw_update's defaults
+        lr_t = float(cosine_schedule(3e-4, 2000, 100_000)(step))
+        bc1, bc2 = 1 - b1 ** (step + 1), 1 - b2 ** (step + 1)
+        moments = zip(_lm_leaves(go["m"]), _lm_leaves(ro["m"]),
+                      _lm_leaves(ro["v"]))
+    worst, flips = 0.0, 0
+    for a, b in zip(_lm_leaves(gp), _lm_leaves(rp)):
+        a, b = f64(a), f64(b)
+        if a.shape != b.shape:
+            fail(f"lm_train: parameter shapes {tuple(a.shape)} and "
+                 f"{tuple(b.shape)}")
+        d = (a - b).abs()
+        if adamw:
+            m_got, m_ref, v_ref = (f64(x) for x in next(moments))
+            flipped = torch.sign(m_got) != torch.sign(m_ref)
+            slack = 2 * lr_t * (m_ref / bc1).abs() / ((v_ref / bc2).sqrt()
+                                                      + eps)
+            flips += int((flipped & (d > tol["params"] * (1 + b.abs())))
+                         .sum())
+            d = torch.where(flipped, (d - slack).clamp_min(0), d)
+        worst = max(worst, float((d / (1 + b.abs())).max()))
+    errs["params"] = worst
+    errs["flips"] = flips
+    ok = (set(gm) == set(rm)
+          and all(errs[k] <= tol[k] for k in (*rm, "states", "params")))
+    return errs, ok
 
 
 def _lm_smoke_run(cfg, params, dev, tokens, labels, feed):
@@ -3683,7 +3818,8 @@ def lm_full_width(dev, name=LM_FULL, seed=0):
 
 def lm_full_f32(dev, name=LM_FULL, seed=1):
     """qwen2-0.5b at its published widths in float32, card against CPU:
-    one parameter set drawn on the CPU (2.5 GB), copied to the card, one
+    one parameter set drawn on the card (2.5 GB; the CPU's one-thread
+    draw took seconds), copied to the CPU, one
     forward of ``LM_F32_TOKENS`` tokens on each, then those tokens
     teacher-forced through as many decode steps; hidden states, every
     position's logits, every decode step's logits and the cache within
@@ -3695,8 +3831,8 @@ def lm_full_f32(dev, name=LM_FULL, seed=1):
     from repro_torch.models import transformer as tr
 
     cfg = dataclasses.replace(get_config(name), dtype="float32")
-    params = tr.lm_init(torch.Generator().manual_seed(seed), cfg,
-                        device="cpu")
+    params = _lm_to(tr.lm_init(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev), torch.device("cpu"))
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, LM_F32_TOKENS).astype(np.int32))
     out = {}
@@ -3750,6 +3886,412 @@ def lm_path(dev, smi, full=LM_FULL):
     if not f32_ok:
         fail(f"{full} in float32: the card's forward or decode differs "
              "from the CPU's (or TF32 is on)")
+
+
+# ----------------------------------------------------------------------
+# the LM family's training path
+# ----------------------------------------------------------------------
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEP = 4, 32, 2000  # two microbatches of 2
+# the train-step tests' tolerances (tests/test_torch_lm_train_step.py says
+# why), the card held to the CPU by them too: the loss and grad_norm as
+# |a - b| / (1 + |b|), each state leaf as ||a - b|| / ||b||, parameters
+# elementwise as |a - b| / (1 + |b|) but for AdamW's sign flips
+LM_TRAIN_TOL = {
+    "float32": dict(loss=1e-5, grad_norm=1e-5, states=1e-4, params=1e-5),
+    "bfloat16": dict(loss=2 ** -5, grad_norm=2 ** -5, states=2 ** -4,
+                     params=2 ** -8),
+}
+LM_CURVE = ("qwen2-0.5b-smoke", 20)  # float32, steps 2000-2019
+# card against CPU a step, after up to 19 updates on each: the tests'
+# float32 bound for hidden states (the CPU against the reference: 1.4e-7)
+LM_CURVE_TOL = 1e-4
+LM_CURVE_FALL = 0.5  # nat: mean of the last five below the first five's
+LM_FULL_TRAIN = (32, 512)  # qwen2-0.5b's microbatch_size 16: two of them
+LM_FULL_TRAIN_STEPS = 8
+LM_FULL_FALL = 1.0  # nat: mean of the last four below the first four's
+LM_F32_TRAIN = (4, 16)  # with microbatch_size 2: two microbatches
+LM_CLI = ("qwen2-0.5b-smoke", 10, 20)  # --steps 10, then 20 in one dir
+
+
+def _lm_train_once(cfg, params, batch, step, dev, records=None, seen=None):
+    """One ``build_lm_train_step`` call on ``dev`` from a fresh optimiser
+    state: ``(params, opt_state, metrics)``; the router recorded into
+    ``records`` (``seen`` None) or teacher-forced by them."""
+    from repro_torch.models.steps import build_lm_train_step
+
+    fn, info = build_lm_train_step(cfg, device=dev)
+    params = _lm_to(params, dev)
+    opt = info["opt_init"](params)
+    ctx = (lm_routes(records, seen) if records is not None
+           else contextlib.nullcontext())
+    with ctx:
+        return fn(params, opt, batch, step)
+
+
+def lm_train_smoke(dev, names=None, dtypes=("float32", "bfloat16")):
+    """Each LM ``-smoke`` config in float32 and bfloat16, with AdamW (every
+    smoke config's) and, where its full config trains with Adafactor, with
+    that too: one train step of ``LM_TRAIN_B x LM_TRAIN_S`` tokens (two
+    microbatches) at step ``LM_TRAIN_STEP`` from one parameter set drawn
+    on the CPU, on the CPU and on ``dev``; the card held to the CPU by
+    :func:`lm_step_errs` (the loss, AdamW's ``grad_norm``, every state,
+    every parameter), the router teacher-forced by the CPU's forward
+    choices and the card's own held to them but for ties.  Returns
+    ``(rows, failed)``, rows keyed ``config/dtype/optimizer``."""
+    import dataclasses
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+
+    cpu = torch.device("cpu")
+    rows, bad = {}, []
+    for name in names or [a + "-smoke" for a in LM_ARCHS]:
+        opts = dict.fromkeys([get_config(name).optimizer,
+                              get_config(name.removesuffix("-smoke"))
+                              .optimizer])
+        for dtype in dtypes:
+            for opt in opts:
+                cfg = dataclasses.replace(get_config(name), dtype=dtype,
+                                          optimizer=opt)
+                params = tr.lm_init(torch.Generator().manual_seed(0), cfg,
+                                    device=cpu)
+                batch = TokenPipeline(cfg.vocab, LM_TRAIN_B,
+                                      LM_TRAIN_S).next_batch()
+                records, seen = [], []
+                ref = _lm_train_once(cfg, params, batch, LM_TRAIN_STEP, cpu,
+                                     records)
+                got = _lm_train_once(cfg, params, batch, LM_TRAIN_STEP, dev,
+                                     records, seen)
+                errs, ok = lm_step_errs(got, ref, cfg, LM_TRAIN_STEP,
+                                        LM_TRAIN_TOL[dtype])
+                flips = lm_flips(records, seen, LM_TIE[dtype])
+                ok = ok and flips is not None and len(seen) == len(records)
+                key = f"{name}/{dtype}/{opt}"
+                rows[key] = dict(
+                    ok=ok, tol=LM_TRAIN_TOL[dtype],
+                    router_calls=len(records), router_flips=flips,
+                    loss_cpu=float(ref[2]["loss"]),
+                    **{f"err_{k}": v for k, v in errs.items()})
+                if not ok:
+                    bad.append(key)
+    return rows, bad
+
+
+def lm_train_curve(dev, name=LM_CURVE[0], steps=LM_CURVE[1]):
+    """``name`` in float32: ``steps`` train steps from step 2000 of
+    ``TokenPipeline(vocab, 4, 32)`` on the CPU and on ``dev`` from one
+    parameter set; the card's loss held to the CPU's at every step, and
+    both curves falling by ``LM_CURVE_FALL``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.steps import build_lm_train_step
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    params = tr.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    runs = {}
+    for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        fn, info = build_lm_train_step(cfg, device=d)
+        p = _lm_to(params, d)
+        opt = info["opt_init"](p)
+        pipe = TokenPipeline(cfg.vocab, LM_TRAIN_B, LM_TRAIN_S)
+        losses = []
+        for step in range(LM_TRAIN_STEP, LM_TRAIN_STEP + steps):
+            p, opt, m = fn(p, opt, pipe.next_batch(), step)
+            losses.append(float(m["loss"]))
+        runs[key] = losses
+    err = max(lm_err(a, b) for a, b in zip(runs["card"], runs["cpu"]))
+    fall = {k: float(np.mean(v[:5]) - np.mean(v[-5:])) for k, v in runs.items()}
+    ok = err <= LM_CURVE_TOL and min(fall.values()) >= LM_CURVE_FALL
+    return dict(config=name, dtype="float32", steps=[LM_TRAIN_STEP,
+                LM_TRAIN_STEP + steps - 1], tol=LM_CURVE_TOL, err=err,
+                fall=fall, min_fall=LM_CURVE_FALL, losses=runs, ok=ok), ok
+
+
+def lm_train_full(dev, name=LM_FULL, seed=0, batch=LM_FULL_TRAIN,
+                  steps=LM_FULL_TRAIN_STEPS, min_fall=LM_FULL_FALL):
+    """``name`` at its published widths and depth in bfloat16 on the card:
+    parameters from a seeded ``torch.Generator`` there, ``steps`` train
+    steps from step 2000 of ``batch`` tokens from ``TokenPipeline``
+    (microbatches of the config's ``microbatch_size``, remat on): every
+    loss (finite, and the last four's mean ``min_fall`` nat below the
+    first four's), each step's seconds, tokens/s on the median of steps 2
+    on, one step's device launches and busy share from the profiler,
+    ``max_memory_allocated``; then one step with remat off and one with
+    the layers indexed out of their stacks instead of unbound, their
+    seconds and peaks beside remat's (an out-of-memory there is reported,
+    not raised); and ``6 · N · tokens`` over the median step against the data-sheet
+    bfloat16 rate, N every parameter but the gathered embedding table."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.steps import build_lm_train_step
+
+    cfg = get_config(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = tr.lm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    numel = sum(t.numel() for t in _lm_leaves(params))
+    n_mult = numel - params["embed"]["table"].numel()
+    fn, info = build_lm_train_step(cfg, device=dev)
+    opt = info["opt_init"](params)
+    pipe = TokenPipeline(cfg.vocab, *batch)
+    first = LM_TRAIN_STEP
+    losses, secs = [], []
+    for step in range(first, first + steps):
+        b = pipe.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b, step)
+        losses.append(float(m["loss"]))  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    median = float(np.median(secs[1:]))
+    tokens = batch[0] * batch[1]
+    b = pipe.next_batch()
+    prof = profile_count(lambda: fn(params, opt, b, first + steps), 0,
+                         kernel="\0", label="lm", cpu=False)
+    # remat off: one step on the same state, its own peak
+    fn_off, _ = build_lm_train_step(dataclasses.replace(cfg, remat=False),
+                                    device=dev)
+    off = _lm_timed_step(fn_off, params, opt, b, first + steps, before)
+    indexed = _lm_timed_step(fn, params, opt, b, first + steps, before,
+                             _lm_indexed_layers())
+    finite = bool(np.isfinite(losses).all())
+    k = len(losses) // 2
+    fall = float(np.mean(losses[:k]) - np.mean(losses[-k:]))
+    flops = 6 * n_mult * tokens
+    row = dict(
+        config=name, dtype=cfg.dtype, param_numel=numel,
+        n_multiplied=n_mult, batch=list(batch),
+        microbatch=cfg.microbatch_size, remat=cfg.remat,
+        steps=[first, first + steps - 1], losses=losses, fall=fall,
+        min_fall=min_fall, step_seconds=secs,
+        first_step_seconds=secs[0], median_step_seconds=median,
+        tokens_per_step=tokens, tokens_per_s=tokens / median,
+        step_profile=dict(
+            device_launches=prof["device_launches"],
+            device_seconds=prof["device_seconds"],
+            profiled_wall_seconds=prof["profiled_wall_seconds"],
+            device_busy_share=prof["device_busy_share_of_profiled_wall"],
+            top=prof["top"]),
+        max_memory_allocated=peak, held_after_steps=held,
+        remat_off=off, indexed_layers=indexed, six_n_tokens_flops=flops,
+        six_n_share_of_bf16_peak=flops / median / BF16_FLOPS_PER_S)
+    ok = finite and fall >= min_fall
+    del params, opt, fn, fn_off
+    torch.cuda.empty_cache()
+    return row, ok
+
+
+def _lm_timed_step(fn, params, opt, batch, step, before,
+                   ctx=contextlib.nullcontext()):
+    """One train step on the card under ``ctx``, from a reset peak: its
+    loss, seconds and peak bytes over ``before``; an out-of-memory is
+    reported, not raised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = dict(oom=False)
+    t0 = time.perf_counter()
+    try:
+        with ctx:
+            out = fn(params, opt, batch, step)
+        row["loss"] = float(out[2]["loss"])
+        row["seconds"] = time.perf_counter() - t0
+        del out
+    except torch.cuda.OutOfMemoryError as e:
+        row.update(oom=True, error=str(e).splitlines()[0])
+    torch.cuda.synchronize()
+    row["peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    return row
+
+
+@contextlib.contextmanager
+def _lm_indexed_layers():
+    """The forward takes each layer by indexing its stacks (one
+    ``SelectBackward`` a leaf a layer, each a zero ``(L, ...)`` gradient in
+    the backward) instead of unbinding each stack once: what the unbind
+    saves."""
+    from repro_torch.models import transformer as tr
+
+    own = tr._unbound
+    tr._unbound = lambda stack, n: [tr._layer(stack, i) for i in range(n)]
+    try:
+        yield
+    finally:
+        tr._unbound = own
+
+
+@contextlib.contextmanager
+def _lm_planted_dropped_microbatch():
+    """A train-step fault planted for the block: the second microbatch's
+    loss keeps its value and loses its gradient, so only the first
+    microbatch's gradient reaches the accumulators."""
+    from repro_torch.models import steps
+
+    own = steps.lm_loss
+    calls = [0]
+
+    def lm_loss(*args, **kw):
+        loss, metrics = own(*args, **kw)
+        calls[0] += 1
+        if calls[0] == 2:
+            loss = loss.detach() + 0 * loss
+        return loss, metrics
+
+    steps.lm_loss = lm_loss
+    try:
+        yield calls
+    finally:
+        steps.lm_loss = own
+
+
+def lm_train_f32(dev, name=LM_FULL, seed=1, batch=LM_F32_TRAIN):
+    """``name`` at its published widths in float32, card against CPU: one
+    parameter set drawn on the card, one train step of ``batch`` tokens in
+    two microbatches (``microbatch_size=2``) at step 2000 on each, held
+    by :func:`lm_step_errs` at the float32 tolerances (TF32 off, torch's
+    default, which nothing in the package flips); then the card's step
+    again with a planted fault (the second microbatch's gradient dropped)
+    that the same check must catch, each error over its tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32",
+                              microbatch_size=2)
+    cpu = torch.device("cpu")
+    # drawn on the card (the CPU's one-thread draw of 630 M values takes
+    # seconds), the CPU's copy from it
+    params = _lm_to(tr.lm_init(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev), cpu)
+    b = TokenPipeline(cfg.vocab, *batch).next_batch()
+    tol = LM_TRAIN_TOL["float32"]
+    t0 = time.perf_counter()
+    ref = _lm_train_once(cfg, params, b, LM_TRAIN_STEP, cpu)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = _lm_train_once(cfg, params, b, LM_TRAIN_STEP, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    # the CPU's step on the card once, for both comparisons
+    ref = (_lm_to(ref[0], dev), _lm_to(ref[1], dev), ref[2])
+    errs, ok = lm_step_errs(card, ref, cfg, LM_TRAIN_STEP, tol, device=dev)
+    del card
+    with _lm_planted_dropped_microbatch() as calls:
+        planted = _lm_train_once(cfg, params, b, LM_TRAIN_STEP, dev)
+    perrs, pok = lm_step_errs(planted, ref, cfg, LM_TRAIN_STEP, tol,
+                              device=dev)
+    del planted, ref
+    torch.cuda.empty_cache()
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    fault = dict(fault="the second microbatch's gradient dropped",
+                 loss_calls=calls[0], caught=not pok,
+                 err_over_tol={k: perrs[k] / tol[k] for k in tol},
+                 **{f"err_{k}": v for k, v in perrs.items()})
+    row = dict(config=name, dtype="float32", batch=list(batch),
+               microbatch=2, step=LM_TRAIN_STEP, tol=tol,
+               matmul_allow_tf32=tf32, cpu_seconds=cpu_s,
+               card_seconds=card_s, planted_fault=fault,
+               **{f"err_{k}": v for k, v in errs.items()})
+    return row, ok and not tf32 and fault["caught"] and calls[0] == 2
+
+
+def _lm_cli(train, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(argv)
+    return losses, out.getvalue().splitlines()
+
+
+def lm_train_cli(dev, name=LM_CLI[0], first=LM_CLI[1], last=LM_CLI[2]):
+    """``repro_torch.launch.train`` in this process on ``dev``:
+    ``--steps first --ckpt-dir D``, then ``--steps last`` in D, which must
+    print ``resumed at step first`` and whose losses must match an
+    uninterrupted ``--steps last`` run's within the bfloat16 loss
+    tolerance (on the card the embedding's backward adds with atomics, so
+    two runs need not be bit-equal)."""
+    from repro_torch.launch import train
+
+    base = ["--arch", name, "--device", str(dev)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as d:
+        head, _ = _lm_cli(train, [*base, "--steps", str(first),
+                                  "--ckpt-dir", d])
+        tail, lines = _lm_cli(train, [*base, "--steps", str(last),
+                                      "--ckpt-dir", d])
+        saved = sorted(os.listdir(d))
+    whole, whole_lines = _lm_cli(train, [*base, "--steps", str(last)])
+    tol = LM_TRAIN_TOL["bfloat16"]["loss"]
+    resumed = bool(lines) and lines[0] == f"resumed at step {first}"
+    same_steps = (sorted(head) == list(range(first))
+                  and sorted(tail) == list(range(first, last)))
+    err = max((lm_err(tail[s], whole[s]) for s in tail), default=math.inf)
+    head_err = max((lm_err(head[s], whole[s]) for s in head),
+                   default=math.inf)
+    finite = all(math.isfinite(v) for v in (*head.values(), *tail.values()))
+    ok = resumed and same_steps and finite and max(err, head_err) <= tol
+    return dict(config=name, steps=[first, last], tol=tol, resumed=resumed,
+                err_resumed_vs_whole=err, err_first_vs_whole=head_err,
+                checkpoints=saved, lines=lines, whole_lines=whole_lines,
+                seconds=time.perf_counter() - t0, ok=ok), ok
+
+
+def lm_train_path(dev, smi, full=LM_FULL, full_batch=LM_FULL_TRAIN,
+                  f32_batch=LM_F32_TRAIN, full_fall=LM_FULL_FALL):
+    """The LM family's training path: the five ``-smoke`` configs' train
+    step card against CPU (:func:`lm_train_smoke`), the float32 loss curve
+    card against CPU (:func:`lm_train_curve`), ``full`` (qwen2-0.5b) at
+    its published widths and depth in bfloat16 (:func:`lm_train_full`)
+    and in float32 card against CPU with a planted fault
+    (:func:`lm_train_f32`), and the ``train`` CLI's resume on the card
+    (:func:`lm_train_cli`).  No hand-written kernel runs here: the JAX
+    package has no Pallas kernel on this path."""
+    t0 = time.perf_counter()
+    secs = {}
+
+    def timed(key, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        secs[key] = time.perf_counter() - t
+        return out
+
+    smoke, bad = timed("smoke", lm_train_smoke, dev)
+    curve, curve_ok = timed("curve", lm_train_curve, dev)
+    full_row, full_ok = timed("full_bf16", lm_train_full, dev, full,
+                              batch=full_batch, min_fall=full_fall)
+    f32, f32_ok = timed("full_f32", lm_train_f32, dev, full, batch=f32_batch)
+    cli, cli_ok = timed("cli", lm_train_cli, dev)
+    ok = not bad and curve_ok and full_ok and f32_ok and cli_ok
+    emit("lm_train_path", ok=ok, gpu=smi, failed=bad, smoke=smoke,
+         curve=curve, full_bf16=full_row, full_f32=f32, cli=cli,
+         part_seconds=secs, seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"LM train steps on the card differ from the CPU: {bad}")
+    if not curve_ok:
+        fail("the float32 loss curve on the card differs from the CPU's, "
+             "or does not fall")
+    if not full_ok:
+        fail(f"{full} in bfloat16: a loss not finite, or the loss did not "
+             f"fall by {full_fall} nat")
+    if not f32_ok:
+        fail(f"{full} in float32: the card's train step differs from the "
+             "CPU's, TF32 is on, or the planted dropped microbatch went "
+             "unseen")
+    if not cli_ok:
+        fail("train --ckpt-dir on the card did not resume, or its losses "
+             "differ from an uninterrupted run's")
 
 
 # ----------------------------------------------------------------------
@@ -3855,6 +4397,7 @@ def main():
     del art
     phase("substrate_path", substrate_path, dev)
     phase("lm_path", lm_path, dev, smi)
+    phase("lm_train_path", lm_train_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     # search2 first: the runtime's persistent-fault count is demoted to

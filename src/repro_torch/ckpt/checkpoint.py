@@ -14,6 +14,12 @@ numpy arrays.  The port flattens it itself, in the order the JAX package's
 no leaf).  The JAX package's ``mesh=``/``specs=`` re-sharding on restore
 has no counterpart on one device and is left out: a restored leaf goes to
 the device of its ``like`` tensor, with the payload's dtype.
+
+bfloat16 has no numpy dtype without ``ml_dtypes``.  The JAX package's
+``np.asarray`` of a bfloat16 leaf writes it as a raw two-byte void
+(``|V2``) entry; the port writes the tensor's bits as the same entry, and
+restores a ``|V2`` entry as a bfloat16 tensor where the ``like`` leaf is
+one (bit for bit), and raises ``TypeError`` elsewhere.
 """
 from __future__ import annotations
 
@@ -62,10 +68,37 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple = ()):
     return leaves["/".join(str(p) for p in prefix)]
 
 
-def _host(leaf) -> np.ndarray:
+_BF16_ENTRY = np.dtype("V2")  # how a bfloat16 leaf lies in the payload
+
+
+def host_array(leaf, *, copy: bool = False) -> np.ndarray:
+    """``leaf`` as the array the payload holds: a tensor's host array (a
+    bfloat16 tensor's bits as a ``|V2`` array, as the JAX package writes
+    it), a copy that shares no memory with the tensor where ``copy``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().to("cpu", copy=copy)
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view(_BF16_ENTRY)
+        return t.numpy()
+    return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def _restored(key: str, arr: np.ndarray, like):
+    """The payload's ``arr`` at ``key`` as ``like``'s kind of leaf."""
+    if arr.dtype == _BF16_ENTRY:
+        if not (isinstance(like, torch.Tensor)
+                and like.dtype == torch.bfloat16):
+            got = like.dtype if hasattr(like, "dtype") else type(like)
+            raise TypeError(
+                f"checkpoint entry {key!r} holds bfloat16 bits (|V2), which "
+                f"restore only into a bfloat16 tensor, not {got}")
+        # ascontiguousarray makes a 0-d array 1-d: reshape it back
+        bits = np.ascontiguousarray(arr).view(np.int16).reshape(arr.shape)
+        bits = torch.from_numpy(bits)
+        return bits.view(torch.bfloat16).to(like.device)
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(arr).to(like.device)
+    return arr
 
 
 def save_checkpoint(directory: str, step: int, tree, *,
@@ -73,7 +106,7 @@ def save_checkpoint(directory: str, step: int, tree, *,
     """Atomically save a tree: npz payload + manifest with its sha256.
     Returns the manifest's path."""
     os.makedirs(directory, exist_ok=True)
-    flat = {k: _host(v) for k, v in _flatten(tree)}
+    flat = {k: host_array(v) for k, v in _flatten(tree)}
     payload_name = f"step_{step:010d}.npz"
     manifest_name = f"step_{step:010d}.json"
 
@@ -135,9 +168,11 @@ def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
     leaf is the payload's array at that path — a tensor on the device of
     ``like``'s leaf where that is a tensor, else a numpy array — in the
     payload's dtype (an int64 accumulator stays int64, int32 keys stay
-    int32).  A path ``like`` has and the payload lacks raises
-    ``KeyError``; ``verify`` checks the payload's sha256 first and raises
-    ``IOError`` on a mismatch.
+    int32); a ``|V2`` entry (bfloat16 bits) restores into a bfloat16
+    ``like`` tensor only, and raises ``TypeError`` elsewhere.  A path
+    ``like`` has and the payload lacks raises ``KeyError``; ``verify``
+    checks the payload's sha256 first and raises ``IOError`` on a
+    mismatch.
     """
     with open(os.path.join(directory, f"step_{step:010d}.json")) as f:
         manifest = json.load(f)
@@ -152,9 +187,5 @@ def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
     out = {}
     with np.load(path) as data:
         for key, leaf in _flatten(like):
-            arr = data[key.replace("/", "__")]
-            if isinstance(leaf, torch.Tensor):
-                out[key] = torch.from_numpy(arr).to(leaf.device)
-            else:
-                out[key] = arr
+            out[key] = _restored(key, data[key.replace("/", "__")], leaf)
     return _unflatten(like, out), manifest["extra"]

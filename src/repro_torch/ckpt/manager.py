@@ -9,11 +9,11 @@ import zipfile
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .checkpoint import (
     _flatten,
     _unflatten,
+    host_array,
     latest_step,
     load_checkpoint,
     quarantine_step,
@@ -40,10 +40,9 @@ def _snapshot(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that shares no memory with it: on the CPU
     ``tensor.numpy()`` is a view, so a later in-place update of the
     tensor would reach the queued save; from a CUDA tensor the copy is a
-    synchronous device-to-host transfer."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf, copy=True)
+    synchronous device-to-host transfer.  A bfloat16 tensor becomes the
+    ``|V2`` array of its bits, as the payload holds it."""
+    return host_array(leaf, copy=True)
 
 
 class CheckpointManager:

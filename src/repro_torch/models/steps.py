@@ -1,13 +1,17 @@
-"""Serving step builders for the LM family, and the reference's sharding
-specs (the JAX package's ``models/steps.py``, its serving half).
+"""The LM family's train and serving steps, and the reference's sharding
+specs (the JAX package's ``models/steps.py``).
 
 The reference compiles each step with ``jax.jit`` over a device mesh; on
-one card a step is an eager function over the whole batch.  The
-sharding recipe survives as data: :func:`lm_param_specs` and
-:func:`cache_specs` give the reference's ``PartitionSpec`` of every leaf
-as a tuple of axis names on a :class:`~repro_torch.launch.mesh.LogicalMesh`
-(``None`` for a replicated dimension), so a later multi-card back end and
-the dry run read the same layout.
+one card a step is an eager function over the whole batch.  Training is
+the reference's gradient-accumulation microbatching (``lax.scan`` there,
+a loop here): each microbatch's gradients, in the parameters' dtype, are
+added into float32 accumulators, averaged, and handed to AdamW or
+Adafactor.  The sharding recipe survives as data: :func:`lm_param_specs`
+and :func:`cache_specs` give the reference's ``PartitionSpec`` of every
+leaf as a tuple of axis names on a
+:class:`~repro_torch.launch.mesh.LogicalMesh` (``None`` for a replicated
+dimension), and :func:`_opt_specs` the optimiser state's, so a later
+multi-card back end and the dry run read the same layout.
 """
 from __future__ import annotations
 
@@ -18,13 +22,17 @@ import torch
 
 from ..configs.base import LMConfig
 from ..device import resolve_device
+from ..optim import cosine_schedule, make_optimizer
+from ..optim._tree import tree_leaves, tree_map
 from . import nn
-from .transformer import init_kv_cache, lm_decode_step, lm_forward, lm_init
+from .transformer import (init_kv_cache, lm_decode_step, lm_forward, lm_init,
+                          lm_loss)
 
 __all__ = [
     "lm_param_specs",
     "cache_specs",
     "spec",
+    "build_lm_train_step",
     "build_lm_prefill_step",
     "build_lm_decode_step",
     "lm_input_specs",
@@ -115,6 +123,43 @@ def lm_param_specs(params, cfg: LMConfig, *, fsdp="data", tp="model",
     return _walk(params, spec_for)
 
 
+def _opt_specs(opt_state, param_specs):
+    """The optimiser state's specs from the parameters' (a state leaf's
+    path is ``m/<param path>``, ``v/<param path>``, or Adafactor's
+    ``v/<param path>/{vr,vc,v}``): a factored ``vr`` drops the last
+    dimension's axis, ``vc`` the one before it."""
+
+    def leaf_spec(path: str, _leaf) -> Tuple:
+        parts = path.split("/")
+        tail = parts[-1]
+        found = _lookup(param_specs, "/".join(parts[1:]))
+        if found is not None:
+            return found
+        # the factored Adafactor leaves: strip the trailing vr / vc / v
+        found = _lookup(param_specs, "/".join(parts[1:-1]))
+        if found is None:
+            return ()
+        if tail == "vr":
+            return spec(*found[:-1])
+        if tail == "vc":
+            return spec(*(found[:-2] + found[-1:]))
+        if tail == "v":
+            return found
+        return ()
+
+    return _walk(opt_state, leaf_spec)
+
+
+def _lookup(spec_tree, path: str):
+    node = spec_tree
+    for part in path.split("/"):
+        if isinstance(node, dict) and part in node:
+            node = node[part]
+        else:
+            return None
+    return node if isinstance(node, tuple) else None
+
+
 def _dp_spec(mesh) -> Tuple:
     names = tuple(mesh.axis_names) if mesh is not None else ("data",)
     return tuple(a for a in ("pod", "data") if a in names)
@@ -138,6 +183,75 @@ def _check_params(params, dev: torch.device):
     if got != dev:
         raise ValueError(f"the parameters lie on {got}, the step runs on "
                          f"{dev}: move them first")
+
+
+def build_lm_train_step(cfg: LMConfig, mesh=None, *,
+                        compress_grads: bool = False, device=None):
+    """One optimiser step over a batch in microbatches.  Returns
+    ``(fn, info)``; ``fn(params, opt_state, batch, step) -> (params,
+    opt_state, metrics)`` runs on ``device`` (default: the CUDA device)
+    and returns new tensors (the reference donates its inputs: drop yours).
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S); with ``mb =
+    min(cfg.microbatch_size, B)``, a batch that ``mb`` does not divide
+    raises ``ValueError`` (the reference's reshape fails).  Each
+    microbatch's ``lm_loss`` gradients (``torch.autograd.grad``, in the
+    parameters' dtype) are added into float32 accumulators that start at
+    zero — never ``.backward()``, which would accumulate bfloat16 ``.grad``
+    — then divided by the microbatch count and handed to
+    ``cfg.optimizer`` on ``cosine_schedule(3e-4, 2000, 100_000)``.
+    ``metrics`` holds ``loss``, the mean of the microbatch losses, and the
+    optimiser's own (AdamW's ``grad_norm``; Adafactor reports none), as the
+    reference's; the per-microbatch ``ce`` / ``moe_aux`` are dropped.
+
+    ``compress_grads`` is accepted and unused, as in the reference.  The
+    info dict carries the reference's keys: ``params`` and ``opt`` (spec
+    trees), ``opt_init``, and ``dummy`` / ``opt_shape`` (meta tensors).
+    """
+    del compress_grads  # the reference never reads it either
+    dev = resolve_device(device)
+    opt_init, opt_update = make_optimizer(
+        cfg.optimizer, cosine_schedule(3e-4, 2000, 100_000))
+
+    def step_fn(params, opt_state, batch, step):
+        _check_params(params, dev)
+        tokens = _on(dev, batch["tokens"])
+        labels = _on(dev, batch["labels"])
+        b = tokens.shape[0]
+        mb = min(cfg.microbatch_size, b)
+        if b % mb:
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"microbatches of {mb}")
+        nm = b // mb
+        tok_m = tokens.reshape(nm, mb, tokens.shape[1])
+        lab_m = labels.reshape(nm, mb, labels.shape[1])
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=dev), params)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        with torch.enable_grad():
+            for j in range(nm):
+                loss, _ = lm_loss(live, cfg, tok_m[j], lab_m[j])
+                grads = torch.autograd.grad(loss, tree_leaves(live),
+                                            allow_unused=True)
+                for a, g in zip(tree_leaves(acc), grads):
+                    if g is not None:
+                        a.add_(g)
+                loss_sum = loss_sum + loss.detach()
+                del loss, grads
+        del live
+        grads = tree_map(lambda a: a / nm, acc)
+        del acc
+        with torch.no_grad():
+            new_params, new_opt, stats = opt_update(grads, opt_state, params,
+                                                    int(step))
+        return new_params, new_opt, {"loss": loss_sum / nm, **stats}
+
+    dummy = lm_init(None, cfg, device="meta")
+    pspecs = lm_param_specs(dummy, cfg, mesh=mesh)
+    opt_shape = opt_init(dummy)
+    return step_fn, dict(params=pspecs, opt=_opt_specs(opt_shape, pspecs),
+                         opt_init=opt_init, dummy=dummy, opt_shape=opt_shape)
 
 
 def build_lm_prefill_step(cfg: LMConfig, mesh=None, *, device=None):

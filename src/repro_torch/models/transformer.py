@@ -13,16 +13,24 @@ dimension):
      "final_norm": .., "lm_head": .., ["mtp": {...}]}
 
 A Python loop over L replaces the reference's ``lax.scan``.  The forward
-pass and the loss are values here (no gradient: training is a later
-slice).  Decode writes each new key and value into the cache in place —
-the reference donates the cache — and clamps the write position to the
-last slot, as ``lax.dynamic_update_slice_in_dim`` clamps its start.
+pass and the loss are differentiable with ``torch.autograd``: each stack
+is unbound once a forward (one ``UnbindBackward`` stacks the layers'
+gradients, where indexing layer by layer would build a zero ``(L, ...)``
+gradient per layer), and under ``cfg.remat`` — while grad is enabled —
+each layer runs inside ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint`` of the scan body: its activations are
+recomputed in the backward.  The MTP layer is not rematerialised, as in
+the reference; prefill and decode run without grad and are untouched.
+Decode writes each new key and value into the cache in place — the
+reference donates the cache — and clamps the write position to the last
+slot, as ``lax.dynamic_update_slice_in_dim`` clamps its start.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ..device import resolve_device
@@ -135,6 +143,15 @@ def _layer(stack, i: int):
     return stack[i]
 
 
+def _unbound(stack, n: int):
+    """The ``n`` layers of a stacked subtree, each leaf unbound once (views,
+    nothing copied; their gradients stack back in one operation)."""
+    if isinstance(stack, dict):
+        per_key = {k: _unbound(v, n) for k, v in stack.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(stack, 0)
+
+
 def _stacks(params, cfg: LMConfig):
     """``(stack, moe_layer, first cache layer, n)`` in the order the
     layers run: the dense stack first, then the main one."""
@@ -200,12 +217,18 @@ def lm_forward(params, cfg: LMConfig, tokens):
     """tokens (B, S) -> hidden states (B, S, d) + the MoE aux loss."""
     x = params["embed"]["table"][tokens.long()]
     positions = _positions(tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), device=x.device)
     for stack, moe_layer, _, n in _stacks(params, cfg):
         aux = torch.zeros((), device=x.device)
-        for i in range(n):
-            x, a = _layer_apply(_layer(stack, i), cfg, x, positions,
-                                moe_layer=moe_layer)
+        for lp in _unbound(stack, n):
+            if remat:
+                x, a = checkpoint(_layer_apply, lp, cfg, x, positions,
+                                  moe_layer=moe_layer, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _layer_apply(lp, cfg, x, positions,
+                                    moe_layer=moe_layer)
             aux = aux + a
         aux_total = aux_total + aux
     return nn.rmsnorm(params["final_norm"], x), aux_total

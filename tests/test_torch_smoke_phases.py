@@ -3,7 +3,8 @@
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
 ``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
 ``measured_path`` phases, its ``search2`` phase, its ``dryrun_path``
-and ``substrate_path`` phases and its ``lm_path`` phase (on ``-smoke``
+and ``substrate_path`` phases and its ``lm_path`` and ``lm_train_path``
+phases (on ``-smoke``
 configs only) are called here at a tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
@@ -110,13 +111,19 @@ def test_hub_path_phase(on_cpu, graph, capsys):
     assert line["ok"] and not line["mismatches"]
     for kind in ("oned", "cannon"):
         row = line[kind]
-        assert row["triangles"] == row["triangles_search"] == oracle
+        assert row["triangles"] == oracle
         assert row["hub"]["hub_rows"] > 0
-        assert row["hub_partial"]["triangles"] + row["residual"][
-            "triangles"] == oracle
         assert row["kernel_launches"] == row["device_steps_counted"] > 0
         assert row["tasks_past_stage_limit"] == 0
-    assert line["oned"]["hub_partial_chunk512"]["chunk"] == 512
+    # the ring only: Cannon's warm count, search and halves were cut for
+    # the LM training path
+    row = line["oned"]
+    assert row["triangles_search"] == oracle and row["cache_hit"]
+    assert row["hub_partial"]["triangles"] + row["residual"][
+        "triangles"] == oracle
+    assert "triangles_search" not in line["cannon"]
+    # the ring's hub partial at chunk 512 was cut for the LM training path
+    assert "hub_partial_chunk512" not in line["oned"]
     (rec,) = rows
     assert rec["path"] == "oned_hub" and rec["equal"]
     assert rec["launches"] == line["oned"]["kernel_launches"]
@@ -145,8 +152,9 @@ def test_many_path_phase(on_cpu, capsys):
         row = line[f"{kind}/chunk{chunk}"]
         assert row["triangles"] == line["triangles_scipy_oracle"]
         assert row["padding_overhead"] > 0
-    assert ("oned", (chip_smoke.GRID, chip_smoke.GRID),
-            chip_smoke.DEFAULT_CHUNK) in chip_smoke.MANY_CELLS
+    # the ring's chunk-512 batch was cut for the LM training path
+    assert [(kind, chunk) for kind, _, chunk in chip_smoke.MANY_CELLS] == [
+        ("cannon", 8192), ("oned", 8192)]
 
 
 def test_delta_path_phase(on_cpu, graph, capsys, monkeypatch):
@@ -294,7 +302,8 @@ def test_search2_phase(on_cpu, graph, capsys):
     line = _line(capsys, "search2")
     assert line["ok"] and not line["mismatches"]
     assert line["search2"]["graph"] == f"rmat:{SCALE},16,1"
-    assert line["auto"]["graph"] == f"rmat:{SCALE - 2},16,1"
+    assert line["auto"]["graph"] == (
+        f"rmat:{SCALE - chip_smoke.AUTO_SCALE_CUT},16,1")
     assert line["auto"]["triangles"] == line["auto"]["triangles_scipy_oracle"]
 
 
@@ -321,9 +330,11 @@ def test_runtime_path_phase(on_cpu, graph, capsys):
     cli = line["checkpointed_cli"]
     assert cli["faults"]["corrupt_files"] and cli["faults"]["restarts"] >= 1
     assert {r["triangles"] for r in cli.values()} == {oracle}
-    # one save a shift (the faults run also saves the corrupted step 1
-    # and redoes shift 0); the resume only restores
-    assert [s["step"] for s in cli["fail_at_shift"]["saves"]] == [1, 2, 3, 4]
+    # the faults run saves a shift at a time (the corrupted step 1 too,
+    # and again after redoing shift 0); the resume only restores; the
+    # --fail-at-shift run was cut for the LM training path
+    assert [s["step"] for s in cli["faults"]["saves"]] == [1, 1, 2, 3, 4]
+    assert "fail_at_shift" not in cli
     assert all(s["bytes"] > 0 for s in cli["faults"]["saves"])
     assert cli["resume"]["saves"] == []
     assert rec["path"] == "cannon_regrid" and rec["equal"]
@@ -421,6 +432,85 @@ def test_lm_path_phase(on_cpu, capsys, monkeypatch):
     assert f32_decode["ok"] and f32_decode["steps"] == 16
     assert f32_decode["err_logits"] == f32_decode["err_cache"] == 0.0
     assert not f32["matmul_allow_tf32"]
+
+
+def test_lm_train_path_phase(on_cpu, capsys, monkeypatch):
+    """The five smoke configs' train step in both dtypes (the CPU against
+    itself, the router teacher-forced as on the card), the float32 loss
+    curve, the full-width parts on qwen2-0.5b-smoke in qwen2-0.5b's place
+    (a fall of 0.1 nat over its eight steps, where qwen2-0.5b's batch of
+    32 x 512 must fall 1 nat), the planted dropped microbatch, and the
+    ``train`` CLI's resume."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    chip_smoke.lm_train_path(CPU, "cpu", full="qwen2-0.5b-smoke",
+                             full_batch=(4, 32), f32_batch=(4, 16),
+                             full_fall=0.1)
+    line = _line(capsys, "lm_train_path")
+    assert line["ok"] and not line["failed"]
+    # ten with AdamW, six with Adafactor (the three full configs that
+    # train with it)
+    assert len(line["smoke"]) == 16
+    for key, row in line["smoke"].items():
+        assert row["ok"] and row["router_flips"] == 0, key
+        for k in ("loss", "states", "params"):  # the CPU against itself
+            assert row[f"err_{k}"] == 0.0, (key, k)
+        moe = key.startswith(("grok", "deepseek"))
+        assert (row["router_calls"] > 0) == moe, key
+        assert ("err_grad_norm" in row) == key.endswith("/adamw"), key
+    curve = line["curve"]
+    assert curve["ok"] and curve["err"] == 0.0
+    assert len(curve["losses"]["card"]) == chip_smoke.LM_CURVE[1]
+    assert min(curve["fall"].values()) >= chip_smoke.LM_CURVE_FALL
+    full = line["full_bf16"]
+    assert len(full["losses"]) == chip_smoke.LM_FULL_TRAIN_STEPS
+    assert full["fall"] >= 0.1 and full["microbatch"] == 2
+    assert full["tokens_per_step"] == 4 * 32
+    assert full["n_multiplied"] == full["param_numel"] - 512 * 64
+    for key in ("remat_off", "indexed_layers"):
+        assert not full[key]["oom"]
+        assert full[key]["loss"] == pytest.approx(full["losses"][-1],
+                                                  abs=1.0)
+    # indexing the stacks changes where gradients come from, not a bit
+    assert full["indexed_layers"]["loss"] == full["remat_off"]["loss"]
+    f32 = line["full_f32"]
+    assert f32["err_loss"] == f32["err_states"] == f32["err_params"] == 0.0
+    assert not f32["matmul_allow_tf32"]
+    fault = f32["planted_fault"]
+    assert fault["caught"] and fault["loss_calls"] == 2
+    assert fault["err_loss"] == 0.0  # the value kept, the gradient gone
+    assert fault["err_over_tol"]["states"] > 1
+    cli = line["cli"]
+    assert cli["resumed"] and cli["err_resumed_vs_whole"] == 0.0
+    assert cli["lines"][0] == "resumed at step 10"
+    assert cli["checkpoints"] == ["step_0000000010.json",
+                                  "step_0000000010.npz",
+                                  "step_0000000020.json",
+                                  "step_0000000020.npz"]
+
+
+def test_lm_train_checks_catch_a_dropped_microbatch_on_a_smoke_config():
+    """The planted fault on a smoke config in both dtypes: the loss keeps
+    its value, and the states (and AdamW's grad norm) leave their bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"), dtype=dtype)
+        params = tr.lm_init(torch.Generator().manual_seed(0), cfg,
+                            device=CPU)
+        batch = TokenPipeline(cfg.vocab, 4, 32).next_batch()
+        ref = chip_smoke._lm_train_once(cfg, params, batch, 2000, CPU)
+        with chip_smoke._lm_planted_dropped_microbatch() as calls:
+            bad = chip_smoke._lm_train_once(cfg, params, batch, 2000, CPU)
+        tol = chip_smoke.LM_TRAIN_TOL[dtype]
+        errs, ok = chip_smoke.lm_step_errs(bad, ref, cfg, 2000, tol)
+        assert calls[0] == 2 and not ok, dtype
+        assert errs["loss"] == 0.0
+        assert errs["states"] > tol["states"]
+        assert errs["grad_norm"] > tol["grad_norm"]
 
 
 def test_lm_prefill_flops_counts_the_causal_triangle():
