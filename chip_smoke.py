@@ -92,6 +92,34 @@ What it does, in order, printing one JSON object per line:
                     dropped) that the check must catch; ``train
                     --ckpt-dir`` on the card run to step 10, then resumed
                     to 20, against an uninterrupted run;
+   ``recsys_path`` — DLRM (no hand-written kernel either): the smoke
+                    config card against CPU (one train step's loss,
+                    ``grad_norm``, moments and parameters, the serve
+                    step's probabilities, the retrieval step's top
+                    values and indices), and the serve step again with
+                    the interaction's pairs planted in another order,
+                    which that check must catch; the published widths
+                    with every table capped at 2^20 rows (7,206,400
+                    rows, 3.69 GB): 8 train steps at 65,536 from
+                    ``RecsysPipeline`` (step seconds, samples/s, one
+                    step's launches and busy share, the peak, the loss
+                    falling), serve latency at 512 (median and p99 of 50
+                    calls) and throughput at 262,144, and one query's
+                    retrieval over 1,000,000 rows of table 0, its top 100
+                    against a float64 rescoring on the CPU;
+   ``gnn_path``   — the GNNs (no hand-written kernel): every ``-smoke``
+                    config's train step card against CPU, and NequIP's
+                    again with its force term planted out of the loss,
+                    which the check must catch; the reference's
+                    equivariance tests on the card (scipy rotations);
+                    Equiformer-v2 and NequIP at their published widths on
+                    128 molecules of 30 atoms and 64 edges (padded to
+                    4,096 atoms and 8,192 edges), GraphCast (16 x 512,
+                    227 variables) and GAT-Cora (1,433 features) on
+                    3,072 nodes and 10,752 edges: 4 train steps each
+                    (seconds, launches, busy share, peak); and
+                    ``repro_torch.examples.train_gnn`` on the card
+                    (held-out accuracy over 0.7);
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
                     (``npods`` 2 with ``flat`` and ``tree``, 4 with
                     ``tree`` and ``auto``): pod-staging seconds, cold and
@@ -3438,22 +3466,21 @@ def _lm_f64(x, device=None):
     return torch.as_tensor(x).detach().to(device, torch.float64)
 
 
-def lm_step_errs(got, ref, cfg, step, tol, device=None):
+def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
     """One train step's ``(params, opt_state, metrics)`` held to ``ref``'s
     (tensors or numpy arrays, in the same trees): the metrics (``loss``,
     AdamW's ``grad_norm``) as ``|a - b| / (1 + |b|)``; every optimiser
     state leaf (m, v, or Adafactor's vr / vc / v) as ``‖a - b‖ / ‖b‖``;
-    the parameters elementwise as ``|a - b| / (1 + |b|)``.  AdamW's first
-    step from a fresh state is sign-like (``m̂ / √v̂`` is ±1 at step 0,
-    ±0.447 at step 2000), so an element whose first moment's sign differs
-    between the two — a near-zero gradient that rounded the other way —
-    may move the other way by up to ``2 · lr_t · |m̂ / √v̂|`` (from
-    ``ref``'s moments); such elements over ``tol`` are counted as
-    ``flips``.  ``tol`` maps ``loss``, ``grad_norm``, ``states`` and
-    ``params`` to their bounds; the comparison runs in float64 on the host
-    or on ``device``.  Returns ``(errs, ok)``."""
-    from repro_torch.optim import cosine_schedule
-
+    the parameters elementwise as ``|a - b| / (1 + |b|)``.  With AdamW
+    (``lr_t``, the step's rate, given) the first step from a fresh state
+    is sign-like (``m̂ / √v̂`` is ±1 at step 0, ±0.447 at step 2000), so an
+    element whose first moment's sign differs between the two — a
+    near-zero gradient that rounded the other way — may move the other way
+    by up to ``2 · lr_t · |m̂ / √v̂|`` (from ``ref``'s moments); such
+    elements over ``tol`` are counted as ``flips``.  ``tol`` maps
+    ``loss``, ``grad_norm``, ``states`` and ``params`` to their bounds;
+    the comparison runs in float64 on the host or on ``device``.  Returns
+    ``(errs, ok)``."""
     gp, go, gm = got
     rp, ro, rm = ref
     f64 = lambda x: _lm_f64(x, device)  # noqa: E731
@@ -3462,14 +3489,13 @@ def lm_step_errs(got, ref, cfg, step, tol, device=None):
     for a, b in zip(_lm_leaves(go), _lm_leaves(ro)):
         a, b = f64(a), f64(b)
         if a.shape != b.shape:
-            fail(f"lm_train: state shapes {tuple(a.shape)} and "
+            fail(f"train step: state shapes {tuple(a.shape)} and "
                  f"{tuple(b.shape)}")
         states = max(states, float((a - b).norm() / b.norm().clamp_min(1e-30)))
     errs["states"] = states
-    adamw = cfg.optimizer == "adamw"
+    adamw = lr_t is not None
     if adamw:
         b1, b2, eps = 0.9, 0.95, 1e-8  # adamw_update's defaults
-        lr_t = float(cosine_schedule(3e-4, 2000, 100_000)(step))
         bc1, bc2 = 1 - b1 ** (step + 1), 1 - b2 ** (step + 1)
         moments = zip(_lm_leaves(go["m"]), _lm_leaves(ro["m"]),
                       _lm_leaves(ro["v"]))
@@ -3477,7 +3503,7 @@ def lm_step_errs(got, ref, cfg, step, tol, device=None):
     for a, b in zip(_lm_leaves(gp), _lm_leaves(rp)):
         a, b = f64(a), f64(b)
         if a.shape != b.shape:
-            fail(f"lm_train: parameter shapes {tuple(a.shape)} and "
+            fail(f"train step: parameter shapes {tuple(a.shape)} and "
                  f"{tuple(b.shape)}")
         d = (a - b).abs()
         if adamw:
@@ -3494,6 +3520,16 @@ def lm_step_errs(got, ref, cfg, step, tol, device=None):
     ok = (set(gm) == set(rm)
           and all(errs[k] <= tol[k] for k in (*rm, "states", "params")))
     return errs, ok
+
+
+def lm_step_errs(got, ref, cfg, step, tol, device=None):
+    """:func:`step_errs` of an LM train step: AdamW's rate is the LM
+    step's cosine at ``step`` (Adafactor takes no sign-flip slack)."""
+    from repro_torch.optim import cosine_schedule
+
+    lr_t = (float(cosine_schedule(3e-4, 2000, 100_000)(step))
+            if cfg.optimizer == "adamw" else None)
+    return step_errs(got, ref, tol, lr_t=lr_t, step=step, device=device)
 
 
 def _lm_smoke_run(cfg, params, dev, tokens, labels, feed):
@@ -4295,6 +4331,605 @@ def lm_train_path(dev, smi, full=LM_FULL, full_batch=LM_FULL_TRAIN,
 
 
 # ----------------------------------------------------------------------
+# the recsys and GNN families
+# ----------------------------------------------------------------------
+# float32, card against CPU: the LM train step's bounds (the tests hold
+# the CPU to the reference well inside them); serve probabilities and
+# retrieval scores elementwise as |a - b| / (1 + |b|)
+MODEL_STEP_TOL = LM_TRAIN_TOL["float32"]
+MODEL_OUT_TOL = 1e-5
+RECSYS_SMOKE = ("dlrm-mlperf-smoke", 64, 40)  # config, batch, candidates
+RECSYS_FULL = "dlrm-mlperf"
+# each table capped at 2^20 rows: 7,206,400 rows after padding, a 3.69 GB
+# float32 table (uncapped: 177,944,576 rows, 91.1 GB).  At 2^21 (6.64 GB)
+# the first AdamW step ran out of the card's memory: the out-of-place
+# update holds about a dozen table-sized tensors at its peak
+RECSYS_ROWS_CAP = 1 << 20
+RECSYS_TRAIN = (65_536, 8)  # RECSYS_SHAPES' train batch, steps
+RECSYS_SERVE = (512, 50, 262_144, 5)  # p99 batch and calls, bulk batch and calls
+RECSYS_CANDIDATES = 1_000_000
+RECSYS_RETRIEVAL_CALLS = 20
+GNN_ARCH_NAMES = ("gat-cora", "graphcast", "nequip", "equiformer-v2")
+# the molecule cell: 128 molecules x 30 atoms, 64 edges each
+MOLECULE = dict(kind="batched", n_nodes=30, n_edges=64, batch=128)
+GNN_FULL_STEPS = 4
+# the reference's equivariance tests' bounds (tests/test_arch_smoke.py):
+# energy |e1 - e2| < atol + rtol |e1|, forces elementwise atol
+EQUIV_NEQUIP = dict(atol=1e-4, rtol=1e-3, force_atol=2e-4)
+EQUIV_EQUIFORMER = dict(atol=1e-3, rtol=5e-3)
+
+
+def _tensors(batch, dev):
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+            for k, v in batch.items()}
+
+
+def capped_recsys(name=RECSYS_FULL, cap=RECSYS_ROWS_CAP):
+    """``name``'s config with every table capped at ``cap`` rows (the
+    pipeline's Zipf ids are clipped to each table's size)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(
+        cfg, table_sizes=tuple(min(s, cap) for s in cfg.table_sizes))
+
+
+def retrieval_errs(vals, idx, scores):
+    """A top k ``(vals, idx)`` held to the full ``scores`` it was taken
+    from (float64 on the host): the score of the candidate at each rank
+    against the k-th best score at that rank, and each value against its
+    candidate's score, both as ``|a - b| / (1 + |b|)``.  A candidate that
+    differs from a rescoring's only by a tie within that error passes;
+    ``idx_equal`` counts the ranks whose index is the rescoring's own (a
+    stable descending sort: ties to the lower index)."""
+    scores = _lm_host(scores)
+    idx = torch.as_tensor(idx).long().cpu()
+    k = idx.shape[0]
+    want, order = torch.sort(scores, descending=True, stable=True)
+    rank = float(((scores[idx] - want[:k]).abs() / (1 + want[:k].abs()))
+                 .max())
+    val = lm_err(vals, scores[idx])
+    return dict(k=k, err_rank=rank, err_values=val,
+                idx_equal=int((idx == order[:k]).sum()),
+                distinct=len(set(idx.tolist())) == k)
+
+
+@contextlib.contextmanager
+def _planted_pair_order():
+    """A DLRM fault planted for the block: the interaction's pairs taken
+    from the lower triangle (column-major order of the same pairs), so the
+    top MLP reads every pair in another column."""
+    from repro_torch.models import dlrm
+
+    own = dlrm._interact_dot
+
+    def lower(dense_v, sparse_v):
+        b, f, d = sparse_v.shape
+        all_v = torch.cat([dense_v[:, None, :], sparse_v], dim=1)
+        z = torch.bmm(all_v, all_v.transpose(1, 2))
+        il = torch.tril_indices(f + 1, f + 1, offset=-1, device=z.device)
+        return torch.cat([dense_v, z[:, il[0], il[1]]], dim=1)
+
+    dlrm._interact_dot = lower
+    try:
+        yield
+    finally:
+        dlrm._interact_dot = own
+
+
+def recsys_smoke(dev, name=RECSYS_SMOKE[0], batch=RECSYS_SMOKE[1],
+                 n_cand=RECSYS_SMOKE[2]):
+    """``name`` card against CPU from one parameter set drawn on the CPU:
+    one train step (:func:`step_errs`: the loss, ``grad_norm``, both
+    moments, every parameter), the serve step's probabilities and the
+    retrieval step's top values and indices (:func:`retrieval_errs` on the
+    CPU's own scores); then the card's serve step again with the
+    interaction's pairs planted in the lower triangle's order, which the
+    same check must catch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.models.nn import mlp
+
+    cfg = get_config(name)
+    cpu = torch.device("cpu")
+    params = dlrm_init(torch.Generator().manual_seed(0), cfg, device=cpu)
+    b = RecsysPipeline(cfg, batch).next_batch()
+    cand = np.arange(n_cand, dtype=np.int32)
+    out = {}
+    for key, d in (("cpu", cpu), ("card", dev)):
+        p = _lm_to(params, d)
+        fn, info = gs.build_dlrm_train_step(cfg, device=d)
+        step = fn(p, info["opt_init"](p), b, 0)
+        serve, _ = gs.build_dlrm_serve_step(cfg, device=d)
+        retrieve, _ = gs.build_dlrm_retrieval_step(cfg, device=d)
+        out[key] = dict(step=step, probs=serve(p, b["dense"], b["sparse_ids"]),
+                        top=retrieve(p, b["dense"][:1], cand))
+    errs, step_ok = step_errs(out["card"]["step"], out["cpu"]["step"],
+                              MODEL_STEP_TOL, lr_t=1e-3, step=0)
+    probs = lm_err(out["card"]["probs"], out["cpu"]["probs"])
+    with torch.no_grad():
+        q = mlp(params["bot"], torch.from_numpy(b["dense"][:1]),
+                final_act=True)
+        scores = params["emb"]["table"][torch.from_numpy(cand).long()] @ q[0]
+    top = retrieval_errs(*out["card"]["top"], scores)
+    top_ok = (top["distinct"] and top["err_rank"] <= MODEL_OUT_TOL
+              and top["err_values"] <= MODEL_OUT_TOL)
+    serve, _ = gs.build_dlrm_serve_step(cfg, device=dev)
+    with _planted_pair_order():
+        planted = lm_err(serve(_lm_to(params, dev), b["dense"],
+                               b["sparse_ids"]), out["cpu"]["probs"])
+    ok = step_ok and probs <= MODEL_OUT_TOL and top_ok
+    return dict(config=name, batch=batch, candidates=n_cand,
+                tol=dict(step=MODEL_STEP_TOL, out=MODEL_OUT_TOL),
+                loss_cpu=float(out["cpu"]["step"][2]["loss"]),
+                err_probs=probs, retrieval=top,
+                planted_pair_order=dict(err_probs=planted,
+                                        caught=planted > MODEL_OUT_TOL),
+                **{f"err_{k}": v for k, v in errs.items()},
+                ok=ok and planted > MODEL_OUT_TOL), \
+        ok and planted > MODEL_OUT_TOL
+
+
+def _timed_calls(fn, calls):
+    """Each call's seconds, the card synchronised around it."""
+    secs = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def _profile_row(prof):
+    return dict(device_launches=prof["device_launches"],
+                device_seconds=prof["device_seconds"],
+                profiled_wall_seconds=prof["profiled_wall_seconds"],
+                device_busy_share=prof["device_busy_share_of_profiled_wall"],
+                top=prof["top"])
+
+
+def recsys_full(dev, cfg=None, train=RECSYS_TRAIN, serve=RECSYS_SERVE,
+                n_cand=RECSYS_CANDIDATES, seed=0):
+    """DLRM at the published widths, tables capped (:func:`capped_recsys`),
+    parameters drawn on the card: ``train`` steps of ``RecsysPipeline``
+    batches (each step's seconds, samples/s on the median of steps 2 on,
+    one step's launches and busy share from the profiler,
+    ``max_memory_allocated``, the losses falling); the serve step's
+    latency at the p99 batch (median and p99 of its calls) and its
+    throughput at the bulk batch; one query's retrieval against
+    ``n_cand`` rows of table 0, its top 100 against a float64 rescoring
+    on the CPU (:func:`retrieval_errs`)."""
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models.dlrm import dlrm_init, padded_rows
+    from repro_torch.models.nn import mlp
+
+    cfg = cfg or capped_recsys()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = dlrm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                       device=dev)
+    fn, info = gs.build_dlrm_train_step(cfg, device=dev)
+    opt = info["opt_init"](params)
+    batch, steps = train
+    pipe = RecsysPipeline(cfg, batch)
+    losses, secs = [], []
+    for step in range(steps):
+        b = _tensors(pipe.next_batch(), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b, step)
+        losses.append(float(m["loss"]))  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    b = _tensors(pipe.next_batch(), dev)
+    prof = profile_count(lambda: fn(params, opt, b, steps), 0, kernel="\0",
+                         label="dlrm", cpu=False)
+    median = float(np.median(secs[1:]))
+    k = len(losses) // 2
+    fall = float(np.mean(losses[:k]) - np.mean(losses[-k:]))
+    del opt, b
+    torch.cuda.empty_cache()
+
+    p99_batch, p99_calls, bulk_batch, bulk_calls = serve
+    srv, _ = gs.build_dlrm_serve_step(cfg, device=dev)
+    small = _tensors(RecsysPipeline(cfg, p99_batch, seed=1).next_batch(), dev)
+    bulk = _tensors(RecsysPipeline(cfg, bulk_batch, seed=2).next_batch(), dev)
+    run_small = lambda: srv(params, small["dense"], small["sparse_ids"])  # noqa: E731
+    run_bulk = lambda: srv(params, bulk["dense"], bulk["sparse_ids"])  # noqa: E731
+    run_small()
+    lat = _timed_calls(run_small, p99_calls)
+    run_bulk()
+    bulk_s = _timed_calls(run_bulk, bulk_calls)
+    probs = run_bulk()
+    probs_ok = bool(torch.isfinite(probs).all() and (probs >= 0).all()
+                    and (probs <= 1).all())
+    del bulk, probs
+
+    ret, _ = gs.build_dlrm_retrieval_step(cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    cand = rng.choice(cfg.table_sizes[0], n_cand, replace=False).astype(
+        np.int32)
+    dense = small["dense"][:1]
+    cand_t = torch.from_numpy(cand).to(dev)
+    vals, idx = ret(params, dense, cand_t)
+    ret_s = _timed_calls(lambda: ret(params, dense, cand_t),
+                         RECSYS_RETRIEVAL_CALLS)
+    with torch.no_grad():
+        bot = {k: {n: t.double().cpu() for n, t in v.items()}
+               for k, v in params["bot"].items()}
+        q = mlp(bot, dense.double().cpu(), final_act=True)
+        rows = params["emb"]["table"][cand_t.long()].double().cpu()
+        scores = rows @ q[0]
+    top = retrieval_errs(vals, idx, scores)
+    top_ok = (top["distinct"] and top["err_rank"] <= MODEL_OUT_TOL
+              and top["err_values"] <= MODEL_OUT_TOL)
+    numel = sum(t.numel() for t in _lm_leaves(params))
+    table_bytes = params["emb"]["table"].numel() * 4
+    del params
+    torch.cuda.empty_cache()
+    ok = bool(np.isfinite(losses).all()) and fall > 0 and probs_ok and top_ok
+    row = dict(
+        config=cfg.name, rows_cap=max(cfg.table_sizes), rows=padded_rows(cfg),
+        table_bytes=table_bytes, param_numel=numel,
+        train=dict(batch=batch, steps=steps, losses=losses, fall=fall,
+                   step_seconds=secs, median_step_seconds=median,
+                   samples_per_s=batch / median,
+                   max_memory_allocated=peak,
+                   step_profile=_profile_row(prof)),
+        serve=dict(batch=p99_batch, calls=p99_calls,
+                   median_ms=float(np.median(lat)) * 1e3,
+                   p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                   bulk_batch=bulk_batch, bulk_calls=bulk_calls,
+                   bulk_median_s=float(np.median(bulk_s)),
+                   bulk_samples_per_s=bulk_batch / float(np.median(bulk_s)),
+                   probs_in_range=probs_ok),
+        retrieval=dict(candidates=n_cand, calls=RECSYS_RETRIEVAL_CALLS,
+                       median_ms=float(np.median(ret_s)) * 1e3, **top),
+        ok=ok)
+    return row, ok
+
+
+def recsys_path(dev, smi, full_cfg=None, train=RECSYS_TRAIN,
+                serve=RECSYS_SERVE, n_cand=RECSYS_CANDIDATES):
+    """The recsys family: DLRM's smoke config card against CPU
+    (:func:`recsys_smoke`), then the published widths on the card
+    (:func:`recsys_full`).  No hand-written kernel runs here: the JAX
+    package has no Pallas kernel on this path."""
+    t0 = time.perf_counter()
+    smoke, smoke_ok = recsys_smoke(dev)
+    t1 = time.perf_counter()
+    full, full_ok = recsys_full(dev, full_cfg, train, serve, n_cand)
+    ok = smoke_ok and full_ok
+    emit("recsys_path", ok=ok, gpu=smi, smoke=smoke, full=full,
+         part_seconds=dict(smoke=t1 - t0, full=time.perf_counter() - t1),
+         seconds=time.perf_counter() - t0)
+    if not smoke_ok:
+        fail("DLRM's smoke step, serve or retrieval on the card differs "
+             "from the CPU, or the planted pair order went unseen")
+    if not full_ok:
+        fail("DLRM at full width: a loss not finite or not falling, a "
+             "probability out of range, or a top 100 off the float64 "
+             "rescoring")
+
+
+def gnn_smoke_batch(cfg, rng, n=24, e=72):
+    """The reference's smoke batch of ``cfg.arch`` (tests/test_arch_smoke.py
+    ``_gnn_batch``), as numpy: random edges over ``n`` nodes (self-loops
+    included), and the arch's node inputs.  Returns ``(batch, d_feat)``."""
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    if cfg.arch in ("nequip", "equiformer_v2"):
+        b = dict(species=rng.integers(0, 4, n).astype(np.int32),
+                 positions=rng.normal(size=(n, 3)).astype(np.float32),
+                 edge_src=src, edge_dst=dst,
+                 graph_id=np.zeros(n, np.int32),
+                 energy=np.zeros(1, np.float32))
+        if cfg.arch == "nequip":
+            b["forces"] = np.zeros((n, 3), np.float32)
+        return b, 0
+    if cfg.arch == "gat":
+        d = 16
+        return dict(feats=rng.normal(size=(n, d)).astype(np.float32),
+                    edge_src=src, edge_dst=dst,
+                    labels=rng.integers(0, cfg.d_out, n).astype(np.int32),
+                    label_mask=np.ones(n, np.float32)), d
+    return dict(feats=rng.normal(size=(n, cfg.n_vars)).astype(np.float32),
+                target=rng.normal(size=(n, cfg.n_vars)).astype(np.float32),
+                edge_src=src, edge_dst=dst), cfg.n_vars
+
+
+def gnn_cell_batch(cfg, shape, rng):
+    """A synthetic batch of ``shape`` (a ``GNN_SHAPES`` entry) at
+    ``gnn_input_specs``' padded sizes, as numpy.  Molecules: each of
+    ``batch`` molecules has ``n_nodes`` atoms (positions normal, 1.5 Å)
+    and ``n_edges`` edges between two distinct atoms of it; padding atoms
+    sit at the origin with ``graph_id = batch`` (dropped by the energy's
+    segment sum), padding edges are zero-length loops on the first padding
+    atom.  Full graphs: random edges and inputs over every padded node,
+    GAT's label mask on the unpadded ones.  Returns ``(batch, d_feat)``."""
+    from repro_torch.models.gnn.nequip import N_SPECIES
+    from repro_torch.models.gnn_steps import gnn_feat_dim, gnn_input_specs
+
+    specs = gnn_input_specs(cfg, shape)
+    e_pad = specs["edge_src"].shape[0]
+    d_feat = gnn_feat_dim(cfg, shape)
+    if shape["kind"] == "batched":
+        mols, atoms, edges = shape["batch"], shape["n_nodes"], shape["n_edges"]
+        n_pad = specs["species"].shape[0]
+        n, e = mols * atoms, mols * edges
+        off = np.repeat(np.arange(mols) * atoms, edges)
+        a = rng.integers(0, atoms, e)
+        bb = (a + rng.integers(1, atoms, e)) % atoms
+        src = np.full(e_pad, n, np.int64)
+        dst = np.full(e_pad, n, np.int64)
+        src[:e], dst[:e] = a + off, bb + off
+        pos = np.zeros((n_pad, 3), np.float32)
+        pos[:n] = 1.5 * rng.normal(size=(n, 3))
+        gid = np.full(n_pad, mols, np.int32)
+        gid[:n] = np.repeat(np.arange(mols), atoms)
+        species = np.zeros(n_pad, np.int32)
+        species[:n] = rng.integers(0, N_SPECIES, n)
+        b = dict(species=species, positions=pos, edge_src=src.astype(np.int32),
+                 edge_dst=dst.astype(np.int32), graph_id=gid,
+                 energy=rng.normal(size=mols).astype(np.float32))
+        if cfg.arch == "nequip":
+            forces = np.zeros((n_pad, 3), np.float32)
+            forces[:n] = 0.1 * rng.normal(size=(n, 3))
+            b["forces"] = forces
+        return b, d_feat
+    n_pad = specs["feats"].shape[0]
+    src = rng.integers(0, n_pad, e_pad).astype(np.int32)
+    dst = rng.integers(0, n_pad, e_pad).astype(np.int32)
+    feats = rng.normal(size=specs["feats"].shape).astype(np.float32)
+    if cfg.arch == "gat":
+        mask = np.zeros(n_pad, np.float32)
+        mask[:shape["n_nodes"]] = 1
+        return dict(feats=feats, edge_src=src, edge_dst=dst,
+                    labels=rng.integers(0, cfg.d_out, n_pad).astype(np.int32),
+                    label_mask=mask), d_feat
+    return dict(feats=feats, edge_src=src, edge_dst=dst,
+                target=rng.normal(size=feats.shape).astype(np.float32)), d_feat
+
+
+def gnn_train_once(cfg, params, batch, dev, d_feat):
+    """One ``build_gnn_train_step`` call on ``dev`` from a fresh optimiser
+    state: ``(params, opt_state, metrics)``."""
+    from repro_torch.models.gnn_steps import build_gnn_train_step
+
+    build, info = build_gnn_train_step(cfg, None, d_feat, device=dev)
+    params = _lm_to(params, dev)
+    return build(batch)(params, info["opt_init"](params), batch, 0)
+
+
+@contextlib.contextmanager
+def _planted_dropped_forces():
+    """A NequIP fault planted for the block: the loss's force term reads
+    zero forces (the energy term kept), so the second-order gradient
+    through the forces is gone."""
+    from repro_torch.models import gnn_steps
+
+    own = gnn_steps.nequip_energy_forces
+
+    def energy_only(*args):
+        e, f = own(*args)
+        return e, torch.zeros_like(f)
+
+    gnn_steps.nequip_energy_forces = energy_only
+    try:
+        yield
+    finally:
+        gnn_steps.nequip_energy_forces = own
+
+
+def gnn_smoke(dev, names=GNN_ARCH_NAMES, seed=3):
+    """Every GNN ``-smoke`` config card against CPU: one train step of
+    :func:`gnn_smoke_batch` from one parameter set drawn on the CPU, held
+    by :func:`step_errs` (AdamW at 5e-3); then NequIP's card step again
+    with the force term planted out of the loss, which the same check must
+    catch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn_steps import gnn_init
+
+    cpu = torch.device("cpu")
+    rows, bad = {}, []
+    for name in names:
+        cfg = get_config(name + "-smoke")
+        b, d_feat = gnn_smoke_batch(cfg, np.random.default_rng(seed))
+        params = gnn_init(torch.Generator().manual_seed(0), cfg, d_feat,
+                          device=cpu)
+        ref = gnn_train_once(cfg, params, _tensors(b, cpu), cpu, d_feat)
+        got = gnn_train_once(cfg, params, _tensors(b, dev), dev, d_feat)
+        errs, ok = step_errs(got, ref, MODEL_STEP_TOL, lr_t=5e-3, step=0)
+        row = dict(ok=ok, loss_cpu=float(ref[2]["loss"]),
+                   **{f"err_{k}": v for k, v in errs.items()})
+        if cfg.arch == "nequip":
+            with _planted_dropped_forces():
+                planted = gnn_train_once(cfg, params, _tensors(b, dev), dev,
+                                         d_feat)
+            perrs, pok = step_errs(planted, ref, MODEL_STEP_TOL, lr_t=5e-3,
+                                   step=0)
+            row["planted_dropped_forces"] = dict(
+                caught=not pok, **{f"err_{k}": v for k, v in perrs.items()})
+            ok = ok and not pok
+            row["ok"] = ok
+        rows[name + "-smoke"] = row
+        if not ok:
+            bad.append(name + "-smoke")
+    return rows, bad
+
+
+def equivariance_checks(dev):
+    """The reference's two equivariance tests (tests/test_arch_smoke.py)
+    on ``dev`` with the smoke configs and a scipy rotation: NequIP's and
+    Equiformer-v2's energy unchanged by rotating the positions, NequIP's
+    forces rotating with them, within the reference's bounds
+    (``EQUIV_NEQUIP``, ``EQUIV_EQUIFORMER``).  Returns ``(row, ok)``."""
+    from scipy.spatial.transform import Rotation
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn.equiformer_v2 import equiformer_energy
+    from repro_torch.models.gnn.nequip import (nequip_energy,
+                                               nequip_energy_forces)
+    from repro_torch.models.gnn_steps import gnn_init
+
+    def inputs(seed, n, e, rot_seed):
+        rng = np.random.default_rng(seed)
+        t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+        src = t(rng.integers(0, n, e), torch.int32)
+        dst = t(rng.integers(0, n, e), torch.int32)
+        species = t(rng.integers(0, 4, n), torch.int32)
+        pos = t(rng.normal(size=(n, 3)), torch.float32)
+        rot = t(Rotation.random(random_state=rot_seed).as_matrix(),
+                torch.float32)
+        return (species, pos, src, dst, torch.zeros(n, dtype=torch.int32,
+                                                     device=dev)), rot
+
+    def init(name):
+        cfg = get_config(name)
+        return cfg, _lm_to(gnn_init(torch.Generator().manual_seed(0), cfg, 0,
+                                    device="cpu"), dev)
+
+    row = {}
+    (species, pos, src, dst, gid), rot = inputs(7, 16, 48, 5)
+    for key, name, energy, tol in (
+            ("nequip_energy", "nequip-smoke", nequip_energy, EQUIV_NEQUIP),
+            ("equiformer_energy", "equiformer-v2-smoke", equiformer_energy,
+             EQUIV_EQUIFORMER)):
+        cfg, p = init(name)
+        with torch.no_grad():
+            e1 = float(energy(p, cfg, species, pos, src, dst, gid, 1)[0])
+            e2 = float(energy(p, cfg, species, pos @ rot.T, src, dst, gid,
+                              1)[0])
+        bound = tol["atol"] + tol["rtol"] * abs(e1)
+        row[key] = dict(e=e1, e_rotated=e2, diff=abs(e1 - e2), bound=bound,
+                        ok=abs(e1 - e2) < bound)
+    (species, pos, src, dst, gid), rot = inputs(11, 12, 36, 2)
+    cfg, p = init("nequip-smoke")
+    with torch.no_grad():
+        _, f1 = nequip_energy_forces(p, cfg, species, pos, src, dst, gid, 1)
+        _, f2 = nequip_energy_forces(p, cfg, species, pos @ rot.T, src, dst,
+                                     gid, 1)
+    diff = float((f1 @ rot.T - f2).abs().max())
+    row["nequip_forces"] = dict(diff=diff, bound=EQUIV_NEQUIP["force_atol"],
+                                ok=diff <= EQUIV_NEQUIP["force_atol"])
+    ok = all(r["ok"] for r in row.values())
+    return row, ok
+
+
+def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0):
+    """``name`` at its published widths on the card: parameters drawn
+    there, ``steps`` train steps on one :func:`gnn_cell_batch` of
+    ``shape`` (each step's seconds, the median of steps 2 on, every loss
+    finite), one step's launches and busy share from the profiler, and
+    ``max_memory_allocated``."""
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.models.gnn_steps import build_gnn_train_step, gnn_init
+
+    cfg = get_config(name)
+    shape = GNN_SHAPES[shape] if isinstance(shape, str) else shape
+    b, d_feat = gnn_cell_batch(cfg, shape, np.random.default_rng(seed))
+    b = _tensors(b, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = gnn_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                      d_feat, device=dev)
+    build, info = build_gnn_train_step(cfg, None, d_feat, device=dev)
+    fn = build(b)
+    opt = info["opt_init"](params)
+    losses, secs = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b, step)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    prof = profile_count(lambda: fn(params, opt, b, steps), 0, kernel="\0",
+                         label="gnn", cpu=False)
+    nodes = b["species" if "species" in b else "feats"].shape[0]
+    row = dict(config=name, nodes=nodes, edges=int(b["edge_src"].shape[0]),
+               param_numel=sum(t.numel() for t in _lm_leaves(params)),
+               losses=losses, step_seconds=secs,
+               median_step_seconds=float(np.median(secs[1:])),
+               max_memory_allocated=peak, step_profile=_profile_row(prof))
+    del params, opt, b
+    torch.cuda.empty_cache()
+    ok = bool(np.isfinite(losses).all())
+    return row, ok
+
+
+def gnn_example(dev):
+    """``repro_torch.examples.train_gnn`` on ``dev`` in this process: the
+    full ``gat-cora`` config, 200 steps on the seeded SBM graph, its
+    checkpoints in a temporary directory; held-out accuracy over 0.7."""
+    from repro_torch.examples import train_gnn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_gnn_") as d:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = train_gnn.main(["--device", str(dev), "--ckpt-dir", d])
+        saved = sorted(os.listdir(d))
+    ok = res["accuracy"] > 0.7
+    return dict(res, checkpoints=saved, lines=out.getvalue().splitlines(),
+                seconds=time.perf_counter() - t0, ok=ok), ok
+
+
+def gnn_path(dev, smi, full=(("equiformer-v2", MOLECULE),
+                             ("nequip", MOLECULE),
+                             ("graphcast", "full_graph_sm"),
+                             ("gat-cora", "full_graph_sm")),
+             steps=GNN_FULL_STEPS):
+    """The GNN family: every ``-smoke`` config's train step card against
+    CPU with a planted NequIP fault (:func:`gnn_smoke`), the equivariance
+    checks on the card (:func:`equivariance_checks`), each of ``full`` at
+    its published widths on its cell (:func:`gnn_full_step`), and the
+    ``train_gnn`` example (:func:`gnn_example`).  No hand-written kernel
+    runs here: the JAX package has no Pallas kernel on this path."""
+    t0 = time.perf_counter()
+    secs = {}
+
+    def timed(key, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        secs[key] = time.perf_counter() - t
+        return out
+
+    smoke, bad = timed("smoke", gnn_smoke, dev)
+    equiv, equiv_ok = timed("equivariance", equivariance_checks, dev)
+    rows = {}
+    for name, shape in full:
+        rows[name], ok = timed(name, gnn_full_step, dev, name, shape, steps)
+        if not ok:
+            bad.append(name)
+    example, example_ok = timed("train_gnn", gnn_example, dev)
+    ok = not bad and equiv_ok and example_ok
+    emit("gnn_path", ok=ok, gpu=smi, failed=bad, smoke=smoke,
+         equivariance=equiv, full=rows, train_gnn=example,
+         part_seconds=secs, seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"GNN steps on the card differ from the CPU, a planted fault "
+             f"went unseen, or a full-width loss is not finite: {bad}")
+    if not equiv_ok:
+        fail("a GNN's energy or forces on the card are not equivariant "
+             "within the reference's bounds")
+    if not example_ok:
+        fail("the train_gnn example on the card did not reach held-out "
+             "accuracy 0.7")
+
+
+# ----------------------------------------------------------------------
 # what ptxas says of each kernel
 # ----------------------------------------------------------------------
 def start_ptxas(_build):
@@ -4398,6 +5033,8 @@ def main():
     phase("substrate_path", substrate_path, dev)
     phase("lm_path", lm_path, dev, smi)
     phase("lm_train_path", lm_train_path, dev, smi)
+    phase("recsys_path", recsys_path, dev, smi)
+    phase("gnn_path", gnn_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     # search2 first: the runtime's persistent-fault count is demoted to

@@ -1,8 +1,12 @@
-"""Graph and LM configs with a name registry (the JAX package's
-``configs``, its triangle-count and LM halves)."""
+"""Graph and model configs with a name registry (``--arch <id>``), the
+JAX package's ``configs``."""
 from .base import (  # noqa: F401
+    GNN_SHAPES,
     LM_SHAPES,
+    RECSYS_SHAPES,
+    GNNConfig,
     LMConfig,
+    RecsysConfig,
     TCGraphConfig,
     get_config,
     list_configs,
@@ -16,6 +20,10 @@ LM_ARCHS = [
     "grok-1-314b",
     "deepseek-v3-671b",
 ]
+
+GNN_ARCHS = ["nequip", "graphcast", "gat-cora", "equiformer-v2"]
+
+ASSIGNED_ARCHS = [*LM_ARCHS, *GNN_ARCHS, "dlrm-mlperf"]
 
 TC_GRAPHS = [
     "tc-twitter",

@@ -1,19 +1,21 @@
-"""Config registry, the triangle-count graph configs and the LM configs.
+"""Config registry: the triangle-count graphs and every model family.
 
 The JAX package's module of the same name registers every architecture it
 dry-runs (language models, GNNs, recsys) beside the paper's graphs.  The
-port carries the registry, :class:`TCGraphConfig`, :class:`LMConfig` and
-``LM_SHAPES`` with the same fields and defaults; the GNN and recsys
-configs come with their families.  :func:`get_config` of a name the port
-does not register raises ``KeyError`` listing the names it has.
+port carries the registry, :class:`TCGraphConfig`, :class:`LMConfig`,
+:class:`GNNConfig`, :class:`RecsysConfig` and their shape sets with the
+same fields and defaults, and registers the same names.
+:func:`get_config` of a name nobody registers raises ``KeyError`` listing
+the names there are.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
-__all__ = ["TCGraphConfig", "LMConfig", "LM_SHAPES", "register", "get_config",
-           "list_configs"]
+__all__ = ["TCGraphConfig", "LMConfig", "GNNConfig", "RecsysConfig",
+           "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "register",
+           "get_config", "list_configs"]
 
 _REGISTRY: Dict[str, Callable[[], object]] = {}
 
@@ -32,7 +34,12 @@ def _import_configs() -> None:
     from . import (  # noqa: F401  (each registers on import)
         chatglm3_6b,
         deepseek_v3_671b,
+        dlrm_mlperf,
+        equiformer_v2,
+        gat_cora,
+        graphcast,
         grok1_314b,
+        nequip,
         qwen1_5_110b,
         qwen2_0_5b,
         tc_graphs,
@@ -76,6 +83,30 @@ LM_SHAPES = {
     "long_500k": dict(
         kind="decode", seq_len=524288, global_batch=1, skip_full_attention=True
     ),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(
+        kind="full", n_nodes=2708, n_edges=10556, d_feat=1433
+    ),
+    "minibatch_lg": dict(
+        kind="sampled",
+        n_nodes=232_965,
+        n_edges=114_615_892,
+        batch_nodes=1024,
+        fanout=(15, 10),
+    ),
+    "ogb_products": dict(
+        kind="full", n_nodes=2_449_029, n_edges=61_859_140, d_feat=100
+    ),
+    "molecule": dict(kind="batched", n_nodes=30, n_edges=64, batch=128),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
 }
 
 
@@ -171,3 +202,44 @@ class LMConfig:
             + 2 * self.vocab * d
         )
         return total
+
+
+@dataclasses.dataclass
+class GNNConfig:
+    name: str
+    arch: str  # "nequip" | "graphcast" | "gat" | "equiformer_v2"
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    l_max: int = 0
+    m_max: int = 0
+    n_rbf: int = 0
+    cutoff: float = 0.0
+    aggregator: str = "sum"
+    mesh_refinement: int = 0
+    n_vars: int = 0
+    d_out: int = 7  # classes / target dim
+    dtype: str = "float32"
+    remat: bool = True
+    shapes = GNN_SHAPES
+    family: str = "gnn"
+
+
+@dataclasses.dataclass
+class RecsysConfig:
+    name: str
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    bot_mlp: Tuple[int, ...]
+    top_mlp: Tuple[int, ...]
+    interaction: str
+    table_sizes: Tuple[int, ...]
+    multi_hot: int = 1  # ids per sparse field (bag size)
+    dtype: str = "float32"
+    shapes = RECSYS_SHAPES
+    family: str = "recsys"
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.table_sizes)

@@ -1,31 +1,29 @@
-"""Training front end for the LM family (the JAX package's
-``launch/train.py``, its LM branch).
+"""Training front end: ``--arch <id>`` across the families (the JAX
+package's ``launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b-smoke \
         --steps 20 --batch 4 --seq 64 --ckpt-dir /tmp/lm_ckpt [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch dlrm-mlperf-smoke --steps 20 --batch 4 [--device cpu]
 
 Random parameters from a seeded ``torch.Generator`` (seed 0), the
-synthetic deterministic ``TokenPipeline``, ``build_lm_train_step``, and
-checkpoint rotation with restart: a run in a ``--ckpt-dir`` that holds a
-checkpoint resumes its parameters, optimiser state, step and data cursor
-(``resumed at step N``).  The checkpoints are the reference's format, so
-either package resumes the other's.  It prints ``step N  loss L`` every
-five steps and at the last one, as the reference does.  On a CPU use the
+synthetic deterministic pipelines, and the family's step builder.  An LM
+trains with checkpoint rotation and restart: a run in a ``--ckpt-dir``
+that holds a checkpoint resumes its parameters, optimiser state, step and
+data cursor (``resumed at step N``), in the reference's format, so either
+package resumes the other's.  DLRM (the recsys family) trains on
+``RecsysPipeline`` batches; like the reference's, its branch builds the
+``--ckpt-dir`` manager and never saves or resumes.  Both print ``step N
+loss L`` every five steps and at the last one, as the reference does.  A
+GNN or triangle-count config exits with the reference's message (the GNNs
+train through ``repro_torch.examples.train_gnn``).  On a CPU use the
 ``-smoke`` configs.
-
-The recsys and GNN families are not ported yet: their names are refused
-with ``SystemExit``, as is a triangle-count config (the reference points
-those to ``tc_run``).
 """
 from __future__ import annotations
 
 import argparse
 
 __all__ = ["build_parser", "main"]
-
-# the reference's configs that its train trains and this one refuses
-NOT_PORTED = ("dlrm-mlperf", "nequip", "graphcast", "gat-cora",
-              "equiformer-v2")
 
 
 def build_parser():
@@ -43,41 +41,35 @@ def build_parser():
     return ap
 
 
-def _config(name: str):
-    from ..configs import get_config
-
-    try:
-        cfg = get_config(name)
-    except KeyError:
-        raise SystemExit(
-            f"--arch {name}: not an LM config of the port; the recsys and "
-            f"GNN families ({', '.join(NOT_PORTED)}) are not ported yet, "
-            "and the LM configs are repro_torch.configs.LM_ARCHS and their "
-            "-smoke variants") from None
-    if cfg.family != "lm":
-        raise SystemExit(f"family {cfg.family}: use tc_run")
-    return cfg
-
-
 def main(argv=None):
     """Train; returns ``{step: loss}`` of the steps this run took (floats),
     for callers in the same process."""
     args = build_parser().parse_args(argv)
-    cfg = _config(args.arch)
+
+    from ..configs import get_config
+
+    cfg = get_config(args.arch)
+    if cfg.family not in ("lm", "recsys"):
+        raise SystemExit(
+            f"family {cfg.family}: use examples/train_gnn.py or tc_run")
 
     import torch
 
     from ..ckpt import CheckpointManager
-    from ..data.pipeline import TokenPipeline
     from ..device import resolve_device
+
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mgr = (CheckpointManager(args.ckpt_dir, keep=2, async_save=False)
+           if args.ckpt_dir else None)
+    if cfg.family == "recsys":
+        return _train_recsys(cfg, args, dev, gen)
+
+    from ..data.pipeline import TokenPipeline
     from ..models.steps import build_lm_train_step
     from ..models.transformer import lm_init
 
-    dev = resolve_device(args.device)
-    mgr = (CheckpointManager(args.ckpt_dir, keep=2, async_save=False)
-           if args.ckpt_dir else None)
-    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
-                     device=dev)
+    params = lm_init(gen, cfg, device=dev)
     fn, info = build_lm_train_step(cfg, compress_grads=args.compress_grads,
                                    device=dev)
     opt = info["opt_init"](params)
@@ -95,12 +87,35 @@ def main(argv=None):
     for step in range(start, args.steps):
         params, opt, m = fn(params, opt, pipe.next_batch(), step)
         losses[step] = m["loss"]
-        if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:4d}  loss {float(m['loss']):.4f}")
+        _report(step, args.steps, m)
         if mgr and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, {"params": params, "opt": opt},
                      extra={"next_step": step + 1,
                             "pipe": pipe.state_dict()})
+    return {k: float(v) for k, v in losses.items()}
+
+
+def _report(step, steps, metrics):
+    if step % 5 == 0 or step == steps - 1:
+        print(f"step {step:4d}  loss {float(metrics['loss']):.4f}")
+
+
+def _train_recsys(cfg, args, dev, gen):
+    """The reference's recsys branch: DLRM from step 0 on
+    ``RecsysPipeline`` batches; no checkpoint is saved or restored."""
+    from ..data.pipeline import RecsysPipeline
+    from ..models.dlrm import dlrm_init
+    from ..models.gnn_steps import build_dlrm_train_step
+
+    params = dlrm_init(gen, cfg, device=dev)
+    fn, info = build_dlrm_train_step(cfg, device=dev)
+    opt = info["opt_init"](params)
+    pipe = RecsysPipeline(cfg, args.batch)
+    losses = {}
+    for step in range(args.steps):
+        params, opt, m = fn(params, opt, pipe.next_batch(), step)
+        losses[step] = m["loss"]
+        _report(step, args.steps, m)
     return {k: float(v) for k, v in losses.items()}
 
 

@@ -1,0 +1,178 @@
+"""NequIP (arXiv:2101.03164): E(3)-equivariant interatomic potential (the
+JAX package's ``models/gnn/nequip.py``).
+
+Species embedding into l=0 channels; per layer a Clebsch-Gordan
+tensor-product interaction ``h_j ⊗ Y(r̂_ij)`` with radial weights from a
+Bessel-RBF MLP; sum aggregation; per-l self-interaction linears; gated
+nonlinearity (scalars SiLU, higher-l gated by scalar channels); scalar MLP
+readout summed into total energy; forces by ``-∂E/∂positions`` (autograd,
+with the graph kept when the caller differentiates the forces again).
+Irreps layout: features as (N, C, (l_max+1)^2) concatenated real irreps.
+
+The init copies the reference's key use: every ``self/l{l}`` of a layer
+is drawn from one key, and so is every ``post/l{l}``, so the matrices are
+equal across l.  Here one matrix is drawn and shared the same way.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...sparse.segment import segment_sum
+from .. import nn
+from .irreps import _cg_tensor, sph_dim, sph_harm, tp_paths
+
+__all__ = ["nequip_init", "nequip_energy", "nequip_energy_forces",
+           "bessel_rbf"]
+
+N_SPECIES = 16
+
+
+def _sl(l: int) -> slice:
+    return slice(l * l, (l + 1) * (l + 1))
+
+
+def bessel_rbf(r, n_rbf: int, cutoff: float):
+    """Bessel radial basis with smooth polynomial cutoff envelope."""
+    rc = cutoff
+    x = torch.clamp(r / rc, 1e-6, 1.0)
+    n = torch.arange(1, n_rbf + 1, dtype=r.dtype, device=r.device)
+    basis = torch.sin(n[None, :] * math.pi * x[:, None]) / x[:, None]
+    # polynomial cutoff (p=6)
+    p = 6.0
+    env = (
+        1.0
+        - (p + 1) * (p + 2) / 2 * x ** p
+        + p * (p + 2) * x ** (p + 1)
+        - p * (p + 1) / 2 * x ** (p + 2)
+    )
+    return basis * env[:, None]
+
+
+def _shared(gen, c, lm, dtype, device):
+    """``{l{l}: one dense}`` for every l: one matrix, as the reference's
+    one key gives it."""
+    w = nn.dense_init(gen, c, c, dtype=dtype, device=device)
+    return {f"l{l}": w if l == 0 else {"w": w["w"].clone()}
+            for l in range(lm + 1)}
+
+
+def nequip_init(gen, cfg, *, device=None):
+    dtype = getattr(torch, cfg.dtype)
+    c, lm = cfg.d_hidden, cfg.l_max
+    paths = tp_paths(list(range(lm + 1)), lm, lm)
+    kw = dict(dtype=dtype, device=device)
+    params = {
+        "embed": nn.embed_init(gen, N_SPECIES, c, dtype, device),
+        "readout": nn.mlp_init(gen, (c, c, 1), **kw),
+    }
+    for i in range(cfg.n_layers):
+        params[f"layer{i}"] = {
+            "radial": nn.mlp_init(gen, (cfg.n_rbf, 32, len(paths) * c), **kw),
+            # per-l self interaction (channel mixing)
+            "self": _shared(gen, c, lm, dtype, device),
+            "post": _shared(gen, c, lm, dtype, device),
+            "gate": nn.dense_init(gen, c, lm * c, **kw),  # scalars->gates
+        }
+    return params
+
+
+def _tensor_product_messages(layer_p, cfg, x, edge_src, y_edge, rbf):
+    """Per-edge CG tensor product with radial weights, summed into l_out."""
+    c, lm = cfg.d_hidden, cfg.l_max
+    paths = tp_paths(list(range(lm + 1)), lm, lm)
+    w = nn.mlp(layer_p["radial"], rbf)  # (E, n_paths * C)
+    w = w.reshape(-1, len(paths), c)
+    xs = x[edge_src]  # (E, C, S)
+    out = [None] * (lm + 1)
+    for pi, (l1, l2, l3) in enumerate(paths):
+        cg = _cg_tensor(l1, l2, l3, xs.dtype, xs.device)
+        t = torch.einsum(
+            "eci,ej,ijk->eck", xs[..., _sl(l1)], y_edge[..., _sl(l2)], cg
+        )
+        term = w[:, pi, :, None] * t
+        out[l3] = term if out[l3] is None else out[l3] + term
+    return torch.cat(out, dim=-1)
+
+
+def _gate(layer_p, cfg, x):
+    """Equivariant gated nonlinearity."""
+    c, lm = cfg.d_hidden, cfg.l_max
+    scalars = x[..., 0]  # (N, C)
+    gated = [nn.silu(scalars)[..., None]]
+    if lm > 0:
+        gates = torch.sigmoid(
+            nn.dense(layer_p["gate"], scalars).reshape(-1, lm, c)
+        )
+        for l in range(1, lm + 1):
+            gated.append(x[..., _sl(l)] * gates[:, l - 1, :, None])
+    return torch.cat(gated, dim=-1)
+
+
+def _per_l(x, mats, lm):
+    """``einsum('ncs,cd->nds')`` of each l block with its matrix."""
+    return torch.cat(
+        [torch.einsum("ncs,cd->nds", x[..., _sl(l)], mats[f"l{l}"]["w"])
+         for l in range(lm + 1)], dim=-1)
+
+
+def _embed(params, species, n, c, lm, dtype):
+    """(N, C, S) features: the species embedding in the l=0 line, zero
+    elsewhere."""
+    x0 = params["embed"]["table"][species.long()].to(dtype)
+    rest = x0.new_zeros((n, c, sph_dim(lm) - 1))
+    return torch.cat([x0[..., None], rest], dim=-1)
+
+
+def edge_geometry(positions, edge_src, edge_dst):
+    """``(r, unit)`` of every edge.  Self-loop and padding edges have zero
+    length: the ``1e-12`` terms keep their length and gradient finite."""
+    vec = positions[edge_dst] - positions[edge_src]
+    r = torch.linalg.norm(vec + 1e-12, dim=-1)
+    unit = vec / (r[:, None] + 1e-12)
+    return r, unit
+
+
+def nequip_energy(params, cfg, species, positions, edge_src, edge_dst,
+                  graph_id, n_graphs):
+    """Total energy per graph: (n_graphs,)."""
+    n = species.shape[0]
+    c, lm = cfg.d_hidden, cfg.l_max
+    edge_src, edge_dst = edge_src.long(), edge_dst.long()
+    x = _embed(params, species, n, c, lm, positions.dtype)
+
+    r, unit = edge_geometry(positions, edge_src, edge_dst)
+    y_edge = sph_harm(lm, unit)  # (E, S)
+    rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)
+
+    for i in range(cfg.n_layers):
+        p = params[f"layer{i}"]
+        xm = _per_l(x, p["self"], lm)  # self-interaction pre-mix
+        msg = _tensor_product_messages(p, cfg, xm, edge_src, y_edge, rbf)
+        agg = segment_sum(msg, edge_dst, n)
+        agg = _per_l(agg, p["post"], lm)
+        x = x + _gate(p, cfg, agg)
+
+    e_atom = nn.mlp(params["readout"], x[..., 0])[:, 0]  # (N,)
+    return segment_sum(e_atom, graph_id, n_graphs)
+
+
+def nequip_energy_forces(params, cfg, species, positions, edge_src,
+                         edge_dst, graph_id, n_graphs):
+    """``(energies, forces)``, forces ``-∂ΣE/∂positions``.
+
+    ``positions`` is taken as a fresh leaf that requires grad.  Where
+    grad mode is on at the call (a train step), the forces keep their
+    graph (``create_graph=True``), so a loss on them differentiates twice
+    and reaches the parameters; the positions themselves get no gradient.
+    """
+    keep = torch.is_grad_enabled()
+    with torch.enable_grad():
+        pos = positions.detach().requires_grad_(True)
+        e = nequip_energy(params, cfg, species, pos, edge_src, edge_dst,
+                          graph_id, n_graphs)
+        (grad,) = torch.autograd.grad(e.sum(), pos, create_graph=keep)
+    if not keep:
+        e = e.detach()
+    return e, -grad

@@ -39,6 +39,7 @@ __all__ = [
     "matmul",
     "silu",
     "uniform",
+    "normal",
 ]
 
 
@@ -53,7 +54,10 @@ def uniform(gen: Optional[torch.Generator], shape, lo: float, hi: float, *,
     return (u * (hi - lo) + lo).to(dtype)
 
 
-def _normal(gen, shape, std: float, *, dtype, device):
+def normal(gen: Optional[torch.Generator], shape, std: float, *,
+           dtype=torch.float32, device=None) -> torch.Tensor:
+    """``shape`` values normal with deviation ``std``, drawn in float32
+    from ``gen`` and cast to ``dtype``; nothing is drawn on ``meta``."""
     device = resolve_device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
@@ -96,11 +100,31 @@ def mlp_init(gen, dims: Sequence[int], *, bias: bool = True,
     }
 
 
+class _Silu(torch.autograd.Function):
+    """The forward op by op; the backward ``jax.nn.silu``'s, through the
+    logistic's own derivative ``t (1 - t)``.  Autograd of the forward's
+    ``exp(-x)`` would give ``inf · 0 = NaN`` where ``exp(-x)`` overflows
+    (x < -88 in float32 and bfloat16); ``torch.sigmoid``'s backward does
+    not, and stays differentiable for a second order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        t = torch.sigmoid(x)
+        return g * t + (g * x) * (t * (1 - t))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x · 1 / (1 + exp(-x))``, each operation rounded to ``x``'s dtype as
     the reference's ``jax.nn.silu`` lowers it (``F.silu`` rounds once, and
-    differs from it in a third of bfloat16 elements)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    differs from it in a third of bfloat16 elements); its gradient is
+    finite for every finite ``x``, as ``jax.nn.silu``'s is."""
+    return _Silu.apply(x)
 
 
 def mlp(p, x, *, act=silu, final_act=False):
@@ -141,5 +165,5 @@ def layernorm(p, x, eps: float = 1e-5):
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
-    return {"table": _normal(gen, (vocab, d), 0.02, dtype=dtype,
-                             device=device)}
+    return {"table": normal(gen, (vocab, d), 0.02, dtype=dtype,
+                            device=device)}

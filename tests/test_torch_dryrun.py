@@ -116,20 +116,25 @@ def test_graph_configs_equal_the_reference(graph):
 
 
 def test_graph_list_and_registry():
-    """The port registers the reference's names of the ``tc`` and ``lm``
-    families (the GNN and recsys configs come with their slice)."""
+    """The port registers every name the reference does, of every
+    family."""
     assert tcfg.TC_GRAPHS == jcfg.TC_GRAPHS
-    ref = jcfg.base.list_configs()
-    assert tcfg.list_configs() == sorted(
-        n for n in ref if jcfg.get_config(n).family in ("tc", "lm"))
+    assert tcfg.list_configs() == jcfg.base.list_configs()
     assert set(GRAPHS) <= set(tcfg.list_configs())
 
 
 @pytest.mark.parametrize("name", ["nequip", "gat-cora", "dlrm-mlperf",
                                   "no-such-graph"])
 def test_get_config_of_a_name_the_port_lacks_raises(name):
-    with pytest.raises(KeyError, match="tc-twitter"):
-        tcfg.get_config(name)
+    """Only a name nobody registers raises now: the GNN and recsys names
+    resolve to the reference's fields."""
+    if name == "no-such-graph":
+        with pytest.raises(KeyError, match="tc-twitter"):
+            tcfg.get_config(name)
+        return
+    mine, ref = tcfg.get_config(name), jcfg.get_config(name)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.family == ref.family != "tc"
 
 
 @pytest.mark.parametrize("multi_pod,shape,axes", [
@@ -397,7 +402,7 @@ def test_run_cell_refuses_a_model_family(monkeypatch):
         dryrun.run_cell("lm-stub", "train_4k", "pod")
     with pytest.raises(ValueError, match="'qwen2-0.5b' is a 'lm' config"):
         dryrun.run_cell("qwen2-0.5b", "train_4k", "pod")
-    with pytest.raises(KeyError):
+    with pytest.raises(ValueError, match="'gat-cora' is a 'gnn' config"):
         dryrun.run_cell("gat-cora", "train_4k", "pod")
 
 

@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import repro_torch.kernels.tc_fused, repro_torch.pipeline
     import repro_torch.kernels.tc_tile, repro_torch.core.tiles
     import repro_torch.launch.train, repro_torch.models.steps
+    import repro_torch.models.gnn_steps, repro_torch.examples.train_gnn
     g = rt.graph_from_spec("rmat:8,8,5")
     r = rt.count_triangles(g, q=2, method="fused", device="cpu")
     assert r.triangles == rt.triangle_count_oracle(g), r.triangles

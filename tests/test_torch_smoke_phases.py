@@ -524,3 +524,96 @@ def test_lm_prefill_flops_counts_the_causal_triangle():
     mats = 24 * (d * h * dh * 2 + 2 * d * kv * dh + 3 * d * ff)
     att = 24 * 2 * 2048 ** 2 * h * dh
     assert flops == 2 * 2048 * mats + 2 * d * 151936 + att
+
+
+def test_recsys_path_phase(on_cpu, capsys, monkeypatch):
+    """DLRM's smoke config (the CPU against itself: exact) with the
+    planted pair order caught, then the full-width parts at the published
+    widths with every table cut to 64 rows, a batch of 256 for 4 steps,
+    serving 16 and 256, and 60 retrieval candidates."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    chip_smoke.recsys_path(CPU, "cpu",
+                           full_cfg=chip_smoke.capped_recsys(cap=64),
+                           train=(256, 4), serve=(16, 5, 256, 2), n_cand=60)
+    line = _line(capsys, "recsys_path")
+    assert line["ok"]
+    smoke = line["smoke"]
+    for k in ("loss", "grad_norm", "states", "params", "probs"):
+        assert smoke[f"err_{k}"] == 0.0, k
+    top = smoke["retrieval"]
+    assert top["k"] == 40 and top["idx_equal"] == 40 and top["distinct"]
+    fault = smoke["planted_pair_order"]
+    assert fault["caught"] and fault["err_probs"] > chip_smoke.MODEL_OUT_TOL
+    full = line["full"]
+    assert full["rows_cap"] == 64 and full["rows"] == 26 * 64 - 6 * 61 + 512 \
+        - (26 * 64 - 6 * 61) % 512
+    train = full["train"]
+    assert len(train["losses"]) == 4 and train["fall"] > 0
+    assert train["samples_per_s"] > 0
+    assert full["serve"]["probs_in_range"] and full["serve"]["calls"] == 5
+    ret = full["retrieval"]
+    assert ret["k"] == 60 and ret["distinct"] and ret["err_rank"] <= 1e-5
+
+
+def test_capped_recsys_has_the_rows_the_card_holds():
+    """Each table capped at 2^20 rows: 7,206,400 rows after padding, a
+    3.69 GB float32 table (six of the 26 tables cut); uncapped
+    177,944,576 rows (91.1 GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.dlrm import padded_rows
+
+    cfg = chip_smoke.capped_recsys()
+    assert padded_rows(cfg) == 7_206_400
+    assert padded_rows(cfg) * 128 * 4 / 1e9 == pytest.approx(3.69, abs=0.01)
+    assert sum(a != b for a, b in zip(
+        cfg.table_sizes, get_config("dlrm-mlperf").table_sizes)) == 6
+    assert padded_rows(get_config("dlrm-mlperf")) == 177_944_576
+    assert cfg.embed_dim == 128 and cfg.top_mlp[0] == 1024
+
+
+def test_gnn_path_phase(on_cpu, capsys, monkeypatch):
+    """The four smoke configs' steps (the CPU against itself: exact) with
+    the planted NequIP fault caught, the equivariance checks, the
+    full-width parts on the smoke configs at small cells, and the
+    ``train_gnn`` example."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    mol = dict(kind="batched", n_nodes=6, n_edges=8, batch=4)
+    graph = dict(kind="full", n_nodes=40, n_edges=120, d_feat=12)
+    chip_smoke.gnn_path(CPU, "cpu", full=(
+        ("equiformer-v2-smoke", mol), ("nequip-smoke", mol),
+        ("graphcast-smoke", graph), ("gat-cora-smoke", graph)), steps=2)
+    line = _line(capsys, "gnn_path")
+    assert line["ok"] and not line["failed"]
+    assert len(line["smoke"]) == 4
+    for key, row in line["smoke"].items():
+        assert row["ok"], key
+        for k in ("loss", "grad_norm", "states", "params"):
+            assert row[f"err_{k}"] == 0.0, (key, k)
+    fault = line["smoke"]["nequip-smoke"]["planted_dropped_forces"]
+    assert fault["caught"] and fault["err_states"] > 1e-4
+    assert all(r["ok"] for r in line["equivariance"].values())
+    full = line["full"]
+    assert full["nequip-smoke"]["nodes"] == 512  # 24 atoms, padded
+    assert full["nequip-smoke"]["edges"] == 512
+    assert full["gat-cora-smoke"]["nodes"] == 512
+    for row in full.values():
+        assert len(row["losses"]) == 2 and np.isfinite(row["losses"]).all()
+    assert line["train_gnn"]["ok"] and line["train_gnn"]["accuracy"] > 0.7
+    assert len(line["train_gnn"]["checkpoints"]) == 4
+
+
+def test_molecule_cell_pads_as_the_input_specs_do():
+    """128 molecules x 30 atoms, 64 edges each: 4,096 atoms (256 padding
+    atoms with ``graph_id`` 128, dropped by the energy's segment sum) and
+    8,192 edges, each between two atoms of one molecule."""
+    from repro_torch.configs import get_config
+
+    b, d = chip_smoke.gnn_cell_batch(get_config("nequip"),
+                                     chip_smoke.MOLECULE,
+                                     np.random.default_rng(0))
+    assert d == 0 and b["species"].shape == (4096,)
+    assert b["edge_src"].shape == (8192,) and b["forces"].shape == (4096, 3)
+    assert (b["graph_id"][3840:] == 128).all()
+    assert (b["edge_src"] // 30 == b["edge_dst"] // 30).all()
+    assert (b["edge_src"] != b["edge_dst"]).all()
+    assert (b["graph_id"][b["edge_src"]] == b["edge_src"] // 30).all()
