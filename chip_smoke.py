@@ -40,11 +40,14 @@ What it does, in order, printing one JSON object per line:
                     the plain version's time, the least time the card
                     could take (``bound_ms``: every input byte once) and
                     its launches during phase 4;
-   ``dryrun_path`` — ``repro_torch.launch.dryrun``'s 18 cells (the paper's
-                    six graphs x Cannon, 2.5D, ring at q = 16) and
-                    Twitter's ``cannonopt`` / ``cannon2l``, each walked on
-                    meta tensors in this process (a ``dryrun_cell`` line
-                    each, ``fits`` against this card's memory); the walk
+   ``dryrun_path`` — ``repro_torch.launch.dryrun``'s 18 triangle-count
+                    cells (the paper's six graphs x Cannon, 2.5D, ring at
+                    q = 16), Twitter's ``cannonopt`` / ``cannon2l`` and
+                    four of its 70 model cells (qwen2-0.5b train_4k,
+                    deepseek-v3 decode_32k, Equiformer-v2 molecule, DLRM
+                    train_batch), each walked on meta tensors in this
+                    process (a ``dryrun_cell`` line each, ``fits``
+                    against this card's memory); the walk
                     of ``rmat(16, 16)``'s real plan (q = 4, ``search``,
                     chunk 8192) against the count on the card: its staged
                     bytes equal to the CUDA tensors', its peak within 10 %
@@ -86,7 +89,11 @@ What it does, in order, printing one JSON object per line:
                     two microbatches of 16: losses that fall, step seconds,
                     tokens/s, one step's launches and busy share,
                     ``max_memory_allocated`` with remat and without, 6 N
-                    tokens over the step against the bf16 rate); one
+                    tokens over the step against the bf16 rate; the dry
+                    run's walk of that very step on meta, its peak at
+                    most 10 % under the card's and its product FLOPs
+                    equal to ``FlopCounterMode``'s count of a real step);
+                    one
                     float32 full-width step card against CPU, and again
                     with a planted fault (the second microbatch's gradient
                     dropped) that the check must catch; ``train
@@ -103,7 +110,8 @@ What it does, in order, printing one JSON object per line:
                     rows, 3.69 GB): 8 train steps at 65,536 from
                     ``RecsysPipeline`` (step seconds, samples/s, one
                     step's launches and busy share, the peak, the loss
-                    falling), serve latency at 512 (median and p99 of 50
+                    falling, the dry run's walk of the step at most 10 %
+                    under the peak), serve latency at 512 (median and p99 of 50
                     calls) and throughput at 262,144, and one query's
                     retrieval over 1,000,000 rows of table 0, its top 100
                     against a float64 rescoring on the CPU;
@@ -117,7 +125,9 @@ What it does, in order, printing one JSON object per line:
                     4,096 atoms and 8,192 edges), GraphCast (16 x 512,
                     227 variables) and GAT-Cora (1,433 features) on
                     3,072 nodes and 10,752 edges: 4 train steps each
-                    (seconds, launches, busy share, peak); and
+                    (seconds, launches, busy share, peak; Equiformer-v2's
+                    peak against the dry run's walk, at most 10 % under);
+                    and
                     ``repro_torch.examples.train_gnn`` on the card
                     (held-out accuracy over 0.7);
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
@@ -3082,8 +3092,49 @@ def tile_density(dev, seed):
 # ----------------------------------------------------------------------
 DRYRUN_EXTRA = (("tc-twitter", "cannonopt", "pod"),
                 ("tc-twitter", "cannon2l", "pod"))
+# four model cells of the dry run's 70, walked on meta beside the graphs
+DRYRUN_MODEL = (("qwen2-0.5b", "train_4k", "pod"),
+                ("deepseek-v3-671b", "decode_32k", "pod"),
+                ("equiformer-v2", "molecule", "pod"),
+                ("dlrm-mlperf", "train_batch", "pod"))
 DRYRUN_REAL_SCALE = 16  # the walk against a real count: rmat(16, 16, 1)
 DRYRUN_UNDER = 0.10  # the walk may under-predict the measured peak by this
+
+
+def walk_sizing(cfg, shape, measured, excluded=0):
+    """The dry run's walk of a model step that a phase has just run on the
+    card (:func:`repro_torch.launch.dryrun.walk_cell`, on meta tensors: an
+    LM step combined from small depths and microbatch counts, any other
+    walked whole) against that step's measured peak: ``measured`` is
+    ``max_memory_allocated`` over the bytes live before it, and
+    ``excluded`` the bytes of the walk's arguments that were live already
+    (a batch staged before the measurement).  ``under``: the walk more
+    than ``DRYRUN_UNDER`` below the measured peak; where the walk is over
+    it, by how much.  Returns ``(row, walk)``."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    walk, _ = dryrun.walk_cell(cfg, shape)
+    seconds = time.perf_counter() - t0
+    peak = walk.peak_bytes - excluded
+    row = dict(shape=shape, walks=walk.walks, walk_seconds=seconds,
+               walk_peak=peak, measured_peak=measured,
+               walk_over_measured=peak / measured if measured else None,
+               segment_peaks=walk.segment_peaks, walk_flops=walk.flops,
+               under=bool(measured and peak < (1 - DRYRUN_UNDER) * measured))
+    if measured and peak > measured:
+        row.update(over_by_bytes=peak - measured,
+                   over_by_share=peak / measured - 1)
+    return row, walk
+
+
+def sizing_fail(what, row):
+    """Fail where :func:`walk_sizing`'s walk is more than
+    ``DRYRUN_UNDER`` below the card's peak."""
+    if row["under"]:
+        fail(f"{what}: the dry run's walk under-predicts the card's peak: "
+             f"{row['walk_peak']} bytes against {row['measured_peak']} "
+             f"({row['walk_over_measured']:.4f} of it)")
 
 
 def dryrun_real_plan(dev, scale, q):
@@ -3133,18 +3184,26 @@ def dryrun_real_plan(dev, scale, q):
 
 def dryrun_path(dev, main_plan, scale, real_scale=DRYRUN_REAL_SCALE,
                 q=GRID):
-    """``repro_torch.launch.dryrun``'s 18 cells and Twitter's ``cannonopt``
-    and ``cannon2l`` in this process, each walked on meta tensors (no card
-    memory), one ``dryrun_cell`` line each; the walk of a real plan against
-    the card (:func:`dryrun_real_plan`); and the analytic plan of the main
-    graph beside its real plan (the paper's balance assumption, 1.25
-    slack)."""
+    """``repro_torch.launch.dryrun``'s 18 triangle-count cells, Twitter's
+    ``cannonopt`` and ``cannon2l`` and four model cells
+    (``DRYRUN_MODEL``) in this process, each walked on meta tensors (no
+    card memory), one ``dryrun_cell`` line each; the walk of a real plan
+    against the card (:func:`dryrun_real_plan`); and the analytic plan of
+    the main graph beside its real plan (the paper's balance assumption,
+    1.25 slack).  The model walks are held to the card where their steps
+    run: :func:`walk_sizing` in ``lm_train_path``, ``recsys_path`` and
+    ``gnn_path``."""
+    from repro_torch.configs import TC_GRAPHS
     from repro_torch.core.plan import analytic_plan
     from repro_torch.launch import dryrun
 
     bad = []
     t0 = time.perf_counter()
-    for cell in dryrun.all_cells() + list(DRYRUN_EXTRA):
+    cells = [c for c in dryrun.all_cells() if c[0] in TC_GRAPHS]
+    cells += list(DRYRUN_EXTRA) + list(DRYRUN_MODEL)
+    seconds = {}
+    for cell in cells:
+        t = time.perf_counter()
         try:
             row = dryrun.run_cell(*cell)
             row["status"] = "ok"
@@ -3152,6 +3211,7 @@ def dryrun_path(dev, main_plan, scale, real_scale=DRYRUN_REAL_SCALE,
             row = {"name": ":".join(cell), "status": "error",
                    "error": f"{type(e).__name__}: {e}"}
             bad.append(row["name"])
+        seconds[":".join(cell)] = time.perf_counter() - t
         emit("dryrun_cell", **row)
     cells_s = time.perf_counter() - t0
     real = dryrun_real_plan(dev, real_scale, q)
@@ -3165,8 +3225,10 @@ def dryrun_path(dev, main_plan, scale, real_scale=DRYRUN_REAL_SCALE,
     under = real["walk_over_measured"] < 1 - DRYRUN_UNDER
     right = real["triangles"] == real["triangles_scipy_oracle"]
     ok = not bad and real["args_equal"] and not under and right
-    emit("dryrun_path", ok=ok, cells=len(dryrun.all_cells())
-         + len(DRYRUN_EXTRA), failed_cells=bad, cells_seconds=cells_s,
+    emit("dryrun_path", ok=ok, cells=len(cells), failed_cells=bad,
+         cells_seconds=cells_s,
+         model_cell_seconds={k: v for k, v in seconds.items()
+                             if k in {":".join(c) for c in DRYRUN_MODEL}},
          real_plan=real,
          main_graph=dict(graph=f"rmat:{scale},{EDGE_FACTOR},1", n=n, m=m,
                          q=q, dmax_block_est=dmax_est, **balance))
@@ -4063,6 +4125,8 @@ def lm_train_full(dev, name=LM_FULL, seed=0, batch=LM_FULL_TRAIN,
     bfloat16 rate, N every parameter but the gathered embedding table."""
     import dataclasses
 
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models import transformer as tr
@@ -4096,6 +4160,17 @@ def lm_train_full(dev, name=LM_FULL, seed=0, batch=LM_FULL_TRAIN,
     b = pipe.next_batch()
     prof = profile_count(lambda: fn(params, opt, b, first + steps), 0,
                          kernel="\0", label="lm", cpu=False)
+    # the dry run's walk of this very step: its peak against the card's,
+    # its product FLOPs against FlopCounterMode's count of a real step
+    sizing, walk = walk_sizing(
+        cfg, dict(kind="train", seq_len=batch[1], global_batch=batch[0]),
+        peak)
+    with FlopCounterMode(display=False) as counter:
+        out = fn(params, opt, b, first + steps)
+    del out
+    sizing.update(card_flops=counter.get_total_flops(),
+                  flops_equal=counter.get_total_flops()
+                  == sum(walk.flops.values()))
     # remat off: one step on the same state, its own peak
     fn_off, _ = build_lm_train_step(dataclasses.replace(cfg, remat=False),
                                     device=dev)
@@ -4122,7 +4197,8 @@ def lm_train_full(dev, name=LM_FULL, seed=0, batch=LM_FULL_TRAIN,
             top=prof["top"]),
         max_memory_allocated=peak, held_after_steps=held,
         remat_off=off, indexed_layers=indexed, six_n_tokens_flops=flops,
-        six_n_share_of_bf16_peak=flops / median / BF16_FLOPS_PER_S)
+        six_n_share_of_bf16_peak=flops / median / BF16_FLOPS_PER_S,
+        walk=sizing)
     ok = finite and fall >= min_fall
     del params, opt, fn, fn_off
     torch.cuda.empty_cache()
@@ -4321,6 +4397,11 @@ def lm_train_path(dev, smi, full=LM_FULL, full_batch=LM_FULL_TRAIN,
     if not full_ok:
         fail(f"{full} in bfloat16: a loss not finite, or the loss did not "
              f"fall by {full_fall} nat")
+    sizing_fail(f"{full}'s train step", full_row["walk"])
+    if not full_row["walk"]["flops_equal"]:
+        fail(f"{full}'s train step: the walk's product FLOPs "
+             f"{sum(full_row['walk']['walk_flops'].values())} differ from "
+             f"FlopCounterMode's {full_row['walk']['card_flops']}")
     if not f32_ok:
         fail(f"{full} in float32: the card's train step differs from the "
              "CPU's, TF32 is on, or the planted dropped microbatch went "
@@ -4353,6 +4434,7 @@ GNN_ARCH_NAMES = ("gat-cora", "graphcast", "nequip", "equiformer-v2")
 # the molecule cell: 128 molecules x 30 atoms, 64 edges each
 MOLECULE = dict(kind="batched", n_nodes=30, n_edges=64, batch=128)
 GNN_FULL_STEPS = 4
+GNN_SIZED = ("equiformer_v2",)  # full steps whose peak the walk is held to
 # the reference's equivariance tests' bounds (tests/test_arch_smoke.py):
 # energy |e1 - e2| < atol + rtol |e1|, forces elementwise atol
 EQUIV_NEQUIP = dict(atol=1e-4, rtol=1e-3, force_atol=2e-4)
@@ -4530,6 +4612,7 @@ def recsys_full(dev, cfg=None, train=RECSYS_TRAIN, serve=RECSYS_SERVE,
         secs.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before
+    sizing, _ = walk_sizing(cfg, dict(kind="train", batch=batch), peak)
     b = _tensors(pipe.next_batch(), dev)
     prof = profile_count(lambda: fn(params, opt, b, steps), 0, kernel="\0",
                          label="dlrm", cpu=False)
@@ -4584,7 +4667,7 @@ def recsys_full(dev, cfg=None, train=RECSYS_TRAIN, serve=RECSYS_SERVE,
                    step_seconds=secs, median_step_seconds=median,
                    samples_per_s=batch / median,
                    max_memory_allocated=peak,
-                   step_profile=_profile_row(prof)),
+                   step_profile=_profile_row(prof), walk=sizing),
         serve=dict(batch=p99_batch, calls=p99_calls,
                    median_ms=float(np.median(lat)) * 1e3,
                    p99_ms=float(np.percentile(lat, 99)) * 1e3,
@@ -4619,6 +4702,7 @@ def recsys_path(dev, smi, full_cfg=None, train=RECSYS_TRAIN,
         fail("DLRM at full width: a loss not finite or not falling, a "
              "probability out of range, or a top 100 off the float64 "
              "rescoring")
+    sizing_fail("DLRM's train step", full["train"]["walk"])
 
 
 def gnn_smoke_batch(cfg, rng, n=24, e=72):
@@ -4855,6 +4939,10 @@ def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0):
         secs.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before
+    sizing = None
+    if cfg.arch in GNN_SIZED:  # the batch was staged before the peak
+        sizing, _ = walk_sizing(cfg, shape, peak, excluded=sum(
+            t.numel() * t.element_size() for t in b.values()))
     prof = profile_count(lambda: fn(params, opt, b, steps), 0, kernel="\0",
                          label="gnn", cpu=False)
     nodes = b["species" if "species" in b else "feats"].shape[0]
@@ -4863,6 +4951,8 @@ def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0):
                losses=losses, step_seconds=secs,
                median_step_seconds=float(np.median(secs[1:])),
                max_memory_allocated=peak, step_profile=_profile_row(prof))
+    if sizing is not None:
+        row["walk"] = sizing
     del params, opt, b
     torch.cuda.empty_cache()
     ok = bool(np.isfinite(losses).all())
@@ -4927,6 +5017,9 @@ def gnn_path(dev, smi, full=(("equiformer-v2", MOLECULE),
     if not example_ok:
         fail("the train_gnn example on the card did not reach held-out "
              "accuracy 0.7")
+    for name, row in rows.items():
+        if "walk" in row:
+            sizing_fail(f"{name}'s train step", row["walk"])
 
 
 # ----------------------------------------------------------------------

@@ -1,31 +1,53 @@
-"""Dry run of the paper's graphs: size every triangle-count cell from
-shapes alone.
+"""Dry run of every cell: size each model step and each triangle-count
+graph from shapes alone.
 
 The JAX package lowers and compiles each cell for a 256- or 512-chip mesh
-and reads the compiled program's cost and memory.  The port holds the
-whole logical grid on one card and compiles nothing: a cell is one call of
-the port's real engine function (``build_cannon_fn`` / ``build_oned_fn``
-with the stores, kernels and schedules they bind), walked on ``meta``
-tensors by :func:`repro_torch.launch.roofline.walk_engine` — shape-only,
-nothing allocated, no value read, and no card needed.  The walk is on
-meta by design, not in place of a card.  A 1-billion-edge graph would
-take far longer to plan on the host than to walk, so the plan is the
-analytic one (:func:`repro_torch.core.plan.analytic_plan`), as in the JAX
-package.  Every device-step of an analytic plan has the same shapes, so
-the walk samples what repeats (one device-step's chunks, one schedule
-step, one shift) and adds it once for every repeat; that is exact here.
+and reads the compiled program's cost and memory.  The port holds a whole
+cell on one card and compiles nothing: a cell is one call of the port's
+own program, walked on ``meta`` tensors by
+:mod:`repro_torch.launch.roofline` — shape-only, nothing allocated, no
+value read, and no card needed.  The walk is on meta by design, not in
+place of a card.  Its rows answer the port's own question: does this
+step run unsharded on one card (``grid_bytes``, ``fits``)?
+
+**Model cells** (5 LM archs x 3 shapes, 5 GNN / recsys archs x 4 shapes,
+each under ``pod`` and ``multipod``): the reference's step per ``kind``
+(``build_lm_{train,prefill,decode}_step``, ``build_gnn_train_step``,
+``build_dlrm_{train,serve,retrieval}_step``) on the reference's
+arguments — the dummy parameters, the optimiser state's shapes, the input
+specs, step 0 — walked by :func:`~repro_torch.launch.roofline.walk_step`.
+An LM step at full depth and batch would take minutes to walk, so it is
+walked at one and two layers of each stack (dense and MoE apart; the MTP
+layer is a constant) and, for training, at one and two microbatches, and
+its counts are extrapolated to the config's own depth and microbatch
+count (:func:`lm_walk_plan`): every layer of a stack and every microbatch
+has the same shapes, so the products, ops and bytes are exactly affine in
+each.  The live bytes are extrapolated at each point of the program where
+the step makes tensors, and the peak is the most of them (see
+:func:`lm_walk_plan`).  A GNN or DLRM step is walked whole.  The same cell under ``pod`` and ``multipod`` walks once a
+process.
+
+**Triangle-count cells**: the port's real engine function
+(``build_cannon_fn`` / ``build_oned_fn`` with the stores, kernels and
+schedules they bind) over the analytic plan
+(:func:`repro_torch.core.plan.analytic_plan`), as in the JAX package,
+walked by :func:`~repro_torch.launch.roofline.walk_engine`.  Every
+device-step of an analytic plan has the same shapes, so the walk samples
+what repeats (one device-step's chunks, one schedule step, one shift) and
+adds it once for every repeat; that is exact here.
 
 Usage:
-  python -m repro_torch.launch.dryrun --cell <graph>:<schedule>:<mesh>
+  python -m repro_torch.launch.dryrun --cell <arch>:<shape>:<mesh>
   python -m repro_torch.launch.dryrun --list
 
 Mesh names: "pod" = a 16x16 logical grid (256 logical devices),
-"multipod" = 2x16x16 (512).  Schedules: ``cannon``, ``cannonopt``
-(uint16-length blobs), ``cannon2l`` (two-level probes, gather-free keys
-and uint16-length blobs), ``cannon25d`` (2 pods) and ``oned`` (the ring,
-p = 256).  Each cell prints one JSON row: the JAX package's roofline
-fields, ``nshifts``, ``nnz_pad_per_device``, ``grid_bytes`` and ``fits``
-(:class:`~repro_torch.launch.roofline.RooflineReport`).
+"multipod" = 2x16x16 (512).  Triangle-count schedules: ``cannon``,
+``cannonopt`` (uint16-length blobs), ``cannon2l`` (two-level probes,
+gather-free keys and uint16-length blobs), ``cannon25d`` (2 pods) and
+``oned`` (the ring, p = 256).  Each cell prints one JSON row: the JAX
+package's roofline fields, ``grid_bytes`` and ``fits``
+(:class:`~repro_torch.launch.roofline.RooflineReport`), and for a
+triangle-count cell ``nshifts`` and ``nnz_pad_per_device``.
 """
 from __future__ import annotations
 
@@ -34,23 +56,34 @@ import dataclasses
 import json
 import math
 import sys
+import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["all_cells", "run_cell", "TCCell", "tc_cell", "main"]
+__all__ = ["all_cells", "run_cell", "TCCell", "tc_cell", "ModelCell",
+           "model_cell", "lm_walk_plan", "walk_cell", "walk_model_cell",
+           "main"]
 
 Q = 16  # the production grid's side
 
 
 def all_cells():
-    """Every (graph, schedule, mesh) cell of the triangle-count matrix, in
-    the JAX package's order."""
-    from ..configs import TC_GRAPHS
+    """Every (arch, shape, mesh) cell of the assignment matrix, in the JAX
+    package's order: the model cells (an LM's ``long_500k`` skipped: every
+    LM arch is full attention), then the triangle-count graphs."""
+    from ..configs import ASSIGNED_ARCHS, TC_GRAPHS, get_config
 
     cells = []
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape_name, shape in cfg.shapes.items():
+            if cfg.family == "lm" and shape.get("skip_full_attention"):
+                continue
+            for mesh_name in ("pod", "multipod"):
+                cells.append((arch, shape_name, mesh_name))
     for g in TC_GRAPHS:
         for sched in ("cannon", "cannon25d", "oned"):
             mesh_name = "multipod" if sched == "cannon25d" else "pod"
@@ -183,26 +216,311 @@ def _run_tc_cell(cfg, sched: str, mesh, label: str) -> dict:
     return row
 
 
+# ======================================================================
+# the model cells
+# ======================================================================
+def _gnn_model_flops(cfg, shape) -> float:
+    """The JAX package's useful FLOPs of a GNN train step."""
+    if shape["kind"] == "sampled":
+        b = shape["batch_nodes"]
+        f1, f2 = shape["fanout"]
+        e = b * f1 + b * f1 * f2
+        n = b * (1 + f1 + f1 * f2)
+    elif shape["kind"] == "batched":
+        n = shape["n_nodes"] * shape["batch"]
+        e = shape["n_edges"] * shape["batch"]
+    else:
+        n, e = shape["n_nodes"], shape["n_edges"]
+    d = cfg.d_hidden
+    if cfg.arch == "gat":
+        per_layer = 2 * n * d * d * cfg.n_heads + 6 * e * d * cfg.n_heads
+    elif cfg.arch == "graphcast":
+        per_layer = 2 * e * (2 * d) * d * 2 + 2 * n * (2 * d) * d * 2
+    else:  # equivariant: TP/eSCN dominated
+        s = (cfg.l_max + 1) ** 2
+        per_layer = 6 * e * d * d * s
+    return 3.0 * cfg.n_layers * per_layer  # fwd + bwd ~ 3x fwd
+
+
+def _recsys_model_flops(cfg, shape) -> float:
+    """The JAX package's useful FLOPs of a DLRM step."""
+    if shape["kind"] == "retrieval":
+        return 2.0 * shape["n_candidates"] * cfg.embed_dim
+    b = shape["batch"]
+    mlp = 0
+    dims = cfg.bot_mlp
+    for i in range(len(dims) - 1):
+        mlp += 2 * dims[i] * dims[i + 1]
+    dims = cfg.top_mlp
+    for i in range(len(dims) - 1):
+        mlp += 2 * dims[i] * dims[i + 1]
+    inter = 2 * (cfg.n_sparse + 1) ** 2 * cfg.embed_dim
+    mult = 3.0 if shape["kind"] == "train" else 1.0
+    return mult * b * (mlp + inter)
+
+
+def _metrics_specs(out):
+    return {k: () for k in out[2]}
+
+
+@dataclasses.dataclass
+class ModelCell:
+    """One model cell's step before it is walked: the step on ``meta``,
+    the reference's arguments as meta trees (``args``), the JAX package's
+    sharding spec of each (``arg_specs``), the spec of the step's result
+    (``out_specs(result)``), the segments the walk keeps apart and the
+    reference's ``model_flops``."""
+
+    fn: object
+    args: tuple
+    arg_specs: tuple
+    out_specs: object
+    model_flops: float
+    segments: Optional[dict] = None
+
+
+def model_cell(cfg, shape: dict, mesh) -> ModelCell:
+    """The step of one model cell, following the JAX package's
+    ``run_cell``: the same step per ``kind`` and the same arguments.  The
+    specs are the reference's ``in_shardings`` (and its ``out_shardings``
+    where it names them: the LM train and decode steps).  Where it names
+    none, a result takes its input's spec (parameters and optimiser
+    state), the batch's (a prediction a row) or none (metrics, the top
+    100)."""
+    from ..models.steps import spec
+
+    if cfg.family == "lm":
+        from ..models import steps
+        from .roofline import model_flops_lm
+
+        dp = steps._dp_spec(mesh)
+        kind = shape["kind"]
+        mf = model_flops_lm(cfg, shape)
+        if kind == "train":
+            fn, info = steps.build_lm_train_step(cfg, mesh, device="meta")
+            specs = steps.lm_input_specs(cfg, shape, step="train")
+            bspec = {"tokens": spec(dp, None), "labels": spec(dp, None)}
+            return ModelCell(
+                fn, (info["dummy"], info["opt_shape"], specs["batch"], 0),
+                (info["params"], info["opt"], bspec, ()),
+                lambda out: (info["params"], info["opt"],
+                             _metrics_specs(out)), mf,
+                {"microbatch": (steps, "_microbatch_grads")})
+        if kind == "prefill":
+            fn, info = steps.build_lm_prefill_step(cfg, mesh, device="meta")
+            specs = steps.lm_input_specs(cfg, shape, step="prefill")
+            return ModelCell(fn, (info["dummy"], specs["tokens"]),
+                             (info["params"], spec(dp, None)),
+                             lambda out: spec(dp), mf)
+        if kind == "decode":
+            fn, info = steps.build_lm_decode_step(cfg, mesh, device="meta")
+            specs = steps.lm_input_specs(cfg, shape, step="decode")
+            return ModelCell(
+                fn, (info["dummy"], specs["cache"], specs["token"],
+                     specs["cache_len"]),
+                (info["params"], info["cache"], spec(dp), spec(dp)),
+                lambda out: (spec(dp), info["cache"]), mf)
+        raise ValueError(f"no LM step of kind {kind!r}")
+    if cfg.family == "gnn":
+        from ..models import gnn_steps as gs
+
+        d_feat = gs.gnn_feat_dim(cfg, shape)
+        batch = gs.gnn_input_specs(cfg, shape)
+        build, info = gs.build_gnn_train_step(cfg, mesh, d_feat,
+                                              device="meta")
+        opt_shape = info["opt_init"](info["dummy"])
+        return ModelCell(
+            build(batch), (info["dummy"], opt_shape, batch, 0),
+            (info["params"], gs._replicated(opt_shape),
+             info["batch_specs"](batch), ()),
+            lambda out: (info["params"], gs._replicated(opt_shape),
+                         _metrics_specs(out)),
+            _gnn_model_flops(cfg, shape))
+    if cfg.family == "recsys":
+        from ..models import gnn_steps as gs
+
+        specs = gs.recsys_input_specs(cfg, shape)
+        mf = _recsys_model_flops(cfg, shape)
+        dp = gs._dp_axes(mesh)
+        if shape["kind"] == "train":
+            fn, info = gs.build_dlrm_train_step(cfg, mesh, device="meta")
+            opt_shape = info["opt_init"](info["dummy"])
+            return ModelCell(
+                fn, (info["dummy"], opt_shape, specs, 0),
+                (info["params"], info["opt"], info["batch"], ()),
+                lambda out: (info["params"], info["opt"],
+                             _metrics_specs(out)), mf)
+        if shape["kind"] == "retrieval":
+            fn, info = gs.build_dlrm_retrieval_step(cfg, mesh, device="meta")
+            return ModelCell(
+                fn, (info["dummy"], specs["dense"], specs["cand_ids"]),
+                (info["params"], (), info["cand_ids"]),
+                lambda out: tuple(() for _ in out), mf)
+        fn, info = gs.build_dlrm_serve_step(cfg, mesh, device="meta")
+        return ModelCell(
+            fn, (info["dummy"], specs["dense"], specs["sparse_ids"]),
+            (info["params"], spec(dp, None), spec(dp, None, None)),
+            lambda out: spec(dp), mf)
+    raise ValueError(cfg.family)
+
+
+def lm_walk_plan(cfg, shape: dict):
+    """The walks an LM cell is extrapolated from: a list of ``(coefficient,
+    cfg, shape)``, the cell's step being ``Σ coefficient · walk``
+    (:func:`~repro_torch.launch.roofline.combine_walks`).
+
+    Each stack (the dense one where the config has it, and the main one)
+    is walked at one layer and at two, the other at one; a train step at
+    one microbatch and at two (global batch ``mb`` and ``2·mb``).  The
+    counts are ``Q(x, n) = A(x) + n·B(x)`` with ``A`` and ``B`` affine in
+    the depths ``x``: every layer of a stack and every microbatch has the
+    same shapes, and the optimiser's work grows with the layers only.  With
+    ``t = n − 1`` and ``d_i`` the depths past the base, the coefficient of
+    the base at one microbatch is ``(1 − Σd)(1 − t)``, at two ``(1 − Σd)·t``,
+    and of stack ``i`` one layer deeper ``d_i(1 − t)`` and ``d_i·t``; a
+    walk whose coefficient is 0 is left out.
+
+    The live bytes are combined the same way at each point of the program
+    where tensors are made (:func:`~repro_torch.launch.roofline.combine_walks`),
+    and the peak is the most of them.  A train step's peak equals a full
+    walk's, on the smoke configs stretched to four and five layers and on
+    chatglm3-6b's and qwen2-0.5b's own depth; a serving step's is over by
+    up to 0.29 % on the stretched configs and 0.02 % at qwen2-0.5b's own
+    depth (its first layer holds less than the later ones), never under
+    (``tests/test_torch_dryrun_walks.py``).  Refused, as a sampled engine walk refuses uneven
+    device-steps: a step kind other than train, prefill and decode, a
+    batch that the microbatch does not divide, and an MoE config without a
+    MoE layer."""
+    from ..models.transformer import _stack_sizes
+
+    kind = shape["kind"]
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"no LM walk of kind {kind!r}")
+    dense, main = _stack_sizes(cfg)
+    if main < 1:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_layers} layers and {dense} dense ones leave "
+            "the main stack empty; the affine walk needs one layer of it")
+    base = (1 if dense else 0, 1)
+    d = (dense - base[0], main - base[1])
+    # (coefficient, depths): the base, and each stack one layer deeper
+    points = [(1 - sum(d), base)] + [
+        (d[i], tuple(b + (j == i) for j, b in enumerate(base)))
+        for i in range(2) if base[i]]
+    n, mults = 1, (1,)
+    if kind == "train":
+        b = shape["global_batch"]
+        mb = min(cfg.microbatch_size, b)
+        if b % mb:
+            raise ValueError(f"{cfg.name}: a batch of {b} does not split into "
+                             f"microbatches of {mb}")
+        n = b // mb
+        if n > 1:
+            mults = (1, 2)
+    t = n - 1
+    plan = []
+    for c, depth in points:
+        wcfg = dataclasses.replace(cfg, first_dense_layers=depth[0]
+                                   if cfg.moe else cfg.first_dense_layers,
+                                   n_layers=depth[0] + depth[1])
+        for m in mults:
+            cm = c * ((1 - t) if m == 1 else t) if len(mults) > 1 else c
+            wshape = dict(shape)
+            if kind == "train":
+                wshape["global_batch"] = mb * m
+            if cm:
+                plan.append((cm, wcfg, wshape))
+    return plan
+
+
+def walk_cell(cfg, shape: dict, meshes=None):
+    """The walk of ``cfg``'s step at ``shape``, ``(StepWalk, outputs)``:
+    an LM step combined from the walks of :func:`lm_walk_plan`, a GNN or
+    DLRM step walked whole.  ``outputs`` maps each name of ``meshes`` (a
+    dict of name to mesh; default the pod) to one device's bytes of the
+    step's result.  The steps ignore the mesh but for their specs, so one
+    walk serves every mesh."""
+    from .mesh import make_production_mesh
+    from .roofline import combine_walks, shard_bytes, walk_step
+
+    meshes = meshes or {"pod": make_production_mesh()}
+    plan = (lm_walk_plan(cfg, shape) if cfg.family == "lm"
+            else [(1, cfg, shape)])
+    terms, outputs = [], {m: 0 for m in meshes}
+    for c, wcfg, wshape in plan:
+        cells = {m: model_cell(wcfg, wshape, mesh)
+                 for m, mesh in meshes.items()}
+        cell = next(iter(cells.values()))
+        walk = walk_step(cell.fn, *cell.args, segments=cell.segments)
+        for m, mesh in meshes.items():
+            outputs[m] += c * shard_bytes(
+                walk.result, cells[m].out_specs(walk.result), mesh)
+        walk.result = None
+        terms.append((c, walk))
+    return combine_walks(terms), outputs
+
+
+_WALKS: Dict[Tuple[str, str], tuple] = {}
+
+
+def walk_model_cell(arch: str, shape_name: str):
+    """The walk of one model cell, ``(StepWalk, outputs, seconds)``, once a
+    process (:func:`walk_cell` on both production meshes)."""
+    from ..configs import get_config
+    from .mesh import make_production_mesh
+
+    key = (arch, shape_name)
+    if key not in _WALKS:
+        cfg = get_config(arch)
+        meshes = {m: make_production_mesh(multi_pod=m == "multipod")
+                  for m in ("pod", "multipod")}
+        t0 = time.perf_counter()
+        walk, outputs = walk_cell(cfg, cfg.shapes[shape_name], meshes)
+        _WALKS[key] = (walk, outputs, time.perf_counter() - t0)
+    return _WALKS[key]
+
+
+def _run_model_cell(cfg, shape_name: str, mesh, mesh_name: str,
+                    label: str) -> dict:
+    from .roofline import roofline_from_step, shard_bytes, tree_tensors
+
+    shape = cfg.shapes[shape_name]
+    cell = model_cell(cfg, shape, mesh)
+    walk, outputs, _ = walk_model_cell(cfg.name, shape_name)
+    staged = sum(t.numel() * t.element_size()
+                 for t in tree_tensors(list(cell.args)))
+    if walk.staged_bytes != staged:
+        raise ValueError(
+            f"{label}: the combined walks stage {walk.staged_bytes} bytes, "
+            f"the cell's arguments are {staged}: the affine rule failed")
+    rep = roofline_from_step(
+        label, walk, mesh_name=mesh_name, chips=mesh.size,
+        model_flops=cell.model_flops,
+        args_per_device=shard_bytes(cell.args, cell.arg_specs, mesh),
+        outputs_per_device=outputs[mesh_name])
+    return rep.row()
+
+
 def run_cell(arch: str, shape_name: str, mesh_name: str) -> dict:
-    """The row of one cell.  Only the triangle-count graphs are walked:
-    a config of another family raises."""
+    """The row of one cell: a model step's walk, or a triangle-count
+    graph's engine walk."""
     from ..configs import get_config
     from .mesh import make_production_mesh
 
     cfg = get_config(arch)
-    if cfg.family != "tc":
-        raise ValueError(
-            f"the port's dry run walks triangle-count cells only; {arch!r} "
-            f"is a {cfg.family!r} config")
     mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
-    return _run_tc_cell(cfg, shape_name, mesh,
-                        f"{arch}:{shape_name}:{mesh_name}")
+    label = f"{arch}:{shape_name}:{mesh_name}"
+    if cfg.family == "tc":
+        return _run_tc_cell(cfg, shape_name, mesh, label)
+    if cfg.family in ("lm", "gnn", "recsys"):
+        return _run_model_cell(cfg, shape_name, mesh, mesh_name, label)
+    raise ValueError(cfg.family)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Dry-run a triangle-count cell on meta tensors.")
-    ap.add_argument("--cell", help="graph:schedule:mesh")
+        description="Dry-run a cell on meta tensors.")
+    ap.add_argument("--cell", help="arch:shape:mesh")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -212,7 +530,7 @@ def main(argv=None):
             print(":".join(c))
         return
     if not args.cell:
-        ap.error("give --cell graph:schedule:mesh or --list")
+        ap.error("give --cell arch:shape:mesh or --list")
 
     arch, shape_name, mesh_name = args.cell.split(":")
     try:

@@ -5,7 +5,8 @@ The JAX package builds device meshes of the production shapes: one pod of
 2 x 16 x 16 = 512 chips, with a leading ``"pod"`` axis.  The port holds a
 whole grid as the leading dimensions of its tensors on one card, so a
 "mesh" here is only a shape and its axis names: the dry run
-(:mod:`repro_torch.launch.dryrun`) sizes its cells by them.
+(:mod:`repro_torch.launch.dryrun`) sizes its cells by them, and the
+model steps' sharding specs name its axes.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import dataclasses
 import math
 from typing import Tuple
 
-__all__ = ["LogicalMesh", "make_production_mesh"]
+__all__ = ["LogicalMesh", "make_production_mesh", "make_mesh_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,3 +39,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return LogicalMesh(shape, axes)
+
+
+def make_mesh_for(shape, axes) -> LogicalMesh:
+    """A logical grid of any ``shape`` with the axis names ``axes``."""
+    return LogicalMesh(tuple(shape), tuple(axes))

@@ -26,6 +26,15 @@ tensor it makes — and :func:`roofline_from_walk` fills the report from
 that.  A meta tensor has a shape and a dtype and no data, so the walk
 allocates nothing and reads no value; it is on ``meta`` by design, never
 in place of a card.
+
+A model step (the LM, GNN and recsys steps of ``models/``) is walked the
+same way by :func:`walk_step`, which also counts the products' FLOPs by
+operand dtype; :func:`combine_walks` carries walks of a few small
+depths and microbatch counts to a config's own, and
+:func:`roofline_from_step` fills the report.  The JAX package's readers
+of HLO text (``hlo_cost``, ``collective_bytes``, ``collective_by_source``
+and its text-reading ``collective_phases``, here
+``hlo_collective_phases``) are copied in :mod:`.hlo` and exported here.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import sys
 import weakref
 from collections import Counter
 from typing import Dict, Optional, Tuple
@@ -41,9 +51,15 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .hlo import (collective_by_source, collective_bytes,  # noqa: F401
+                  hlo_collective_phases, hlo_cost, infer_num_devices)
+
 __all__ = ["HW", "measure_hw", "collective_phases", "RooflineReport",
            "EngineWalk", "walk_engine", "roofline_from_walk",
-           "card_memory_bytes"]
+           "card_memory_bytes", "StepWalk", "walk_step", "combine_walks",
+           "tree_tensors", "shard_bytes", "roofline_from_step", "model_flops_lm",
+           "infer_num_devices", "hlo_cost", "collective_bytes",
+           "collective_by_source", "hlo_collective_phases"]
 
 HW = dict(
     # H100 SXM, device memory (HBM3): 3.35 TB/s (data sheet)
@@ -207,6 +223,13 @@ _VALUE_READS = frozenset({
     "masked_select", "_unique2", "unique_dim", "unique_consecutive",
     "_assert_async",
 })
+# the products whose FLOPs a step's walk counts, as the JAX package's
+# ``hlo_cost`` counts its ``dot``s: the matrix products, and the
+# matrix-vector and vector products that ``matmul`` gives a 1-D operand
+_PRODUCTS = frozenset({"mm", "bmm", "addmm", "baddbmm", "mv", "addmv",
+                       "dot", "vdot"})
+# the products whose first operand is the bias they add to
+_BIASED = frozenset({"addmm", "baddbmm", "addmv"})
 # ops that read only the elements they gather from their first argument
 _GATHERS = frozenset({"index", "gather", "index_select", "take",
                       "embedding"})
@@ -214,6 +237,20 @@ _GATHERS = frozenset({"index", "gather", "index_select", "take",
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _product_flops(func, args, kwargs, out) -> int:
+    """A product's FLOPs: ``torch.utils.flop_counter``'s formula for a
+    matrix product (``2 * m * n * k``, batched for ``bmm``), and
+    ``2 * n * k`` for ``mv`` / ``addmv`` and ``2 * k`` for ``dot`` /
+    ``vdot``, which the registry lacks."""
+    base = func._overloadpacket.__name__
+    if base in ("mv", "addmv", "dot", "vdot"):
+        return 2 * args[1 if base == "addmv" else 0].numel()
+    from torch.utils.flop_counter import flop_registry
+
+    return int(flop_registry[func._overloadpacket](*args, **kwargs,
+                                                   out_val=out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,6 +293,9 @@ class _Walk(TorchDispatchMode):
         self.peak = 0
         self.step_temps = 0
         self.counting = True
+        self.flops: Counter = Counter()
+        self.segment = ""
+        self.points: Optional[Dict[tuple, list]] = None
         self._storages: Dict[int, int] = {}
 
     # -- memory --------------------------------------------------------
@@ -270,7 +310,28 @@ class _Walk(TorchDispatchMode):
         self._storages[key] = n
         self.live += n
         self.peak = max(self.peak, self.live)
+        if self.points is not None:
+            self.points.setdefault(self._point(), []).append(self.live)
         weakref.finalize(st, self._free, key, n)
+
+    def _point(self) -> tuple:
+        """Where in the program a tensor is being made: the segment, the
+        autograd node running (``""`` outside the backward) and the chain
+        of the port's frames on the stack, innermost first, each its
+        function and line, up to the walked step.  Every layer of a stack
+        and every microbatch runs the same code, so a point is the same at
+        every depth."""
+        node = torch._C._current_autograd_node()
+        chain = []
+        f = sys._getframe(1)
+        while f is not None and f.f_code is not walk_step.__code__:
+            if (f.f_code.co_filename != __file__
+                    and f.f_globals.get("__name__", "").startswith(
+                        "repro_torch.")):
+                chain.append((f.f_code.co_qualname, f.f_lineno))
+            f = f.f_back
+        return (self.segment, node.name() if node is not None else "",
+                tuple(chain))
 
     def _free(self, key: int, n: int) -> None:
         if self._storages.pop(key, None) is not None:
@@ -292,6 +353,10 @@ class _Walk(TorchDispatchMode):
         if self.counting and outs and not view and any(
                 t.device == self.device for t in outs):
             self._cost(base, args, ins, outs)
+            if base in _PRODUCTS:
+                operand = args[1] if base in _BIASED else args[0]
+                self.flops[str(operand.dtype)] += self.weight * \
+                    _product_flops(func, args, kwargs, out)
         return out
 
     def _cost(self, base, args, ins, outs) -> None:
@@ -381,6 +446,19 @@ class _Walk(TorchDispatchMode):
                 finally:
                     self.counting = True
             return rec[5]
+
+        return wrapper
+
+    def in_segment(self, name: str, fn):
+        """``fn`` with the tensors made during its calls kept under the
+        segment ``name`` in ``points`` (``""``: outside every segment)."""
+
+        def wrapper(*args, **kw):
+            outer, self.segment = self.segment, name
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.segment = outer
 
         return wrapper
 
@@ -587,3 +665,264 @@ def roofline_from_walk(name: str, walk: EngineWalk, *, mesh_name: str,
         grid_bytes=walk.peak_bytes,
         fits=walk.peak_bytes <= card_memory_bytes(),
     )
+
+
+# ======================================================================
+# the dry run of a model step: a walk on meta tensors, and its report
+# ======================================================================
+# the rate of a product by its operands' dtype; TF32 stays off, so a
+# float32 product runs at the 32-bit rate outside the tensor cores
+_PRODUCT_RATE = {"torch.bfloat16": "peak_flops", "torch.float32": "fp32_ops"}
+
+
+@dataclasses.dataclass
+class StepWalk:
+    """What one walked call of a model step did, on one card.
+
+    ``flops``: the products' FLOPs (``mm``, ``bmm``, ``addmm``,
+    ``baddbmm``, ``mv``, ``addmv``, ``dot``, ``vdot`` — what ``einsum``
+    and ``matmul`` dispatch to — by :func:`_product_flops`) by operand
+    dtype.  ``ops`` and
+    ``bytes``: every aten op that is not a view, counted as
+    :class:`EngineWalk` counts them (one op an output element; each tensor
+    argument and result once).  ``staged_bytes``: the arguments' storages;
+    ``output_bytes``: the result's.  ``point_live``: at each point of the
+    program where tensors are made (:meth:`_Walk._point`: its segment, the
+    autograd node and the chain of the port's frames), the bytes live just
+    after each, in order.  ``segment_peaks``: the most of each segment's
+    points (``""``: outside every segment, at least the staged bytes);
+    ``peak_bytes``: the most of all.  ``walks``: the walks it was made
+    of (:func:`combine_walks`).  ``result``: the step's result, meta
+    tensors (not compared)."""
+
+    flops: Dict[str, int]
+    ops: int
+    bytes: int
+    staged_bytes: int
+    output_bytes: int
+    point_live: Dict[tuple, Tuple[int, ...]]
+    walks: int = 1
+    result: object = dataclasses.field(default=None, compare=False,
+                                       repr=False)
+
+    @property
+    def segment_peaks(self) -> Dict[str, int]:
+        out = {"": self.staged_bytes}
+        for (seg, _, _), live in self.point_live.items():
+            out[seg] = max(out.get(seg, 0), *live)
+        return out
+
+    @property
+    def peak_bytes(self) -> int:
+        return max(self.segment_peaks.values())
+
+
+def tree_tensors(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return []
+
+
+def _storage_bytes(tensors) -> int:
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+def walk_step(fn, *args, segments: Optional[Dict[str, Tuple]] = None
+              ) -> StepWalk:
+    """One call ``fn(*args)`` of a model step walked op by op
+    (:class:`StepWalk`).
+
+    The arguments are trees of tensors on one device — ``meta`` in the
+    dry run: nothing is allocated, and an op that reads a value raises, so
+    no op is dropped.  Autograd's backward and ``torch.utils.checkpoint``'s
+    recompute run through the same walk.  ``segments`` maps a name to
+    ``(owner, attribute)``, a function the step calls by that name
+    (``(models.steps, "_microbatch_grads")``): while the walk runs it is
+    wrapped so that the points where its calls make tensors are kept
+    apart (``segment_peaks``)."""
+    leaves = tree_tensors(list(args))
+    devices = {t.device for t in leaves}
+    if len(devices) != 1:
+        raise ValueError(f"the walk takes tensors on one device, got "
+                         f"{sorted(map(str, devices))}")
+    walk = _Walk(devices.pop())
+    for t in leaves:
+        walk.track(t)
+    staged = walk.live
+    walk.points = {}
+    with contextlib.ExitStack() as stack:
+        for name, (owner, attr) in (segments or {}).items():
+            stack.enter_context(_on_instance(
+                owner, attr, walk.in_segment(name, getattr(owner, attr))))
+        stack.enter_context(walk)
+        out = fn(*args)
+    return StepWalk(
+        flops={k: int(v) for k, v in sorted(walk.flops.items())},
+        ops=int(walk.ops),
+        bytes=int(walk.bytes),
+        staged_bytes=staged,
+        output_bytes=_storage_bytes(t for t in tree_tensors(out)
+                                    if t.device == walk.device),
+        point_live={k: tuple(v) for k, v in walk.points.items()},
+        result=out,
+    )
+
+
+def combine_walks(terms) -> StepWalk:
+    """``Σ c · walk`` over ``terms``, pairs ``(c, walk)`` of an integer and
+    a :class:`StepWalk`: every count and byte total combined field by
+    field.  The dry run extrapolates a config's step from walks at a few
+    small depths and microbatch counts this way; it is exact for what is
+    affine in them (:mod:`repro_torch.launch.dryrun`).
+
+    The live bytes are combined point by point.  A point that makes as
+    many tensors in every walk (once a parameter leaf, say, in the
+    optimiser) is combined tensor by tensor: each is the same leaf at
+    every depth.  A point that makes more in a deeper walk (once a layer
+    or a microbatch) keeps one value, its walks' most live combined: exact
+    while that most is made at the same place at every depth (the last
+    layer of a forward, the first of a backward).  Walks that make tensors
+    at different points are refused: a point's bytes cannot be carried to
+    a depth where it is missing or new."""
+    terms = [(int(c), w) for c, w in terms if c]
+    points = {frozenset(w.point_live) for _, w in terms}
+    if len(points) > 1:
+        raise ValueError(
+            "the walks make tensors at different points of the program; "
+            "their peaks cannot be combined")
+
+    def lin(get):
+        return sum(c * get(w) for c, w in terms)
+
+    def lin_dict(get):
+        keys = sorted({k for _, w in terms for k in get(w)})
+        out = {k: lin(lambda w, k=k: get(w).get(k, 0)) for k in keys}
+        return {k: v for k, v in out.items() if v}
+
+    return StepWalk(
+        flops=lin_dict(lambda w: w.flops),
+        ops=lin(lambda w: w.ops),
+        bytes=lin(lambda w: w.bytes),
+        staged_bytes=lin(lambda w: w.staged_bytes),
+        output_bytes=lin(lambda w: w.output_bytes),
+        point_live={k: _combine_point(terms, k)
+                    for k in terms[0][1].point_live},
+        walks=sum(w.walks for _, w in terms),
+    )
+
+
+def _combine_point(terms, point) -> Tuple[int, ...]:
+    runs = [(c, w.point_live[point]) for c, w in terms]
+    if len({len(r) for _, r in runs}) == 1:
+        return tuple(sum(c * r[i] for c, r in runs)
+                     for i in range(len(runs[0][1])))
+    return (sum(c * max(r) for c, r in runs),)
+
+
+def _axis_product(entry, mesh) -> int:
+    if entry is None:
+        return 1
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    return math.prod(sizes[a] for a in names)
+
+
+def shard_bytes(tree, specs, mesh) -> int:
+    """One device's bytes of a tree of tensors laid out by ``specs`` (a
+    tree of the same structure whose leaves are spec tuples, ``None`` a
+    replicated dimension and a missing tail replicated) on ``mesh``: each
+    dimension divided by the product of its axes' sizes, rounded up, as
+    XLA pads an uneven shard.  A leaf that is not a tensor (an integer
+    step) is an int32 scalar, as the JAX package traces it."""
+    if isinstance(tree, dict):
+        return sum(shard_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(shard_bytes(v, sp, mesh) for v, sp in zip(tree, specs))
+    if not isinstance(tree, torch.Tensor):
+        return 4
+    spec = tuple(specs or ())
+    spec = spec + (None,) * (tree.dim() - len(spec))
+    n = 1
+    for d, entry in zip(tree.shape, spec):
+        n *= -(-d // _axis_product(entry, mesh))
+    return n * tree.element_size()
+
+
+def roofline_from_step(name: str, walk: StepWalk, *, mesh_name: str,
+                       chips: int, model_flops: float = 0.0,
+                       args_per_device: int, outputs_per_device: int
+                       ) -> RooflineReport:
+    """The dry-run row of a walked model step, in place of the JAX
+    package's ``roofline_from_compiled``.
+
+    ``flops_per_device`` / ``bytes_per_device``: the walk's product FLOPs
+    (every dtype) / bytes over ``chips``, an even split.
+    ``coll_bytes_per_device`` 0 and ``coll_breakdown`` ``{}``: one card
+    moves nothing between devices, and the port has no partitioner to
+    model.  ``t_compute``: each dtype's FLOPs over its rate (bfloat16 over
+    ``HW["peak_flops"]``, float32 over ``HW["fp32_ops"]``: TF32 stays off)
+    over ``chips``; ``t_memory``: bytes over ``HW["hbm_bw"]``.
+    ``memory_per_device``: ``args`` / ``outputs`` the caller's shard bytes
+    of the arguments and the result (:func:`shard_bytes` over the JAX
+    package's specs), ``temps`` the walk's peak less its staged bytes over
+    ``chips``, rounded up, ``aliased`` 0.  ``grid_bytes``: the walk's peak
+    for the whole step on one card; ``fits``: within
+    :func:`card_memory_bytes`."""
+    total = sum(walk.flops.values())
+    t_c = 0.0
+    for dtype, f in walk.flops.items():
+        if dtype not in _PRODUCT_RATE:
+            raise ValueError(f"no rate for products of {dtype}")
+        t_c += f / chips / HW[_PRODUCT_RATE[dtype]]
+    flops = total / chips
+    byts = walk.bytes / chips
+    t_m = byts / HW["hbm_bw"]
+    bottleneck = max(
+        [("compute", t_c), ("memory", t_m), ("collective", 0.0)],
+        key=lambda kv: kv[1],
+    )[0]
+    useful = model_flops / total if total > 0 and model_flops else 0.0
+    return RooflineReport(
+        name=name,
+        mesh=mesh_name,
+        chips=chips,
+        flops_per_device=flops,
+        bytes_per_device=byts,
+        coll_bytes_per_device=0.0,
+        coll_breakdown={},
+        t_compute=t_c,
+        t_memory=t_m,
+        t_collective=0.0,
+        bottleneck=bottleneck,
+        model_flops=model_flops,
+        useful_fraction=useful,
+        memory_per_device=dict(
+            args=int(args_per_device), outputs=int(outputs_per_device),
+            temps=-(-(walk.peak_bytes - walk.staged_bytes) // chips),
+            aliased=0),
+        grid_bytes=walk.peak_bytes,
+        fits=walk.peak_bytes <= card_memory_bytes(),
+    )
+
+
+def model_flops_lm(cfg, shape: dict) -> float:
+    """Useful model FLOPs: 6·N·D (dense) / 6·N_active·D (MoE) per step
+    (the JAX package's formula)."""
+    n = cfg.active_param_count() if cfg.moe else cfg.param_count()
+    if shape["kind"] == "train":
+        tokens = shape["global_batch"] * shape["seq_len"]
+        return 6.0 * n * tokens
+    if shape["kind"] == "prefill":
+        tokens = shape["global_batch"] * shape["seq_len"]
+        return 2.0 * n * tokens
+    # decode: one token per sequence
+    return 2.0 * n * shape["global_batch"]

@@ -185,6 +185,20 @@ def _check_params(params, dev: torch.device):
                          f"{dev}: move them first")
 
 
+def _microbatch_grads(live, acc, cfg: LMConfig, tokens, labels):
+    """One microbatch of the train step: ``lm_loss``'s gradients with
+    respect to ``live`` added into the float32 accumulators ``acc``.
+    Returns the loss, detached.  A function of its own so that the dry
+    run's walk (:mod:`repro_torch.launch.dryrun`) can see where each
+    microbatch begins and ends."""
+    loss, _ = lm_loss(live, cfg, tokens, labels)
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+    for a, g in zip(tree_leaves(acc), grads):
+        if g is not None:
+            a.add_(g)
+    return loss.detach()
+
+
 def build_lm_train_step(cfg: LMConfig, mesh=None, *,
                         compress_grads: bool = False, device=None):
     """One optimiser step over a batch in microbatches.  Returns
@@ -231,14 +245,8 @@ def build_lm_train_step(cfg: LMConfig, mesh=None, *,
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         with torch.enable_grad():
             for j in range(nm):
-                loss, _ = lm_loss(live, cfg, tok_m[j], lab_m[j])
-                grads = torch.autograd.grad(loss, tree_leaves(live),
-                                            allow_unused=True)
-                for a, g in zip(tree_leaves(acc), grads):
-                    if g is not None:
-                        a.add_(g)
-                loss_sum = loss_sum + loss.detach()
-                del loss, grads
+                loss_sum = loss_sum + _microbatch_grads(live, acc, cfg,
+                                                        tok_m[j], lab_m[j])
         del live
         grads = tree_map(lambda a: a / nm, acc)
         del acc

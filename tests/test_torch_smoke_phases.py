@@ -26,6 +26,7 @@ import repro_torch.core.api as api
 import repro_torch.kernels.tc_fused as tf
 import repro_torch.pipeline.batch as batch
 from repro_torch.kernels.tc_fused import tc_fused as kmod
+from repro_torch.launch import dryrun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -346,17 +347,26 @@ def test_runtime_path_phase(on_cpu, graph, capsys):
 
 
 def test_dryrun_path_phase(on_cpu, capsys):
-    """The 20 dry-run cells on meta, the walk of a real plan against the
-    count (the CUDA peak is stubbed to 0 here: the staged bytes alone),
-    and the analytic plan of a main graph beside its real plan."""
+    """The 24 dry-run cells on meta (18 triangle-count cells, Twitter's
+    two beyond-paper schedules and four model cells), the walk of a real
+    plan against the count (the CUDA peak is stubbed to 0 here: the staged
+    bytes alone), and the analytic plan of a main graph beside its real
+    plan."""
     g = rt.rmat(SCALE, chip_smoke.EDGE_FACTOR, seed=1)
     art = rt.count_triangles(g, q=4, method="fused", device="cpu").artifact
     chip_smoke.dryrun_path(CPU, art.plan, SCALE, real_scale=SCALE)
     out = capsys.readouterr().out
     rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     cells = [r["dryrun_cell"] for r in rows if "dryrun_cell" in r]
-    assert len(cells) == 20 and all(c["status"] == "ok" for c in cells)
+    assert len(cells) == 24 and all(c["status"] == "ok" for c in cells)
+    assert [c["name"] for c in cells[20:]] == [
+        ":".join(c) for c in chip_smoke.DRYRUN_MODEL]
+    assert [c["name"] for c in cells[:18]] == [
+        ":".join(c) for c in dryrun.all_cells()[-18:]]
     (line,) = [r["dryrun_path"] for r in rows if "dryrun_path" in r]
+    assert line["cells"] == 24
+    assert set(line["model_cell_seconds"]) == {
+        ":".join(c) for c in chip_smoke.DRYRUN_MODEL}
     assert line["ok"] and not line["failed_cells"]
     real = line["real_plan"]
     assert real["args_equal"]
@@ -466,6 +476,13 @@ def test_lm_train_path_phase(on_cpu, capsys, monkeypatch):
     assert full["fall"] >= 0.1 and full["microbatch"] == 2
     assert full["tokens_per_step"] == 4 * 32
     assert full["n_multiplied"] == full["param_numel"] - 512 * 64
+    # the dry run's walk of the very step: FLOPs equal FlopCounterMode's
+    # count of a real step (the CUDA peak is stubbed to 0 here); at two
+    # layers and two microbatches the plan is the step itself, one walk
+    walk = full["walk"]
+    assert walk["flops_equal"] and walk["card_flops"] > 0
+    assert walk["walks"] == 1 and not walk["under"]
+    assert walk["walk_peak"] > 0 and walk["walk_over_measured"] is None
     for key in ("remat_off", "indexed_layers"):
         assert not full[key]["oom"]
         assert full[key]["loss"] == pytest.approx(full["losses"][-1],
@@ -549,6 +566,8 @@ def test_recsys_path_phase(on_cpu, capsys, monkeypatch):
         - (26 * 64 - 6 * 61) % 512
     train = full["train"]
     assert len(train["losses"]) == 4 and train["fall"] > 0
+    assert train["walk"]["walks"] == 1 and not train["walk"]["under"]
+    assert train["walk"]["walk_peak"] > 0
     assert train["samples_per_s"] > 0
     assert full["serve"]["probs_in_range"] and full["serve"]["calls"] == 5
     ret = full["retrieval"]
@@ -598,6 +617,9 @@ def test_gnn_path_phase(on_cpu, capsys, monkeypatch):
     assert full["gat-cora-smoke"]["nodes"] == 512
     for row in full.values():
         assert len(row["losses"]) == 2 and np.isfinite(row["losses"]).all()
+    assert [k for k, row in full.items() if "walk" in row] == [
+        "equiformer-v2-smoke"]
+    assert full["equiformer-v2-smoke"]["walk"]["walk_peak"] > 0
     assert line["train_gnn"]["ok"] and line["train_gnn"]["accuracy"] > 0.7
     assert len(line["train_gnn"]["checkpoints"]) == 4
 
