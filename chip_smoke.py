@@ -224,6 +224,17 @@ What it does, in order, printing one JSON object per line:
                     equal to the oracle; then the fused
                     kernel's ``"oned_hub"`` row, held to its plain route
                     on every residual device-step;
+   ``mesh_path``  — the main graph's cached fused plan on a device mesh
+                    of 16 positions, position i on card i mod the cards
+                    present (``count_triangles(g, mesh=make_grid_mesh(4,
+                    devices=...))``): the count against the oracle, one
+                    kernel launch a counted device-step, the per-position
+                    partials against one device's, one device-step's
+                    launch against its plain version on each card used,
+                    warm counts on the mesh and on one device in turns,
+                    the bytes each engine phase moved on both; then SUMMA
+                    2 x 8, the ring p = 16 and 2 pods under ``tree`` on
+                    meshes of their own, each against the oracle;
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}: Cannon
                     with every method (``search``, ``global``, ``fused``,
                     ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
@@ -2574,6 +2585,124 @@ def serve_path(g, oracle, dev, q, graph):
     rec["compared_note"] = ("the first counted device-step of the last "
                             "stream round's plan")
     return rec
+
+
+# ----------------------------------------------------------------------
+# the grid on a device mesh
+# ----------------------------------------------------------------------
+MESH_SUMMA = SUMMA_GRID  # SUMMA 2 x 8 and the ring p = 16 on the mesh too
+MESH_PODS = 2  # Cannon q = 4 with 2 pods under "tree": 32 positions
+MESH_WARM = 3  # warm counts on the mesh and on one device, in turns
+
+
+def mesh_cards(n):
+    """Position ``i`` of an ``n``-position mesh on card ``i`` mod the
+    cards present."""
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def mesh_path(g, oracle, dev, q):
+    """The main graph's cached fused plan counted on a device mesh of
+    ``q * q`` positions, position ``i`` on card ``i`` mod the cards
+    present (``make_grid_mesh(q, devices=...)``): every shift a copy
+    between positions, the sum on the first card.  The count equals the
+    oracle, the per-position partials equal the one-device engine's, the
+    fused kernel launches once a counted device-step (the counts set to 0
+    just before the mesh count), and on each card used one device-step's
+    launch equals its plain version.  Then SUMMA 2 x 8, the ring p = 16 and
+    2 pods under ``tree`` on meshes of their own, each equal to the
+    oracle.  Reports the cards, the warm count's seconds on the mesh and
+    on one device, and the bytes each engine phase moved on the mesh."""
+    import repro_torch as rt
+    from repro_torch.core.cannon import build_cannon_fn
+    from repro_torch.core.engine import tally_moved_bytes
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+    )
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.launch.mesh import make_mesh_for
+
+    mesh = rt.make_grid_mesh(q, devices=mesh_cards(q * q))
+    cards = sorted({str(d) for d in mesh.devices})
+    kmod.reset_launch_count()
+    cold = rt.count_triangles(g, mesh, method="fused")
+    launches = kmod.launch_count()
+    art = cold.artifact
+    plan = art.plan
+    keep = plan.step_keep
+    expect = sum(1 for s in range(q) for x in range(q) for y in range(q)
+                 if plan.m_cnt[x, y] > 0 and (keep is None or keep[x, y, s]))
+    if not art.cache_hit:
+        fail("the mesh path missed the main path's cached plan")
+    if launches != expect:
+        fail(f"the mesh count launched the fused kernel {launches} times, "
+             f"not once for each of the {expect} device-steps that count")
+    if cold.triangles != oracle:
+        fail(f"the mesh count gave {cold.triangles}, not {oracle}")
+
+    warm_mesh, warm_one = [], []
+    for _ in range(MESH_WARM):
+        warm_mesh.append(rt.count_triangles(g, mesh, method="fused"))
+        warm_one.append(rt.count_triangles(g, q=q, method="fused"))
+    if {r.triangles for r in warm_mesh + warm_one} != {oracle}:
+        fail("a warm count on the mesh or on one device missed the oracle")
+    with tally_moved_bytes() as tally:
+        rt.count_triangles(g, mesh, method="fused")
+    with tally_moved_bytes() as tally_one:
+        rt.count_triangles(g, q=q, method="fused")
+
+    on_mesh = build_cannon_fn(plan, method="fused", reduce_global=False,
+                              mesh=mesh)(**art.staged(mesh))
+    one = build_cannon_fn(plan, method="fused", reduce_global=False)(
+        **art.staged(dev))
+    if on_mesh.device != mesh.first or on_mesh.tolist() != one.tolist():
+        fail("the mesh's per-position partials differ from one device's")
+
+    staged = art.staged(mesh)
+    kw = dict(n_long=plan.n_long, d_small=plan.d_small, dpad_long=plan.dmax,
+              chunk=plan.chunk, long_fallback="global")
+    per_card = {}
+    for pos in np.ndindex(q, q):
+        card = str(mesh.device_at(pos))
+        if card in per_card or plan.m_cnt[pos] <= 0:
+            continue
+        args = [staged[k][pos] for k in ("a_indptr", "a_indices", "b_indptr",
+                                         "b_indices", "m_ti", "m_tj")]
+        got = count_pair_fused(*args, int(plan.m_cnt[pos]), **kw)
+        want = count_pair_fused_plain(*args, int(plan.m_cnt[pos]), **kw)
+        if str(got.device) != card or int(got) != int(want):
+            fail(f"the fused kernel at position {pos} on {card} gave "
+                 f"{int(got)} on {got.device}, its plain version {int(want)}")
+        per_card[card] = dict(position=list(pos), triangles=int(got))
+
+    others = {}
+    for name, m, kw2 in (
+            ("summa", make_mesh_for(MESH_SUMMA, ("data", "model"),
+                                    devices=mesh_cards(q * q)),
+             dict(schedule="summa")),
+            ("oned", mesh, dict(schedule="oned")),
+            ("pods_tree", rt.make_grid_mesh(
+                q, npods=MESH_PODS, devices=mesh_cards(MESH_PODS * q * q)),
+             dict(reduce_strategy="tree"))):
+        t0 = time.perf_counter()
+        r = rt.count_triangles(g, m, method="fused", **kw2)
+        warm = rt.count_triangles(g, m, method="fused", **kw2)
+        others[name] = dict(grid=list(r.grid), triangles=r.triangles,
+                            seconds=time.perf_counter() - t0,
+                            warm_count_seconds=warm.count_seconds)
+        if r.triangles != oracle or warm.triangles != oracle:
+            fail(f"{name} on the mesh gave {r.triangles}, not {oracle}")
+    emit("mesh_path", ok=True, cards=cards, positions=q * q,
+         device_count=torch.cuda.device_count(), triangles=cold.triangles,
+         triangles_scipy_oracle=oracle, kernel_launches=launches,
+         device_steps_counted=expect, cold_count_seconds=cold.count_seconds,
+         cold_preprocess_seconds=cold.preprocess_seconds,
+         warm_count_seconds_mesh=[r.count_seconds for r in warm_mesh],
+         warm_count_seconds_one_device=[r.count_seconds for r in warm_one],
+         moved_bytes_mesh=tally, moved_bytes_one_device=tally_one,
+         partials_equal=True, kernel_per_card=per_card, **others)
 
 
 def small_graphs():
@@ -5166,6 +5295,7 @@ def main():
              "table wrongly, or a candidate shape disagreed with the plain "
              "route")
     kernels += phase("hub_path", hub_path, g, oracle, dev, graph)
+    phase("mesh_path", mesh_path, g, oracle, dev, GRID)
     del g
     phase("small_graphs", small_graphs)
     phase("many_path", many_path, dev, args.seed,

@@ -14,6 +14,7 @@ from .core import (  # noqa: F401
     count_triangles_delta,
     count_triangles_many,
     graph_from_spec,
+    make_grid_mesh,
     named_graph,
     rmat,
     triangle_count_oracle,

@@ -4,7 +4,8 @@ Public surface:
 
 * :func:`count_triangles` — full pipeline (preprocess -> plan -> schedule);
   :func:`count_triangles_many` — many graphs in one engine call;
-  :func:`count_triangles_delta` — a re-count after a batch of edge edits.
+  :func:`count_triangles_delta` — a re-count after a batch of edge edits;
+  :func:`make_grid_mesh` — a device mesh to spread the grid over.
 * :class:`Graph`, generators (:func:`rmat`, :func:`erdos_renyi`, ...).
 * :func:`build_plan` / :func:`plan_from_numpy` — host planner.
 * schedules: :mod:`.cannon` (the paper's), :mod:`.summa` (rectangular
@@ -18,6 +19,7 @@ from .api import (  # noqa: F401
     count_triangles_delta,
     count_triangles_many,
     get_schedule,
+    make_grid_mesh,
     register_schedule,
 )
 from .graph import Graph, triangle_count_oracle  # noqa: F401

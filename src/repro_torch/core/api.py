@@ -30,6 +30,12 @@ dimension (Cannon's replicated, skew-offset blocks) and
 ``reduce_strategy`` its tree reduction; ``autotune="measured"`` resolves
 ``method="auto"`` from the persisted timing table of
 :mod:`repro_torch.kernels.tc_fused.autotune`.
+
+``count_triangles(graph, mesh=make_grid_mesh(q, ...))`` spreads the grid
+over a device mesh instead, as the JAX package's ``shard_map`` does: each
+grid position's blocks lie on its device and shifts, broadcasts and the
+reduction copy between devices (:mod:`repro_torch.core.engine`).  One
+process drives every device of the mesh.
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..device import resolve_device
+from ..launch.mesh import DeviceMesh
 from . import cannon as cannon_mod
-from .engine import CSR_KERNELS
+from .engine import CSR_KERNELS, RingAxes
 from .graph import Graph
 from .onedim import OneDPlan, build_oned_fn
 from .plan import TCPlan
@@ -55,6 +62,7 @@ __all__ = [
     "count_triangles",
     "count_triangles_delta",
     "count_triangles_many",
+    "make_grid_mesh",
     "register_schedule",
     "get_schedule",
     "available_schedules",
@@ -77,6 +85,38 @@ def check_count_overflow(total: int, count_dtype) -> int:
             "count dtype; pass count_dtype=torch.int64 (the default)"
         )
     return total
+
+
+def make_grid_mesh(q: int, row_axis="data", col_axis="model", npods=1,
+                   pod_axis="pod", devices=None) -> DeviceMesh:
+    """A ``q x q`` (with pods ``npods x q x q``) device mesh, axes
+    ``(row_axis, col_axis)`` (``(pod_axis, row_axis, col_axis)``).
+
+    ``devices=None`` takes the first ``q² · npods`` CUDA devices and raises
+    when there is no CUDA device or fewer than that; an explicit list (the
+    first ``q² · npods`` of it are used, in row-major grid order) may repeat
+    a device — ``["cpu"] * n`` puts a mesh on the CPU, ``["cuda:0"] * 16``
+    a 4 x 4 grid on one card."""
+    q, npods = int(q), int(npods)
+    if q < 1 or npods < 1:
+        raise ValueError(f"q and npods must be >= 1, got q={q} npods={npods}")
+    n = q * q * npods
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_grid_mesh(devices=None) takes CUDA devices and none is "
+                "available; pass devices=['cpu'] * n for a CPU mesh")
+        have = torch.cuda.device_count()
+        if have < n:
+            raise ValueError(f"need {n} devices, have {have}")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = list(devices)
+    if len(devices) < n:
+        raise ValueError(f"need {n} devices, have {len(devices)}")
+    if npods > 1:
+        return DeviceMesh((npods, q, q), (pod_axis, row_axis, col_axis),
+                          tuple(devices[:n]))
+    return DeviceMesh((q, q), (row_axis, col_axis), tuple(devices[:n]))
 
 
 @dataclasses.dataclass
@@ -152,6 +192,9 @@ class RunContext:
     device: torch.device
     npods: int = 1
     plan: Optional[TCPlan] = None
+    # the device mesh the grid is spread over (None: all on ``device``,
+    # which is then the mesh's first device)
+    mesh: Optional[DeviceMesh] = None
     # engine knobs: sparsity-aware step skipping (None = auto from the
     # plan's staged masks), the double-buffer knob (same count either
     # way), and schedule compaction (None = auto from the plan's staged
@@ -202,9 +245,26 @@ class RunContext:
                 compacted = self.compact is not False
                 for s in faultinject.live_step_indices(plan, compacted):
                     faultinject.fire("step", step=s)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.synchronize()
         self.counting_started_at = time.perf_counter()
+
+    def synchronize(self) -> None:
+        """Wait for the run's device, or every CUDA device of its mesh."""
+        devices = self.mesh.devices if self.mesh is not None else [self.device]
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def grid_mesh(self):
+        """The mesh a schedule without a pod dimension runs on: pod 0's
+        grid of a pod mesh (as on one device, SUMMA, ``tile`` and
+        ``dense`` count as on one pod), else the run's mesh."""
+        m = self.mesh
+        return m.pod(0) if m is not None and len(m.shape) == 3 else m
+
+    def key(self, *parts):
+        """A memo key, with the mesh last where the run has one."""
+        return parts + ((self.mesh,) if self.mesh is not None else ())
 
     def memo(self, key, build: Callable):
         """Per-artifact build-once helper (falls through when the runner
@@ -263,8 +323,7 @@ def _count_derived(plan, ctx: RunContext):
     def timed(name, build):
         t0 = time.perf_counter()
         out = build()
-        if ctx.device.type == "cuda":
-            torch.cuda.synchronize(ctx.device)
+        ctx.synchronize()
         if ctx.artifact is not None:
             ctx.artifact.stage_seconds[name] = time.perf_counter() - t0
         return out
@@ -275,18 +334,23 @@ def _count_derived(plan, ctx: RunContext):
     # rounds); as in the JAX package's runner the tile path sums flat
     # whatever reduce_strategy says, and the dense path takes it (so it
     # refuses "tree")
+    mesh = ctx.grid_mesh()
+    where = mesh if mesh is not None else ctx.device
     if ctx.method == "tile":
         tp = ctx.memo("tile_plan", lambda: timed(
             "tile_plan", lambda: build_tile_plan(plan)))
-        staged = ctx.memo(("tile_staged", str(ctx.device)), lambda: timed(
-            "tile_stage", lambda: stage_tile_plan(tp, ctx.device)))
-        build = lambda: cannon_mod.build_cannon_tile_fn(plan, **knobs)
+        staged = ctx.memo(ctx.key("tile_staged", str(ctx.device)),
+                          lambda: timed("tile_stage",
+                                        lambda: stage_tile_plan(tp, where)))
+        build = lambda: cannon_mod.build_cannon_tile_fn(plan, mesh=mesh,
+                                                        **knobs)
     else:
         knobs["reduce_strategy"] = ctx.reduce_strategy
-        staged = ctx.memo(("dense_staged", str(ctx.device)), lambda: (
-            stage_arrays(plan.dense_blocks(), ctx.device)))
-        build = lambda: cannon_mod.build_cannon_dense_fn(plan, **knobs)
-    fn = ctx.memo((ctx.method + "_fn", *knobs.values()), build)
+        staged = ctx.memo(ctx.key("dense_staged", str(ctx.device)), lambda: (
+            stage_arrays(plan.dense_blocks(), where)))
+        build = lambda: cannon_mod.build_cannon_dense_fn(plan, mesh=mesh,
+                                                         **knobs)
+    fn = ctx.memo(ctx.key(ctx.method + "_fn", *knobs.values()), build)
     ctx.mark_counting(plan)
     return int(fn(**staged)), plan
 
@@ -351,14 +415,23 @@ def _check_plan_kind(plan, cls, schedule: str) -> None:
         )
 
 
-def _staged(plan, ctx: RunContext):
-    """The plan's tensors on the run's device: the artifact's memoised
-    copy, or a fresh one for a caller-supplied raw plan."""
-    if ctx.artifact is not None:
-        return ctx.artifact.staged(ctx.device)
-    from ..pipeline.artifact import stage_arrays
+_PLAN_KINDS = {TCPlan: "cannon", SummaPlan: "summa", OneDPlan: "oned"}
 
-    return stage_arrays(plan.device_arrays(), ctx.device)
+
+def _staged(plan, ctx: RunContext, mesh=None):
+    """The plan's tensors on the run's device, or spread over ``mesh``:
+    the artifact's memoised copy, or a fresh one for a caller-supplied raw
+    plan."""
+    where = mesh if mesh is not None else ctx.device
+    if ctx.artifact is not None:
+        return ctx.artifact.staged(where)
+    from ..pipeline.artifact import mesh_layout, stage_arrays
+
+    if mesh is None:
+        return stage_arrays(plan.device_arrays(), ctx.device)
+    host, specs = mesh_layout(_PLAN_KINDS[type(plan)], plan.device_arrays(),
+                              mesh)
+    return stage_arrays(host, mesh, specs=specs)
 
 
 def _pod_staged(plan, ctx: RunContext):
@@ -458,9 +531,9 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
     # ``device_stage`` and ``step`` here; the JAX package binds the kernel
     # after mark_counting)
     fn = ctx.memo(
-        ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.double_buffer, ctx.compact, ctx.reduce_strategy, ctx.npods,
-         ctx.fused_tile),
+        ctx.key("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
+                ctx.double_buffer, ctx.compact, ctx.reduce_strategy,
+                ctx.npods, ctx.fused_tile),
         lambda: cannon_mod.build_cannon_fn(
             plan,
             method=ctx.method,
@@ -471,10 +544,15 @@ def _run_cannon(graph: Graph, grid, ctx: RunContext):
             reduce_strategy=ctx.reduce_strategy,
             npods=ctx.npods,
             fused_tile=ctx.fused_tile,
+            mesh=ctx.mesh,
         ),
     )
-    staged = (_pod_staged(plan, ctx) if ctx.npods > 1
-              else _staged(plan, ctx))
+    if ctx.mesh is not None:  # a pod mesh stages the pods' stacked A, B
+        staged = _staged(plan, ctx, ctx.mesh)
+    elif ctx.npods > 1:
+        staged = _pod_staged(plan, ctx)
+    else:
+        staged = _staged(plan, ctx)
     ctx.mark_counting(plan)
     # the one device→host crossing of a count
     return int(fn(**staged)), plan
@@ -505,15 +583,16 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
         _check_plan_kind(splan, SummaPlan, "summa")
     if ctx.method == "auto":
         ctx.method = _resolve_auto_method(splan)
-    staged = _staged(splan, ctx)
+    mesh = ctx.grid_mesh()
+    staged = _staged(splan, ctx, mesh)
     ctx.mark_counting(splan)
     # SUMMA has no pod dimension: as in the JAX package, where every pod
     # runs the whole broadcast schedule and the grid sum is taken per
     # pod, pods and reduce_strategy leave the count as it is — the
     # schedule runs once and sums flat
     fn = ctx.memo(
-        ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.compact, ctx.broadcast, ctx.fused_tile),
+        ctx.key("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
+                ctx.compact, ctx.broadcast, ctx.fused_tile),
         lambda: build_summa_fn(
             splan,
             method=ctx.method,
@@ -522,6 +601,7 @@ def _run_summa(graph: Graph, grid, ctx: RunContext):
             compact=ctx.compact,
             broadcast=ctx.broadcast,
             fused_tile=ctx.fused_tile,
+            mesh=mesh,
         ),
     )
     return int(fn(**staged)), splan
@@ -555,11 +635,14 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
     if ctx.method == "auto":
         # the ring's global-id columns rule out the two-level kernel
         ctx.method = "search"
-    staged = _staged(oplan, ctx)
+    # the ring over every device of the mesh, in its order
+    ring = (None if ctx.mesh is None
+            else ctx.mesh.reshaped((ctx.mesh.size,), RingAxes().all))
+    staged = _staged(oplan, ctx, ring)
     ctx.mark_counting(oplan)
     fn = ctx.memo(
-        ("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
-         ctx.compact, ctx.reduce_strategy, ctx.fused_tile),
+        ctx.key("fn", ctx.method, ctx.probe_shorter, ctx.use_step_mask,
+                ctx.compact, ctx.reduce_strategy, ctx.fused_tile),
         lambda: build_oned_fn(
             oplan,
             method=ctx.method,
@@ -568,6 +651,7 @@ def _run_oned(graph: Graph, grid, ctx: RunContext):
             compact=ctx.compact,
             reduce_strategy=ctx.reduce_strategy,
             fused_tile=ctx.fused_tile,
+            mesh=ring,
         ),
     )
     return int(fn(**staged)), oplan
@@ -600,6 +684,7 @@ def _plan_grid(plan) -> Optional[tuple]:
 # ----------------------------------------------------------------------
 def count_triangles(
     graph: Graph,
+    mesh: Optional[DeviceMesh] = None,
     *,
     q: Optional[int] = None,
     grid: Optional[tuple] = None,
@@ -632,6 +717,14 @@ def count_triangles(
     in place of the JAX package's mesh.  The whole grid lives on
     ``device``.  ``device=None`` means the current CUDA device and raises
     when there is none; pass ``device="cpu"`` to run on the CPU.
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`, as
+    :func:`make_grid_mesh` builds it; it excludes ``device``) spreads the
+    grid over devices as the JAX package's mesh does: its last two axes
+    are the grid (Cannon's ``q``, SUMMA's ``(r, c)``), a third leading
+    axis the pods, and the ring runs over all its devices in order.
+    ``q``, ``grid`` and ``npods`` may be left out, and must agree with it
+    where given.  A SUMMA, ``tile`` or ``dense`` count on a pod mesh runs
+    on pod 0's grid.  The count is the one-device count, ``==``.
     ``schedule`` resolves via the registry (see
     :func:`available_schedules`): ``"cannon"`` needs a square grid,
     ``"summa"`` runs ``r x c`` (``q x q`` with ``q`` alone), ``"oned"``
@@ -729,6 +822,12 @@ def count_triangles(
         raise ValueError(
             f"count_dtype must be torch.int32 or torch.int64, got {count_dtype}"
         )
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass mesh or device, not both: a mesh places "
+                             "every grid position on its own device")
+        q, grid, npods = _mesh_grid(mesh, q, grid, npods, schedule)
+        device = mesh.first
     device = resolve_device(device)
     artifact = None
     if plan is not None and hasattr(plan, "staged") and hasattr(plan, "plan"):
@@ -784,6 +883,7 @@ def count_triangles(
         device=device,
         npods=npods,
         plan=plan,
+        mesh=mesh,
         use_step_mask=use_step_mask,
         double_buffer=double_buffer,
         compact=compact,
@@ -819,13 +919,34 @@ def count_triangles(
         schedule=schedule,
         grid=((npods, *grid) if npods > 1
               else _plan_grid(out_plan) or grid),
-        device=str(device),
+        device=(str(device) if mesh is None
+                else ",".join(dict.fromkeys(str(d) for d in mesh.devices))),
         autotune_mode=ctx.autotune_mode,
         measured_table_hit=ctx.measured_table_hit,
         artifact=ctx.artifact,
         rebalance=getattr(ctx.artifact, "rebalance", None),
         hub=_hub_report(out_plan, ctx.artifact),
     )
+
+
+def _mesh_grid(mesh, q, grid, npods, schedule):
+    """``(q, grid, npods)`` of a count on ``mesh``, checked against the
+    caller's."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
+    shape = tuple(mesh.shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a grid mesh has 2 or 3 axes, got {shape}")
+    mgrid, mpods = shape[-2:], (shape[0] if len(shape) == 3 else 1)
+    if (grid is not None and tuple(grid) != mgrid) or (
+            q is not None and (q, q) != mgrid) or (
+            int(npods) not in (1, mpods)):
+        raise ValueError(
+            f"q={q}, grid={grid}, npods={npods} disagree with the mesh "
+            f"{dict(zip(mesh.axis_names, shape))}")
+    if schedule == "cannon" and mgrid[0] != mgrid[1]:
+        raise ValueError(f"the cannon schedule needs a square mesh, got {shape}")
+    return None, mgrid, mpods
 
 
 def _hub_report(plan, artifact) -> Optional[dict]:
@@ -855,6 +976,7 @@ def _hub_report(plan, artifact) -> Optional[dict]:
 def count_triangles_delta(
     graph: Graph,
     delta,
+    mesh: Optional[DeviceMesh] = None,
     *,
     artifact=None,
     cache=None,
@@ -874,7 +996,9 @@ def count_triangles_delta(
     (rebound) engine fns.  The result's ``delta`` field carries the apply
     report and its ``artifact`` the derived artifact for the next round;
     ``triangles`` is exact — identical to a cold count of the mutated
-    graph.
+    graph.  On a ``mesh`` the derived artifact restages position by
+    position: a position whose blocks the delta left unchanged keeps its
+    tensors.
     """
     from ..pipeline.delta import apply_delta
 
@@ -885,7 +1009,7 @@ def count_triangles_delta(
             "default percentile mode"
         )
     if artifact is None:
-        base = count_triangles(graph, cache=cache, **kwargs)
+        base = count_triangles(graph, mesh, cache=cache, **kwargs)
         artifact = base.artifact
         if artifact is None:
             raise ValueError(
@@ -903,14 +1027,14 @@ def count_triangles_delta(
     for drop in ("reorder", "cyclic_p", "rebalance_trials", "hub_split"):
         kwargs.pop(drop, None)
     res = count_triangles(
-        art2.graph, plan=art2, reorder=False, rebalance_trials=0,
+        art2.graph, mesh, plan=art2, reorder=False, rebalance_trials=0,
         cache=cache, **kwargs,
     )
     res.delta = art2.delta_report
     return res
 
 
-def count_triangles_many(graphs, **kwargs):
+def count_triangles_many(graphs, mesh=None, **kwargs):
     """Count triangles of many graphs in one engine call.
 
     Thin re-export of :func:`repro_torch.pipeline.count_triangles_many`
@@ -920,4 +1044,4 @@ def count_triangles_many(graphs, **kwargs):
     """
     from ..pipeline import count_triangles_many as _many
 
-    return _many(graphs, **kwargs)
+    return _many(graphs, mesh, **kwargs)

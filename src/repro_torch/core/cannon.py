@@ -18,10 +18,15 @@ over a leading pod dimension, pod ``t`` starts at skew offset ``t``
 (:func:`pod_stack_arrays`) and runs every ``npods``-th shift; the task
 lists are not replicated.  Memory ×npods for A and B, shifts ÷npods.
 Only the CSR path takes pods, as in the JAX package.
+
+Every builder takes ``mesh=``: a :class:`~repro_torch.launch.mesh.DeviceMesh`
+of the grid's shape (``(q, q)``, or ``(npods, q, q)`` with pods) whose
+positions hold the arrays that ``PlanArtifact.staged(mesh)`` spreads over
+it (:func:`cannon_in_specs`); the function then takes those arrays only.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -37,7 +42,22 @@ from .engine import (
 from .plan import as_plan, resolve_compact_steps, resolve_step_mask
 
 __all__ = ["build_cannon_fn", "build_cannon_tile_fn", "build_cannon_dense_fn",
-           "build_cannon_stepper", "pod_stack_arrays"]
+           "build_cannon_stepper", "cannon_in_specs", "pod_stack_arrays"]
+
+
+def cannon_in_specs(row_axis: str, col_axis: str,
+                    pod_axis: Optional[str] = None) -> Dict[str, Tuple[str, ...]]:
+    """The mesh axes each of the plan's stacked arrays is split over, by
+    name (the JAX package's partition specs): the A and B operands (and
+    ``b_aug``) and the pod-strided ``step_keep`` over every axis, the task
+    lists and the hub side over the grid's two, so every pod holds a
+    replica of them."""
+    axes = engine.GridAxes(row_axis, col_axis, pod_axis)
+    specs = {k: axes.all for k in ("a_indptr", "a_indices", "b_indptr",
+                                   "b_indices", "b_aug", engine.MASK_NAME)}
+    specs.update({k: (axes.row, axes.col) for k in ("m_ti", "m_tj", "m_cnt")
+                  + engine.HubCount.names})
+    return specs
 
 
 def pod_stack_arrays(arrays: Dict, npods: int, q: int) -> Dict:
@@ -71,7 +91,7 @@ def pod_stack_arrays(arrays: Dict, npods: int, q: int) -> Dict:
 
 def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
                compact, reduce_strategy, batched=False, hub=None, npods=1,
-               elide_shifts=False):
+               elide_shifts=False, mesh=None):
     """The engine composition shared by every ``build_cannon_*`` fn: the skip
     mask and the compacted schedule come from the CSR plan."""
     use_step_mask = resolve_step_mask(plan, use_step_mask)
@@ -88,6 +108,7 @@ def _engine_fn(plan, store, *, reduce_global, use_step_mask, double_buffer,
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
         batched=batched,
         hub=hub,
+        mesh=mesh,
     )
 
 
@@ -114,9 +135,12 @@ def build_cannon_fn(
     use_blob: bool = True,
     compress_lengths: bool = False,
     elide_shifts: bool = False,
+    mesh=None,
 ):
     """Build the counting function for ``plan`` on its ``(q, q)`` grid, or
-    on the ``(npods, q, q)`` grid of ``npods`` 2.5D pods.
+    on the ``(npods, q, q)`` grid of ``npods`` 2.5D pods.  With ``mesh``
+    (a :class:`~repro_torch.launch.mesh.DeviceMesh` of that shape) it
+    counts the arrays ``PlanArtifact.staged(mesh)`` spread over the mesh.
 
     ``plan`` may be a raw :class:`~repro_torch.core.plan.TCPlan` or a
     pipeline :class:`~repro_torch.pipeline.artifact.PlanArtifact`.
@@ -184,7 +208,7 @@ def build_cannon_fn(
         double_buffer=double_buffer, compact=compact,
         reduce_strategy=reduce_strategy, batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
-        npods=npods, elide_shifts=elide_shifts,
+        npods=npods, elide_shifts=elide_shifts, mesh=mesh,
     )
 
 
@@ -255,6 +279,7 @@ def build_cannon_tile_fn(
     double_buffer: bool = True,
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
+    mesh=None,
 ):
     """Cannon schedule with the bit-tile kernels as the count path.
 
@@ -263,7 +288,9 @@ def build_cannon_tile_fn(
     exactly like the CSR blocks; the per-(device, shift) active-triple
     lists are static (planner-joined) and selected by the ORIGINAL step
     index, also under a compacted schedule.  ``mode`` is ``"popcount"``
-    or ``"mxu"`` (same count).  The skip mask and the compaction come from
+    or ``"mxu"`` (same count).  With ``mesh`` (a ``(q, q)``
+    :class:`~repro_torch.launch.mesh.DeviceMesh`) it counts the tile
+    arrays staged over it, each position's kernel on its device.  The skip mask and the compaction come from
     the *CSR* plan.  Unlike the JAX package's, it takes no tile plan: the
     tile shapes travel with the staged tensors.  A hub-split plan is
     refused.
@@ -278,7 +305,7 @@ def build_cannon_tile_fn(
     return _engine_fn(
         plan, TileStore(mode=mode), reduce_global=reduce_global,
         use_step_mask=use_step_mask, double_buffer=double_buffer,
-        compact=compact, reduce_strategy=reduce_strategy,
+        compact=compact, reduce_strategy=reduce_strategy, mesh=mesh,
     )
 
 
@@ -290,10 +317,12 @@ def build_cannon_dense_fn(
     double_buffer: bool = True,
     compact: Optional[bool] = None,
     reduce_strategy: str = "auto",
+    mesh=None,
 ):
     """Dense-operand Cannon (oracle path): blocks as 0/1 float32 matrices
     (``plan.dense_blocks()`` staged), counted by ``torch.matmul``.  A
-    hub-split plan is refused."""
+    hub-split plan is refused.  ``mesh`` as for :func:`build_cannon_tile_fn`
+    (a ``(q, q)`` mesh)."""
     plan = as_plan(plan)
     _refuse_hub(
         plan,
@@ -304,5 +333,5 @@ def build_cannon_dense_fn(
     return _engine_fn(
         plan, DenseStore(), reduce_global=reduce_global,
         use_step_mask=use_step_mask, double_buffer=double_buffer,
-        compact=compact, reduce_strategy=reduce_strategy,
+        compact=compact, reduce_strategy=reduce_strategy, mesh=mesh,
     )

@@ -1,5 +1,6 @@
 """Schedule engine: one pluggable runtime for the distributed count, with
-the whole logical processor grid held on a single device.
+the logical processor grid held on a single device or spread over a
+device mesh.
 
 A distributed triangle count is expressed as the composition
 
@@ -33,6 +34,25 @@ SUMMA, ``(p,)`` for the 1D ring — so
   device-step).  Only the final total crosses back to the host, once per
   count.
 
+The second realisation spreads the grid over a
+:class:`~repro_torch.launch.mesh.DeviceMesh`, as the JAX package's
+``shard_map`` does: every staged array is a :class:`MeshArray` holding
+position ``(x, y)``'s block on that position's device, and the same
+schedule loop (:meth:`ShiftSchedule.run`) runs over it.  Only three things
+change: the payload's container (a :class:`MeshArray` in place of a
+stacked tensor, packed position by position), the shift
+(:func:`tree_ppermute`: each block is ``copy_``'d into a receive buffer on
+its destination's device, and the buffers swap after the step) and the
+reduction (every partial is copied to the mesh's first device and summed
+there; the pod tree sends per-pod sums between the pods' devices).  A
+SUMMA round copies the owner's panels along its row and column
+(:func:`chain_broadcast`, or the owner sending to each in turn for
+``onehot``).  Ordering across devices rests on PyTorch's stream semantics
+for a peer ``copy_`` (a two-way barrier between the two devices' current
+streams), so no step synchronises.  A shift is not overlapped with the
+count (the JAX package's ``double_buffer``): that is a matter of speed,
+left to later work.
+
 Carried over here: the CSR-kernel registry (``search``, ``search2``,
 ``global``, ``fused``), :class:`CSRStore` (with ``with_aug``),
 :class:`SummaCSRStore`, :class:`OneDCSRStore`, :class:`DenseStore`,
@@ -57,7 +77,11 @@ package reads the bytes its collectives move from the compiled program,
 the port counts them where it moves them: every rolled tensor under
 ``shift``, the blob packing under ``other`` and the final sum's reads
 under ``reduce``, into the tally of :func:`tally_moved_bytes` (a SUMMA
-broadcast is a view and moves nothing).
+broadcast is a view and moves nothing).  On a mesh the tally counts the
+bytes that cross positions, which for shifts and the global sum are the
+one-device tally's; a SUMMA broadcast's copies count under
+``broadcast``, and ``Reduction(global_sum=False)``'s gather under
+``reduce``.
 """
 from __future__ import annotations
 
@@ -71,10 +95,15 @@ import numpy as np
 import torch
 
 from ..kernels.tc_tile import tile_pair_count
+from ..launch.mesh import DeviceMesh
 from . import count as count_mod
 from .blob import blob_layout, pack_blob, unpack_blob
 
 __all__ = [
+    "GridAxes",
+    "RingAxes",
+    "MASK_NAME",
+    "MeshArray",
     "OperandStore",
     "CSRStore",
     "DenseStore",
@@ -87,6 +116,8 @@ __all__ = [
     "RingSchedule",
     "Reduction",
     "pod_tree_allreduce",
+    "chain_broadcast",
+    "tree_ppermute",
     "HubCount",
     "CSR_KERNELS",
     "register_csr_kernel",
@@ -99,6 +130,130 @@ __all__ = [
     "shift_perm",
     "tally_moved_bytes",
 ]
+
+
+# ======================================================================
+# mesh axes and the mesh's container
+# ======================================================================
+MASK_NAME = "step_keep"
+
+
+@dataclasses.dataclass(frozen=True)
+class GridAxes:
+    """Named mesh axes of a 2D (optionally 2.5D) grid; ``all`` is their
+    order, which is the order of the grid dimensions: ``all[i]`` names
+    grid dimension ``i``."""
+
+    row: str = "data"
+    col: str = "model"
+    pod: Optional[str] = None
+
+    @property
+    def all(self) -> Tuple[str, ...]:
+        return (self.pod, self.row, self.col) if self.pod else (self.row, self.col)
+
+    @classmethod
+    def of(cls, mesh) -> "GridAxes":
+        """The axes of a ``(row, col)`` or ``(pod, row, col)`` mesh."""
+        names = tuple(mesh.axis_names)
+        if len(names) == 2:
+            return cls(row=names[0], col=names[1])
+        if len(names) == 3:
+            return cls(row=names[1], col=names[2], pod=names[0])
+        raise ValueError(f"a grid mesh has 2 or 3 axes, got {names}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RingAxes:
+    """A single mesh axis forming the 1D ring."""
+
+    axis: str = "flat"
+
+    @property
+    def all(self) -> Tuple[str, ...]:
+        return (self.axis,)
+
+
+class MeshArray:
+    """One stacked plan array spread over a
+    :class:`~repro_torch.launch.mesh.DeviceMesh`: ``blocks[pos]`` is grid
+    position ``pos``'s block, on that position's device.
+
+    It is indexed as the stacked tensor it stands for: ``t[pos]`` is the
+    block and ``t[pos + rest]`` is ``block[rest]``, so the stores read a
+    position's operands alike on one device and on a mesh; ``shape`` is
+    the grid's shape followed by a block's.  ``owned`` marks blocks the
+    engine made (packed blobs, received shifts), which a later shift may
+    overwrite; staged blocks are never written.  ``spare`` holds the
+    previous generation's blocks of a shifted payload: the next shift's
+    receive buffers.
+    """
+
+    __slots__ = ("mesh", "blocks", "owned", "spare")
+
+    def __init__(self, mesh, blocks: Dict[tuple, torch.Tensor], *,
+                 owned: bool = False, spare: Optional[Dict] = None):
+        self.mesh = mesh
+        self.blocks = blocks
+        self.owned = owned
+        self.spare = spare
+
+    def _split(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        g = len(self.mesh.shape)
+        if len(idx) < g:
+            raise IndexError(
+                f"a mesh array is indexed by a whole grid position "
+                f"({g} indices) first, got {idx}")
+        return tuple(int(i) for i in idx[:g]), idx[g:]
+
+    def __getitem__(self, idx):
+        pos, rest = self._split(idx)
+        block = self.blocks[pos]
+        return block[rest] if rest else block
+
+    def __setitem__(self, pos, value):
+        """Replace a whole position's block (``out[pos] += c`` lands here)."""
+        pos, rest = self._split(pos)
+        if rest:
+            raise IndexError("a mesh array replaces whole blocks only")
+        self.blocks[pos] = value
+
+    def _any(self) -> torch.Tensor:
+        return next(iter(self.blocks.values()))
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(tuple(self.mesh.shape) + tuple(self._any().shape))
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return sum(b.numel() for b in self.blocks.values())
+
+    def element_size(self) -> int:
+        return self._any().element_size()
+
+    def map(self, fn, *others: "MeshArray") -> "MeshArray":
+        """``fn`` of each position's blocks (this array's, then each of
+        ``others``'), on that position: a new array the engine owns."""
+        return MeshArray(self.mesh, {
+            pos: fn(b, *(o.blocks[pos] for o in others))
+            for pos, b in self.blocks.items()}, owned=True)
+
+
+def _on_mesh(t) -> bool:
+    return isinstance(t, MeshArray)
+
+
+def _send(x: torch.Tensor, device, phase: str) -> torch.Tensor:
+    """A copy of ``x`` received on ``device``: one crossing of positions,
+    tallied under ``phase``."""
+    buf = torch.empty_like(x, device=device)
+    buf.copy_(x)
+    _tally(phase, buf)
+    return buf
 
 
 # ======================================================================
@@ -144,9 +299,66 @@ def _tally(phase: str, *tensors) -> None:
 
 def _roll_tree(tree, k: int, dim: int):
     """Apply a :func:`shift_perm` of distance ``k`` to every stacked
-    tensor of a payload along grid dimension ``dim``."""
+    tensor of a payload along grid dimension ``dim``: a roll on one
+    device, :func:`tree_ppermute` on a mesh."""
+    if tree and _on_mesh(tree[0]):
+        return tree_ppermute(tree, dim, shift_perm(tree[0].mesh.shape[dim], k))
     _tally("shift", *tree)
     return tuple(torch.roll(t, shifts=-k, dims=dim) for t in tree)
+
+
+def tree_ppermute(tree, dim: int, perm):
+    """Permute every :class:`MeshArray` of a payload along grid dimension
+    ``dim`` by the ``(source, destination)`` pairs ``perm``: each block is
+    ``copy_``'d into a receive buffer on its destination's device.  The
+    buffers are the payload's previous generation where the engine owns it
+    (so two generations swap from step to step), else new ones; staged
+    blocks are only read.  No synchronisation: a peer ``copy_`` orders
+    itself after the work queued on both devices' current streams, and
+    the receiver's later work after it."""
+    dest = dict(perm)
+    out = []
+    for t in tree:
+        recv = {}
+        for pos, block in t.blocks.items():
+            to = pos[:dim] + (dest[pos[dim]],) + pos[dim + 1:]
+            if t.spare is not None:
+                buf = t.spare[to]
+                buf.copy_(block)
+                _tally("shift", buf)
+            else:
+                buf = _send(block, t.mesh.device_at(to), "shift")
+            recv[to] = buf
+        out.append(MeshArray(t.mesh, recv, owned=True,
+                             spare=t.blocks if t.owned else None))
+    return tuple(out)
+
+
+def _onehot_broadcast(x, devices, owner: int):
+    """``owner``'s ``x`` at every position of a line: the owner sends it to
+    each other position in turn (the JAX package's masked psum moves the
+    same panel with an all-reduce)."""
+    return [x if t == owner else _send(x, d, "broadcast")
+            for t, d in enumerate(devices)]
+
+
+def chain_broadcast(x, devices, owner: int):
+    """``owner``'s ``x`` at every position of a line of ``len(devices)``
+    positions, by the JAX package's doubling chain: in each round every
+    position already covered sends to the one ``cover`` ahead (mod n, never
+    past the owner), so ``n - 1`` copies in ``ceil(log2 n)`` rounds, a
+    relay sending what it received."""
+    n = len(devices)
+    held = {owner % n: x}
+    cover = 1
+    while cover < n:
+        for t in range(n):
+            rel = (t - owner) % n
+            if rel < cover and rel + cover < n:
+                held[(t + cover) % n] = _send(held[t], devices[(t + cover) % n],
+                                              "broadcast")
+        cover *= 2
+    return [held[t] for t in range(n)]
 
 
 def restage_device_arrays(
@@ -154,6 +366,7 @@ def restage_device_arrays(
     prev_staged: Dict[str, torch.Tensor],
     new_host: Dict[str, np.ndarray],
     device,
+    specs: Optional[Dict[str, Tuple[str, ...]]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Stage ``new_host`` arrays on ``device``, reusing the parent's
     tensors (``prev_staged``, staged there from ``prev_host``) for every
@@ -165,6 +378,12 @@ def restage_device_arrays(
     array decides — e.g. ``step_keep`` frequently survives a delta
     byte-identical even though it was recomputed.  Returns the staged
     dict and how many tensors were reused (skipped uploads).
+
+    ``device`` may be a :class:`~repro_torch.launch.mesh.DeviceMesh` (the
+    host arrays then laid out as the mesh stages them, ``specs`` naming
+    each array's mesh axes): an array that changed is restaged position
+    by position, each position keeping the parent's block where its slice
+    of the host array is unchanged.
     """
     from ..pipeline.artifact import stage_arrays
 
@@ -185,7 +404,16 @@ def restage_device_arrays(
         else:
             fresh[name] = host
     reused = len(out)
-    out.update(stage_arrays(fresh, device))
+    if fresh and isinstance(device, DeviceMesh):
+        from ..pipeline.artifact import stage_on_mesh
+
+        for name, host in fresh.items():
+            prev = prev_staged.get(name)
+            out[name] = stage_on_mesh(
+                host, device, (specs or {}).get(name),
+                reuse=(prev_host[name], prev) if _on_mesh(prev) else None)
+    else:
+        out.update(stage_arrays(fresh, device))
     return {name: out[name] for name in new_host}, reused
 
 
@@ -363,10 +591,17 @@ class OperandStore:
       ``(a_state, b_state)`` of stacked ``(q, q, ...)`` tensors, for the
       ring one tuple of ``(p, ...)`` tensors, for SUMMA nothing;
       schedules treat it opaquely and roll it along the grid dimensions.
+    * ``select(state, arrays, step)`` — the state the whole grid counts
+      at schedule step ``step``: the state itself, but for SUMMA on a mesh,
+      whose round broadcasts its panels here.
     * ``count(state, arrays, dev, step, cnt)`` — run the bound count
       kernel for logical device ``dev`` (an index tuple into the grid) on
       the current state at schedule step ``step`` (the ORIGINAL step
       index, also under compaction) over ``cnt`` tasks.
+
+    The arrays are stacked tensors on one device or :class:`MeshArray`
+    s over a mesh; both index alike, so a store reads a position's
+    operands the same way on either.
     """
 
     operand_names: Sequence[str] = ()
@@ -378,6 +613,10 @@ class OperandStore:
 
     def payload(self, arrays: Dict):
         raise NotImplementedError
+
+    def select(self, state, arrays: Dict, step: int):
+        del arrays, step
+        return state
 
     def count(self, state, arrays: Dict, dev: Tuple[int, ...], step: int,
               cnt: int):
@@ -455,10 +694,16 @@ class CSRStore(OperandStore):
             [(head,), (arrays[f"{side}_indices"].shape[-1],)])
         return layout, nb
 
-    def _pack(self, arrays, side):
-        ptr, idx = arrays[f"{side}_indptr"], arrays[f"{side}_indices"]
+    def _pack_one(self, ptr, idx):
         head = self._pack_lengths(ptr) if self.compress_lengths else ptr
-        blob = pack_blob([head, idx], lead=ptr.dim() - 1)
+        return pack_blob([head, idx], lead=ptr.dim() - 1)
+
+    def _pack(self, arrays, side):
+        """One blob of the side's stacked operands, or on a mesh one a
+        position, packed on its device."""
+        ptr, idx = arrays[f"{side}_indptr"], arrays[f"{side}_indices"]
+        blob = (ptr.map(self._pack_one, idx) if _on_mesh(ptr)
+                else self._pack_one(ptr, idx))
         _tally("other", blob)
         return blob
 
@@ -482,8 +727,9 @@ class CSRStore(OperandStore):
     def count(self, state, arrays, dev, step, cnt):
         del step  # the task list is the same at every step
         # ``dev`` is ``(x, y)``, or ``(t, x, y)`` on a pod grid: the
-        # operands are pod t's, the task list is (x, y)'s in every pod
-        x, y = dev[-2:]
+        # operands are pod t's, the task list is (x, y)'s in every pod —
+        # on one device the one stacked list, on a mesh pod t's replica
+        home = dev if _on_mesh(arrays["m_ti"]) else dev[-2:]
         a_state, b_state = state
         extra = {}
         if self.with_aug:
@@ -497,7 +743,7 @@ class CSRStore(OperandStore):
             b_ptr, b_idx = (t[dev] for t in b_state)
         return self.kernel(
             a_ptr, a_idx, b_ptr, b_idx,
-            arrays["m_ti"][x, y], arrays["m_tj"][x, y], cnt,
+            arrays["m_ti"][home], arrays["m_tj"][home], cnt,
             **extra,
         )
 
@@ -561,7 +807,10 @@ class SummaCSRStore(OperandStore):
     psums; ``"chain"``: masked ppermute doubling chains).  Both move the
     owner's panel to every device of its row or column; with the grid on
     one device both come down to the same read of the owner's slice, so
-    the count is the same and only the name is checked and kept.
+    the count is the same and only the name is checked and kept.  On a
+    mesh a round copies the panels (:meth:`select`): ``"onehot"`` has the
+    owner send to each position of its line, ``"chain"`` relays along
+    :func:`chain_broadcast`'s doubling chain.
 
     ``elide_broadcast=True`` is the count-only timing probe (mirroring
     Cannon's ``elide_shifts``): every device counts its *local* panel
@@ -589,9 +838,39 @@ class SummaCSRStore(OperandStore):
         del arrays
         return ()
 
+    def select(self, state, arrays, step):
+        """On a mesh, round ``step``'s broadcasts: the A panel of owner
+        ``(x, z % c)`` along every grid row ``x``, the B panel (slot
+        ``z // r``) of owner ``(z % r, y)`` down every grid column ``y``.
+        Returns each position's received ``(a_indptr, a_indices,
+        b_indptr, b_indices)``; on one device nothing (views)."""
+        a = arrays["a_indptr"]
+        if not _on_mesh(a) or self.elide_broadcast:
+            return state
+        z, mesh = step, a.mesh
+        send = chain_broadcast if self.broadcast == "chain" else _onehot_broadcast
+        got = {k: {} for k in self.operand_names}
+        for x in range(self.r):
+            line = [(x, y) for y in range(self.c)]
+            devs = [mesh.device_at(pos) for pos in line]
+            for k in ("a_indptr", "a_indices"):
+                got[k].update(zip(line, send(
+                    arrays[k][x, z % self.c], devs, z % self.c)))
+        for y in range(self.c):
+            line = [(x, y) for x in range(self.r)]
+            devs = [mesh.device_at(pos) for pos in line]
+            for k in ("b_indptr", "b_indices"):
+                got[k].update(zip(line, send(
+                    arrays[k][z % self.r, y, z // self.r], devs, z % self.r)))
+        return tuple(MeshArray(mesh, got[k], owned=True)
+                     for k in self.operand_names)
+
     def count(self, state, arrays, dev, step, cnt):
-        del state
         x, y = dev
+        if state:  # the panels this position received (a mesh)
+            return self.kernel(*(t[dev] for t in state),
+                               arrays["m_ti"][x, y], arrays["m_tj"][x, y],
+                               cnt)
         z = step
         ax, bx, slot = z % self.c, z % self.r, z // self.r
         if self.elide_broadcast:
@@ -620,7 +899,9 @@ class OneDCSRStore(OperandStore):
         self.p = p
 
     def payload(self, arrays):
-        blob = pack_blob([arrays["indptr"], arrays["indices"]], lead=1)
+        ptr, idx = arrays["indptr"], arrays["indices"]
+        blob = (ptr.map(lambda p, i: pack_blob([p, i]), idx) if _on_mesh(ptr)
+                else pack_blob([ptr, idx], lead=1))
         _tally("other", blob)
         return (blob,)
 
@@ -699,6 +980,7 @@ class ShiftSchedule:
         raise NotImplementedError
 
     def _count_grid(self, store, payload, arrays, step, m_cnt, step_keep, out):
+        payload = store.select(payload, arrays, step)
         for dev in np.ndindex(*self.grid):
             home, s = self.locate(dev, step)
             c = masked_count(
@@ -709,8 +991,7 @@ class ShiftSchedule:
                 out[dev] += c
 
     def run(self, store, arrays, *, m_cnt, step_keep=None):
-        dev = arrays[store.static_names[0]].device
-        out = torch.zeros(self.grid, dtype=torch.int64, device=dev)
+        out = _zero_partials(arrays[store.static_names[0]], self.grid)
         payload = store.payload(arrays)
         if self.live_steps is not None:
             return self._run_compacted(
@@ -735,6 +1016,22 @@ class ShiftSchedule:
             if i + 1 < len(live):
                 payload = self._shift_k(payload, live[i + 1] - s)
         return out
+
+
+def _zero_partials(like, grid):
+    """The grid-shaped int64 zeros the schedule adds each position's
+    counts into: one tensor on ``like``'s device, or on a mesh one 0-dim
+    tensor a position, on its device."""
+    if not _on_mesh(like):
+        return torch.zeros(grid, dtype=torch.int64, device=like.device)
+    mesh = like.mesh
+    if tuple(mesh.shape) != tuple(grid):
+        raise ValueError(
+            f"the schedule's grid {tuple(grid)} is not the mesh's "
+            f"{tuple(mesh.shape)}")
+    return MeshArray(mesh, {
+        pos: torch.zeros((), dtype=torch.int64, device=mesh.device_at(pos))
+        for pos in np.ndindex(*grid)}, owned=True)
 
 
 @dataclasses.dataclass
@@ -879,6 +1176,10 @@ def pod_tree_allreduce(x, n: int):
     ``ppermute`` delivers), then log2(n) broadcast rounds in reverse send
     the sum back (``t % 2k == 0`` sends to ``t + k``, which replaces its
     stale partial).  Every position ends holding the sum.
+
+    On a mesh ``x`` is a list of the pods' partials, each on its pod's
+    first device, and every send is a copy to the receiver's device; the
+    result is that list with the sum at every pod.
     """
     if n == 1:
         return x
@@ -889,6 +1190,15 @@ def pod_tree_allreduce(x, n: int):
     while k < n:
         rounds.append(k)
         k *= 2
+    if isinstance(x, list):
+        x = list(x)
+        for k in rounds:
+            for t in range(k, n, 2 * k):
+                x[t - k] = x[t - k] + _send(x[t], x[t - k].device, "reduce")
+        for k in reversed(rounds):
+            for t in range(0, n, 2 * k):
+                x[t + k] = _send(x[t], x[t + k].device, "reduce")
+        return x
     pos = torch.arange(n, device=x.device).view(-1, *([1] * (x.dim() - 1)))
     for k in rounds:
         src = [t for t in range(n) if t % (2 * k) == k]
@@ -921,6 +1231,12 @@ class Reduction:
     The build functions pass the unresolved knob;
     :func:`build_engine_fn` binds it against the schedule's pod count via
     :meth:`resolve`.
+
+    On a mesh (the partials a :class:`MeshArray`) every partial is copied
+    to the mesh's first device and summed there (``flat``), or each pod's
+    to its first device, summed, and the pods' sums sent along the tree
+    (``tree``): one 0-dim tensor on the mesh's first device.
+    ``global_sum=False`` gathers the grid-shaped partials there.
     """
 
     global_sum: bool = True
@@ -953,6 +1269,8 @@ class Reduction:
         return dataclasses.replace(self, strategy=strategy, npods=npods)
 
     def apply(self, per_device):
+        if _on_mesh(per_device):
+            return self._apply_mesh(per_device)
         if not self.global_sum:
             return per_device
         _tally("reduce", per_device)
@@ -960,6 +1278,30 @@ class Reduction:
             per_pod = per_device.flatten(1).sum(dim=1)
             return pod_tree_allreduce(per_pod, self.npods)[0]
         return per_device.sum()
+
+    def _apply_mesh(self, per):
+        mesh = per.mesh
+        every = list(np.ndindex(*mesh.shape))
+        if not self.global_sum:
+            return _gather(per, every, mesh.first).view(tuple(mesh.shape))
+        if self.strategy == "tree":
+            pods = [
+                _gather(per, [p for p in every if p[0] == t],
+                        mesh.device_at((t,) + (0,) * (len(mesh.shape) - 1))
+                        ).sum()
+                for t in range(self.npods)]
+            return pod_tree_allreduce(pods, self.npods)[0]
+        return _gather(per, every, mesh.first).sum()
+
+
+def _gather(per, positions, device):
+    """The partials of ``positions`` copied into one int64 vector on
+    ``device`` (tallied under ``reduce``)."""
+    buf = torch.empty(len(positions), dtype=torch.int64, device=device)
+    for i, pos in enumerate(positions):
+        buf[i].copy_(per.blocks[pos])
+    _tally("reduce", buf)
+    return buf
 
 
 # ======================================================================
@@ -1010,15 +1352,19 @@ class HubCount:
         grid-shaped int64 per-device counts; on a pod grid pod 0's) in
         place."""
         ptr, idx = arrays["hub_indptr"], arrays["hub_indices"]
-        pod0 = out if out.dim() == self.hub_cnt.ndim else out[0]
+        # pod 0's positions: on one device the pod dimension leads the
+        # partials only; on a mesh every array is indexed by position
+        pod0 = () if out.dim() == self.hub_cnt.ndim else (0,)
+        mesh = _on_mesh(ptr)
         with torch.profiler.record_function("tc_hub"):
             for dev in np.ndindex(*self.hub_cnt.shape):
                 cnt = int(self.hub_cnt[dev])
                 if cnt <= 0:
                     continue
-                pod0[dev] += count_mod.count_pair_search(
-                    ptr[dev], idx[dev], ptr[dev], idx[dev],
-                    arrays["hub_ti"][dev], arrays["hub_tj"][dev], cnt,
+                at = pod0 + dev if mesh else dev
+                out[pod0 + dev] += count_mod.count_pair_search(
+                    ptr[at], idx[at], ptr[at], idx[at],
+                    arrays["hub_ti"][at], arrays["hub_tj"][at], cnt,
                     dpad=self.dpad, chunk=self.chunk,
                     probe_shorter=self.probe_shorter,
                     sentinel=self.sentinel,
@@ -1038,6 +1384,7 @@ def build_engine_fn(
     reduction: Optional[Reduction] = None,
     batched: bool = False,
     hub: Optional[HubCount] = None,
+    mesh: Optional[DeviceMesh] = None,
 ):
     """Generate the counting function for one composition.
 
@@ -1046,6 +1393,12 @@ def build_engine_fn(
     0-dim int64 tensor on that device — or the grid-shaped per-device
     counts with ``Reduction(global_sum=False)``.  The call does not
     synchronise; ``int(result)`` does, once.
+
+    The same call runs over :class:`MeshArray` s staged on a
+    :class:`~repro_torch.launch.mesh.DeviceMesh` whose shape is the
+    schedule's grid (``PlanArtifact.staged(mesh)``); the result then lies
+    on the mesh's first device.  With ``mesh`` the call takes arrays
+    staged on that mesh only.
 
     ``m_cnt`` and ``step_keep`` are the plan's *host* arrays: the loop
     reads task counts and the skip mask from them, never from the
@@ -1081,12 +1434,22 @@ def build_engine_fn(
                 "batched engines use the scan body (per-graph masks differ; "
                 "compaction would need their union)"
             )
+    if mesh is not None and tuple(mesh.shape) != tuple(schedule.grid):
+        raise ValueError(
+            f"the schedule's grid {tuple(schedule.grid)} needs a mesh of that "
+            f"shape, got {tuple(mesh.shape)}")
     return _bind_engine_fn(store, schedule, reduction, batched, m_cnt,
-                           step_keep, hub)
+                           step_keep, hub, mesh)
+
+
+def _graph_of(array, b: int):
+    """Graph ``b`` of a batched staged array: the leading dimension of a
+    tensor, or of every block of a :class:`MeshArray`."""
+    return array.map(lambda t: t[b]) if _on_mesh(array) else array[b]
 
 
 def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
-                    hub):
+                    hub, mesh=None):
     """The counting function of :func:`build_engine_fn` over one set of
     host arrays (task counts, skip mask, hub side)."""
     m_cnt = np.asarray(m_cnt)
@@ -1099,6 +1462,18 @@ def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
         missing = [k for k in ordered if k not in arrays]
         if missing:
             raise KeyError(f"engine call is missing plan arrays {missing}")
+        placed = [_on_mesh(arrays[k]) for k in ordered]
+        if any(placed):
+            meshes = {arrays[k].mesh for k, on in zip(ordered, placed) if on}
+            if not all(placed) or len(meshes) != 1:
+                raise ValueError("plan arrays are not all on one mesh")
+            if mesh is not None and meshes != {mesh}:
+                raise ValueError("plan arrays are staged on another mesh "
+                                 "than the one this function was built for")
+            return
+        if mesh is not None:
+            raise ValueError("this function was built for a mesh: stage the "
+                             "plan arrays on it (PlanArtifact.staged(mesh))")
         devices = {arrays[k].device for k in ordered}
         if len(devices) != 1:
             raise ValueError(f"plan arrays live on several devices: {devices}")
@@ -1114,7 +1489,7 @@ def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
         def call(**arrays):
             check(arrays)
             return torch.stack([
-                core({k: v[b] for k, v in arrays.items()}, m_cnt[b],
+                core({k: _graph_of(arrays[k], b) for k in ordered}, m_cnt[b],
                      None if keep is None else keep[b])
                 for b in range(m_cnt.shape[0])
             ])
@@ -1134,10 +1509,11 @@ def _bind_engine_fn(store, schedule, reduction, batched, m_cnt, step_keep,
         parent artifact's functions to a spliced plan this way."""
         return _bind_engine_fn(
             store, schedule, reduction, batched, m_cnt,
-            None if keep is None else step_keep, hub,
+            None if keep is None else step_keep, hub, mesh,
         )
 
     call.ordered = ordered
+    call.mesh = mesh
     call.store, call.schedule = store, schedule
     call.m_cnt, call.step_keep, call.hub = m_cnt, keep, hub
     call.rebind = rebind
@@ -1221,6 +1597,9 @@ def build_engine_stepper(
         return tuple(_leaves(payload))
 
     def one_shift(state, statics, step=0):
+        if any(_on_mesh(v) for v in statics.values()):
+            raise ValueError("the checkpointed stepper runs on one device; "
+                             "it does not take arrays staged on a mesh")
         *carry, acc = state
         if len(carry) != n_carry:
             raise ValueError(

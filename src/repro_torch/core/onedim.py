@@ -10,9 +10,10 @@ function, ``method="auto"`` resolves to ``search``, and ``global`` keys
 are built on the base ``n + 2`` (the JAX package builds them on
 ``nb + 1`` and miscounts the ring past ``p = 1``; ROADMAP.md, Queue C).
 
-Here the ring sits on one device: device ``d``'s block is
-``indptr[d]``/``indices[d]`` and a rotation is a ``torch.roll`` of a copy
-of them (:class:`~repro_torch.core.engine.RingSchedule`).
+On one device, device ``d``'s block is ``indptr[d]``/``indices[d]`` and
+a rotation is a ``torch.roll`` of a copy of them
+(:class:`~repro_torch.core.engine.RingSchedule`); on a ring mesh each
+block lies on its device and a rotation copies it to the next.
 """
 from __future__ import annotations
 
@@ -110,6 +111,7 @@ def build_oned_fn(
     batched: bool = False,
     fused_tile: Optional[int] = None,
     elide_shifts: bool = False,
+    mesh=None,
 ):
     """Build the ring's counting function: RingSchedule × OneDCSRStore ×
     kernel over the plan's ``(p,)`` ring.
@@ -127,7 +129,10 @@ def build_oned_fn(
     ``fused_tile`` overrides the fused kernel's tile.  ``elide_shifts`` is
     a timing probe: no rotation, each device counts every group against
     its own block (counts are wrong for p > 1; ``tc_run --time-split``'s
-    count-only run).
+    count-only run).  With ``mesh`` (a ``(p,)`` ring
+    :class:`~repro_torch.launch.mesh.DeviceMesh`, ``("flat",)`` as the
+    supervisor names it) it counts the arrays ``PlanArtifact.staged(mesh)``
+    spread over the ring, each rotation a copy to the next device.
     """
     from . import engine
     from .engine import OneDCSRStore, Reduction, RingSchedule, make_csr_kernel
@@ -165,4 +170,5 @@ def build_oned_fn(
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
         batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
+        mesh=mesh,
     )

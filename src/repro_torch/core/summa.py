@@ -13,10 +13,11 @@ index k is classed by ``k % c`` into ``c`` panels.  Round ``z``:
   grid column ``y`` from its owner ``(z % r, y)`` (each device stores
   ``ceil(c/r)`` B panels).
 
-Here the whole grid sits on one device, so a broadcast is a read of the
-owner's slice (:class:`~repro_torch.core.engine.SummaCSRStore`): the
-JAX package's ``"onehot"`` and ``"chain"`` strategies give the same
-views.
+With the whole grid on one device a broadcast is a read of the owner's
+slice (:class:`~repro_torch.core.engine.SummaCSRStore`): the JAX package's
+``"onehot"`` and ``"chain"`` strategies give the same views.  On a device
+mesh a round copies the owner's panels along its row and column, by the
+strategy's pattern.
 """
 from __future__ import annotations
 
@@ -127,6 +128,7 @@ def build_summa_fn(
     batched: bool = False,
     fused_tile: Optional[int] = None,
     elide_broadcast: bool = False,
+    mesh=None,
 ):
     """Build the counting function for ``plan`` on its ``(r, c)`` grid:
     SummaSchedule × SummaCSRStore × kernel.
@@ -146,6 +148,10 @@ def build_summa_fn(
     ``fused_tile`` overrides the fused kernel's tile.  ``elide_broadcast``
     is a timing probe: every device counts its local panel pair (counts
     are wrong past a 1 x 1 grid; ``tc_run --time-split``'s count-only run).
+    With ``mesh`` (an ``(r, c)`` :class:`~repro_torch.launch.mesh.DeviceMesh`)
+    it counts the arrays ``PlanArtifact.staged(mesh)`` spread over it, and
+    each round copies its panels to their row and column
+    (``broadcast`` picks the copy pattern).
     """
     from . import engine
     from .engine import Reduction, SummaCSRStore, SummaSchedule, make_csr_kernel
@@ -183,4 +189,5 @@ def build_summa_fn(
         reduction=Reduction(global_sum=reduce_global, strategy=reduce_strategy),
         batched=batched,
         hub=engine.HubCount.from_plan(plan, probe_shorter=probe_shorter),
+        mesh=mesh,
     )

@@ -114,15 +114,16 @@ class TilePlan:
 
 
 def stage_tile_plan(tp: TilePlan, device) -> Dict[str, torch.Tensor]:
-    """The tile plan's arrays as tensors on ``device``; the uint32 stores
-    travel as int32 bit patterns (torch cannot roll or shift uint32 on the
-    CPU), which is what the tile kernels take."""
-    out = {}
-    for k, v in tp.device_arrays().items():
-        if v.dtype == np.uint32:
-            v = v.view(np.int32)
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    return out
+    """The tile plan's arrays as tensors on ``device`` (or spread over a
+    ``(q, q)`` :class:`~repro_torch.launch.mesh.DeviceMesh`, position by
+    position); the uint32 stores travel as int32 bit patterns (torch
+    cannot roll or shift uint32 on the CPU), which is what the tile
+    kernels take."""
+    from ..pipeline.artifact import stage_arrays
+
+    return stage_arrays(
+        {k: v.view(np.int32) if v.dtype == np.uint32 else v
+         for k, v in tp.device_arrays().items()}, device)
 
 
 def build_tile_plan(plan: TCPlan) -> TilePlan:

@@ -227,8 +227,9 @@ __global__ void __launch_bounds__(kThreads) fused_counts_kernel(const Params p) 
 
 }  // namespace
 
-// Plain C entry point.  Launches on `stream`, does not synchronise,
-// allocates nothing.  `out` holds `ntile` int32: ceil(n_long / tile) long
+// Plain C entry point.  Launches on `stream` of card `device` (the
+// operands' card, made the thread's current device here), does not
+// synchronise, allocates nothing.  `out` holds `ntile` int32: ceil(n_long / tile) long
 // tiles, then max(1, ceil((tmax - n_long) / tile)) short ones (none where
 // n_long >= tmax).  b_cap_long < 0 means the whole B row.  Returns the CUDA
 // error as an int (0 = launched).
@@ -238,7 +239,7 @@ extern "C" int tc_fused_counts(const void* a_indptr, const void* a_indices,
                                long long tcount, long long tmax,
                                long long n_long, int tile, int a_cap_long,
                                int b_cap_long, int d_short, int ntile,
-                               void* out, void* stream) {
+                               void* out, void* stream, int device) {
   if (tile <= 0 || d_short <= 0 || a_cap_long <= 0 || tmax < 0 ||
       n_long < 0 || n_long > tmax || tmax + 2LL * tile + 64 > INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -266,11 +267,12 @@ extern "C" int tc_fused_counts(const void* a_indptr, const void* a_indices,
   p.out = (int*)out;
 
   // one warp a tile, but no more blocks than fit on the card at once: the
-  // warps loop over the rest
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  // warps loop over the rest.  This library has its own runtime, so the
+  // card is set from the operands' device, not read from the runtime.
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fused_counts_kernel, kThreads, 0);

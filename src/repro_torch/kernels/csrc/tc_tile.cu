@@ -253,14 +253,16 @@ tile_mxu_kernel(const int4* __restrict__ triples,
 }
 
 // One block of 8 warps for every 8 triples, but no more blocks than fit on
-// the card at once: the warps loop over the rest.
+// the card at once: the warps loop over the rest.  This library has its own
+// runtime, so the card is set from the operands' device, not read from it.
 template <class Kernel, class... Args>
-int launch(Kernel kernel, long long n, void* stream, Args... args) {
+int launch(Kernel kernel, long long n, void* stream, int device,
+           Args... args) {
   if (n <= 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, 0);
@@ -273,21 +275,24 @@ int launch(Kernel kernel, long long n, void* stream, Args... args) {
 
 }  // namespace
 
-// Plain C entry points.  Each launches on `stream`, does not synchronise,
+// Plain C entry points.  Each launches on `stream` of card `device` (the
+// operands' card), does not synchronise,
 // allocates nothing, and returns the CUDA error as an int (0 = launched).
 // Pointers must be 16-byte aligned; g is the number of triples.
 extern "C" int tc_tile_popcount(const void* triples, const void* a_tiles,
                                 const void* b_tiles, const void* m_tiles,
-                                long long g, void* out, void* stream) {
-  return launch(tile_popcount_kernel, g, stream, (const int4*)triples,
+                                long long g, void* out, void* stream,
+                                int device) {
+  return launch(tile_popcount_kernel, g, stream, device, (const int4*)triples,
                 (const uint4*)a_tiles, (const uint4*)b_tiles,
                 (const uint4*)m_tiles, g, (int*)out);
 }
 
 extern "C" int tc_tile_mxu(const void* triples, const void* a_tiles,
                            const void* b_tiles, const void* m_tiles,
-                           long long g, void* out, void* stream) {
-  return launch(tile_mxu_kernel, g, stream, (const int4*)triples,
+                           long long g, void* out, void* stream,
+                           int device) {
+  return launch(tile_mxu_kernel, g, stream, device, (const int4*)triples,
                 (const uint4*)a_tiles, (const uint4*)b_tiles,
                 (const uint4*)m_tiles, g, (int*)out);
 }

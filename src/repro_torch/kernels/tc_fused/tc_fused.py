@@ -181,7 +181,7 @@ def _lib():
         lib = load_library("tc_fused")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tc_fused_counts.argtypes = [p, p, p, p, p, p, ll, ll, ll, i, i, i,
-                                        i, i, p, p]
+                                        i, i, p, p, i]
         lib.tc_fused_counts.restype = ctypes.c_int
         lib.tc_fused_stage_limit.argtypes = []
         lib.tc_fused_stage_limit.restype = ctypes.c_int
@@ -226,6 +226,7 @@ def _launch(name, a_indptr, a_indices, b_indptr, b_indices, ti, tj,
             b_indptr.data_ptr(), b_indices.data_ptr(),
             ti.data_ptr(), tj.data_ptr(), tcount, tmax, n_long, tile,
             a_cap_long, b_cap_long, d_short, ntile, out.data_ptr(), stream,
+            dev.index,
         )
     if rc != 0:
         raise RuntimeError(

@@ -169,7 +169,7 @@ def _kernel_fns():
         fns = {}
         for mode in MODES:
             fn = getattr(lib, f"tc_tile_{mode}")
-            fn.argtypes = [p, p, p, p, ll, p, p]
+            fn.argtypes = [p, p, p, p, ll, p, p, i]
             fn.restype = i
             fns[mode] = fn
         lib.tc_tile_dense_threshold.argtypes = []
@@ -221,7 +221,7 @@ def tile_triple_counts(triples, a_tiles, b_tiles, m_tiles, *, mode="popcount"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fns[mode](
             triples.data_ptr(), a_tiles.data_ptr(), b_tiles.data_ptr(),
-            m_tiles.data_ptr(), g, out.data_ptr(), stream,
+            m_tiles.data_ptr(), g, out.data_ptr(), stream, dev.index,
         )
     if rc != 0:
         raise RuntimeError(

@@ -104,7 +104,7 @@ def build(sources):
         lib = ctypes.CDLL(str(lib_path))
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tc_fused_counts.argtypes = [p, p, p, p, p, p, ll, ll, ll, i, i, i,
-                                        i, i, p, p]
+                                        i, i, p, p, i]
         lib.tc_fused_counts.restype = ctypes.c_int
         regs = re.findall(r"Used (\d+) registers", text)
         libs[name] = (lib, int(regs[0]) if regs else None)
@@ -148,7 +148,7 @@ def launch(lib, args, tcount, kw, tile=None):
     rc = lib.tc_fused_counts(
         *[a.data_ptr() for a in args], tcount, tmax, kw["n_long"], tile,
         kw["d_long"], -1, kw["d_short"], ntile, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, out.device.index)
     if rc != 0:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
     return out

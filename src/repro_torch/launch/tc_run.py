@@ -45,7 +45,10 @@ a Cannon run with the bucketized ``search2`` kernel over blob shifts that
 carry uint16 row lengths; ``--time-split`` adds a shift-only (or
 broadcast-only) and a count-only timing of the same schedule and the
 bytes each engine phase moves (``coll_*_bytes``).  Runs on the GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``--mesh`` spreads the grid (and its pods)
+over a device mesh, one CUDA card a position (``q² · pods`` cards, failing
+with fewer; with ``--device cpu`` every position on the CPU), for the
+plain count, ``--graphs`` and ``--stream``.
 """
 from __future__ import annotations
 
@@ -174,6 +177,11 @@ def main(argv=None):
                     help="check against the exact host oracle")
     ap.add_argument("--device", default=None,
                     help="torch device; default: cuda (fails without one)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="spread the --grid (x --pods) grid over a device "
+                         "mesh: one CUDA card a position, failing with "
+                         "fewer; with --device cpu every position on the "
+                         "CPU")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
@@ -226,6 +234,13 @@ def main(argv=None):
             "--time-split/--stream (the serve front-end has its own "
             "per-request supervision)"
         )
+    if args.mesh and (args.ckpt_dir or args.opt or args.time_split
+                      or supervised):
+        raise SystemExit(
+            "--mesh covers the plain, --graphs and --stream counts; drop "
+            "--ckpt-dir/--opt/--time-split/--inject-faults/--supervise "
+            "(they run the grid on one device)"
+        )
     fault_plan = None
     if args.inject_faults:
         from ..runtime import FaultPlan
@@ -252,8 +267,6 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     count_kwargs = dict(
-        q=args.grid,
-        npods=args.pods,
         schedule=args.schedule,
         method=args.method,
         broadcast=args.broadcast,
@@ -269,7 +282,7 @@ def main(argv=None):
         ),
         autotune=args.autotune,
         measured_dir=args.measured_dir,
-        device=args.device,
+        **_placement(args),
     )
     times = []
     if supervised:
@@ -315,6 +328,27 @@ def main(argv=None):
     report["schedules"] = available_schedules()
     report["plan_cache"] = default_cache().stats()
     return _finish(g, args, report, res.triangles)
+
+
+def _placement(args, pods: bool = True) -> dict:
+    """The count's placement keywords: ``q``, ``npods`` and ``device``, or
+    with ``--mesh`` the mesh (:func:`~repro_torch.core.api.make_grid_mesh`
+    over the first ``q² · pods`` CUDA cards, or all on the CPU with
+    ``--device cpu``)."""
+    npods = args.pods if pods else 1
+    if not args.mesh:
+        return dict(q=args.grid, device=args.device,
+                    **(dict(npods=npods) if pods else {}))
+    from ..core.api import make_grid_mesh
+
+    if args.device not in (None, "cpu"):
+        raise SystemExit(
+            "--mesh puts every grid position on its own card; drop "
+            "--device (or pass --device cpu for a CPU mesh)")
+    n = args.grid * args.grid * npods
+    return dict(mesh=make_grid_mesh(
+        args.grid, npods=npods,
+        devices=None if args.device is None else ["cpu"] * n))
 
 
 def _finish(g, args, report, total):
@@ -737,8 +771,6 @@ def _run_stream(g, args):
     from ..pipeline import EdgeDelta, default_cache
 
     kwargs = dict(
-        q=args.grid,
-        npods=args.pods,
         schedule=args.schedule,
         method=args.method,
         broadcast=args.broadcast,
@@ -747,7 +779,7 @@ def _run_stream(g, args):
         probe_shorter=not args.no_probe_shorter,
         use_step_mask=False if args.no_skip_mask else None,
         compact=False if args.no_compact else None,
-        device=args.device,
+        **_placement(args),
     )
     t0 = time.perf_counter()
     base = count_triangles(
@@ -961,16 +993,16 @@ def _run_batched(args):
     # there is no shared live-step list to compact) and takes only CSR
     # kernels: resolve 'auto' to the flat search path
     method = "search" if args.method == "auto" else args.method
+    placement = _placement(args, pods=False)  # a batch counts on one pod
     t0 = time.perf_counter()
     for _ in range(max(1, args.repeat)):  # later rounds hit the program cache
         res = count_triangles_many(
             graphs,
-            q=args.grid,
             schedule=args.schedule,
             method=method,
             chunk=args.chunk,
             probe_shorter=not args.no_probe_shorter,
-            device=args.device,
+            **placement,
         )
     report = {
         "graphs": specs,

@@ -78,8 +78,30 @@ def nequip_init(gen, cfg, *, device=None):
     return params
 
 
-def _tensor_product_messages(layer_p, cfg, x, edge_src, y_edge, rbf):
-    """Per-edge CG tensor product with radial weights, summed into l_out."""
+def _cg_edge_terms(cfg, y_edge):
+    """``einsum("ej,ijk->eik", Y_l2, CG)`` of every path with ``l2 > 0``
+    (``None`` where ``l2 == 0``): the harmonics' half of the CG
+    contraction.  It is the same in every layer, so it is made once a
+    forward, as XLA's common-subexpression pass makes it once in the
+    reference's compiled step, and its gradient is summed over the layers
+    before its one backward product.  A path with ``l2 == 0`` keeps the
+    three-operand einsum, which contracts the features with the CG matrix
+    and scales by ``Y_0`` after, as XLA does."""
+    lm = cfg.l_max
+    return [
+        None if l2 == 0 else torch.einsum(
+            "ej,ijk->eik", y_edge[..., _sl(l2)],
+            _cg_tensor(l1, l2, l3, y_edge.dtype, y_edge.device))
+        for l1, l2, l3 in tp_paths(list(range(lm + 1)), lm, lm)
+    ]
+
+
+def _tensor_product_messages(layer_p, cfg, x, edge_src, y_edge, cg_terms,
+                             rbf):
+    """Per-edge CG tensor product with radial weights, summed into l_out:
+    ``einsum("eci,ej,ijk->eck")``, taken as ``"eci,eik->eck"`` over the
+    layer-independent terms of :func:`_cg_edge_terms` where it has one
+    (the order in which ``torch.einsum`` contracts the three operands)."""
     c, lm = cfg.d_hidden, cfg.l_max
     paths = tp_paths(list(range(lm + 1)), lm, lm)
     w = nn.mlp(layer_p["radial"], rbf)  # (E, n_paths * C)
@@ -87,10 +109,12 @@ def _tensor_product_messages(layer_p, cfg, x, edge_src, y_edge, rbf):
     xs = x[edge_src]  # (E, C, S)
     out = [None] * (lm + 1)
     for pi, (l1, l2, l3) in enumerate(paths):
-        cg = _cg_tensor(l1, l2, l3, xs.dtype, xs.device)
-        t = torch.einsum(
-            "eci,ej,ijk->eck", xs[..., _sl(l1)], y_edge[..., _sl(l2)], cg
-        )
+        if cg_terms[pi] is None:
+            cg = _cg_tensor(l1, l2, l3, xs.dtype, xs.device)
+            t = torch.einsum("eci,ej,ijk->eck", xs[..., _sl(l1)],
+                             y_edge[..., _sl(l2)], cg)
+        else:
+            t = torch.einsum("eci,eik->eck", xs[..., _sl(l1)], cg_terms[pi])
         term = w[:, pi, :, None] * t
         out[l3] = term if out[l3] is None else out[l3] + term
     return torch.cat(out, dim=-1)
@@ -145,11 +169,13 @@ def nequip_energy(params, cfg, species, positions, edge_src, edge_dst,
     r, unit = edge_geometry(positions, edge_src, edge_dst)
     y_edge = sph_harm(lm, unit)  # (E, S)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)
+    cg_terms = _cg_edge_terms(cfg, y_edge)
 
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
         xm = _per_l(x, p["self"], lm)  # self-interaction pre-mix
-        msg = _tensor_product_messages(p, cfg, xm, edge_src, y_edge, rbf)
+        msg = _tensor_product_messages(p, cfg, xm, edge_src, y_edge,
+                                       cg_terms, rbf)
         agg = segment_sum(msg, edge_dst, n)
         agg = _per_l(agg, p["post"], lm)
         x = x + _gate(p, cfg, agg)

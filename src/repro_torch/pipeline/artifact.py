@@ -26,16 +26,80 @@ import numpy as np
 import torch
 
 from ..core.graph import Graph
+from ..launch.mesh import DeviceMesh
 
-__all__ = ["PlanArtifact", "stage_arrays"]
+__all__ = ["PlanArtifact", "stage_arrays", "stage_on_mesh", "mesh_slice",
+           "mesh_layout"]
 
 
-def stage_arrays(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Host numpy plan arrays → tensors on ``device`` (dtypes unchanged)."""
+def stage_arrays(arrays: Dict[str, np.ndarray], device, *,
+                 specs: Optional[Dict[str, Tuple[str, ...]]] = None,
+                 batched: bool = False):
+    """Host numpy plan arrays → tensors on ``device`` (dtypes unchanged).
+
+    ``device`` may be a :class:`~repro_torch.launch.mesh.DeviceMesh`: each
+    array then becomes a :class:`~repro_torch.core.engine.MeshArray`
+    (:func:`stage_on_mesh`), its leading dimensions split over the mesh
+    axes ``specs[name]`` names (all the mesh's axes, in order, for a name
+    ``specs`` lacks), and with ``batched`` after a leading batch dimension
+    that every block keeps."""
+    if isinstance(device, DeviceMesh):
+        specs = specs or {}
+        return {k: stage_on_mesh(v, device, specs.get(k), batched=batched)
+                for k, v in arrays.items()}
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in arrays.items()
     }
+
+
+def mesh_slice(host: np.ndarray, mesh: DeviceMesh, pos, axes=None, *,
+               batched: bool = False) -> np.ndarray:
+    """Grid position ``pos``'s block of a host array whose leading
+    dimensions are split over the mesh axes ``axes`` (``None``: every axis
+    of the mesh, in order); an axis the array is not split over
+    replicates it (Cannon's task lists over the pods)."""
+    axes = tuple(mesh.axis_names) if axes is None else tuple(axes)
+    sel = tuple(pos[mesh.axis_names.index(a)] for a in axes)
+    return host[(slice(None),) + sel] if batched else host[sel]
+
+
+def stage_on_mesh(host: np.ndarray, mesh: DeviceMesh, axes=None, *,
+                  batched: bool = False, reuse=None):
+    """One host array as a :class:`~repro_torch.core.engine.MeshArray`:
+    position ``pos`` gets :func:`mesh_slice` on its own device.  ``reuse``
+    is ``(parent host array, parent MeshArray)`` staged the same way: a
+    position whose slice is unchanged keeps the parent's block."""
+    from ..core.engine import MeshArray
+
+    blocks = {}
+    for pos in np.ndindex(*mesh.shape):
+        part = mesh_slice(host, mesh, pos, axes, batched=batched)
+        if reuse is not None:
+            old_host, old = reuse
+            prev = mesh_slice(old_host, mesh, pos, axes, batched=batched)
+            if prev.shape == part.shape and np.array_equal(prev, part):
+                blocks[pos] = old.blocks[pos]
+                continue
+        blocks[pos] = torch.from_numpy(np.ascontiguousarray(part)).to(
+            mesh.device_at(pos))
+    return MeshArray(mesh, blocks)
+
+
+def mesh_layout(kind: str, arrays: Dict[str, np.ndarray], mesh: DeviceMesh):
+    """``(arrays, specs)`` of a plan staged on ``mesh``: a Cannon plan on a
+    ``(pod, row, col)`` mesh is first stacked over the pods as
+    :func:`~repro_torch.core.cannon.pod_stack_arrays` lays it out, with
+    :func:`~repro_torch.core.cannon.cannon_in_specs`; every other array
+    splits over all the mesh's axes."""
+    if kind == "cannon" and len(mesh.shape) == 3:
+        from ..core.cannon import cannon_in_specs, pod_stack_arrays
+        from ..core.engine import GridAxes
+
+        axes = GridAxes.of(mesh)
+        return (pod_stack_arrays(arrays, mesh.shape[0], mesh.shape[-1]),
+                cannon_in_specs(axes.row, axes.col, axes.pod))
+    return arrays, {}
 
 
 @dataclasses.dataclass
@@ -123,38 +187,55 @@ class PlanArtifact:
         wall time.  The numpy arrays stay on the plan: the engine reads
         ``m_cnt`` and ``step_keep`` from them on the host.
 
+        ``device`` may be a :class:`~repro_torch.launch.mesh.DeviceMesh`
+        (memoized per mesh): position ``(x, y)``'s slice of each stacked
+        array then lies on that position's device (:func:`mesh_layout`:
+        a Cannon plan on a pod mesh stacked over the pods first).
+
         A delta-derived artifact whose parent was staged on ``device``
         goes through the engine's re-stage path: every array the delta
         left unchanged keeps the parent's tensor, and the number of
         reused tensors lands in ``stage_seconds["stage_reused_buffers"]``.
         """
-        device = torch.device(device)
+        mesh = device if isinstance(device, DeviceMesh) else None
+        key = mesh if mesh is not None else str(torch.device(device))
+
+        def layout(arrays):
+            return (mesh_layout(self.kind, arrays, mesh) if mesh is not None
+                    else (arrays, {}))
 
         def build():
             t0 = time.perf_counter()
             handoff = self.restage_from
-            prev = None if handoff is None else handoff[1].get(str(device))
+            prev = None if handoff is None else handoff[1].get(key)
+            host, specs = layout(self.device_arrays())
+            target = mesh if mesh is not None else torch.device(device)
             if prev is not None:
                 from ..core.engine import restage_device_arrays
 
                 out, reused = restage_device_arrays(
-                    handoff[0], prev, self.device_arrays(), device
+                    layout(handoff[0])[0], prev, host, target, specs=specs
                 )
                 self.stage_seconds["stage_reused_buffers"] = float(reused)
+            elif mesh is None:
+                out = stage_arrays(host, target)
             else:
-                out = stage_arrays(self.device_arrays(), device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                out = stage_arrays(host, mesh, specs=specs)
+            for dev in set(mesh.devices if mesh is not None else [target]):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             self.stage_seconds["stage"] = time.perf_counter() - t0
             return out
 
-        return self.memo(("staged_arrays", str(device)), build)
+        return self.memo(("staged_arrays", key), build)
 
     def staged_if_any(self, device) -> Optional[Dict[str, torch.Tensor]]:
         """The tensors :meth:`staged` memoised on ``device``, or ``None``
         when nothing was staged there yet; stages nothing itself."""
+        key = (device if isinstance(device, DeviceMesh)
+               else str(torch.device(device)))
         with self._memo_lock:
-            return self._memo.get(("staged_arrays", str(torch.device(device))))
+            return self._memo.get(("staged_arrays", key))
 
     def release(self) -> None:
         """Drop memoized device state (staged tensors, engine fns) and the

@@ -17,6 +17,9 @@ overhead of batching is measured and reported
 (``ManyResult.padding_overhead``), never hidden.  Host numpy for the
 planning half, the same padding as the JAX package's module of the same
 name: the same graphs give the same stacked arrays byte for byte.
+With ``mesh=`` the stack is spread over a device mesh instead, each grid
+position holding its slice of every graph (the batch dimension leads each
+block), and the engine runs the batch there.
 """
 from __future__ import annotations
 
@@ -115,6 +118,7 @@ def _build_batch_program(
     probe_shorter: bool,
     device: torch.device,
     cache: PlanCache,
+    mesh=None,
 ) -> _BatchProgram:
     # relabel each graph on its own vertex set (degree order must not see
     # the padding vertices), then lift all graphs to the shared n.
@@ -178,6 +182,7 @@ def _build_batch_program(
             rep.d_small = plans[0].d_small
         fn = build_cannon_fn(
             rep, method=method, probe_shorter=probe_shorter, batched=True,
+            mesh=mesh,
         )
         grid = (q, q)
     elif schedule == "summa":
@@ -211,12 +216,17 @@ def _build_batch_program(
         )
         fn = build_summa_fn(
             rep, method=method, probe_shorter=probe_shorter, batched=True,
+            mesh=mesh,
         )
         grid = (r, c)
     elif schedule == "oned":
         from ..core.onedim import build_oned_fn
 
         p_ring = int(np.prod(grid))
+        if mesh is not None:  # the ring over the mesh's devices, in order
+            from ..core.engine import RingAxes
+
+            mesh = mesh.reshaped((p_ring,), RingAxes().all)
         plans = [pack_oned_plan(g, p_ring, chunk=chunk) for g in lifted]
         nnz_pad = max(p.nnz_pad for p in plans)
         gmax = max(p.gmax for p in plans)
@@ -239,6 +249,7 @@ def _build_batch_program(
         )
         fn = build_oned_fn(
             rep, method=method, probe_shorter=probe_shorter, batched=True,
+            mesh=mesh,
         )
         grid = (p_ring,)
     else:
@@ -248,7 +259,8 @@ def _build_batch_program(
         )
 
     overhead = _padding_overhead(stacked, plans)
-    staged = stage_arrays(stacked, device)
+    staged = (stage_arrays(stacked, device) if mesh is None
+              else stage_arrays(stacked, mesh, batched=True))
     return _BatchProgram(
         fn=fn, staged=staged, grid=grid, padding_overhead=overhead
     )
@@ -256,6 +268,7 @@ def _build_batch_program(
 
 def count_triangles_many(
     graphs: Sequence[Graph],
+    mesh=None,
     *,
     q: Optional[int] = None,
     grid: Optional[tuple] = None,
@@ -280,7 +293,10 @@ def count_triangles_many(
     ``p = r * c``); the whole batch lives on ``device`` (``None`` = CUDA,
     raising without one).  The program cache key holds the tuple of graph
     digests in the JAX package's key layout, with the grid in place of
-    the mesh and the device at the end.
+    the mesh and the device (or the mesh) at the end.  ``mesh`` (a
+    ``(q, q)`` or ``(r, c)`` :class:`~repro_torch.launch.mesh.DeviceMesh`;
+    it excludes ``device``) spreads the batch over its devices and gives
+    the grid.
     """
     from ..core.api import check_count_overflow
 
@@ -297,6 +313,16 @@ def count_triangles_many(
 
     faultinject.fire("plan_stage", kind="many")
     t0 = time.perf_counter()
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass mesh or device, not both")
+        if len(mesh.shape) != 2 or (grid is not None
+                                    and tuple(grid) != tuple(mesh.shape)) or (
+                q is not None and (q, q) != tuple(mesh.shape)):
+            raise ValueError(
+                f"a batch runs on a (row, col) mesh of its grid, got "
+                f"{tuple(mesh.shape)} for q={q}, grid={grid}")
+        grid, device = tuple(mesh.shape), mesh.first
     device = resolve_device(device)
     if grid is None:
         grid = (q or 1, q or 1)
@@ -316,7 +342,8 @@ def count_triangles_many(
     digests = tuple(graph_digest(g) for g in graphs)
     key = (
         "many", schedule, method, grid, q, chunk, reorder, cyclic_p,
-        probe_shorter, str(count_dtype), digests, str(device),
+        probe_shorter, str(count_dtype), digests,
+        str(device) if mesh is None else mesh,
     )
     prog = cache.get(key)
     cache_hit = prog is not None
@@ -326,10 +353,12 @@ def count_triangles_many(
             grid=grid, schedule=schedule, method=method, chunk=chunk,
             reorder=reorder, cyclic_p=cyclic_p,
             probe_shorter=probe_shorter, device=device, cache=cache,
+            mesh=mesh,
         )
         cache.put(key, prog)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for dev in dict.fromkeys(mesh.devices if mesh is not None else [device]):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
 
     faultinject.fire("device_stage")
