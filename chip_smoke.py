@@ -235,6 +235,19 @@ What it does, in order, printing one JSON object per line:
                     the bytes each engine phase moved on both; then SUMMA
                     2 x 8, the ring p = 16 and 2 pods under ``tree`` on
                     meshes of their own, each against the oracle;
+   ``mesh_runtime_path`` — the runtime on that mesh, the main fused plan
+                    reused: ``supervised_count(g, mesh)`` with transient
+                    faults (3 restarts) and with 7 positions lost at step
+                    0 (Cannon 3 x 3 on the first 9 positions' cards; one
+                    kernel launch a counted device-step, one device-step
+                    a card against its plain version), ``tc_run --mesh
+                    --ckpt-dir`` with faults and a resume (each save's
+                    bytes and seconds), ``tc_run --mesh --time-split``
+                    (Cannon and the ring at ``rmat(16, 16)``) and
+                    ``--opt`` (``rmat(18, 16)``), and
+                    ``distributed_degree_rank`` over the 16 positions
+                    against ``degree_order``; every count against its
+                    oracle;
 6. ``small_graphs`` — a grid of small fixtures, q in {1, 2, 3}: Cannon
                     with every method (``search``, ``global``, ``fused``,
                     ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
@@ -263,6 +276,9 @@ What it does, in order, printing one JSON object per line:
                     two kernels' times cross.
 
 The ``total`` line gives the whole run's seconds and each phase's.
+``--mesh-only`` runs the main path and then only ``mesh_path`` and
+``mesh_runtime_path`` (a probe of the mesh phases on the cards present;
+it prints neither the kernels line nor the final line).
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
 device the script exits non-zero before printing any result.  The last
@@ -2375,6 +2391,18 @@ SERVE_BATCH_GRID = 2
 SERVE_BATCH_ROUNDS = 3
 OPT_GRAPH = "rmat:18,16,1"
 SPLIT_GRAPH = "rmat:16,16,1"
+# the front ends' graphs and oracles, kept for the mesh runtime's runs
+FRONTEND_GRAPHS = {}
+
+
+def frontend_graph(spec):
+    """``(graph, scipy oracle)`` of a front end's graph, made once a run."""
+    import repro_torch as rt
+
+    if spec not in FRONTEND_GRAPHS:
+        g = rt.graph_from_spec(spec)
+        FRONTEND_GRAPHS[spec] = (g, scipy_triangle_oracle(g.n, g.edges))
+    return FRONTEND_GRAPHS[spec]
 FRONTEND_CHUNK = 8192
 BLOB_TURNS = ("arrays", "blob", "blob", "arrays") * 2
 
@@ -2520,11 +2548,8 @@ def frontend_cli(dev, q):
     2``) and ``tc_run --time-split`` on the three schedules at
     ``SPLIT_GRAPH`` (chunk 8192), each from a fresh plan cache, against
     the scipy oracle."""
-    import repro_torch as rt
-
     out, ok = {}, True
-    og = rt.graph_from_spec(OPT_GRAPH)
-    want = scipy_triangle_oracle(og.n, og.edges)
+    og, want = frontend_graph(OPT_GRAPH)
     with fresh_plan_cache(), cli_hooks(og, OPT_GRAPH):
         _, rep, seconds = run_cli([
             "--graph", OPT_GRAPH, "--grid", str(q), "--chunk",
@@ -2532,8 +2557,7 @@ def frontend_cli(dev, q):
             "--device", str(dev)])
     out["opt"] = dict(rep, triangles_scipy_oracle=want, seconds=seconds)
     ok = ok and rep["triangles"] == want and rep.get("optimized") is True
-    sg = rt.graph_from_spec(SPLIT_GRAPH)
-    want = scipy_triangle_oracle(sg.n, sg.edges)
+    sg, want = frontend_graph(SPLIT_GRAPH)
     for kind in ("cannon", "summa", "oned"):
         with fresh_plan_cache(), cli_hooks(sg, SPLIT_GRAPH):
             _, rep, seconds = run_cli([
@@ -2703,6 +2727,262 @@ def mesh_path(g, oracle, dev, q):
          warm_count_seconds_one_device=[r.count_seconds for r in warm_one],
          moved_bytes_mesh=tally, moved_bytes_one_device=tally_one,
          partials_equal=True, kernel_per_card=per_card, **others)
+
+
+# ----------------------------------------------------------------------
+# the runtime on a device mesh
+# ----------------------------------------------------------------------
+MESH_SPLIT_KINDS = ("cannon", "oned")  # --time-split on the mesh
+
+
+@contextlib.contextmanager
+def mesh_cli_cards():
+    """While the block runs, ``make_grid_mesh(devices=None)`` puts position
+    ``i`` on card ``i`` mod the cards present (:func:`mesh_cards`), so
+    ``tc_run --mesh`` runs 16 positions on fewer cards."""
+    import repro_torch.core.api as api
+
+    own = api.make_grid_mesh
+
+    def on_cards(q, *a, npods=1, devices=None, **kw):
+        if devices is None:
+            devices = mesh_cards(q * q * npods)
+        return own(q, *a, npods=npods, devices=devices, **kw)
+
+    api.make_grid_mesh = on_cards
+    try:
+        yield
+    finally:
+        api.make_grid_mesh = own
+
+
+def mesh_checkpointed_cli(g, oracle, dev, q, graph, cards):
+    """``tc_run --mesh --ckpt-dir`` on the ``q x q`` mesh of
+    :func:`mesh_cli_cards` at chunk ``CKPT_CHUNK``: with ``CLI_FAULTS``,
+    then again in that directory, which resumes at shift ``q``.  Each
+    save's bytes and seconds.  Returns the record and its failed checks."""
+    bad, runs = [], {}
+    with tempfile.TemporaryDirectory(prefix="tc_mesh_ckpt_") as tmp:
+        faults = os.path.join(tmp, "faults")
+        base = ["--graph", graph, "--grid", str(q), "--chunk", str(CKPT_CHUNK),
+                "--mesh", "--json"]
+        if dev.type == "cpu":
+            base += ["--device", "cpu"]
+        with cli_hooks(g, graph) as saves, mesh_cli_cards():
+            for name, extra in (
+                    ("faults", ["--ckpt-dir", faults,
+                                "--inject-faults", CLI_FAULTS]),
+                    ("resume", ["--ckpt-dir", faults])):
+                text, rep, sec = run_cli(base + extra)
+                runs[name] = dict(
+                    seconds=sec, triangles=rep["triangles"],
+                    device=rep.get("device"), ppt_seconds=rep["ppt_seconds"],
+                    tct_seconds=rep["tct_seconds"],
+                    printed=[ln for ln in text.splitlines()
+                             if not ln.startswith("{")],
+                    saves=list(saves),
+                    restarts=rep.get("supervision_restarts"),
+                    fault_log=rep.get("supervision_fault_log"))
+                saves.clear()
+                if (rep["triangles"] != oracle or not rep.get("checkpointed")
+                        or rep.get("device") != ",".join(cards)):
+                    bad.append(f"mesh_cli_{name}")
+        corrupt = sorted(f for f in os.listdir(faults)
+                         if f.endswith(".corrupt"))
+    runs["faults"]["corrupt_files"] = corrupt
+    if not ((runs["faults"]["restarts"] or 0) >= 1 and corrupt):
+        bad.append("mesh_cli_recovery")
+    if (f"resumed at shift {q}" not in runs["resume"]["printed"]
+            or runs["resume"]["saves"]):
+        bad.append("mesh_cli_resume")
+    return runs, bad
+
+
+def mesh_frontends(dev, q, side):
+    """``tc_run --mesh --time-split`` (``MESH_SPLIT_KINDS``) on ``side
+    ["split"]`` and ``tc_run --mesh --opt`` on ``side["opt"]`` (each a
+    ``(spec, graph, oracle)``; chunk ``FRONTEND_CHUNK``), each from a fresh
+    plan cache on the mesh of :func:`mesh_cli_cards`.  Returns the
+    time splits by schedule, the ``--opt`` record and the failed checks."""
+    bad, splits = [], {}
+    cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    spec, sg, want = side["split"]
+    for kind in MESH_SPLIT_KINDS:
+        with fresh_plan_cache(), cli_hooks(sg, spec), mesh_cli_cards():
+            _, rep, seconds = run_cli([
+                "--graph", spec, "--grid", str(q), "--schedule", kind,
+                "--chunk", str(FRONTEND_CHUNK), "--time-split", "--mesh",
+                "--json", *cpu])
+        keys = ("tct_shift_only", "tct_count_only", "tct_seconds",
+                "coll_shift_bytes", "coll_reduce_bytes", "coll_other_bytes")
+        splits[kind] = dict({k: rep.get(k) for k in keys}, graph=spec,
+                         triangles=rep["triangles"], device=rep["device"],
+                         triangles_scipy_oracle=want, seconds=seconds)
+        if (rep["triangles"] != want or any(rep.get(k) is None for k in keys)
+                or rep["coll_shift_bytes"] <= 0):
+            bad.append(f"time_split_{kind}")
+    spec, og, want = side["opt"]
+    with fresh_plan_cache(), cli_hooks(og, spec), mesh_cli_cards():
+        _, rep, seconds = run_cli([
+            "--graph", spec, "--grid", str(q), "--chunk", str(FRONTEND_CHUNK),
+            "--opt", "--repeat", "2", "--mesh", "--json", *cpu])
+    opt = dict(graph=spec, triangles=rep["triangles"],
+               triangles_scipy_oracle=want, ppt_seconds=rep["ppt_seconds"],
+               tct_seconds=rep["tct_seconds"], device=rep["device"],
+               seconds=seconds)
+    if rep["triangles"] != want or rep.get("optimized") is not True:
+        bad.append("opt")
+    return splits, opt, bad
+
+
+def mesh_degree_rank(g, mesh):
+    """``distributed_degree_rank`` over ``mesh``'s positions as a ring,
+    shard ``s`` of the degrees on position ``s``'s card, against
+    ``degree_order``."""
+    from repro_torch.core import degree_order
+    from repro_torch.core.engine import MeshArray
+    from repro_torch.core.preprocess import distributed_degree_rank
+
+    ring = mesh.reshaped((mesh.size,), ("flat",))
+    parts = np.array_split(g.degrees().astype(np.int64), ring.size)
+    deg = MeshArray(ring, {(s,): torch.from_numpy(part).to(ring.devices[s])
+                           for s, part in enumerate(parts)})
+    t0 = time.perf_counter()
+    ranks = distributed_degree_rank(deg)
+    got = np.concatenate([ranks.blocks[(s,)].cpu().numpy()
+                          for s in range(ring.size)])
+    seconds = time.perf_counter() - t0
+    placed = all(ranks.blocks[(s,)].device == torch.device(ring.devices[s])
+                 for s in range(ring.size))
+    equal = bool(np.array_equal(got, degree_order(g)))
+    return dict(positions=ring.size, n=g.n, seconds=seconds, placed=placed,
+                equal=equal, histogram_buckets=g.n + 1)
+
+
+def mesh_runtime_path(g, oracle, dev, q, graph, side=None):
+    """The triangle count's runtime on the ``q x q`` mesh of ``mesh_path``
+    (position i on card i mod the cards present), the main graph's fused
+    plan reused: ``supervised_count(g, mesh)`` with ``RUNTIME_TRANSIENT``
+    (3 restarts, one fused launch a counted device-step) and with the loss
+    of ``RUNTIME_LOST`` positions at step 0 (re-planned on 3 x 3 over the
+    first 9 positions' cards, one launch a counted device-step of the 3 x 3
+    plan, and on each card used one device-step's launch equal to its
+    plain version); ``tc_run --mesh --ckpt-dir`` with ``CLI_FAULTS`` and a
+    resume (:func:`mesh_checkpointed_cli`); ``tc_run --mesh --time-split``
+    and ``--opt`` on the front ends' graphs (:func:`mesh_frontends`; the
+    ones ``serve_path`` generated, with their oracles); and
+    ``distributed_degree_rank`` over the 16 positions against
+    ``degree_order``.  Every count equals its oracle; the phase prints
+    its line, then fails on any failed check."""
+    import repro_torch as rt
+    from repro_torch.kernels.tc_fused import (
+        count_pair_fused,
+        count_pair_fused_plain,
+    )
+    from repro_torch.kernels.tc_fused import tc_fused as kmod
+    from repro_torch.runtime import FaultPlan, Supervisor, supervised_count
+
+    t_phase = time.perf_counter()
+    mesh = rt.make_grid_mesh(q, devices=mesh_cards(q * q))
+    cards = list(dict.fromkeys(str(d) for d in mesh.devices))
+    bad = []
+
+    def supervised(spec):
+        plan = FaultPlan.parse(spec)
+        t0 = time.perf_counter()
+        kmod.reset_launch_count()
+        r = supervised_count(g, mesh, method="fused", fault_plan=plan,
+                             supervisor=Supervisor(max_restarts=5))
+        return r, kmod.launch_count(), time.perf_counter() - t0
+
+    # 1. transient faults: retried in place on the mesh
+    r1, launches1, s1 = supervised(RUNTIME_TRANSIENT)
+    steps1 = schedule_device_steps(r1.plan, "cannon")
+    faulted = [a for a in r1.supervision["attempts"]
+               if a["outcome"] == "fault"]
+    transient = dict(spec=RUNTIME_TRANSIENT, seconds=s1,
+                     triangles=r1.triangles,
+                     restarts=r1.supervision["restarts"],
+                     attempts=r1.supervision["attempts"],
+                     cache_hit=r1.artifact.cache_hit,
+                     kernel_launches=launches1,
+                     device_steps_counted=len(steps1),
+                     count_seconds=r1.count_seconds, device=r1.device)
+    if not (r1.triangles == oracle and r1.supervision["restarts"] == 3
+            and [a.get("point") for a in faulted] == [
+                "plan_stage", "device_stage", "step"]):
+        bad.append("transient")
+    if launches1 <= 0 or launches1 != len(steps1):
+        bad.append("transient_launches")
+
+    # 2. device loss: re-planned on the first surviving positions
+    lost_spec = f"step@0=devicelost:{RUNTIME_LOST}"
+    r3, launches3, s3 = supervised(lost_spec)
+    steps3 = schedule_device_steps(r3.plan, "cannon")
+    r = math.isqrt(q * q - RUNTIME_LOST)
+    survivors = mesh.devices[:r * r]
+    regrids = r3.supervision["regrids"]
+    lost = dict(spec=lost_spec, seconds=s3, triangles=r3.triangles,
+                grid=list(r3.grid), regrids=regrids, device=r3.device,
+                restarts=r3.supervision["restarts"],
+                preprocess_seconds=r3.preprocess_seconds,
+                count_seconds=r3.count_seconds, kernel_launches=launches3,
+                device_steps_counted=len(steps3))
+    if not (r3.triangles == oracle and regrids == [
+            dict(lost=RUNTIME_LOST, grid=[r, r], schedule="cannon")]
+            and tuple(r3.grid) == (r, r) and r3.device == ",".join(
+                dict.fromkeys(str(d) for d in survivors))):
+        bad.append("device_lost")
+    if launches3 <= 0 or launches3 != len(steps3):
+        bad.append("device_lost_launches")
+    small = rt.make_grid_mesh(r, devices=survivors)
+    plan3 = r3.plan
+    staged = r3.artifact.staged(small)
+    kw = dict(n_long=plan3.n_long, d_small=plan3.d_small,
+              dpad_long=plan3.dmax, chunk=plan3.chunk,
+              long_fallback="global")
+    per_card = {}
+    for pos in np.ndindex(r, r):
+        card = str(small.device_at(pos))
+        if card in per_card or plan3.m_cnt[pos] <= 0:
+            continue
+        args = [staged[k][pos] for k in ("a_indptr", "a_indices", "b_indptr",
+                                         "b_indices", "m_ti", "m_tj")]
+        got = count_pair_fused(*args, int(plan3.m_cnt[pos]), **kw)
+        want = count_pair_fused_plain(*args, int(plan3.m_cnt[pos]), **kw)
+        per_card[card] = dict(position=list(pos), triangles=int(got),
+                              plain=int(want), on=str(got.device))
+        if str(got.device) != card or int(got) != int(want):
+            bad.append(f"kernel_at_{card}")
+    lost["kernel_per_card"] = per_card
+
+    # 3. the checkpointed stepper on the mesh, through tc_run
+    t0 = time.perf_counter()
+    cli, cli_bad = mesh_checkpointed_cli(g, oracle, dev, q, graph, cards)
+    bad += cli_bad
+    cli_s = time.perf_counter() - t0
+
+    # 4. the front ends on the mesh, on serve_path's graphs
+    if side is None:
+        side = {k: (spec,) + frontend_graph(spec)
+                for k, spec in (("split", SPLIT_GRAPH), ("opt", OPT_GRAPH))}
+    splits, opt, front_bad = mesh_frontends(dev, q, side)
+    bad += front_bad
+
+    # 5. the distributed degree rank over the 16 positions
+    rank = mesh_degree_rank(g, mesh)
+    if not (rank["equal"] and rank["placed"]):
+        bad.append("degree_rank")
+
+    emit("mesh_runtime_path", ok=not bad, failed=bad, graph=graph,
+         cards=sorted(cards), positions=q * q,
+         device_count=torch.cuda.device_count() if dev.type == "cuda" else 0,
+         triangles_scipy_oracle=oracle, transient=transient,
+         device_lost=lost, checkpointed_cli=cli,
+         checkpointed_cli_seconds=cli_s, time_split=splits, opt=opt,
+         degree_rank=rank, seconds=time.perf_counter() - t_phase)
+    if bad:
+        fail(f"the mesh runtime path failed its checks: {bad}")
 
 
 def small_graphs():
@@ -5206,6 +5486,11 @@ def main():
     ap.add_argument("--scale", type=int, default=20,
                     help="log2 of the main path's vertex count")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels, run the main path (its plan "
+                         "and oracle), then only mesh_path and "
+                         "mesh_runtime_path, and stop (no kernels line and "
+                         "no final line: this is not the smoke test)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5249,6 +5534,15 @@ def main():
 
     art, launches, g, oracle = phase("main_path", main_path, args.scale,
                                      EDGE_FACTOR, args.seed, GRID, dev)
+    graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
+    if args.mesh_only:
+        del art
+        phase("mesh_path", mesh_path, g, oracle, dev, GRID)
+        phase("mesh_runtime_path", mesh_runtime_path, g, oracle, dev, GRID,
+              graph)
+        emit("total", seconds=time.perf_counter() - t_start, phases=phases,
+             mesh_only=True)
+        return
     kernels = [phase("kernels", kernel_report, art, dev, launches)]
     phase("dryrun_path", dryrun_path, dev, art.plan, args.scale)
     del art
@@ -5258,7 +5552,6 @@ def main():
     phase("recsys_path", recsys_path, dev, smi)
     phase("gnn_path", gnn_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
-    graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     # search2 first: the runtime's persistent-fault count is demoted to
     # its cached plan
     phase("search2", search2_phase, g, oracle, GRID, args.scale, args.seed)
@@ -5296,6 +5589,7 @@ def main():
              "route")
     kernels += phase("hub_path", hub_path, g, oracle, dev, graph)
     phase("mesh_path", mesh_path, g, oracle, dev, GRID)
+    phase("mesh_runtime_path", mesh_runtime_path, g, oracle, dev, GRID, graph)
     del g
     phase("small_graphs", small_graphs)
     phase("many_path", many_path, dev, args.seed,

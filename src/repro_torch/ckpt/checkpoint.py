@@ -11,9 +11,20 @@ other.
 A tree is a nest of dicts, lists and tuples whose leaves are tensors or
 numpy arrays.  The port flattens it itself, in the order the JAX package's
 ``tree_util`` does (dict keys sorted, sequences by index; ``None`` holds
-no leaf).  The JAX package's ``mesh=``/``specs=`` re-sharding on restore
-has no counterpart on one device and is left out: a restored leaf goes to
-the device of its ``like`` tensor, with the payload's dtype.
+no leaf).  A restored leaf goes to the device of its ``like`` tensor, with
+the payload's dtype.
+
+A leaf may be a :class:`~repro_torch.core.engine.MeshArray`: it is saved
+as its global array, every position's block stacked in the mesh's
+row-major order under the mesh's shape, which is the stacked tensor the
+one-device engine holds for the same state.  So a checkpoint is the same
+bytes whether its state was on one device or on a mesh, and either loads
+into the other: a ``MeshArray`` ``like`` leaf restores each position's
+block onto its device, a tensor ``like`` the whole array onto its
+device.  ``load_checkpoint(..., mesh=, specs=)`` places leaves on a mesh
+as the JAX package's re-sharding restore does, ``specs`` naming the mesh
+axes each leaf's leading dimensions are split over
+(:func:`~repro_torch.pipeline.artifact.mesh_layout`'s specs).
 
 bfloat16 has no numpy dtype without ``ml_dtypes``.  The JAX package's
 ``np.asarray`` of a bfloat16 leaf writes it as a raw two-byte void
@@ -40,8 +51,8 @@ __all__ = [
 ]
 
 
-def _flatten(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
-    """``(path key, leaf)`` pairs of ``tree`` in ``tree_util`` order."""
+def _leaf_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` pairs of ``tree`` in ``tree_util`` order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
@@ -49,11 +60,15 @@ def _flatten(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
     else:
-        return [("/".join(str(p) for p in prefix), tree)]
-    out = []
-    for k, sub in items:
-        out += _flatten(sub, prefix + (k,))
-    return out
+        return [(prefix, tree)]
+    return [pair for k, sub in items
+            for pair in _leaf_paths(sub, prefix + (k,))]
+
+
+def _flatten(tree) -> List[Tuple[str, Any]]:
+    """``(path key, leaf)`` pairs of ``tree`` in ``tree_util`` order."""
+    return [("/".join(str(p) for p in path), leaf)
+            for path, leaf in _leaf_paths(tree)]
 
 
 def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple = ()):
@@ -71,10 +86,23 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple = ()):
 _BF16_ENTRY = np.dtype("V2")  # how a bfloat16 leaf lies in the payload
 
 
+def _is_mesh_array(leaf) -> bool:
+    from ..core.engine import MeshArray
+
+    return isinstance(leaf, MeshArray)
+
+
 def host_array(leaf, *, copy: bool = False) -> np.ndarray:
     """``leaf`` as the array the payload holds: a tensor's host array (a
     bfloat16 tensor's bits as a ``|V2`` array, as the JAX package writes
-    it), a copy that shares no memory with the tensor where ``copy``."""
+    it), a copy that shares no memory with the tensor where ``copy``.  A
+    mesh array's is its global array: the blocks, each copied to the
+    host, stacked in row-major position order under the mesh's shape."""
+    if _is_mesh_array(leaf):
+        shape = tuple(leaf.mesh.shape)
+        blocks = [host_array(leaf.blocks[pos], copy=True)
+                  for pos in np.ndindex(*shape)]
+        return np.stack(blocks).reshape(shape + blocks[0].shape)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
@@ -83,8 +111,20 @@ def host_array(leaf, *, copy: bool = False) -> np.ndarray:
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
-def _restored(key: str, arr: np.ndarray, like):
-    """The payload's ``arr`` at ``key`` as ``like``'s kind of leaf."""
+def _restored(key: str, arr: np.ndarray, like, mesh=None, spec=None):
+    """The payload's ``arr`` at ``key`` as ``like``'s kind of leaf: with a
+    mesh (``mesh``, else a mesh array ``like``'s) split over its axes
+    ``spec`` (``None``: all of them, in order), each position's block on
+    its device."""
+    if mesh is None and _is_mesh_array(like):
+        mesh = like.mesh
+    if mesh is not None:
+        from ..pipeline.artifact import stage_on_mesh
+
+        if arr.dtype == _BF16_ENTRY:
+            raise TypeError(f"checkpoint entry {key!r} holds bfloat16 bits "
+                            "(|V2), which are not restored onto a mesh")
+        return stage_on_mesh(arr, mesh, spec)
     if arr.dtype == _BF16_ENTRY:
         if not (isinstance(like, torch.Tensor)
                 and like.dtype == torch.bfloat16):
@@ -160,7 +200,21 @@ def quarantine_step(directory: str, step: int) -> list:
     return moved
 
 
-def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
+def _spec_at(specs, path: Tuple):
+    """The spec of the leaf at ``path`` in a specs tree: ``specs``
+    followed down ``path`` until a node that is a spec (``None`` or a tuple
+    of axis names), which then holds for the whole subtree."""
+    node = specs
+    for part in path:
+        if node is None or (isinstance(node, tuple)
+                            and all(isinstance(a, str) for a in node)):
+            break
+        node = node[part]
+    return node
+
+
+def load_checkpoint(directory: str, step: int, like, *, mesh=None,
+                    specs=None, verify: bool = True):
     """Restore a tree saved by :func:`save_checkpoint`; returns
     ``(tree, extra)``.
 
@@ -169,10 +223,15 @@ def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
     ``like``'s leaf where that is a tensor, else a numpy array — in the
     payload's dtype (an int64 accumulator stays int64, int32 keys stay
     int32); a ``|V2`` entry (bfloat16 bits) restores into a bfloat16
-    ``like`` tensor only, and raises ``TypeError`` elsewhere.  A path
-    ``like`` has and the payload lacks raises ``KeyError``; ``verify``
-    checks the payload's sha256 first and raises ``IOError`` on a
-    mismatch.
+    ``like`` tensor only, and raises ``TypeError`` elsewhere.  A mesh
+    array ``like`` leaf restores as a mesh array on its mesh.  With
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`) every leaf
+    is placed on it, split over the mesh axes ``specs`` names for it
+    (``specs`` has ``like``'s structure, or a prefix of it, with a tuple
+    of axis names or ``None`` — every axis, in order — at each leaf),
+    as the JAX package's ``mesh=``/``specs=`` re-shard.  A path ``like``
+    has and the payload lacks raises ``KeyError``; ``verify`` checks the
+    payload's sha256 first and raises ``IOError`` on a mismatch.
     """
     with open(os.path.join(directory, f"step_{step:010d}.json")) as f:
         manifest = json.load(f)
@@ -186,6 +245,9 @@ def load_checkpoint(directory: str, step: int, like, *, verify: bool = True):
             )
     out = {}
     with np.load(path) as data:
-        for key, leaf in _flatten(like):
-            out[key] = _restored(key, data[key.replace("/", "__")], leaf)
+        for path_, leaf in _leaf_paths(like):
+            key = "/".join(str(p) for p in path_)
+            out[key] = _restored(
+                key, data[key.replace("/", "__")], leaf, mesh,
+                None if mesh is None else _spec_at(specs, path_))
     return _unflatten(like, out), manifest["extra"]

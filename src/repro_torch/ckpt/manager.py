@@ -41,7 +41,8 @@ def _snapshot(leaf) -> np.ndarray:
     ``tensor.numpy()`` is a view, so a later in-place update of the
     tensor would reach the queued save; from a CUDA tensor the copy is a
     synchronous device-to-host transfer.  A bfloat16 tensor becomes the
-    ``|V2`` array of its bits, as the payload holds it."""
+    ``|V2`` array of its bits, as the payload holds it, and a mesh array
+    its global array, each block copied."""
     return host_array(leaf, copy=True)
 
 
@@ -129,9 +130,11 @@ class CheckpointManager:
                 if os.path.exists(p):
                     os.remove(p)
 
-    def restore_latest(self, like, *, quarantine: bool = True):
+    def restore_latest(self, like, *, mesh=None, specs=None,
+                       quarantine: bool = True):
         """Restore the newest *intact* checkpoint: ``(step, tree, extra)``,
-        or ``(None, None, None)`` when there is none.
+        or ``(None, None, None)`` when there is none.  ``mesh`` and
+        ``specs`` place the leaves on a mesh (:func:`load_checkpoint`).
 
         A step whose payload fails digest verification (or is
         unreadable) is quarantined — renamed to ``*.corrupt`` so it
@@ -144,7 +147,8 @@ class CheckpointManager:
             if step is None:
                 return None, None, None
             try:
-                tree, extra = load_checkpoint(self.directory, step, like)
+                tree, extra = load_checkpoint(self.directory, step, like,
+                                              mesh=mesh, specs=specs)
                 return step, tree, extra
             except _CORRUPTION_ERRORS as e:
                 if not quarantine:

@@ -721,7 +721,8 @@ def count_triangles(
     :func:`make_grid_mesh` builds it; it excludes ``device``) spreads the
     grid over devices as the JAX package's mesh does: its last two axes
     are the grid (Cannon's ``q``, SUMMA's ``(r, c)``), a third leading
-    axis the pods, and the ring runs over all its devices in order.
+    axis the pods, and the ring runs over all its devices in order (it
+    also takes a one-axis ``("flat",)`` mesh, as a ``1 x p`` grid).
     ``q``, ``grid`` and ``npods`` may be left out, and must agree with it
     where given.  A SUMMA, ``tile`` or ``dense`` count on a pod mesh runs
     on pod 0's grid.  The count is the one-device count, ``==``.
@@ -935,8 +936,11 @@ def _mesh_grid(mesh, q, grid, npods, schedule):
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
     shape = tuple(mesh.shape)
+    if len(shape) == 1 and schedule == "oned":
+        shape = (1,) + shape  # the ring's ("flat",) mesh: a 1 x p grid
     if len(shape) not in (2, 3):
-        raise ValueError(f"a grid mesh has 2 or 3 axes, got {shape}")
+        raise ValueError(f"a grid mesh has 2 or 3 axes (the ring also takes "
+                         f"1), got {shape}")
     mgrid, mpods = shape[-2:], (shape[0] if len(shape) == 3 else 1)
     if (grid is not None and tuple(grid) != mgrid) or (
             q is not None and (q, q) != mgrid) or (

@@ -214,6 +214,7 @@ def build_cannon_fn(
 
 def build_cannon_stepper(
     plan,
+    mesh=None,
     *,
     method: str = "search",
     probe_shorter: bool = True,
@@ -247,6 +248,14 @@ def build_cannon_stepper(
     hub-split plan is refused (the stepper has no slot for its partial).
     The carry holds the unpacked arrays (no blob, as in the JAX package),
     so either package loads the other's checkpoints.
+
+    With ``mesh`` (a ``(q, q)`` :class:`~repro_torch.launch.mesh.DeviceMesh`)
+    the stepper runs over the arrays ``PlanArtifact.staged(mesh)`` spreads
+    over it, as the JAX package's runs over its mesh: the carry and
+    ``partial_counts`` are mesh arrays, each position's blocks and its
+    0-dim partial on its device, and each shift copies the blocks between
+    positions.  They hold, position by position, the one-device stepper's
+    values.
     """
     plan = as_plan(plan)
     if getattr(plan, "hub", None) is not None:
@@ -266,7 +275,7 @@ def build_cannon_stepper(
     )
     return engine.build_engine_stepper(
         CSRStore(kernel, use_blob=False), schedule, m_cnt=plan.m_cnt,
-        step_keep=plan.step_keep if use_step_mask else None,
+        step_keep=plan.step_keep if use_step_mask else None, mesh=mesh,
     )
 
 

@@ -1537,12 +1537,20 @@ def _unleaves(template, leaves) -> tuple:
     return leaves.pop(0)
 
 
+def _unowned(t):
+    """A mesh leaf of a stepper's state with no receive buffers attached:
+    its next shift copies into new blocks, so no call writes into a state
+    the caller still holds (on one device every roll is a new tensor)."""
+    return MeshArray(t.mesh, t.blocks) if _on_mesh(t) else t
+
+
 def build_engine_stepper(
     store: OperandStore,
     schedule: ShiftSchedule,
     *,
     m_cnt: np.ndarray,
     step_keep: Optional[np.ndarray] = None,
+    mesh: Optional[DeviceMesh] = None,
 ):
     """One-schedule-step-at-a-time variant for fault-tolerant runs.
 
@@ -1557,6 +1565,16 @@ def build_engine_stepper(
     store's static tensors (``m_ti``, ``m_tj``, ...) on the device;
     ``m_cnt`` and ``step_keep`` are the plan's *host* arrays, bound here
     and read on the host as :func:`build_engine_fn` reads them.
+
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh` of the
+    schedule's grid) the state and the statics are :class:`MeshArray` s
+    staged on it (``PlanArtifact.staged(mesh)``): every carry leaf holds
+    each position's block on its device and a shift copies them between
+    positions (:func:`tree_ppermute`), and ``acc`` holds each position's
+    0-dim int64 partial on its device.  Position for position the state
+    is the one-device stepper's, so a checkpoint of either is the same
+    bytes (:mod:`repro_torch.ckpt`).  No call reads a count back to the
+    host: the caller sums ``acc`` once, at the end.
 
     With a ``double_buffer`` schedule (and no compaction) the carry is
     two payload generations, as in the JAX package's scan body: the
@@ -1581,31 +1599,41 @@ def build_engine_stepper(
     double = getattr(schedule, "double_buffer", False)
     if double and live is not None:
         raise ValueError("the compacted stepper runs single-buffered")
+    if mesh is not None and tuple(mesh.shape) != tuple(schedule.grid):
+        raise ValueError(
+            f"the schedule's grid {tuple(schedule.grid)} needs a mesh of that "
+            f"shape, got {tuple(mesh.shape)}")
     op_names = list(store.operand_names)
     payload0 = store.payload({k: k for k in op_names})
     template = (payload0, payload0) if double else payload0
     n_carry = len(_leaves(template))
 
+    def placed(arrays):
+        """Refuse arrays staged elsewhere than the stepper was built for."""
+        if {t.mesh if _on_mesh(t) else None for t in arrays} != {mesh}:
+            where = "one device" if mesh is None else "a mesh"
+            raise ValueError(
+                f"the stepper was built for {where}: stage its state and "
+                "statics there (PlanArtifact.staged)")
+
     def prime(operands):
+        placed([operands[k] for k in op_names])
         payload = store.payload({k: operands[k] for k in op_names})
         if live is not None:
             if live:
                 payload = schedule._shift_k(payload, live[0])
-            return tuple(_leaves(payload))
-        if double:  # prologue: step 1's blocks shifted before step 0 counts
-            return tuple(_leaves((payload, schedule._shift_k(payload, 1))))
-        return tuple(_leaves(payload))
+        elif double:  # prologue: step 1's blocks shifted before step 0 counts
+            payload = (payload, schedule._shift_k(payload, 1))
+        return tuple(_unowned(t) for t in _leaves(payload))
 
     def one_shift(state, statics, step=0):
-        if any(_on_mesh(v) for v in statics.values()):
-            raise ValueError("the checkpointed stepper runs on one device; "
-                             "it does not take arrays staged on a mesh")
         *carry, acc = state
         if len(carry) != n_carry:
             raise ValueError(
                 f"stepper state holds {len(carry)} carry tensors, "
                 f"expected {n_carry}"
             )
+        placed(list(carry) + [acc] + list(statics.values()))
         step = int(step)
         hop = 1
         if live is not None:
@@ -1618,9 +1646,9 @@ def build_engine_stepper(
         else:
             cur = carry
             nxt = schedule._shift_k(carry, hop)
-        acc = acc.clone()
+        acc = acc.map(torch.clone) if _on_mesh(acc) else acc.clone()
         schedule._count_grid(store, cur, statics, step, m_cnt, keep, acc)
-        return tuple(_leaves(nxt)) + (acc,)
+        return tuple(_unowned(t) for t in _leaves(nxt)) + (_unowned(acc),)
 
     one_shift.prime = prime
     one_shift.n_carry = n_carry

@@ -12,7 +12,7 @@ Steps, mirroring the paper:
    :func:`distributed_degree_rank` is the distributed formulation the
    paper describes (local histograms, a global histogram, prefix sums over
    degree buckets and over shards), with the shards as a leading tensor
-   dimension.
+   dimension or spread over the positions of a device mesh.
 3. *split the adjacency matrix into U and L*.  Because L = Uᵀ, the planner
    only materializes U blocks; the ⟨j,i,k⟩ task set over L's nonzeros is the
    transposed view of the same blocks.
@@ -74,14 +74,17 @@ def preprocess(graph: Graph) -> Tuple[Graph, np.ndarray]:
 # ----------------------------------------------------------------------
 # Distributed counting sort — the paper's §5.3/§5.4, shards as dim 0
 # ----------------------------------------------------------------------
-def distributed_degree_rank(degrees) -> torch.Tensor:
+def distributed_degree_rank(degrees):
     """Per-shard degree ranks via the paper's distributed counting sort.
 
     ``degrees`` is a ``(p, chunk)`` integer tensor: shard ``s`` holds the
     degrees of vertices ``s * chunk ... (s + 1) * chunk - 1``.  The JAX
     package runs the same steps inside ``shard_map`` over a 1D axis; here
     the shards are the leading dimension, so its collectives become sums
-    and scans over dim 0:
+    and scans over dim 0.  ``degrees`` may instead be a
+    :class:`~repro_torch.core.engine.MeshArray` over a one-axis mesh
+    (:func:`_mesh_degree_rank`), each position holding its shard on its
+    device: the steps are then the JAX package's, position by position.
 
     (a) a local histogram per shard;
     (b) the global histogram (the paper's all-reduce: ``psum`` there, a
@@ -96,9 +99,14 @@ def distributed_degree_rank(degrees) -> torch.Tensor:
     (The global max-degree reduction of the paper's cost model is
     subsumed by the static bucket bound: a degree is below ``p * chunk``.)
     Returns the global rank (= new vertex id) of each vertex as a
-    ``(p, chunk)`` int64 tensor, stable by (shard, local position) — the
-    permutation :func:`degree_order` gives.
+    ``(p, chunk)`` int64 tensor (or a mesh array of each shard's int64
+    ranks), stable by (shard, local position) — the permutation
+    :func:`degree_order` gives.
     """
+    from .engine import MeshArray
+
+    if isinstance(degrees, MeshArray):
+        return _mesh_degree_rank(degrees)
     deg = torch.as_tensor(degrees)
     if deg.dim() != 2:
         raise ValueError(
@@ -119,3 +127,53 @@ def distributed_degree_rank(degrees) -> torch.Tensor:
     local_starts = torch.cumsum(hist, 1) - hist
     within = pos - torch.gather(local_starts, 1, deg)
     return bucket_starts[deg] + torch.gather(before, 1, deg) + within
+
+
+def _mesh_degree_rank(degrees):
+    """:func:`distributed_degree_rank` over a one-axis device mesh.
+
+    Position ``s`` holds shard ``s``'s degrees (a 1-D block; the shards may
+    differ in length, the last one short where ``p`` does not divide
+    ``n``) on its device.  Each position builds its int64 histogram over
+    ``n + 1`` buckets; the all-reduce of the histograms is a copy of each
+    to the first position's device, a sum there and a copy of the sum back
+    to every position; the prefix over earlier shards is carried along the
+    ring, position ``s`` sending ``s + 1`` the histograms of shards
+    ``0 .. s`` summed.  The within-shard offsets are local.  Returns the
+    ranks as a mesh array of int64 blocks on the positions' devices.
+    """
+    from .engine import MeshArray, _send
+
+    mesh = degrees.mesh
+    if len(mesh.shape) != 1:
+        raise ValueError(f"the degrees' mesh must have one axis, got "
+                         f"{tuple(mesh.shape)}")
+    positions = list(np.ndindex(*mesh.shape))
+    deg = {pos: degrees.blocks[pos].long() for pos in positions}
+    if any(d.dim() != 1 for d in deg.values()):
+        raise ValueError("each position holds a 1-D block of degrees")
+    nbuckets = sum(d.numel() for d in deg.values()) + 1
+    hist = {pos: torch.zeros(nbuckets, dtype=torch.int64,
+                             device=d.device).scatter_add_(
+                                 0, d, torch.ones_like(d))
+            for pos, d in deg.items()}
+    # the all-reduce: every histogram to the first device, summed, back
+    first = mesh.devices[0]
+    ghist = sum(_send(h, first, "reduce") for h in hist.values())
+    before, carried = {}, None
+    for pos in positions:  # the prefix over earlier shards, along the ring
+        dev = mesh.device_at(pos)
+        before[pos] = (torch.zeros_like(hist[pos]) if carried is None
+                       else _send(carried, dev, "shift"))
+        carried = before[pos] + hist[pos]
+    ranks = {}
+    for pos in positions:
+        d, h = deg[pos], hist[pos]
+        g = _send(ghist, d.device, "broadcast")
+        bucket_starts = torch.cumsum(g, 0) - g
+        order = torch.argsort(d, stable=True)
+        local = torch.empty_like(order)
+        local[order] = torch.arange(d.numel(), device=d.device)
+        within = local - (torch.cumsum(h, 0) - h)[d]
+        ranks[pos] = bucket_starts[d] + before[pos][d] + within
+    return MeshArray(mesh, ranks, owned=True)

@@ -22,6 +22,8 @@
         --chunk 8192 --opt --repeat 2 --verify --json
     python -m repro_torch.launch.tc_run --graph rmat:16 --grid 4 \\
         --schedule oned --chunk 8192 --time-split --json
+    python -m repro_torch.launch.tc_run --graph rmat:16 --grid 2 --mesh \\
+        --ckpt-dir /tmp/tc_ckpt --inject-faults "step@1;ckpt_save" --verify
 
 Counts the triangles of one graph on a logical ``grid x grid`` processor
 grid held on one device (``--schedule summa``: the same ``q x q`` grid by
@@ -47,8 +49,11 @@ broadcast-only) and a count-only timing of the same schedule and the
 bytes each engine phase moves (``coll_*_bytes``).  Runs on the GPU unless
 ``--device cpu`` is given.  ``--mesh`` spreads the grid (and its pods)
 over a device mesh, one CUDA card a position (``q² · pods`` cards, failing
-with fewer; with ``--device cpu`` every position on the CPU), for the
-plain count, ``--graphs`` and ``--stream``.
+with fewer; with ``--device cpu`` every position on the CPU), for every
+mode: the plain count, ``--graphs``, ``--stream``, ``--opt``,
+``--time-split``, ``--ckpt-dir`` (the stepper's state on the mesh) and
+the supervised runs (a ``DeviceLost`` regrids onto a mesh over the first
+surviving positions' devices).
 """
 from __future__ import annotations
 
@@ -181,7 +186,10 @@ def main(argv=None):
                     help="spread the --grid (x --pods) grid over a device "
                          "mesh: one CUDA card a position, failing with "
                          "fewer; with --device cpu every position on the "
-                         "CPU")
+                         "CPU.  Every mode runs on it: --ckpt-dir keeps "
+                         "the stepper's state on the mesh, and a "
+                         "DeviceLost regrids onto the first surviving "
+                         "positions")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
@@ -233,13 +241,6 @@ def main(argv=None):
             "and --ckpt-dir stepper runs; drop --graphs/--opt/"
             "--time-split/--stream (the serve front-end has its own "
             "per-request supervision)"
-        )
-    if args.mesh and (args.ckpt_dir or args.opt or args.time_split
-                      or supervised):
-        raise SystemExit(
-            "--mesh covers the plain, --graphs and --stream counts; drop "
-            "--ckpt-dir/--opt/--time-split/--inject-faults/--supervise "
-            "(they run the grid on one device)"
         )
     fault_plan = None
     if args.inject_faults:
@@ -332,23 +333,38 @@ def main(argv=None):
 
 def _placement(args, pods: bool = True) -> dict:
     """The count's placement keywords: ``q``, ``npods`` and ``device``, or
-    with ``--mesh`` the mesh (:func:`~repro_torch.core.api.make_grid_mesh`
-    over the first ``q² · pods`` CUDA cards, or all on the CPU with
-    ``--device cpu``)."""
-    npods = args.pods if pods else 1
+    with ``--mesh`` the mesh (:func:`_grid_mesh`)."""
     if not args.mesh:
         return dict(q=args.grid, device=args.device,
-                    **(dict(npods=npods) if pods else {}))
+                    **(dict(npods=args.pods) if pods else {}))
+    return dict(mesh=_grid_mesh(args, args.grid, args.pods if pods else 1))
+
+
+def _grid_mesh(args, q: int, npods: int = 1, devices=None):
+    """``--mesh``'s ``q x q`` (``npods x q x q``) mesh: over the first
+    ``q² · npods`` of ``devices`` where given (a regrid's survivors), else
+    over the first that many CUDA cards
+    (:func:`~repro_torch.core.api.make_grid_mesh`), or all on the CPU with
+    ``--device cpu``."""
     from ..core.api import make_grid_mesh
 
     if args.device not in (None, "cpu"):
         raise SystemExit(
             "--mesh puts every grid position on its own card; drop "
             "--device (or pass --device cpu for a CPU mesh)")
-    n = args.grid * args.grid * npods
-    return dict(mesh=make_grid_mesh(
-        args.grid, npods=npods,
-        devices=None if args.device is None else ["cpu"] * n))
+    if devices is None and args.device == "cpu":
+        devices = ["cpu"] * (q * q * npods)
+    return make_grid_mesh(q, npods=npods, devices=devices)
+
+
+def _device_field(where) -> str:
+    """A report's ``device``: the device, or a mesh's distinct devices in
+    position order, as ``count_triangles`` writes them."""
+    from .mesh import DeviceMesh
+
+    if isinstance(where, DeviceMesh):
+        return ",".join(dict.fromkeys(str(d) for d in where.devices))
+    return str(where)
 
 
 def _finish(g, args, report, total):
@@ -377,15 +393,18 @@ def _run_opt(g, args):
     intersection keys, bucketize the tasks at ``d_small = 32``, and count
     with ``search2`` over blob shifts whose indptr travels as uint16
     length pairs.  Host planning is ``ppt_seconds``; ``tct_seconds`` is
-    the count (the best warm one under ``--repeat``).  Returns ``(total,
-    report fields)``."""
+    the count (the best warm one under ``--repeat``).  With ``--mesh`` the
+    bucketized plan is staged on the ``grid x grid`` mesh (no pods, as the
+    JAX package's function takes none).  Returns ``(total, report
+    fields)``."""
     from ..core.cannon import build_cannon_fn
     from ..core.plan import bucketize_plan
     from ..device import resolve_device
     from ..pipeline import plan_cannon
     from ..pipeline.artifact import stage_arrays
 
-    device = resolve_device(args.device)
+    mesh = _grid_mesh(args, args.grid) if args.mesh else None
+    where = mesh or resolve_device(args.device)
     t0 = time.perf_counter()
     art = plan_cannon(
         g, args.grid, chunk=args.chunk, keep_blocks=True,
@@ -399,9 +418,11 @@ def _run_opt(g, args):
         bplan, method="search2", compress_lengths=True,
         use_step_mask=False if args.no_skip_mask else None,
         double_buffer=not args.no_double_buffer,
-        compact=False if args.no_compact else None,
+        compact=False if args.no_compact else None, mesh=mesh,
     )
-    staged = stage_arrays(bplan.device_arrays(), device)
+    # on a mesh each position's blocks on its device (its uint16 blob
+    # packed there at every count)
+    staged = stage_arrays(bplan.device_arrays(), where)
     times = []
     for _ in range(max(1, args.repeat)):
         t_run = time.perf_counter()
@@ -413,7 +434,7 @@ def _run_opt(g, args):
         tct_seconds=round(min(times[1:]) if len(times) > 1 else times[0], 4),
         optimized=True,
         bucket_reduction=round(bplan.bucket_stats["reduction"], 3),
-        device=str(device),
+        device=_device_field(where),
     )
     out.update(_skip_fields(bplan, args.no_skip_mask))
     out.update(_compact_fields(bplan))
@@ -437,6 +458,13 @@ def _time_split(g, args) -> dict:
     one call of the *production* configuration moves by engine phase
     (:func:`repro_torch.launch.roofline.collective_phases`): the whole
     grid's, on the one card that holds it.
+
+    With ``--mesh`` every function is built for a mesh and its plan staged
+    there, as the JAX package's probe does: Cannon on the ``grid x grid``
+    (with pods ``pods x grid x grid``) mesh, SUMMA on the ``grid x grid``
+    one, the ring on a ``("flat",)`` mesh over the pod mesh's devices; the
+    ``coll_*_bytes`` are then the bytes that crossed positions (a SUMMA
+    round's panel copies under ``broadcast``).
     """
     import numpy as np
 
@@ -444,8 +472,13 @@ def _time_split(g, args) -> dict:
     from ..pipeline.artifact import stage_arrays
     from .roofline import collective_phases
 
-    device = resolve_device(args.device)
     out = {}
+    mesh = _grid_mesh(args, args.grid, args.pods) if args.mesh else None
+    # the grid without pods (SUMMA's) and the ring over every position
+    grid_mesh = None if mesh is None else (
+        mesh.pod(0) if args.pods > 1 else mesh)
+    ring = None if mesh is None else mesh.reshaped((mesh.size,), ("flat",))
+    device = None if mesh is not None else resolve_device(args.device)
 
     def timed_min(fn, arrays, warm=1, iters=3):
         for _ in range(warm):
@@ -471,7 +504,9 @@ def _time_split(g, args) -> dict:
         plan = art.plan
         if plan.step_keep is None:
             return {}
-        if args.pods > 1:
+        if mesh is not None:  # a pod mesh stacks A and B over the pods
+            staged = art.staged(mesh)
+        elif args.pods > 1:
             staged = stage_arrays(
                 pod_stack_arrays(plan.device_arrays(), args.pods, plan.q),
                 device)
@@ -479,7 +514,7 @@ def _time_split(g, args) -> dict:
             staged = art.staged(device)
         common = dict(npods=args.pods,
                       double_buffer=not args.no_double_buffer,
-                      reduce_strategy=args.reduce_strategy)
+                      reduce_strategy=args.reduce_strategy, mesh=mesh)
         fcomm = build_cannon_fn(plan, use_step_mask=True, compact=False,
                                 **common)
         out["tct_shift_only"] = timed_min(all_false(fcomm), staged)
@@ -496,15 +531,15 @@ def _time_split(g, args) -> dict:
         plan = art.plan
         if plan.step_keep is None:
             return {}
-        staged = art.staged(device)
-        fcomm = build_summa_fn(plan, broadcast=args.broadcast,
-                               use_step_mask=True, compact=False)
+        staged = art.staged(grid_mesh or device)
+        common = dict(broadcast=args.broadcast, mesh=grid_mesh)
+        fcomm = build_summa_fn(plan, use_step_mask=True, compact=False,
+                               **common)
         out["tct_broadcast_only"] = timed_min(all_false(fcomm), staged)
-        fcount = build_summa_fn(plan, broadcast=args.broadcast,
-                                use_step_mask=False, compact=False,
-                                elide_broadcast=True)
+        fcount = build_summa_fn(plan, use_step_mask=False, compact=False,
+                                elide_broadcast=True, **common)
         out["tct_count_only"] = timed_min(fcount, staged)
-        fprod = build_summa_fn(plan, broadcast=args.broadcast, **mask)
+        fprod = build_summa_fn(plan, **mask, **common)
     elif args.schedule == "oned":
         from ..core.onedim import build_oned_fn
         from ..pipeline import plan_oned
@@ -514,14 +549,15 @@ def _time_split(g, args) -> dict:
         plan = art.plan
         if plan.step_keep is None:
             return {}
-        staged = art.staged(device)
-        fcomm = build_oned_fn(plan, use_step_mask=True, compact=False)
+        staged = art.staged(ring or device)
+        fcomm = build_oned_fn(plan, use_step_mask=True, compact=False,
+                              mesh=ring)
         out["tct_shift_only"] = timed_min(all_false(fcomm), staged)
         fcount = build_oned_fn(plan, use_step_mask=False, compact=False,
-                               elide_shifts=True)
+                               elide_shifts=True, mesh=ring)
         out["tct_count_only"] = timed_min(fcount, staged)
         fprod = build_oned_fn(plan, reduce_strategy=args.reduce_strategy,
-                              **mask)
+                              mesh=ring, **mask)
     else:  # a registered schedule this probe does not know how to split
         return {}
 
@@ -562,19 +598,33 @@ def _run_checkpointed(g, args, fault_plan=None):
     counts from shift 0 into a fresh ``regrid_{q}x{q}`` subdirectory.
     The plan's tensors are staged once per grid (the artifact's memoised
     staging), however many attempts run.
+
+    With ``--mesh`` the stepper runs on a ``q x q`` device mesh, as the
+    JAX package's runs on ``make_grid_mesh(q)``: the carry and the
+    partial counts are mesh arrays, each position's blocks on its device,
+    and a checkpoint holds their global arrays (the bytes one device's
+    run writes).  A ``DeviceLost`` then counts the starting mesh's
+    positions less the event's ``lost``, and the new grid's mesh stands on
+    the first surviving positions' devices.
     """
     import os
 
+    import numpy as np
     import torch
 
     from ..ckpt import CheckpointManager
     from ..core.cannon import build_cannon_stepper
+    from ..core.engine import Reduction
     from ..device import resolve_device
     from ..pipeline import plan_cannon
+    from ..pipeline.artifact import stage_on_mesh
     from ..runtime import faultinject
     from ..runtime.supervisor import check_partials_portable
 
-    device = resolve_device(args.device)
+    # the starting mesh, whose positions a regrid counts and whose first
+    # devices the smaller grid's mesh takes
+    start = _grid_mesh(args, args.grid) if args.mesh else None
+    device = None if start is not None else resolve_device(args.device)
     t0 = time.perf_counter()
     cross_mode = (
         "checkpoint in {d} was written by a run with a different "
@@ -596,13 +646,15 @@ def _run_checkpointed(g, args, fault_plan=None):
         # count_triangles(method="search") makes, and shares its cache entry
         art = plan_cannon(g, q, chunk=args.chunk, keep_blocks=False,
                           compact=not args.no_compact)
+        mesh = (None if start is None
+                else _grid_mesh(args, q, devices=start.devices))
         stepper = build_cannon_stepper(
-            art.plan,
+            art.plan, mesh,
             use_step_mask=False if args.no_skip_mask else None,
             double_buffer=not args.no_double_buffer,
             compact=False if args.no_compact else None,
         )
-        arrays = art.staged(device)
+        arrays = art.staged(mesh or device)
         steps = (list(stepper.live_steps) if stepper.live_steps is not None
                  else list(range(q)))
         n_carry = stepper.n_carry
@@ -611,10 +663,12 @@ def _run_checkpointed(g, args, fault_plan=None):
         ops = [arrays[k] for k in ("a_indptr", "a_indices", "b_indptr",
                                    "b_indices")]
         state_like = {f"carry{i}": ops[i % len(ops)] for i in range(n_carry)}
-        state_like["acc"] = torch.zeros((q, q), dtype=torch.int64,
-                                        device=device)
+        state_like["acc"] = (
+            torch.zeros((q, q), dtype=torch.int64, device=device)
+            if mesh is None
+            else stage_on_mesh(np.zeros((q, q), dtype=np.int64), mesh))
         return dict(
-            q=q, ckpt_dir=ckpt_dir, stepper=stepper, arrays=arrays,
+            q=q, mesh=mesh, ckpt_dir=ckpt_dir, stepper=stepper, arrays=arrays,
             steps=steps, n_carry=n_carry, state_like=state_like,
             mgr=CheckpointManager(ckpt_dir, keep=2, async_save=False),
             step_sig=",".join(map(str, steps)), grid_sig=f"{q}x{q}",
@@ -699,7 +753,8 @@ def _run_checkpointed(g, args, fault_plan=None):
                 rec.point, rec.step = last.get("point"), last.get("step")
             if not isinstance(e, DeviceLost):
                 return None
-            # the logical grid the run started on, less this event's loss
+            # the grid the run started on (on a mesh, its positions), less
+            # this event's loss
             remaining = args.grid ** 2 - e.lost
             if remaining < 1:
                 raise RuntimeError(
@@ -735,7 +790,11 @@ def _run_checkpointed(g, args, fault_plan=None):
     else:
         st = attempt(0, lambda: None)
 
-    total = int(st["acc"].sum())  # the one device→host crossing
+    # the one device→host crossing (on a mesh after a sum on its first
+    # device)
+    total = int(Reduction().resolve().apply(st["acc"])
+                if env["mesh"] is not None
+                else st["acc"].sum())
     t2 = time.perf_counter()
     env["mgr"].close()
     out = dict(
@@ -745,7 +804,7 @@ def _run_checkpointed(g, args, fault_plan=None):
         checkpointed=True,
         live_steps=len(env["steps"]),
         schedule_shifts=env["q"],
-        device=str(device),
+        device=_device_field(env["mesh"] or device),
     )
     if sup_dict is not None:
         if sup_dict.get("regrids"):

@@ -81,8 +81,9 @@ def stage_on_mesh(host: np.ndarray, mesh: DeviceMesh, axes=None, *,
             if prev.shape == part.shape and np.array_equal(prev, part):
                 blocks[pos] = old.blocks[pos]
                 continue
-        blocks[pos] = torch.from_numpy(np.ascontiguousarray(part)).to(
-            mesh.device_at(pos))
+        # a position's scalar stays 0-dim (ascontiguousarray makes it 1-d)
+        part = np.ascontiguousarray(part).reshape(np.shape(part))
+        blocks[pos] = torch.from_numpy(part).to(mesh.device_at(pos))
     return MeshArray(mesh, blocks)
 
 

@@ -27,18 +27,23 @@ with the full recovery policy:
   (:func:`check_partials_portable`); only completed-graph / stream-round
   boundaries transfer.
 
-**The regrid on one device.**  The JAX package shrinks a mesh of real
-devices and counts the survivors as ``len(jax.devices()) - lost``.  Here
-the grid is logical, all of it on one device, so the survivors are
-counted on the logical grid supervision *started* with — ``q²`` for
-``q=``, ``r·c`` for ``grid=(r, c)``, ``p`` for a caller's ring plan,
-times ``npods`` — minus the event's ``lost``.  As in the JAX package,
-``lost`` is per event, not cumulative (each event counts from the same
-starting size); a square survivor count keeps the schedule, a
-rectangular one turns Cannon into SUMMA (:func:`best_grid`) and keeps
-the ring; the retry passes ``grid=(r, c)`` and drops ``q`` and
-``npods``.  The JAX package's own tests build the mesh over every host
-device, so both count the same survivors.
+**The regrid.**  The JAX package shrinks a mesh of real devices and
+counts the survivors as ``len(jax.devices()) - lost``.  Here the
+survivors are counted on the grid supervision *started* with, less the
+event's ``lost``: on a ``mesh`` its positions (a device that stands at
+several positions counts at each), else the logical grid on one device —
+``q²`` for ``q=``, ``r·c`` for ``grid=(r, c)``, ``p`` for a caller's ring
+plan, times ``npods``.  The two agree where the mesh covers every device,
+as in the JAX package's own tests.  As there, ``lost`` is per event, not
+cumulative (each event counts from the same starting size); a square
+survivor count keeps the schedule, a rectangular one turns Cannon into
+SUMMA (:func:`best_grid`) and keeps the ring.  On a mesh the retry runs
+on a new mesh over the first surviving positions' devices, in row-major
+order (the JAX package's ``make_grid_mesh`` takes the first devices):
+``make_grid_mesh(r)`` for a square count, ``(r, c)`` with the axes
+``("data", "model")`` for SUMMA, a ``("flat",)`` mesh of ``r·c``
+positions for the ring.  Off a mesh the retry passes ``grid=(r, c)``.
+Either way it drops ``q``, ``grid`` and ``npods``.
 
 Every recovered count is identical to the fault-free run: recovery
 re-executes the deterministic pipeline, it never patches partial state.
@@ -356,11 +361,26 @@ def _regrid(schedule: str, remaining: int) -> tuple:
     return "summa", (r, c)
 
 
+def _survivor_mesh(schedule: str, devices, r: int, c: int):
+    """The mesh a regridded count runs on: the first ``r * c`` of the
+    surviving positions' ``devices``, in row-major order, as the ring's
+    ``("flat",)`` mesh, a square grid mesh, or SUMMA's ``(r, c)``."""
+    from ..core.api import make_grid_mesh
+    from ..launch.mesh import make_mesh_for
+
+    if schedule == "oned":
+        return make_mesh_for((r * c,), ("flat",), devices=devices)
+    if r == c:
+        return make_grid_mesh(r, devices=devices)
+    return make_mesh_for((r, c), ("data", "model"), devices=devices)
+
+
 # ----------------------------------------------------------------------
 # supervised full-engine count
 # ----------------------------------------------------------------------
 def supervised_count(
     graph,
+    mesh=None,
     *,
     supervisor: Optional[Supervisor] = None,
     fault_plan: Optional[FaultPlan] = None,
@@ -373,15 +393,17 @@ def supervised_count(
     whose ``supervision`` field carries the full attempt/demotion/regrid
     record (plus the fault plan's ``fault_log``).  ``demote_after`` is
     how many consecutive identical faults it takes to call a fault
-    persistent and demote a ladder rung.  ``kwargs`` go to
-    ``count_triangles`` (the JAX package's ``mesh`` is ``q=`` /
-    ``grid=`` here)."""
+    persistent and demote a ladder rung.  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.DeviceMesh`) and ``kwargs`` go to
+    ``count_triangles`` on every attempt; without a mesh the grid is
+    ``q=`` / ``grid=`` on one device."""
     from ..core.api import count_triangles
 
     sup = supervisor or Supervisor()
     cfg = dict(kwargs)
-    state = {"schedule": cfg.get("schedule", "cannon"),
-             "devices": _logical_devices(cfg),
+    state = {"mesh": mesh, "schedule": cfg.get("schedule", "cannon"),
+             "devices": (_logical_devices(cfg) if mesh is None
+                         else mesh.size),
              "last_sig": None, "repeats": 0}
 
     def on_fault(e, rec):
@@ -394,9 +416,12 @@ def supervised_count(
             state["schedule"] = sched
             cfg["schedule"] = sched
             # grid-shape knobs don't survive re-factorization
-            cfg["grid"] = (r, c)
-            cfg.pop("q", None)
-            cfg.pop("npods", None)
+            for knob in ("q", "grid", "npods"):
+                cfg.pop(knob, None)
+            if mesh is None:
+                cfg["grid"] = (r, c)
+            else:  # lost counts from the starting mesh, like its devices
+                state["mesh"] = _survivor_mesh(sched, mesh.devices, r, c)
             ev = dict(lost=e.lost, grid=[r, c], schedule=sched)
             sup.report.regrids.append(ev)
             state["last_sig"], state["repeats"] = None, 0
@@ -421,7 +446,8 @@ def supervised_count(
     def attempt(i, guard):
         guard()
         with collecting_demotions() as demos:
-            res = count_triangles(graph, fault_plan=fault_plan, **cfg)
+            res = count_triangles(graph, state["mesh"],
+                                  fault_plan=fault_plan, **cfg)
         sup.report.demotions.extend(demos)
         return res
 
