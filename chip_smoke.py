@@ -99,6 +99,22 @@ What it does, in order, printing one JSON object per line:
                     dropped) that the check must catch; ``train
                     --ckpt-dir`` on the card run to step 10, then resumed
                     to 20, against an uninterrupted run;
+   ``lm_mesh_path`` — the LM family's steps on a device mesh (after
+                    ``lm_train_path``; no hand-written kernel): a (2, 2)
+                    ``("data", "model")`` mesh of four positions on
+                    ``cuda:0``, every ``-smoke`` config's train step (8 x
+                    24 tokens, two microbatches), prefill and 8 decode
+                    steps in float32 and bfloat16 against the same steps
+                    on one device (the router teacher-forced), each train
+                    step's parameter and gradient bytes equal to their
+                    closed form; two planted faults the check must catch
+                    (the gradients' reduce-scatter over ``data`` skipped,
+                    the decode combine without its rescale); qwen2-0.5b
+                    at its published widths in bfloat16: two train steps
+                    of 8 x 512 against one device, a 1 x 2,048 prefill's
+                    token, 8 prompts x 16 decode steps (seconds, peaks,
+                    collective bytes, prefill and decode launches); at
+                    most 60 s;
    ``recsys_path`` — DLRM (no hand-written kernel either): the smoke
                     config card against CPU (one train step's loss,
                     ``grad_norm``, moments and parameters, the serve
@@ -276,9 +292,13 @@ What it does, in order, printing one JSON object per line:
                     two kernels' times cross.
 
 The ``total`` line gives the whole run's seconds and each phase's.
-``--mesh-only`` runs the main path and then only ``mesh_path`` and
-``mesh_runtime_path`` (a probe of the mesh phases on the cards present;
-it prints neither the kernels line nor the final line).
+``--mesh-only`` runs the main path and then only ``mesh_path``,
+``mesh_runtime_path`` and ``lm_mesh_path`` (a probe of the mesh phases on
+the cards present; it prints neither the kernels line nor the final
+line); with four cards ``lm_mesh_path`` puts one position on each, and
+``lm_mesh_big`` trains chatglm3-6b at its published widths and depth on
+them (the batch sized by the dry run's walk and ``shard_bytes``; three
+steps' seconds and losses, each card's peak against the sizing).
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
 device the script exits non-zero before printing any result.  The last
@@ -4821,6 +4841,855 @@ def lm_train_path(dev, smi, full=LM_FULL, full_batch=LM_FULL_TRAIN,
 
 
 # ----------------------------------------------------------------------
+# the LM family on a device mesh
+# ----------------------------------------------------------------------
+LM_MESH = (2, 2)  # ("data", "model"): four positions on one card
+# the smoke steps on the mesh: 8 x 24 tokens in two microbatches of 4
+# (two rows a data position; 24 divides into the reference's q chunks
+# for a model axis of 2, 3 or 4), a 12-slot cache decoded for 8
+# teacher-forced steps (slots 6-11 lie on the second model position, so
+# the last two steps' softmax spans both shards)
+LM_MESH_B, LM_MESH_S, LM_MESH_MB = 8, 24, 4
+LM_MESH_LEN, LM_MESH_STEPS = 12, 8
+# qwen2-0.5b at its published widths in bfloat16: two train steps of
+# 8 x 512 in microbatches of 4, a 1 x 2048 prefill (the batch's one row
+# on the first data position), 8 prompts x 16 decode steps
+LM_MESH_FULL_TRAIN = (8, 512)
+LM_MESH_FULL_STEPS = 2
+LM_MESH_PREFILL = (1, 2048)
+LM_MESH_DECODE = (8, 16)
+# the full-width bfloat16 step on the mesh against one device: the smoke
+# configs' bounds, but the states' at 2**-3.  The embedding table's
+# gradient sums each token's row gradients in bfloat16, and the Zipf
+# tokens put about a quarter of the rows on one token; the mesh sums each
+# data position's rows apart.  On one H100 its v differed from one
+# device's by 0.0659 of its norm and its m by 0.0313, every other leaf by
+# at most 0.018; one device in microbatches of half the rows (the mesh's
+# split) differed from itself by 0.0663 and 0.0317, and the mesh with no
+# tensor-parallel partial rounded to bfloat16 still by 0.0644
+# (lm_mesh_full's "one_device_rows_split" and "f32_partials")
+LM_MESH_FULL_TOL = dict(LM_TRAIN_TOL["bfloat16"], states=2 ** -3)
+LM_MESH_BUDGET_S = 60.0
+# a router flip on the mesh: the two experts' one-device probabilities
+# within this fraction of each other.  With a model axis every
+# tensor-parallel product splits its contraction, and each part rounds
+# to bfloat16 before the psum, so the router's input on the mesh differs
+# from one device's by more than the card's from the CPU's (LM_TIE):
+# flips seen up to 0.0103 of the larger probability on the smoke meshes
+# in bfloat16, none in float32 or without a model axis
+LM_MESH_TIE = {"float32": LM_TIE["float32"], "bfloat16": 2 ** -5}
+# the keys of the byte tally whose closed form lm_mesh_train_bytes gives
+LM_MESH_PARAM_KEYS = ("all_gather:params", "reduce_scatter:params",
+                      "psum:grads")
+
+
+def lm_mesh_of(shape, devices):
+    """A ``DeviceMesh`` of ``shape`` over ``devices`` (one a position):
+    axes ``("data", "model")``, or ``("pod", "data", "model")``."""
+    from repro_torch.launch.mesh import make_mesh_for
+
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return make_mesh_for(shape, axes, devices=list(devices))
+
+
+@contextlib.contextmanager
+def lm_mesh_routes(records, seen, mesh):
+    """:func:`lm_routes` for a mesh step's ``moe.route_on_mesh``: every
+    call handed the recorded choices of the same call on one device
+    (``records``, in call order, each the global ``(T, k)`` choice), each
+    position the rows of its tokens (the positions before it along the
+    batch axes hold the tokens before its own); the mesh's own choices,
+    gathered back into global rows, appended to ``seen``.  A call whose
+    router inputs are bit for bit an earlier call's is that layer's
+    recompute under remat (the mesh's forward runs a remat layer without
+    grad, its backward with) and takes that call's record."""
+    from repro_torch.models import moe, sharding
+
+    own = moe.route_on_mesh
+    lay = sharding.layout(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in lay.names)
+    group = lay.groups(dp)[0]
+    calls, count = {}, [0]
+
+    def route_on_mesh(routers, xs, top_k):
+        outs = own(routers, xs, top_k)
+        key = tuple(_lm_route_key(x) for x in xs)
+        k = calls.get(key)
+        fresh = k is None
+        if fresh:
+            k = count[0]
+            count[0] += 1
+            calls[key] = k
+        if k >= len(records):
+            fail("lm_mesh_path: more router calls than were recorded")
+        ref_i = torch.as_tensor(records[k][0]).long()
+        starts = np.cumsum([0] + [xs[j].shape[0] for j in group])
+        rows = {j: (int(starts[i]), int(starts[i + 1]))
+                for i, j in enumerate(group)}
+        if fresh:
+            seen.append(torch.cat([outs[j][2].cpu() for j in group]))
+        forced = []
+        for p, (probs, _, _) in enumerate(outs):
+            j = next(j for j in group if lay.index(j, dp)
+                     == lay.index(p, dp))
+            lo, hi = rows[j]
+            mine = ref_i[lo:hi].to(probs.device)
+            chosen = torch.gather(probs, -1, mine)
+            forced.append((probs, chosen / chosen.sum(dim=-1, keepdim=True),
+                           mine))
+        return forced
+
+    moe.route_on_mesh = route_on_mesh
+    try:
+        yield
+    finally:
+        moe.route_on_mesh = own
+    if count[0] < len(records):
+        fail("lm_mesh_path: fewer router calls than were recorded")
+
+
+def _lm_cards(dev=None, mesh=None):
+    """The distinct CUDA cards of ``mesh``'s positions, or ``dev``'s."""
+    devs = mesh.devices if mesh is not None else [] if dev is None else [dev]
+    return sorted({torch.device(d) for d in devs
+                   if torch.device(d).type == "cuda"}, key=str)
+
+
+def _lm_sync(cards):
+    for d in cards:
+        torch.cuda.synchronize(d)
+
+
+def _lm_route_ctx(records, seen, mesh):
+    if records is None:
+        return contextlib.nullcontext()
+    if mesh is None:
+        return lm_routes(records, seen)
+    return lm_mesh_routes(records, seen, mesh)
+
+
+def lm_mesh_train(cfg, params, batch, step, *, mesh=None, dev=None,
+                  records=None, seen=None):
+    """One ``build_lm_train_step`` call from a fresh optimiser state on
+    one device ``dev`` or sharded on ``mesh`` (``params`` global, on the
+    host or any device); the router recorded into ``records`` (``seen``
+    None, one device) or teacher-forced by them.  Returns ``((params,
+    opt_state, metrics) global, collective bytes, seconds)``."""
+    from repro_torch.models import sharding
+    from repro_torch.models.steps import build_lm_train_step
+
+    if mesh is None:
+        fn, info = build_lm_train_step(cfg, device=dev)
+        p = _lm_to(params, dev)
+    else:
+        fn, info = build_lm_train_step(cfg, mesh)
+        p = info["shard"](params)
+    opt = info["opt_init"](p)
+    cards = _lm_cards(dev, mesh)
+    _lm_sync(cards)
+    t0 = time.perf_counter()
+    with sharding.tally_collective_bytes() as tally, \
+            _lm_route_ctx(records, seen, mesh):
+        p2, o2, m = fn(p, opt, batch, step)
+    _lm_sync(cards)
+    secs = time.perf_counter() - t0
+    if mesh is not None:
+        p2, o2 = sharding.unshard_tree(p2), sharding.unshard_tree(o2)
+    return (p2, o2, {k: float(v) for k, v in m.items()}), dict(tally), secs
+
+
+def _lm_mesh_logits(plan, logits):
+    """Per-position (B/|dp|, V/|tp|) logits gathered whole, for a check
+    (the steps themselves never gather them): (B, V) on position
+    ``(0, ...)``'s device."""
+    from repro_torch.models import sharding
+    from repro_torch.models import steps as st
+
+    return st._gather_rows(plan, sharding.all_gather(
+        logits, plan.mesh, plan.tp, -1, "out"))
+
+
+@torch.no_grad()
+def lm_mesh_prefill_logits(cfg, info, params, tokens):
+    """The last position's logits of the mesh's prefill for ``tokens``
+    (B, S), computed as ``build_lm_prefill_step(cfg, mesh)`` computes
+    them before its argmax (``info`` that step's): the sharded forward,
+    the vocabulary-sharded head in the parameters' dtype; (B, V) float32."""
+    from repro_torch.models import steps as st
+    from repro_torch.models import transformer as tr
+
+    plan, specs, lists = info["plan"], info["params"], st._shards(params)
+    toks = st._rows(plan, torch.as_tensor(tokens), tokens.shape[0])
+    hs, _ = tr.lm_forward_mesh(plan, lists, specs, cfg, toks)
+    heads = tr._head_mesh(plan, lists, specs)
+    return _lm_mesh_logits(plan, [tr.nn.matmul(h[:, -1], w).float()
+                                  for h, w in zip(hs, heads)])
+
+
+@torch.no_grad()
+def lm_mesh_decode(cfg, info, params, cache, token, cache_len):
+    """One decode step on the mesh through
+    ``transformer.lm_decode_step_mesh``, as the one-device side calls
+    ``lm_decode_step`` (``info`` ``build_lm_decode_step(cfg, mesh)``'s):
+    ``(next tokens, logits (B, V) float32 gathered whole, cache)``."""
+    from repro_torch.models import steps as st
+    from repro_torch.models import transformer as tr
+
+    plan, b = info["plan"], token.shape[0]
+    s_total = next(iter(cache.values())).shape[2]
+    nt, lg, _ = tr.lm_decode_step_mesh(
+        plan, st._shards(params), info["params"], cfg,
+        st._rows(plan, token, b), st._shards(cache),
+        st._rows(plan, cache_len, b), s_total)
+    return st._gather_rows(plan, nt), _lm_mesh_logits(plan, lg), cache
+
+
+def lm_mesh_serve(cfg, params, tokens, steps, max_len, *, mesh=None,
+                  dev=None, records=None, seen=None):
+    """The prefill step's greedy token for ``tokens`` (B, S) and its last
+    position's logits (whose margins, on one device, decide the tokens
+    compared), then ``steps`` decode steps teacher-forced by
+    ``tokens[:, i]`` at cache length ``i``: each step's (B, V) float32
+    logits and next tokens, the final cache, on the host.  The router as
+    in :func:`lm_mesh_train` (prefill, its logits, then each step)."""
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import sharding
+    from repro_torch.models import steps as st
+    from repro_torch.models import transformer as tr
+
+    b = tokens.shape[0]
+    out = dict(logits=[], next=[], seconds={})
+    toks = torch.as_tensor(tokens)
+    ctx = _lm_route_ctx(records, seen, mesh)
+    cards = _lm_cards(dev, mesh)
+    with ctx:
+        if mesh is None:
+            pf, _ = st.build_lm_prefill_step(cfg, device=dev)
+            p = _lm_to(params, dev)
+            cache = tr.init_kv_cache(cfg, b, max_len, device=dev)
+        else:
+            pf, info = st.build_lm_prefill_step(cfg, mesh)
+            _, dinfo = st.build_lm_decode_step(cfg, mesh)
+            p = info["shard"](params)
+            cache = dinfo["init_cache"](b, max_len)
+        _lm_sync(cards)
+        t0 = time.perf_counter()
+        out["prefill"] = pf(p, toks).cpu()
+        _lm_sync(cards)
+        out["seconds"]["prefill"] = time.perf_counter() - t0
+        if mesh is not None:
+            # the router inputs are the prefill's: its calls' routes again
+            out["prefill_logits"] = lm_mesh_prefill_logits(
+                cfg, info, p, toks).cpu()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            n = torch.full((b,), i, dtype=torch.int32)
+            if mesh is None:
+                d = torch.device(dev)
+                nt, lg, cache = tr.lm_decode_step(p, cfg, toks[:, i].to(d),
+                                                  cache, n.to(d))
+            else:
+                nt, lg, cache = lm_mesh_decode(cfg, dinfo, p, cache,
+                                               toks[:, i], n)
+            out["logits"].append(lg.cpu())
+            out["next"].append(nt.cpu())
+        _lm_sync(cards)
+        out["seconds"]["decode_step"] = (time.perf_counter() - t0) / steps
+    if mesh is None:
+        with torch.no_grad():
+            h, _ = tr.lm_forward(p, cfg, toks.to(dev))
+            out["prefill_logits"] = tnn.dense(p["lm_head"], h[:, -1]).float(
+            ).cpu()
+        out["cache"] = {k: v.cpu() for k, v in cache.items()}
+    else:
+        out["cache"] = sharding.unshard_tree(cache)
+    return out
+
+
+def lm_mesh_serve_errs(got, one, tol):
+    """A mesh's serving outputs against one device's: the prefill's
+    last-position logits and every decode step's (``|a - b| / (1 +
+    |b|)``, ``tol`` = (caches, logits)), their tokens where one device's
+    margin decides them, the final cache.  Returns ``(errs, ok)``."""
+    tol_c, tol_l = tol
+    decided = lm_decided(one["prefill_logits"], tol_l)
+    errs = dict(err_prefill_logits=lm_err(got["prefill_logits"],
+                                          one["prefill_logits"]),
+                prefill_decided=int(decided.sum()),
+                prefill_equal=bool(torch.equal(got["prefill"][decided],
+                                               one["prefill"][decided])))
+    worst, diff, compared = 0.0, 0, 0
+    for lg, nt, lg1, nt1 in zip(got["logits"], got["next"], one["logits"],
+                                one["next"]):
+        worst = max(worst, lm_err(lg, lg1))
+        dec = lm_decided(lg1, tol_l)
+        compared += int(dec.sum())
+        diff += int((nt.long()[dec] != nt1.long()[dec]).sum())
+    errs.update(err_logits=worst, tokens_compared=compared,
+                tokens_differ=diff,
+                err_cache=max(lm_err(got["cache"][k], one["cache"][k])
+                              for k in one["cache"]))
+    ok = (errs["prefill_equal"] and errs["err_prefill_logits"] <= tol_l
+          and worst <= tol_l and diff == 0 and errs["err_cache"] <= tol_c)
+    return errs, ok
+
+
+def lm_mesh_compare(cfg, params, batch, mesh, dev, *, parts=("train",
+                                                            "serve"),
+                    step=LM_TRAIN_STEP, steps=LM_MESH_STEPS,
+                    max_len=LM_MESH_LEN):
+    """``cfg``'s train step and serving (:func:`lm_mesh_train`,
+    :func:`lm_mesh_serve`) on ``mesh`` against the same on one device
+    ``dev``, the router teacher-forced by one device's choices (held to
+    them but for ties).  Returns ``(row, ok)``."""
+    row, ok = {}, True
+    tol_step = LM_TRAIN_TOL[cfg.dtype]
+    if "train" in parts:
+        records, seen = [], []
+        one, _, one_s = lm_mesh_train(cfg, params, batch, step, dev=dev,
+                                      records=records)
+        got, tally, secs = lm_mesh_train(cfg, params, batch, step, mesh=mesh,
+                                         records=records, seen=seen)
+        errs, t_ok = lm_step_errs(got, one, cfg, step, tol_step)
+        flips = lm_flips(records, seen, LM_MESH_TIE[cfg.dtype])
+        t_ok = t_ok and flips is not None and len(seen) == len(records)
+        row["train"] = dict(ok=t_ok, seconds=secs, one_device_seconds=one_s,
+                            loss=got[2]["loss"], router_flips=flips,
+                            collective_bytes=tally,
+                            **{f"err_{k}": v for k, v in errs.items()})
+        ok = ok and t_ok
+    if "serve" in parts:
+        records, seen = [], []
+        toks = torch.as_tensor(batch["tokens"])
+        one = lm_mesh_serve(cfg, params, toks, steps, max_len, dev=dev,
+                            records=records)
+        got = lm_mesh_serve(cfg, params, toks, steps, max_len, mesh=mesh,
+                            records=records, seen=seen)
+        errs, s_ok = lm_mesh_serve_errs(got, one, LM_TOL[cfg.dtype])
+        flips = lm_flips(records, seen, LM_MESH_TIE[cfg.dtype])
+        s_ok = s_ok and flips is not None and len(seen) == len(records)
+        row["serve"] = dict(ok=s_ok, seconds=got["seconds"],
+                            one_device_seconds=one["seconds"],
+                            router_flips=flips, **errs)
+        ok = ok and s_ok
+    return row, ok
+
+
+def lm_mesh_train_bytes(cfg, mesh, n_micro):
+    """The closed form of one AdamW train step's parameter and gradient
+    traffic on ``mesh`` (``LM_MESH_PARAM_KEYS``), from the specs alone.
+    A leaf with an FSDP dimension is all-gathered over ``data`` once a
+    microbatch, and a stacked layer's twice under remat: the recompute in
+    the backward gathers again (each member receives the others' shards:
+    ``(|data| - 1)`` times the leaf's bytes, per pod, per model position
+    where ``model`` does not split it); its gradient is reduce-scattered
+    once a microbatch (the same bytes).  The float32 gradients are
+    psummed over ``pod`` and, for a leaf without an FSDP dimension, over
+    ``data`` (a group of n: ``2 (n - 1)`` shards, to the group's first
+    position and back), and the global norm's square over every axis
+    (one float32)."""
+    from repro_torch.models import sharding
+    from repro_torch.models import steps as st
+    from repro_torch.models import transformer as tr
+
+    lay = sharding.layout(mesh)
+    size = lambda a: lay.size(a) if a in lay.names else 1  # noqa: E731
+    n_pod, n_d, n_m = size("pod"), size("data"), size("model")
+    dummy = tr.lm_init(None, cfg, device="meta")
+    specs = st.lm_param_specs(dummy, cfg, mesh=mesh)
+    ag = rs = ps = 0
+
+    def walk(node, spec, path):
+        nonlocal ag, rs, ps
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], spec[k], f"{path}/{k}" if path else k)
+            return
+        named = {a for e in spec for a in sharding._axes(e)}
+        b = node.numel() * node.element_size()
+        if "data" in named:
+            per_use = (n_d - 1) * n_pod * b * (1 if "model" in named
+                                               else n_m)
+            stacked = path.startswith(("layers/", "dense_layers/"))
+            ag += per_use * n_micro * (2 if stacked and cfg.remat else 1)
+            rs += per_use * n_micro
+        axes = tuple(a for a in ("pod", "data")
+                     if a in lay.names and (a == "pod" or a not in named))
+        n_a = math.prod(size(a) for a in axes)
+        if n_a > 1:
+            shard = sum(math.prod(s.stop - s.start
+                                  for s in lay.slices(p, spec, node.shape))
+                        for p in range(lay.n)) * 4
+            ps += 2 * (n_a - 1) * shard // n_a
+
+    walk(dummy, specs, "")
+    ps += 2 * (lay.n - 1) * 4
+    return {"all_gather:params": ag, "reduce_scatter:params": rs,
+            "psum:grads": ps}
+
+
+@contextlib.contextmanager
+def _lm_mesh_planted_no_reduce_scatter():
+    """A train-step fault planted for the block: the reduce-scatter of the
+    FSDP gradients over ``data`` is skipped — each data position keeps
+    its own chunk of its own partial gradient."""
+    from repro_torch.models import sharding
+
+    own = sharding._reduce_scatter
+
+    def local(lay, axes, dim, xs, key, sizes=None):
+        if not key.startswith("reduce_scatter:params"):
+            return own(lay, axes, dim, xs, key, sizes)
+        out = [None] * lay.n
+        for g in lay.groups(axes):
+            lo = 0
+            for m in g:
+                out[m] = xs[m].narrow(dim, lo, sizes[m]).contiguous()
+                lo += sizes[m]
+        return out
+
+    sharding._reduce_scatter = local
+    try:
+        yield
+    finally:
+        sharding._reduce_scatter = own
+
+
+@contextlib.contextmanager
+def _lm_mesh_planted_no_rescale():
+    """A decode fault planted for the block: the sequence shards' partial
+    softmaxes combined without ``exp(m_pos - m_global)``."""
+    from repro_torch.models import attention
+
+    own = attention._rescale
+    attention._rescale = lambda m, g: torch.where(  # noqa: E731
+        torch.isfinite(m), torch.ones_like(m), 0.0)
+    try:
+        yield
+    finally:
+        attention._rescale = own
+
+
+def lm_mesh_smoke(dev, mesh, names=None, dtypes=("float32", "bfloat16")):
+    """Each LM ``-smoke`` config in float32 and bfloat16 on ``mesh``
+    against one device ``dev`` (:func:`lm_mesh_compare`; microbatches of
+    ``LM_MESH_MB``), each train step's parameter traffic against its
+    closed form (:func:`lm_mesh_train_bytes`); then the two planted
+    faults on qwen2-0.5b-smoke in float32, each of which the same check
+    must catch.  Returns ``(rows, failed, faults)``."""
+    import dataclasses
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+
+    rows, bad = {}, []
+
+    def setup(name, dtype):
+        cfg = dataclasses.replace(get_config(name), dtype=dtype,
+                                  microbatch_size=LM_MESH_MB)
+        params = tr.lm_init(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+        batch = TokenPipeline(cfg.vocab, LM_MESH_B, LM_MESH_S).next_batch()
+        return cfg, params, batch
+
+    nm = LM_MESH_B // LM_MESH_MB
+    for name in names or [a + "-smoke" for a in LM_ARCHS]:
+        for dtype in dtypes:
+            cfg, params, batch = setup(name, dtype)
+            row, ok = lm_mesh_compare(cfg, params, batch, mesh, dev)
+            want = lm_mesh_train_bytes(cfg, mesh, nm)
+            got = {k: row["train"]["collective_bytes"].get(k, 0)
+                   for k in LM_MESH_PARAM_KEYS}
+            row["train"]["param_bytes_closed_form"] = want
+            row["train"]["param_bytes_equal"] = got == want
+            ok = ok and got == want
+            key = f"{name}/{dtype}"
+            rows[key] = dict(ok=ok, **row)
+            if not ok:
+                bad.append(key)
+    cfg, params, batch = setup(LM_ARCHS[0] + "-smoke", "float32")
+    faults = {}
+    with _lm_mesh_planted_no_reduce_scatter():
+        row, ok = lm_mesh_compare(cfg, params, batch, mesh, dev,
+                                  parts=("train",))
+    faults["no_grad_reduce_scatter"] = dict(
+        caught=not ok, err_params=row["train"]["err_params"],
+        err_states=row["train"]["err_states"])
+    with _lm_mesh_planted_no_rescale():
+        row, ok = lm_mesh_compare(cfg, params, batch, mesh, dev,
+                                  parts=("serve",))
+    faults["no_decode_rescale"] = dict(
+        caught=not ok, err_logits=row["serve"]["err_logits"],
+        tokens_differ=row["serve"]["tokens_differ"])
+    return rows, bad, faults
+
+
+def _lm_mesh_peak(fn, cards):
+    """``fn()``'s result, its seconds until every card in ``cards`` is
+    done, and each card's peak bytes allocated over what it held before
+    (``None`` with no card)."""
+    _lm_sync(cards)
+    before = {}
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+        before[d] = torch.cuda.memory_allocated(d)
+    t0 = time.perf_counter()
+    out = fn()
+    _lm_sync(cards)
+    secs = time.perf_counter() - t0
+    peak = {str(d): torch.cuda.max_memory_allocated(d) - before[d]
+            for d in cards} or None
+    return out, secs, peak
+
+
+def _lm_mesh_profiled(fn, cards):
+    """``fn()``'s result and its device launches on ``cards``, from one
+    pass under the profiler (device activity only; ``None`` with no
+    card)."""
+    if not cards:
+        return fn(), None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        _lm_sync(cards)
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+    return out, int(launches)
+
+
+def _lm_state_errs(got, ref, device, top=3):
+    """The optimiser state leaves' ``‖a - b‖ / ‖b‖``, the largest
+    ``top`` with their paths."""
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            return [e for k in sorted(b) for e in walk(a[k], b[k],
+                                                       f"{path}/{k}")]
+        a, b = _lm_f64(a, device), _lm_f64(b, device)
+        return [(float((a - b).norm() / b.norm().clamp_min(1e-30)), path)]
+
+    return sorted(walk(got, ref, ""), reverse=True)[:top]
+
+
+@contextlib.contextmanager
+def lm_mesh_f32_partials():
+    """The mesh's tensor-parallel blocks in float32 for the block: a value
+    replicated over ``model`` enters them in float32, and the row-parallel
+    products' psum rounds to the weights' dtype only after the sum; so no
+    partial sum, forward (the psums) or backward (the replicated inputs'
+    psums, the all-gathers' reduce-scatters), is rounded to bfloat16 before
+    it is added.  A diagnostic of a dense config's full-width step, beside
+    the mesh as it runs."""
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import sharding
+
+    rep, row = sharding.replicate, tnn.dense_row
+
+    def replicate(xs, mesh, axes, tag="act"):
+        return rep([x.float() for x in xs], mesh, axes, tag)
+
+    def dense_row(mesh, p, xs, *, tp="model", tag="act"):
+        ys = row(mesh, p, [x.float() for x in xs], tp=tp, tag=tag)
+        return [y.to(w.dtype) for y, w in zip(ys, p["w"])]
+
+    sharding.replicate, tnn.dense_row = replicate, dense_row
+    try:
+        yield
+    finally:
+        sharding.replicate, tnn.dense_row = rep, row
+
+
+def lm_mesh_full(dev, mesh, name=LM_FULL, seed=0, train=LM_MESH_FULL_TRAIN,
+                 prefill=LM_MESH_PREFILL, decode=LM_MESH_DECODE):
+    """``name`` at its published widths and depth in bfloat16: parameters
+    drawn on ``dev``; ``LM_MESH_FULL_STEPS`` train steps of
+    ``train`` tokens in two microbatches on one device and on ``mesh``
+    from the same state (the first step's parameters, states and metrics
+    held by :func:`lm_step_errs` at ``LM_MESH_FULL_TOL``, every loss by
+    its bound; the first step again under :func:`lm_mesh_f32_partials`,
+    and on one device in microbatches of half the rows);
+    a ``prefill`` (batch, length) prefill and ``decode`` (prompts, steps)
+    decode steps (last-position logits within ``LM_FULL_CPU_TOL``, tokens
+    where decided).  For each mesh step: seconds until every card is
+    done, each card's peak bytes, collective bytes (the train step's
+    parameter traffic equal to its closed form) and, for prefill and
+    decode, device launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import sharding
+    from repro_torch.models import steps as st
+    from repro_torch.models import transformer as tr
+
+    b, s = train
+    cfg = dataclasses.replace(get_config(name), microbatch_size=b // 2)
+    params = tr.lm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    pipe = TokenPipeline(cfg.vocab, b, s)
+    batches = [pipe.next_batch() for _ in range(LM_MESH_FULL_STEPS)]
+    tol = LM_MESH_FULL_TOL
+    row = dict(config=name, dtype=cfg.dtype, mesh=list(mesh.shape),
+               batch=[b, s], microbatch=b // 2, tol=tol)
+    one_card, cards = _lm_cards(dev), _lm_cards(mesh=mesh)
+    fn1, info1 = st.build_lm_train_step(cfg, device=dev)
+    fnm, infom = st.build_lm_train_step(cfg, mesh)
+    p1, o1 = params, info1["opt_init"](params)
+    pm = infom["shard"](params)
+    om = infom["opt_init"](pm)
+    steps, ok = [], True
+    for i, batch in enumerate(batches):
+        step = LM_TRAIN_STEP + i
+        (p1n, o1n, m1), s1, _ = _lm_mesh_peak(
+            lambda: fn1(p1, o1, batch, step), one_card)
+        with sharding.tally_collective_bytes() as tally:
+            (pmn, omn, mm), sm, peak = _lm_mesh_peak(
+                lambda: fnm(pm, om, batch, step), cards)
+        srow = dict(step=step, seconds=sm, one_device_seconds=s1,
+                    peak_bytes=peak, loss=float(mm["loss"]),
+                    one_device_loss=float(m1["loss"]),
+                    collective_bytes=dict(tally))
+        srow["err_loss"] = lm_err(mm["loss"], m1["loss"])
+        srow_ok = srow["err_loss"] <= tol["loss"]
+        want = lm_mesh_train_bytes(cfg, mesh, 2)
+        srow["param_bytes_equal"] = all(tally.get(k, 0) == want[k]
+                                        for k in want)
+        srow_ok = srow_ok and srow["param_bytes_equal"]
+        if i == 0:
+            got = (sharding.unshard_tree(pmn, dev),
+                   sharding.unshard_tree(omn, dev),
+                   {k: float(v) for k, v in mm.items()})
+            errs, e_ok = lm_step_errs(got, (p1n, o1n, {
+                k: float(v) for k, v in m1.items()}), cfg, step, tol,
+                device=dev)
+            srow["worst_states"] = _lm_state_errs(got[1], o1n, dev)
+            del got
+            srow.update({f"err_{k}": v for k, v in errs.items()})
+            srow_ok = srow_ok and e_ok
+            # the same step with no tensor-parallel partial rounded to
+            # bfloat16 before its sum: LM_MESH_FULL_TOL's cause, tested
+            with lm_mesh_f32_partials():
+                pf_, of_, mf_ = fnm(pm, om, batch, step)
+            got = (sharding.unshard_tree(pf_, dev),
+                   sharding.unshard_tree(of_, dev),
+                   {k: float(v) for k, v in mf_.items()})
+            del pf_, of_
+            errs, _ = lm_step_errs(got, (p1n, o1n, {
+                k: float(v) for k, v in m1.items()}), cfg, step, tol,
+                device=dev)
+            srow["f32_partials"] = dict(
+                worst_states=_lm_state_errs(got[1], o1n, dev),
+                **{f"err_{k}": v for k, v in errs.items()})
+            # one device against itself with its batch rows split as the
+            # mesh's data axis splits them (microbatches of half the rows)
+            half, _ = st.build_lm_train_step(dataclasses.replace(
+                cfg, microbatch_size=b // 4), device=dev)
+            got = half(p1, o1, batch, step)
+            got = (got[0], got[1], {k: float(v) for k, v in got[2].items()})
+            errs, _ = lm_step_errs(got, (p1n, o1n, {
+                k: float(v) for k, v in m1.items()}), cfg, step, tol,
+                device=dev)
+            srow["one_device_rows_split"] = dict(
+                worst_states=_lm_state_errs(got[1], o1n, dev),
+                **{f"err_{k}": v for k, v in errs.items()})
+            del got
+        srow["ok"] = srow_ok
+        ok = ok and srow_ok
+        steps.append(srow)
+        p1, o1, pm, om = p1n, o1n, pmn, omn
+    # a train step's launches are not profiled here: the profiler's one
+    # pass over its 94,817 launches took 25.6 s (measured on one H100)
+    row["train"] = steps
+    g = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, prefill, generator=g,
+                           dtype=torch.int32)
+    pf1, _ = st.build_lm_prefill_step(cfg, device=dev)
+    pfm, pinfo = st.build_lm_prefill_step(cfg, mesh)
+    pm = pinfo["shard"](params)
+    with torch.no_grad():
+        h, _ = tr.lm_forward(params, cfg, prompt.to(dev))
+        last = tr.nn.dense(params["lm_head"], h[:, -1]).float().cpu()
+        del h
+    one_tok = pf1(params, prompt).cpu()
+    with sharding.tally_collective_bytes() as tally:
+        mesh_tok, secs, peak = _lm_mesh_peak(lambda: pfm(pm, prompt), cards)
+    _, launches = _lm_mesh_profiled(lambda: pfm(pm, prompt), cards)
+    mesh_last = lm_mesh_prefill_logits(cfg, pinfo, pm, prompt).cpu()
+    decided = lm_decided(last, LM_FULL_CPU_TOL)
+    err_pre = lm_err(mesh_last, last)
+    tok_ok = bool(torch.equal(mesh_tok.cpu()[decided], one_tok[decided]))
+    pre_ok = tok_ok and err_pre <= LM_FULL_CPU_TOL
+    row["prefill"] = dict(
+        tokens=list(prefill), seconds=secs, peak_bytes=peak,
+        launches=launches, collective_bytes=dict(tally),
+        err_logits=err_pre, decided=int(decided.sum()),
+        token_equal=tok_ok, ok=pre_ok)
+    nb, nsteps = decode
+    feed = torch.randint(0, cfg.vocab, (nb, nsteps), generator=g,
+                         dtype=torch.int32)
+    one = lm_mesh_serve(cfg, params, feed, nsteps, nsteps, dev=dev)
+    with sharding.tally_collective_bytes() as tally:
+        got, secs, peak = _lm_mesh_peak(lambda: lm_mesh_serve(
+            cfg, params, feed, nsteps, nsteps, mesh=mesh), cards)
+    errs, d_ok = lm_mesh_serve_errs(got, one, (LM_FULL_CPU_TOL,
+                                               LM_FULL_CPU_TOL))
+    dc, dinfo = st.build_lm_decode_step(cfg, mesh)
+    cache = dinfo["init_cache"](nb, nsteps)
+    _, launches = _lm_mesh_profiled(lambda: dc(
+        pm, cache, feed[:, 0], torch.zeros(nb, dtype=torch.int32)), cards)
+    row["decode"] = dict(
+        prompts=nb, steps=nsteps, step_seconds=got["seconds"]["decode_step"],
+        one_device_step_seconds=one["seconds"]["decode_step"],
+        peak_bytes_prefill_and_decode=peak, collective_bytes=dict(tally),
+        launches_step=launches,
+        ok=d_ok, **errs)
+    del pm, cache, params
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    ok = ok and pre_ok and d_ok
+    row["ok"] = ok
+    return row, ok
+
+
+def lm_mesh_path(dev, smi, devices=None, full=LM_FULL, **sizes):
+    """The LM family's steps on a device mesh: a ``LM_MESH`` mesh of four
+    positions (on ``devices``, by default all on ``dev``); every
+    ``-smoke`` config's train, prefill and decode steps against one
+    device with both planted faults (:func:`lm_mesh_smoke`), and
+    ``full`` at its published widths (:func:`lm_mesh_full`, ``sizes``
+    its train / prefill / decode shapes where given).  No
+    hand-written kernel runs here: the JAX package has no Pallas kernel
+    on this path."""
+    t0 = time.perf_counter()
+    mesh = lm_mesh_of(LM_MESH, devices or [dev] * math.prod(LM_MESH))
+    smoke, bad, faults = lm_mesh_smoke(dev, mesh)
+    t_smoke = time.perf_counter() - t0
+    full_row, full_ok = lm_mesh_full(dev, mesh, full, **sizes)
+    secs = time.perf_counter() - t0
+    caught = all(f["caught"] for f in faults.values())
+    ok = not bad and full_ok and caught and secs <= LM_MESH_BUDGET_S
+    emit("lm_mesh_path", ok=ok, gpu=smi, mesh=list(LM_MESH),
+         devices=[str(d) for d in mesh.devices], failed=bad, smoke=smoke,
+         planted_faults=faults, full=full_row, smoke_seconds=t_smoke,
+         seconds=secs, budget_seconds=LM_MESH_BUDGET_S)
+    if bad:
+        fail(f"LM steps on the mesh differ from one device: {bad}")
+    if not caught:
+        fail(f"a planted mesh fault went unseen: {faults}")
+    if not full_ok:
+        fail(f"{full} on the mesh differs from one device")
+    if secs > LM_MESH_BUDGET_S:
+        fail(f"lm_mesh_path took {secs:.1f} s, over its "
+             f"{LM_MESH_BUDGET_S} s budget")
+
+
+LM_MESH_BIG = "chatglm3-6b"  # AdamW's states alone ~87 GB: four cards
+LM_MESH_BIG_SEQ = 512
+LM_MESH_BIG_BATCHES = (2, 4, 8)  # microbatches of its 2: 1 to 4 of them
+LM_MESH_BIG_STEPS = 3
+
+
+def lm_mesh_big_sizing(cfg, mesh, seq=LM_MESH_BIG_SEQ,
+                       batches=LM_MESH_BIG_BATCHES):
+    """Each candidate batch's per-card peak as the port's own tools put
+    it: the dry run's walk of the one-device step
+    (``dryrun.walk_cell``, meta tensors) scaled by the share of the
+    parameters' and optimiser state's bytes that position ``(0, ...)``
+    holds (``roofline.shard_bytes`` over the global bytes).  Returns
+    ``(rows, the largest batch that fits the card)``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import shard_bytes
+    from repro_torch.models import steps as st
+
+    _, info = st.build_lm_train_step(cfg, mesh)
+    full = sum(t.numel() * t.element_size()
+               for t in _lm_leaves(info["dummy"]) + _lm_leaves(
+                   info["opt_shape"]))
+    mine = (shard_bytes(info["dummy"], info["params"], mesh)
+            + shard_bytes(info["opt_shape"], info["opt"], mesh))
+    card = torch.cuda.get_device_properties(mesh.first).total_memory
+    rows, pick = [], None
+    for b in batches:
+        walk, _ = dryrun.walk_cell(cfg, dict(kind="train", seq_len=seq,
+                                             global_batch=b))
+        est = int(walk.peak_bytes * mine / full)
+        fits = est <= card
+        rows.append(dict(batch=[b, seq], walk_peak_one_device=walk.peak_bytes,
+                         state_share=mine / full, per_card=est, fits=fits))
+        if fits:
+            pick = b
+    return rows, pick
+
+
+def lm_mesh_big(cards, smi, name=LM_MESH_BIG, seq=LM_MESH_BIG_SEQ,
+                steps=LM_MESH_BIG_STEPS):
+    """``name`` at its published widths and depth in bfloat16 on a
+    ``LM_MESH`` mesh with one card a position (the four-card run): the
+    batch sized by :func:`lm_mesh_big_sizing`, ``steps`` train steps
+    from step 2000 of ``TokenPipeline`` batches, each step's seconds and
+    loss, each card's peak against the sizing's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.steps import build_lm_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    mesh = lm_mesh_of(LM_MESH, cards)
+    sizing, b = lm_mesh_big_sizing(cfg, mesh, seq)
+    row = dict(config=name, dtype=cfg.dtype, mesh=list(LM_MESH),
+               devices=[str(d) for d in mesh.devices], sizing=sizing,
+               batch=None if b is None else [b, seq],
+               microbatch=cfg.microbatch_size)
+    ok = b is not None
+    if ok:
+        fn, info = build_lm_train_step(cfg, mesh)
+        params = tr.lm_init(torch.Generator(device=mesh.first).manual_seed(0),
+                            cfg, device=mesh.first)
+        sp = info["shard"](params)
+        del params
+        torch.cuda.empty_cache()
+        opt = info["opt_init"](sp)
+        pipe = TokenPipeline(cfg.vocab, b, seq)
+        cards_used = sorted(set(mesh.devices), key=str)
+        losses, secs, peaks = [], [], []
+        try:
+            for i in range(steps):
+                batch = pipe.next_batch()
+                for d in cards_used:
+                    torch.cuda.synchronize(d)
+                    torch.cuda.reset_peak_memory_stats(d)
+                t = time.perf_counter()
+                sp, opt, m = fn(sp, opt, batch, LM_TRAIN_STEP + i)
+                losses.append(float(m["loss"]))
+                for d in cards_used:
+                    torch.cuda.synchronize(d)
+                secs.append(time.perf_counter() - t)
+                peaks.append({str(d): torch.cuda.max_memory_allocated(d)
+                              for d in cards_used})
+            row.update(oom=False)
+        except torch.cuda.OutOfMemoryError as e:
+            row.update(oom=True, error=str(e).splitlines()[0])
+            ok = False
+        est = next(r["per_card"] for r in sizing if r["batch"][0] == b)
+        worst = max((max(p.values()) for p in peaks), default=0)
+        row.update(losses=losses, step_seconds=secs, card_peaks=peaks,
+                   sizing_per_card=est,
+                   peak_over_sizing=worst / est if est else None)
+        ok = ok and len(losses) == steps and all(
+            math.isfinite(x) for x in losses)
+        del sp, opt
+        torch.cuda.empty_cache()
+    row.update(ok=ok, seconds=time.perf_counter() - t0)
+    emit("lm_mesh_big", gpu=smi, **row)
+    if not ok:
+        fail(f"{name} on the four-card mesh: no batch fits by the sizing, "
+             f"or a step ran out of memory or lost its loss")
+
+
+# ----------------------------------------------------------------------
 # the recsys and GNN families
 # ----------------------------------------------------------------------
 # float32, card against CPU: the LM train step's bounds (the tests hold
@@ -5488,9 +6357,11 @@ def main():
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels, run the main path (its plan "
-                         "and oracle), then only mesh_path and "
-                         "mesh_runtime_path, and stop (no kernels line and "
-                         "no final line: this is not the smoke test)")
+                         "and oracle), then only mesh_path, "
+                         "mesh_runtime_path and lm_mesh_path (one card a "
+                         "position where there are four cards, and then "
+                         "lm_mesh_big), and stop (no kernels line and no "
+                         "final line: this is not the smoke test)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5540,6 +6411,11 @@ def main():
         phase("mesh_path", mesh_path, g, oracle, dev, GRID)
         phase("mesh_runtime_path", mesh_runtime_path, g, oracle, dev, GRID,
               graph)
+        del g
+        cards = mesh_cards(math.prod(LM_MESH))
+        phase("lm_mesh_path", lm_mesh_path, dev, smi, cards)
+        if len(set(cards)) == len(cards):
+            phase("lm_mesh_big", lm_mesh_big, cards, smi)
         emit("total", seconds=time.perf_counter() - t_start, phases=phases,
              mesh_only=True)
         return
@@ -5549,6 +6425,7 @@ def main():
     phase("substrate_path", substrate_path, dev)
     phase("lm_path", lm_path, dev, smi)
     phase("lm_train_path", lm_train_path, dev, smi)
+    phase("lm_mesh_path", lm_mesh_path, dev, smi)
     phase("recsys_path", recsys_path, dev, smi)
     phase("gnn_path", gnn_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))

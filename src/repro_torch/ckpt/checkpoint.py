@@ -97,7 +97,13 @@ def host_array(leaf, *, copy: bool = False) -> np.ndarray:
     bfloat16 tensor's bits as a ``|V2`` array, as the JAX package writes
     it), a copy that shares no memory with the tensor where ``copy``.  A
     mesh array's is its global array: the blocks, each copied to the
-    host, stacked in row-major position order under the mesh's shape."""
+    host, stacked in row-major position order under the mesh's shape; a
+    model's sharded tensor (``models.sharding.ShardedTensor``) its global
+    tensor, the one-device bytes."""
+    from ..models import sharding
+
+    if sharding.is_sharded(leaf):
+        return host_array(sharding.unshard(leaf), copy=copy)
     if _is_mesh_array(leaf):
         shape = tuple(leaf.mesh.shape)
         blocks = [host_array(leaf.blocks[pos], copy=True)
@@ -115,7 +121,18 @@ def _restored(key: str, arr: np.ndarray, like, mesh=None, spec=None):
     """The payload's ``arr`` at ``key`` as ``like``'s kind of leaf: with a
     mesh (``mesh``, else a mesh array ``like``'s) split over its axes
     ``spec`` (``None``: all of them, in order), each position's block on
-    its device."""
+    its device.  A sharded-tensor ``like`` restores as the same shards of
+    the payload's global array (its dtype, bfloat16 included, checked as
+    for a tensor)."""
+    from ..models import sharding
+
+    if sharding.is_sharded(like):
+        glob = _restored(key, arr, torch.empty((), dtype=like.dtype))
+        if tuple(glob.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint entry {key!r} is "
+                             f"{tuple(glob.shape)}, the sharded leaf "
+                             f"{tuple(like.shape)}")
+        return sharding.shard_tensor(glob, like.spec, like.mesh)
     if mesh is None and _is_mesh_array(like):
         mesh = like.mesh
     if mesh is not None:

@@ -18,12 +18,24 @@ loss L`` every five steps and at the last one, as the reference does.  A
 GNN or triangle-count config exits with the reference's message (the GNNs
 train through ``repro_torch.examples.train_gnn``).  On a CPU use the
 ``-smoke`` configs.
+
+``--mesh [N]`` trains an LM on a ``(1, N)`` ``("data", "model")`` mesh,
+the reference's rule for a host with N devices: the first N CUDA cards
+(by default every card; fewer raise), or with ``--device cpu`` N
+positions on the CPU (N required).  Parameters are drawn as without a
+mesh and sharded (``models.steps``' mesh step); checkpoints hold the
+global arrays, so a run resumes across meshes and from or into a
+one-device run's directory.  DLRM's sharded step is not ported yet, so a
+recsys ``--arch`` with ``--mesh`` raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b-smoke \
+        --mesh 4 --device cpu --steps 10 --ckpt-dir /tmp/lm_mesh
 """
 from __future__ import annotations
 
 import argparse
 
-__all__ = ["build_parser", "main"]
+__all__ = ["build_parser", "main", "lm_mesh"]
 
 
 def build_parser():
@@ -38,7 +50,35 @@ def build_parser():
                     help="accepted and unused, as in the reference")
     ap.add_argument("--device", default=None,
                     help="torch device; default: cuda (fails without one)")
+    ap.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
+                    metavar="N",
+                    help="train on a (1, N) (data, model) mesh: the first "
+                         "N CUDA cards (default: every card), or N CPU "
+                         "positions with --device cpu")
     return ap
+
+
+def lm_mesh(n, device):
+    """The ``(1, N)`` ``("data", "model")`` mesh of ``--mesh N``."""
+    import torch
+
+    from .mesh import make_mesh_for
+
+    if device is not None and torch.device(device).type != "cpu":
+        raise SystemExit("--mesh takes the first N CUDA cards: give no "
+                         "--device, or --device cpu")
+    if device is not None:
+        if not n:
+            raise SystemExit("--mesh with --device cpu needs N")
+        devices = ["cpu"] * n
+    else:
+        have = torch.cuda.device_count()
+        n = n or have
+        if not n or have < n:
+            raise SystemExit(f"--mesh {n} needs {n} CUDA cards, this host "
+                             f"has {have}")
+        devices = [f"cuda:{i}" for i in range(n)]
+    return make_mesh_for((1, n), ("data", "model"), devices=devices)
 
 
 def main(argv=None):
@@ -58,7 +98,15 @@ def main(argv=None):
     from ..ckpt import CheckpointManager
     from ..device import resolve_device
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        if cfg.family != "lm":
+            raise SystemExit(
+                f"--mesh: the {cfg.family} family's sharded step is not "
+                "ported yet (ROADMAP: the GNN and DLRM sharded steps come "
+                "next); train it without --mesh")
+        mesh = lm_mesh(args.mesh, args.device)
+    dev = mesh.first if mesh is not None else resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     mgr = (CheckpointManager(args.ckpt_dir, keep=2, async_save=False)
            if args.ckpt_dir else None)
@@ -70,8 +118,13 @@ def main(argv=None):
     from ..models.transformer import lm_init
 
     params = lm_init(gen, cfg, device=dev)
-    fn, info = build_lm_train_step(cfg, compress_grads=args.compress_grads,
-                                   device=dev)
+    if mesh is None:
+        fn, info = build_lm_train_step(cfg, compress_grads=args.compress_grads,
+                                       device=dev)
+    else:
+        fn, info = build_lm_train_step(cfg, mesh,
+                                       compress_grads=args.compress_grads)
+        params = info["shard"](params)
     opt = info["opt_init"](params)
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq)
     start = 0

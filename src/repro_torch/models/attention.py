@@ -3,20 +3,27 @@ training in the reference's chunked online-softmax schedule, and
 KV-cached decode attention (the JAX package's ``models/attention.py``).
 
 The port computes what the reference computes, eagerly and in the same
-order of chunks; the reference's sharding constraints have no counterpart
-on one card.  Its ``preferred_element_type=float32`` products become
-float32 products of upcast operands (a bfloat16 ``einsum`` would round
-its output to bfloat16), and a Python scalar times a bfloat16 tensor is
-taken in the tensor's dtype, as ``jnp``'s weak scalars are.
+order of chunks.  On one card the reference's sharding constraints have no
+counterpart; on a device mesh its q-sequence-parallel layout is
+:func:`causal_attention_rows` (each position's share of the q chunks) and
+its sequence-sharded decode cache :func:`decode_combine`.  Its
+``preferred_element_type=float32`` products become float32 products of
+upcast operands (a bfloat16 ``einsum`` would round its output to
+bfloat16), and a Python scalar times a bfloat16 tensor is taken in the
+tensor's dtype, as ``jnp``'s weak scalars are.
 """
 from __future__ import annotations
 
 import torch
 
+from . import sharding
+
 __all__ = [
     "apply_rope",
     "rope_angles",
     "causal_attention",
+    "causal_attention_rows",
+    "decode_combine",
     "decode_attention",
     "quantize_kv",
     "dequantize_kv",
@@ -87,19 +94,31 @@ def causal_attention(q, k, v, *, q_chunk: int = 512, kv_chunk: int = 1024,
     reference's sequential online-softmax scan, every chunk visited, the
     masked future ones included.
     """
-    b, s, h, dh = q.shape
+    qc, kc = chunk_sizes(q.shape[1], q_chunk, kv_chunk, nq_multiple)
+    return causal_attention_rows(q, k, v, qc=qc, kc=kc)
+
+
+def causal_attention_rows(q, k, v, *, qc: int, kc: int, q0: int = 0):
+    """:func:`causal_attention` for the query rows ``[q0, q0 + R)`` of the
+    sequence that ``k`` and ``v`` cover: q (B, R, H, dh) with R a whole
+    number of ``qc``-row chunks, each chunk computed exactly as the full
+    call computes it (the sequence-parallel attention of a mesh, where
+    each position takes its share of the q chunks)."""
+    b, r, h, dh = q.shape
+    s = k.shape[1]
     kvh = k.shape[2]
     dv = v.shape[-1]
     g = h // kvh
     scale = _scalar(dh ** -0.5, q)
-    qc, kc = chunk_sizes(s, q_chunk, kv_chunk, nq_multiple)
-    nq, nk = s // qc, s // kc
+    nq, nk = r // qc, s // kc
     dev = q.device
+    if r == 0:
+        return q.new_zeros((b, 0, h, dv))
 
     qb = (q * scale).reshape(b, nq, qc, kvh, g, dh).float()
     k = k.reshape(b, nk, kc, kvh, dh)
     v = v.reshape(b, nk, kc, kvh, dv)
-    pos_q = torch.arange(s, device=dev).reshape(nq, qc)
+    pos_q = torch.arange(q0, q0 + r, device=dev).reshape(nq, qc)
     pos_k = torch.arange(s, device=dev).reshape(nk, kc)
 
     m = torch.full((b, nq, qc, kvh, g), -torch.inf, device=dev)
@@ -122,7 +141,7 @@ def causal_attention(q, k, v, *, q_chunk: int = 512, kv_chunk: int = 1024,
         o = o * corr[..., None] + pv
         m = m_safe
     out = (o / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
-    return out.reshape(b, s, h, dv)
+    return out.reshape(b, r, h, dv)
 
 
 # ----------------------------------------------------------------------
@@ -167,3 +186,37 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp_min(l, 1e-30),
                        v_cache.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def _rescale(m_pos, m_global):
+    """``exp(m_pos - m_global)``: a position's share of the softmax
+    brought to the global maximum (0 where it saw no valid slot)."""
+    return torch.where(torch.isfinite(m_pos), torch.exp(m_pos - m_global),
+                       0.0)
+
+
+def decode_combine(mesh, axes, scores, values):
+    """One-token attention over a cache sharded by sequence over
+    ``axes``: per position, ``scores`` (..., S_pos) float32 with its
+    masked slots at ``-inf`` and ``values(p, w)`` its weighted values for
+    the weights ``w``; each position takes the max, the exponent sum and
+    the weighted values of its own slots, and a psum combines them
+    rescaled by ``exp(m_pos - m_global)``.  A position whose slots are
+    all masked (or that holds none) adds nothing and makes no NaN."""
+    ms, ls, os_ = [], [], []
+    for p, sc in enumerate(scores):
+        if sc.shape[-1]:
+            m = sc.amax(dim=-1, keepdim=True)
+        else:
+            m = torch.full((*sc.shape[:-1], 1), -torch.inf, device=sc.device)
+        w = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
+        ms.append(m)
+        ls.append(w.sum(dim=-1, keepdim=True))
+        os_.append(values(p, w))
+    mg = sharding.pmax(ms, mesh, axes, "act")
+    scale = [_rescale(m, g) for m, g in zip(ms, mg)]
+    ls = sharding.psum([l_ * c for l_, c in zip(ls, scale)], mesh, axes,
+                       "act")
+    os_ = sharding.psum([o * c for o, c in zip(os_, scale)], mesh, axes,
+                        "act")
+    return [o / torch.clamp_min(l_, 1e-30) for o, l_ in zip(os_, ls)]

@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..device import resolve_device
+from . import sharding
 
 __all__ = [
     "dense_init",
@@ -167,3 +168,41 @@ def layernorm(p, x, eps: float = 1e-5):
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
     return {"table": normal(gen, (vocab, d), 0.02, dtype=dtype,
                             device=device)}
+
+
+# ----------------------------------------------------------------------
+# on a device mesh (lists with one tensor a position; see .sharding)
+# ----------------------------------------------------------------------
+def dense_col(mesh, p, xs, *, tp: str = "model"):
+    """A column-parallel ``dense``: ``xs`` replicated over ``tp`` (entered
+    with :func:`~repro_torch.models.sharding.replicate` by the caller),
+    each position's ``w`` its chunk of the output dimension; the output is
+    sharded the same way.  A bias, replicated, is split to match."""
+    ys = [matmul(x, w) for x, w in zip(xs, p["w"])]
+    if "b" in p:
+        bs = sharding.split(p["b"], mesh, tp, -1, "bias")
+        ys = [y + b for y, b in zip(ys, bs)]
+    return ys
+
+
+def dense_row(mesh, p, xs, *, tp: str = "model", tag: str = "act"):
+    """A row-parallel ``dense``: ``xs`` sharded over ``tp`` on the last
+    dimension as ``w``'s rows are; the partial products end in a psum
+    over ``tp``."""
+    return sharding.psum([matmul(x, w) for x, w in zip(xs, p["w"])], mesh,
+                         tp, tag)
+
+
+def embed_mesh(mesh, tables, tokens, vocab: int, *, tp: str = "model"):
+    """The vocabulary-sharded embedding (``embed/table`` is ``(tp,
+    None)``): each position looks up the tokens its rows hold, zeros
+    elsewhere, and a psum over ``tp`` completes every row."""
+    lay = sharding.layout(mesh)
+    out = []
+    for p, (t, tok) in enumerate(zip(tables, tokens)):
+        lo, hi = sharding.chunk(vocab, lay.size(tp), lay.index(p, tp))
+        tok = tok.long()
+        mine = (tok >= lo) & (tok < hi)
+        rows = t[torch.clamp(tok - lo, 0, hi - lo - 1)]
+        out.append(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+    return sharding.psum(out, mesh, tp, "act")

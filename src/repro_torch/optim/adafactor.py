@@ -10,7 +10,7 @@ import torch
 
 from ._tree import tree_map
 
-__all__ = ["adafactor_init", "adafactor_update"]
+__all__ = ["adafactor_init", "adafactor_update", "adafactor_update_mesh"]
 
 
 def _factored(shape):
@@ -79,3 +79,68 @@ def adafactor_update(
         {"v": tree_map(lambda o: o[1], out)},
         {},
     )
+
+
+def adafactor_update_mesh(mesh, grads, state, params, step, *, lr,
+                          decay: float = 0.8, eps: float = 1e-30,
+                          clip_threshold: float = 1.0,
+                          weight_decay: float = 0.0):
+    """:func:`adafactor_update` shard by shard on a mesh: ``params`` and
+    ``state`` trees of :class:`~repro_torch.models.sharding.ShardedTensor`
+    (the state under ``steps._opt_specs``), ``grads`` a tree of lists of
+    the parameters' shards.  Every mean the update takes over a sharded
+    dimension is a psum of the shards' sums over that dimension's axes
+    over its global size: the factored ``vr`` (over the last dimension)
+    and ``vc`` (over the one before), ``vr``'s mean, and the update's RMS
+    over the whole leaf.  Returns ``(params, state, {})``."""
+    from ..models import sharding as sh
+
+    lr_t = lr(step) if callable(lr) else lr
+    beta = 1.0 - (step + 1.0) ** -decay
+    axes = sh._axes
+
+    def psum(xs, entries):
+        names = tuple(a for e in entries for a in axes(e))
+        return sh.psum(xs, mesh, names, "opt")
+
+    def upd(g, v, p):
+        spec, shape = p.spec, p.shape
+        g = [x.to(torch.float32) for x in g]
+        g2 = [torch.square(x) + eps for x in g]
+        if _factored(shape):
+            rs = psum([x.sum(dim=-1) for x in g2], spec[-1:])
+            cs = psum([x.sum(dim=-2) for x in g2], spec[-2:-1])
+            vr = [beta * o + (1 - beta) * (r / shape[-1])
+                  for o, r in zip(v["vr"].shards, rs)]
+            vc = [beta * o + (1 - beta) * (c / shape[-2])
+                  for o, c in zip(v["vc"].shards, cs)]
+            mvr = psum([r.sum(dim=-1) for r in vr], spec[-2:-1])
+            u = []
+            for x, r, c, m in zip(g, vr, vc, mvr):
+                denom = (r[..., None] * c[..., None, :]
+                         / torch.clamp((m / shape[-2])[..., None, None],
+                                       min=eps))
+                u.append(x * torch.rsqrt(torch.clamp(denom, min=eps)))
+            nv = {"vr": v["vr"].with_shards(vr),
+                  "vc": v["vc"].with_shards(vc)}
+        else:
+            vf = [beta * o + (1 - beta) * x
+                  for o, x in zip(v["v"].shards, g2)]
+            u = [x * torch.rsqrt(torch.clamp(f, min=eps))
+                 for x, f in zip(g, vf)]
+            nv = {"v": v["v"].with_shards(vf)}
+        numel = 1
+        for n in shape:
+            numel *= n
+        sq = psum([torch.sum(torch.square(x)) for x in u], spec)
+        out = []
+        for x, s_, w in zip(u, sq, p.shards):
+            rms = torch.sqrt(s_ / numel + eps)
+            x = x / torch.clamp(rms / clip_threshold, min=1.0)
+            w32 = w.to(torch.float32)
+            out.append((w32 - lr_t * (x + weight_decay * w32)).to(w.dtype))
+        return p.with_shards(out), nv
+
+    res = tree_map(upd, grads, state["v"], params)
+    return (tree_map(lambda o: o[0], res),
+            {"v": tree_map(lambda o: o[1], res)}, {})

@@ -3,8 +3,8 @@
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
 ``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
 ``measured_path`` phases, its ``search2`` phase, its ``dryrun_path``
-and ``substrate_path`` phases and its ``lm_path`` and ``lm_train_path``
-phases (on ``-smoke``
+and ``substrate_path`` phases and its ``lm_path``, ``lm_train_path``
+and ``lm_mesh_path`` phases (on ``-smoke``
 configs only) are called here at a tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
@@ -503,6 +503,58 @@ def test_lm_train_path_phase(on_cpu, capsys, monkeypatch):
                                   "step_0000000010.npz",
                                   "step_0000000020.json",
                                   "step_0000000020.npz"]
+
+
+def test_lm_mesh_path_phase(on_cpu, capsys, monkeypatch):
+    """The five smoke configs' train, prefill and decode steps on a (2, 2)
+    mesh of four CPU positions against one device in both dtypes, each
+    train step's parameter traffic equal to its closed form, both planted
+    faults caught (the gradients' reduce-scatter over ``data`` skipped;
+    the decode combine without its rescale), and the full-width parts on
+    qwen2-0.5b-smoke in qwen2-0.5b's place at small shapes."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    chip_smoke.lm_mesh_path(CPU, "cpu", full="qwen2-0.5b-smoke",
+                            train=(8, 64), prefill=(1, 128), decode=(4, 12))
+    line = _line(capsys, "lm_mesh_path")
+    assert line["ok"] and not line["failed"]
+    assert line["mesh"] == [2, 2] and line["devices"] == ["cpu"] * 4
+    assert len(line["smoke"]) == 10
+    for key, row in line["smoke"].items():
+        assert row["ok"] and row["train"]["param_bytes_equal"], key
+        moe = key.startswith(("grok", "deepseek"))
+        assert (row["train"]["collective_bytes"].get("all_gather:route", 0)
+                > 0) == moe, key
+    faults = line["planted_faults"]
+    assert faults["no_grad_reduce_scatter"]["caught"]
+    assert faults["no_grad_reduce_scatter"]["err_states"] > \
+        chip_smoke.LM_TRAIN_TOL["float32"]["states"]
+    assert faults["no_decode_rescale"]["caught"]
+    full = line["full"]
+    assert full["ok"] and len(full["train"]) == chip_smoke.LM_MESH_FULL_STEPS
+    first = full["train"][0]
+    assert first["param_bytes_equal"] and first["err_params"] <= \
+        chip_smoke.LM_TRAIN_TOL["bfloat16"]["params"]
+    for diag in ("f32_partials", "one_device_rows_split"):
+        assert first[diag]["err_states"] <= \
+            chip_smoke.LM_TRAIN_TOL["bfloat16"]["states"], diag
+    pre = full["prefill"]
+    assert pre["ok"] and pre["token_equal"]
+    assert pre["err_logits"] <= chip_smoke.LM_FULL_CPU_TOL
+    assert full["decode"]["ok"] and full["decode"]["tokens_differ"] == 0
+    assert full["decode"]["err_prefill_logits"] <= chip_smoke.LM_FULL_CPU_TOL
+    assert line["seconds"] <= chip_smoke.LM_MESH_BUDGET_S
+
+
+@pytest.mark.gpu
+def test_lm_mesh_path_on_the_card(capsys):
+    """``lm_mesh_path`` as the card runs it: four positions on ``cuda:0``
+    (``python3 chip_smoke.py`` runs it there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the phase's mesh lies on cuda:0")
+    dev = torch.device("cuda", 0)
+    chip_smoke.lm_mesh_path(dev, "card", full="qwen2-0.5b-smoke",
+                            train=(8, 64), prefill=(1, 128), decode=(4, 12))
+    assert _line(capsys, "lm_mesh_path")["ok"]
 
 
 def test_lm_train_checks_catch_a_dropped_microbatch_on_a_smoke_config():
