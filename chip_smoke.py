@@ -2,7 +2,7 @@
 """Smoke-run the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # full size: rmat(20, 16) on Cannon q = 4,
-                                       # SUMMA 2 x 8 and the ring p = 16; rmat(18, 16) tiles
+                                       # SUMMA 2 x 8 and the ring p = 16; rmat(17, 16) tiles
     python3 chip_smoke.py --scale 16   # a quicker run (tile path at scale 14)
 
 What it does, in order, printing one JSON object per line:
@@ -104,8 +104,10 @@ What it does, in order, printing one JSON object per line:
                     ``("data", "model")`` mesh of four positions on
                     ``cuda:0``, every ``-smoke`` config's train step (8 x
                     24 tokens, two microbatches), prefill and 8 decode
-                    steps in float32 and bfloat16 against the same steps
-                    on one device (the router teacher-forced), each train
+                    steps (``LM_MESH_SMOKE``: the dense configs in
+                    float32, the MoE ones in bfloat16) against the same
+                    steps on one device (the router teacher-forced), each
+                    train
                     step's parameter and gradient bytes equal to their
                     closed form; two planted faults the check must catch
                     (the gradients' reduce-scatter over ``data`` skipped,
@@ -115,6 +117,19 @@ What it does, in order, printing one JSON object per line:
                     token, 8 prompts x 16 decode steps (seconds, peaks,
                     collective bytes, prefill and decode launches); at
                     most 60 s;
+   ``model_mesh_path`` — the GNN and recsys steps on the same (2, 2)
+                    mesh (no hand-written kernel): every GNN ``-smoke``
+                    config's train step (NequIP in float64) and DLRM's
+                    train, serve and retrieval steps with a 7,168-row
+                    table row-sharded over ``model`` against one device,
+                    every replica's bits equal, a retrieval tie planted
+                    across two shards; two planted faults the check must
+                    catch (the table's gradient not summed over
+                    ``data``, NequIP's energy counted once a position);
+                    DLRM at its published widths with the rows cap sized
+                    by the dry run's walk, NequIP on the molecule cell
+                    and GAT on ``full_graph_sm``, each against one
+                    device; at most 45 s;
    ``recsys_path`` — DLRM (no hand-written kernel either): the smoke
                     config card against CPU (one train step's loss,
                     ``grad_norm``, moments and parameters, the serve
@@ -221,7 +236,7 @@ What it does, in order, printing one JSON object per line:
                     then the fused kernel's ``"serve_stream"`` row, held
                     to its plain route on the last round's first counted
                     device-step;
-   ``rebalance_path`` — the main graph with ``rebalance_trials=2``: the
+   ``rebalance_path`` — the main graph with ``rebalance_trials=1``: the
                     rebalance report, one kernel launch a counted
                     device-step, warm counts of the plain and the
                     rebalanced plan in turns, each equal to the oracle;
@@ -269,7 +284,7 @@ What it does, in order, printing one JSON object per line:
                     ``tile``, ``dense``, ``search2``, ``auto``), SUMMA and
                     the ring with ``search``, ``global``, ``fused``,
                     ``auto``, against the exact per-edge oracle;
-   ``many_path``  — ``count_triangles_many`` over ``rmat(16..17, 16)`` and
+   ``many_path``  — ``count_triangles_many`` over ``rmat(16, 16)`` and
                     two named graphs, ``method="search"``, Cannon q = 4 and
                     the ring p = 16 at chunk 8192:
                     cold, warm (a program-cache hit), equal to
@@ -293,12 +308,16 @@ What it does, in order, printing one JSON object per line:
 
 The ``total`` line gives the whole run's seconds and each phase's.
 ``--mesh-only`` runs the main path and then only ``mesh_path``,
-``mesh_runtime_path`` and ``lm_mesh_path`` (a probe of the mesh phases on
-the cards present; it prints neither the kernels line nor the final
-line); with four cards ``lm_mesh_path`` puts one position on each, and
-``lm_mesh_big`` trains chatglm3-6b at its published widths and depth on
-them (the batch sized by the dry run's walk and ``shard_bytes``; three
-steps' seconds and losses, each card's peak against the sizing).
+``mesh_runtime_path``, ``lm_mesh_path`` and ``model_mesh_path`` (a probe
+of the mesh phases on the cards present; it prints neither the kernels
+line nor the final line); with four cards the two model phases put one
+position on each, ``lm_mesh_big`` trains chatglm3-6b at its published
+widths and depth on them (the batch sized by the dry run's walk and
+``shard_bytes``; three steps' seconds and losses, each card's peak
+against the sizing), and ``dlrm_mesh_big`` serves and searches DLRM's
+uncapped 177,944,576-row table row-sharded over the four cards (held to
+the one-device forward over the rows read) and trains it at the largest
+rows cap the walk puts under 70 GB a card.
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit.  Nothing here runs on the CPU in place of the GPU: without a CUDA
 device the script exits non-zero before printing any result.  The last
@@ -336,7 +355,7 @@ EDGE_FACTOR = 16  # Graph500's
 GRID = 4  # q: 16 logical devices, 4 Cannon steps
 # largest scale of the tile path: its host plan (pack + join) grows faster
 # than the graph; PERF.md section 4 has the measured sizes
-TILE_SCALE = 18
+TILE_SCALE = 17  # 18 until the model mesh phase needed the seconds
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/tc_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/tc_fused/tc_fused.py:146"
 TILE_SOURCE = "src/repro_torch/kernels/csrc/tc_tile.cu"
@@ -1851,8 +1870,8 @@ HUB_GRIDS = (("oned", (GRID, GRID)), ("cannon", (GRID, GRID)))
 HUB_DEEP = "oned"
 HUB_CHUNK = 8192
 DEFAULT_CHUNK = 512  # count_triangles' and tc_run's default chunk
-REBALANCE_TRIALS = 2  # 3 until the LM training path needed the seconds
-MANY_SCALES = (16, 17)  # rmat 18 cut in favour of the LM path
+REBALANCE_TRIALS = 1  # 3, then 2, until the model paths needed the seconds
+MANY_SCALES = (16,)  # rmat 18, then 17, cut in favour of the model paths
 MANY_NAMED = ("named:karate", "named:k10")
 # (schedule, grid, chunk) of each batch: Cannon's chunk-512 batch (about
 # 98 s a run, PERF.md section 5) was left out to make room for the delta
@@ -1994,7 +2013,7 @@ def hub_path(g, oracle, dev, graph):
 
 
 def rebalance_path(g, oracle, dev, q):
-    """``count_triangles(g, q=q, method="fused", rebalance_trials=2)``:
+    """``count_triangles(g, q=q, method="fused", rebalance_trials=1)``:
     the rebalance report and stage seconds, one kernel launch a counted
     device-step, then warm counts of the plain and the rebalanced plan in
     turns (plain, rebalanced, rebalanced, plain): all equal to the
@@ -3438,7 +3457,7 @@ def tile_path(scale, seed, q, dev):
 DENSITY_TRIPLES = 349_932  # trip_pad of the tile path at rmat(18, 16), q = 4
 DENSITY_TILES = 4_096
 DENSITY_AB = 0.3
-DENSITIES = (0.0003, 0.01, 0.1, 0.5)
+DENSITIES = (0.0003, 0.1, 0.5)  # 0.01 cut for the model mesh phase
 
 
 def _crossing(xs, u, v):
@@ -3957,6 +3976,20 @@ def _lm_f64(x, device=None):
     return torch.as_tensor(x).detach().to(device, torch.float64)
 
 
+# AdamW's first step moves a parameter by lr g / (|g| + eps): where |g|
+# is within two orders of eps (1e-8), a rounding of g moves the update
+# (NequIP's smoke step on a mesh in float32: the two parameters off
+# by more than the bound had |g| 2.0e-9 and 3.1e-9, one device's
+# float32 gradient 2 % and 3 % off the mesh's)
+STEP_NEAR_EPS = 1e-6
+
+
+def _f64_at(x, mask):
+    """``x``'s elements under ``mask`` in float64, on ``mask``'s device."""
+    return torch.as_tensor(x).detach().to(mask.device)[mask].to(
+        torch.float64)
+
+
 def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
     """One train step's ``(params, opt_state, metrics)`` held to ``ref``'s
     (tensors or numpy arrays, in the same trees): the metrics (``loss``,
@@ -3968,9 +4001,14 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
     element whose first moment's sign differs between the two — a
     near-zero gradient that rounded the other way — may move the other way
     by up to ``2 · lr_t · |m̂ / √v̂|`` (from ``ref``'s moments); such
-    elements over ``tol`` are counted as ``flips``.  ``tol`` maps
-    ``loss``, ``grad_norm``, ``states`` and ``params`` to their bounds;
-    the comparison runs in float64 on the host or on ``device``.  Returns
+    elements over ``tol`` are counted as ``flips``.  An element whose
+    gradient ``√v̂`` (``ref``'s) is at most ``STEP_NEAR_EPS`` may move by
+    the difference of the two updates, ``lr_t · |Δ(m̂ / (√v̂ + eps))|``
+    (from both sides' moments); such elements over ``tol`` are counted
+    as ``near``, and ``g_over`` is the largest ``√v̂`` of an element over
+    ``tol`` that did not flip (0 where none).  ``tol`` maps ``loss``,
+    ``grad_norm``, ``states`` and ``params`` to their bounds; the
+    comparison runs in float64 on the host or on ``device``.  Returns
     ``(errs, ok)``."""
     gp, go, gm = got
     rp, ro, rm = ref
@@ -3989,8 +4027,11 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
         b1, b2, eps = 0.9, 0.95, 1e-8  # adamw_update's defaults
         bc1, bc2 = 1 - b1 ** (step + 1), 1 - b2 ** (step + 1)
         moments = zip(_lm_leaves(go["m"]), _lm_leaves(ro["m"]),
-                      _lm_leaves(ro["v"]))
-    worst, flips = 0.0, 0
+                      _lm_leaves(go["v"]), _lm_leaves(ro["v"]))
+
+        def update(m, v):
+            return (m / bc1) / ((v / bc2).sqrt() + eps)
+    worst, flips, near, g_over = 0.0, 0, 0, 0.0
     for a, b in zip(_lm_leaves(gp), _lm_leaves(rp)):
         a, b = f64(a), f64(b)
         if a.shape != b.shape:
@@ -3998,16 +4039,30 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
                  f"{tuple(b.shape)}")
         d = (a - b).abs()
         if adamw:
-            m_got, m_ref, v_ref = (f64(x) for x in next(moments))
+            m_got, m_ref, v_got, v_ref = next(moments)
+            m_got, m_ref, v_ref = f64(m_got), f64(m_ref), f64(v_ref)
             flipped = torch.sign(m_got) != torch.sign(m_ref)
             slack = 2 * lr_t * (m_ref / bc1).abs() / ((v_ref / bc2).sqrt()
                                                       + eps)
-            flips += int((flipped & (d > tol["params"] * (1 + b.abs())))
-                         .sum())
+            over = d > tol["params"] * (1 + b.abs())
+            flips += int((flipped & over).sum())
             d = torch.where(flipped, (d - slack).clamp_min(0), d)
+            del slack
+            over &= ~flipped
+            if bool(over.any()):
+                g = (v_ref[over] / bc2).sqrt()
+                du = lr_t * (update(m_got[over], _f64_at(v_got, over))
+                             - update(m_ref[over], v_ref[over])).abs()
+                small = g <= STEP_NEAR_EPS
+                near += int(small.sum())
+                g_over = max(g_over, float(g.max()))
+                d[over] = torch.where(small, (d[over] - du).clamp_min(0),
+                                      d[over])
         worst = max(worst, float((d / (1 + b.abs())).max()))
     errs["params"] = worst
     errs["flips"] = flips
+    if adamw:
+        errs["near"], errs["g_over"] = near, g_over
     ok = (set(gm) == set(rm)
           and all(errs[k] <= tol[k] for k in (*rm, "states", "params")))
     return errs, ok
@@ -4870,6 +4925,14 @@ LM_MESH_DECODE = (8, 16)
 # (lm_mesh_full's "one_device_rows_split" and "f32_partials")
 LM_MESH_FULL_TOL = dict(LM_TRAIN_TOL["bfloat16"], states=2 ** -3)
 LM_MESH_BUDGET_S = 60.0
+# the smoke configs on the card's mesh, one dtype each (both until the
+# model mesh phase needed the seconds; the CPU tests hold every smoke
+# config in both dtypes on every mesh)
+LM_MESH_SMOKE = (("chatglm3-6b-smoke", "float32"),
+                 ("qwen2-0.5b-smoke", "float32"),
+                 ("qwen1.5-110b-smoke", "float32"),
+                 ("grok-1-314b-smoke", "bfloat16"),
+                 ("deepseek-v3-671b-smoke", "bfloat16"))
 # a router flip on the mesh: the two experts' one-device probabilities
 # within this fraction of each other.  With a model axis every
 # tensor-parallel product splits its contraction, and each part rounds
@@ -5270,9 +5333,9 @@ def _lm_mesh_planted_no_rescale():
         attention._rescale = own
 
 
-def lm_mesh_smoke(dev, mesh, names=None, dtypes=("float32", "bfloat16")):
-    """Each LM ``-smoke`` config in float32 and bfloat16 on ``mesh``
-    against one device ``dev`` (:func:`lm_mesh_compare`; microbatches of
+def lm_mesh_smoke(dev, mesh):
+    """Each of ``LM_MESH_SMOKE``'s (config, dtype) on ``mesh`` against
+    one device ``dev`` (:func:`lm_mesh_compare`; microbatches of
     ``LM_MESH_MB``), each train step's parameter traffic against its
     closed form (:func:`lm_mesh_train_bytes`); then the two planted
     faults on qwen2-0.5b-smoke in float32, each of which the same check
@@ -5294,20 +5357,19 @@ def lm_mesh_smoke(dev, mesh, names=None, dtypes=("float32", "bfloat16")):
         return cfg, params, batch
 
     nm = LM_MESH_B // LM_MESH_MB
-    for name in names or [a + "-smoke" for a in LM_ARCHS]:
-        for dtype in dtypes:
-            cfg, params, batch = setup(name, dtype)
-            row, ok = lm_mesh_compare(cfg, params, batch, mesh, dev)
-            want = lm_mesh_train_bytes(cfg, mesh, nm)
-            got = {k: row["train"]["collective_bytes"].get(k, 0)
-                   for k in LM_MESH_PARAM_KEYS}
-            row["train"]["param_bytes_closed_form"] = want
-            row["train"]["param_bytes_equal"] = got == want
-            ok = ok and got == want
-            key = f"{name}/{dtype}"
-            rows[key] = dict(ok=ok, **row)
-            if not ok:
-                bad.append(key)
+    for name, dtype in LM_MESH_SMOKE:
+        cfg, params, batch = setup(name, dtype)
+        row, ok = lm_mesh_compare(cfg, params, batch, mesh, dev)
+        want = lm_mesh_train_bytes(cfg, mesh, nm)
+        got = {k: row["train"]["collective_bytes"].get(k, 0)
+               for k in LM_MESH_PARAM_KEYS}
+        row["train"]["param_bytes_closed_form"] = want
+        row["train"]["param_bytes_equal"] = got == want
+        ok = ok and got == want
+        key = f"{name}/{dtype}"
+        rows[key] = dict(ok=ok, **row)
+        if not ok:
+            bad.append(key)
     cfg, params, batch = setup(LM_ARCHS[0] + "-smoke", "float32")
     faults = {}
     with _lm_mesh_planted_no_reduce_scatter():
@@ -5556,8 +5618,9 @@ def lm_mesh_full(dev, mesh, name=LM_FULL, seed=0, train=LM_MESH_FULL_TRAIN,
 def lm_mesh_path(dev, smi, devices=None, full=LM_FULL, **sizes):
     """The LM family's steps on a device mesh: a ``LM_MESH`` mesh of four
     positions (on ``devices``, by default all on ``dev``); every
-    ``-smoke`` config's train, prefill and decode steps against one
-    device with both planted faults (:func:`lm_mesh_smoke`), and
+    ``-smoke`` config's train, prefill and decode steps in its
+    ``LM_MESH_SMOKE`` dtype against one device with both planted faults
+    (:func:`lm_mesh_smoke`), and
     ``full`` at its published widths (:func:`lm_mesh_full`, ``sizes``
     its train / prefill / decode shapes where given).  No
     hand-written kernel runs here: the JAX package has no Pallas kernel
@@ -5711,7 +5774,7 @@ RECSYS_RETRIEVAL_CALLS = 20
 GNN_ARCH_NAMES = ("gat-cora", "graphcast", "nequip", "equiformer-v2")
 # the molecule cell: 128 molecules x 30 atoms, 64 edges each
 MOLECULE = dict(kind="batched", n_nodes=30, n_edges=64, batch=128)
-GNN_FULL_STEPS = 4
+GNN_FULL_STEPS = 2  # 4 until the model mesh phase needed the seconds
 GNN_SIZED = ("equiformer_v2",)  # full steps whose peak the walk is held to
 # the reference's equivariance tests' bounds (tests/test_arch_smoke.py):
 # energy |e1 - e2| < atol + rtol |e1|, forces elementwise atol
@@ -6301,6 +6364,761 @@ def gnn_path(dev, smi, full=(("equiformer-v2", MOLECULE),
 
 
 # ----------------------------------------------------------------------
+# the GNN and recsys steps on a device mesh
+# ----------------------------------------------------------------------
+MODEL_MESH = LM_MESH  # the same four positions on one card
+# DLRM's smoke widths with these tables: 7,168 rows after padding, past
+# the 4,096 rows over which dlrm_param_specs row-shards the table over
+# `model` (the smoke config's own 1,024 rows stay replicated)
+MODEL_MESH_TABLES = (3000, 1000, 2000, 500, 10, 80, 60, 40)
+MODEL_MESH_BATCH = 16
+MODEL_MESH_CANDS = 400  # of table 0, with a tie planted across two shards
+# Each step on the mesh is held to one device's by step_errs at
+# MODEL_STEP_TOL on every key, in float64 and in float32 (where AdamW's
+# first step moves a parameter whose |g| is near its eps by the two
+# gradients' rounding: step_errs' STEP_NEAR_EPS).  But for DLRM's
+# full-width float32 step (its float64 companion holds every key): the
+# logit's bias has the gradient mean(p - y), ~0 where the pipeline's
+# labels are balanced and the drawn model says p ~ 0.5, a cancelling sum
+# whose float32 rounding moves with the order of its terms
+# (tests/test_torch_recsys_mesh.py pins it: with the tables capped at 256
+# rows its moments on a (2, 2) mesh of CPU positions are 1.0e-3 (m) and
+# 2.0e-3 (v) of their norms off one CPU's at 64 rows, 0.19 and 0.34 at
+# 1,024 rows; every other leaf holds the bound).
+DLRM_FULL_F32_TOL = dict(MODEL_STEP_TOL, states=math.inf)
+MODEL_MESH_F64_CAP = 1 << 14  # DLRM's float64 companion at full width
+MODEL_MESH_BUDGET_S = 45.0
+# DLRM at its published widths on the (2, 2) mesh of one card: the rows
+# cap sized by the walk (dlrm_mesh_sizing), a few steps of the train
+# shape's batch, the p99 serve batch, the retrieval shape's candidates
+DLRM_MESH_CAPS = (1 << 20, 1 << 19, 1 << 18)
+DLRM_MESH_TRAIN = (65_536, 2)
+# whole float32 tables on the first card beside the mesh's step (the
+# parameters drawn, one device's new parameters and moments) and during
+# step_errs' float64 comparison (both sides' parameters and moments and
+# its float64 temporaries): at 2^20 rows on four cards the comparison
+# asked for 24.4 tables' bytes and ran out of memory
+DLRM_MESH_HOLD = 4
+DLRM_MESH_COMPARE = 26
+DLRM_MESH_SERVE = 512
+GNN_MESH_FULL = (("nequip", MOLECULE), ("gat-cora", "full_graph_sm"))
+GNN_MESH_STEPS = 2
+# four cards, one a position: the uncapped table served and searched,
+# and trained at the largest cap whose walk fits under this a card
+DLRM_MESH_BIG = (1, 4)
+DLRM_MESH_BIG_CAPS = (1 << 25, 1 << 24, 1 << 23, 1 << 22, 1 << 21)
+DLRM_MESH_BIG_CARD = 70e9
+DLRM_MESH_BIG_STEPS = 3
+
+
+def _cast_floats(tree, dtype):
+    """A tree of tensors or numpy arrays with every floating leaf cast to
+    ``dtype`` (a torch dtype)."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    t = torch.as_tensor(np.ascontiguousarray(tree)) if isinstance(
+        tree, np.ndarray) else tree
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def mesh_replicas_equal(tree):
+    """Every position of a tree of ``ShardedTensor`` holds the same bits as
+    the other positions that hold its shard."""
+    from repro_torch.models import sharding
+
+    for st in _lm_leaves(tree):
+        lay = sharding.layout(st.mesh)
+        named = {a for e in st.spec for a in sharding._axes(e)}
+        rest = tuple(a for a in lay.names if a not in named)
+        for g in lay.groups(rest):
+            first = st.shards[g[0]]
+            if not all(torch.equal(first, st.shards[j].to(first.device))
+                       for j in g[1:]):
+                return False
+    return True
+
+
+def _first_global(p, o, m, mesh, out_device):
+    from repro_torch.models import sharding
+
+    if mesh is not None:
+        same = mesh_replicas_equal(p) and mesh_replicas_equal(o)
+        p = sharding.unshard_tree(p, out_device)
+        o = sharding.unshard_tree(o, out_device)
+    else:
+        same = None
+    return (p, o, {k: float(v) for k, v in m.items()}), same
+
+
+def gnn_mesh_train(cfg, params, batch, d_feat, *, mesh=None, dev=None,
+                   steps=1, out_device="cpu"):
+    """``steps`` steps of ``build_gnn_train_step`` from a fresh optimiser
+    state on one device ``dev`` or sharded on ``mesh`` (``params`` and
+    ``batch`` global, tensors or numpy).  Returns a row: the first step's ``(params,
+    opt_state, metrics)`` global on ``out_device`` (``step``), whether
+    every replica came out with the same bits (``replicas_equal``), each
+    step's loss and seconds, the first step's collective bytes."""
+    from repro_torch.models import sharding
+    from repro_torch.models.gnn_steps import build_gnn_train_step
+
+    if mesh is None:
+        build, info = build_gnn_train_step(cfg, None, d_feat, device=dev)
+        p, b = _lm_to(params, dev), _tensors(batch, dev)
+    else:
+        build, info = build_gnn_train_step(cfg, mesh, d_feat)
+        p, b = info["shard"](params), info["shard_batch"](batch)
+    fn, o = build(batch), info["opt_init"](p)
+    cards = _lm_cards(dev, mesh)
+    row = dict(losses=[], step_seconds=[])
+    for i in range(steps):
+        _lm_sync(cards)
+        t0 = time.perf_counter()
+        with sharding.tally_collective_bytes() as tally:
+            p, o, m = fn(p, o, b, i)
+        _lm_sync(cards)
+        row["step_seconds"].append(time.perf_counter() - t0)
+        row["losses"].append(float(m["loss"]))
+        if i == 0:
+            row["step"], row["replicas_equal"] = _first_global(
+                p, o, m, mesh, out_device)
+            row["bytes"] = dict(tally)
+    return row
+
+
+def gnn_mesh_compare(name, params, batch, d_feat, mesh, dev, *, steps=1):
+    """``name``'s train step on ``mesh`` against one device ``dev`` from
+    the same parameters and batch, in float64 and float32: the first step
+    by :func:`step_errs` at ``MODEL_STEP_TOL``, every replica equal.
+    Returns ``(row, ok)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    row, ok = dict(config=name), True
+    for dt in ("float64", "float32"):
+        cfg = dataclasses.replace(get_config(name), dtype=dt)
+        p = _cast_floats(params, getattr(torch, dt))
+        b = _cast_floats(batch, getattr(torch, dt))
+        one = gnn_mesh_train(cfg, p, b, d_feat, dev=dev, steps=steps,
+                             out_device=dev)
+        got = gnn_mesh_train(cfg, p, b, d_feat, mesh=mesh, steps=steps,
+                             out_device=dev)
+        errs, step_ok = step_errs(got.pop("step"), one.pop("step"),
+                                  MODEL_STEP_TOL, lr_t=5e-3, step=0,
+                                  device=dev)
+        held = step_ok and got["replicas_equal"]
+        row[dt] = dict(ok=held, one_device=one, mesh=got,
+                       **{f"err_{k}": v for k, v in errs.items()})
+        ok = ok and held
+    row["ok"] = ok
+    return row, ok
+
+
+def model_mesh_dlrm_cfg(name="dlrm-mlperf-smoke", tables=MODEL_MESH_TABLES):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), table_sizes=tuple(tables))
+
+
+def dlrm_tie_candidates(params, cfg, dense, n_cand, mesh, seed=0):
+    """``n_cand`` distinct rows of table 0 and ``params`` with a tie
+    planted across two positions' shards of them: the candidate that the
+    query scores best copied onto one in the last position's shard, so
+    two equal scores straddle the cut between shards (returns new
+    params, the candidates, the tied pair)."""
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import sharding
+    from repro_torch.models.nn import mlp
+
+    rng = np.random.default_rng(seed)
+    cand = rng.choice(cfg.table_sizes[0], n_cand, replace=False).astype(
+        np.int32)
+    table = params["emb"]["table"].clone()
+    with torch.no_grad():
+        q = mlp(params["bot"], torch.as_tensor(dense[:1]).to(table.device),
+                final_act=True)[0]
+        best = int(torch.argmax(table[torch.as_tensor(cand).long()
+                                      .to(table.device)] @ q))
+    n = math.prod(mesh.shape) if isinstance(mesh, DeviceMesh) else 1
+    lo, _ = sharding.chunk(n_cand, n, n - 1)
+    other = lo if best < lo else 0
+    table[int(cand[other])] = table[int(cand[best])]
+    return {**params, "emb": {"table": table}}, cand, (best, other)
+
+
+def dlrm_mesh_run(cfg, params, batch, served, cand, *, mesh=None,
+                  dev=None, steps=1, out_device="cpu"):
+    """DLRM's serve step on ``served``'s dense and sparse ids, its
+    retrieval step for the first query over ``cand``, then ``steps``
+    train steps on ``batch`` from a fresh optimiser state, on one device
+    ``dev`` or sharded on ``mesh`` (``params`` global).  Returns a row:
+    ``probs``, ``top`` (values, indices), the first step's global
+    ``step``, whether every replica came out equal, losses, seconds,
+    each card's peak over what it held before, collective bytes."""
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models import sharding
+
+    if mesh is None:
+        fn, info = gs.build_dlrm_train_step(cfg, device=dev)
+        serve, _ = gs.build_dlrm_serve_step(cfg, device=dev)
+        ret, _ = gs.build_dlrm_retrieval_step(cfg, device=dev)
+        p, b = _lm_to(params, dev), _tensors(batch, dev)
+    else:
+        fn, info = gs.build_dlrm_train_step(cfg, mesh)
+        serve, _ = gs.build_dlrm_serve_step(cfg, mesh)
+        ret, _ = gs.build_dlrm_retrieval_step(cfg, mesh)
+        p, b = info["shard"](params), info["shard_batch"](batch)
+    cards = _lm_cards(dev, mesh)
+    row = {}
+    with sharding.tally_collective_bytes() as tally:
+        probs, row["serve_seconds"], _ = _lm_mesh_peak(
+            lambda: serve(p, served["dense"], served["sparse_ids"]), cards)
+    row["serve_bytes"] = dict(tally)
+    with sharding.tally_collective_bytes() as tally:
+        top, row["retrieval_seconds"], _ = _lm_mesh_peak(
+            lambda: ret(p, served["dense"][:1], cand), cards)
+    row["retrieval_bytes"] = dict(tally)
+    row["probs"] = probs.to(out_device)
+    row["top"] = tuple(t.to(out_device) for t in top)
+    o = info["opt_init"](p)
+    row.update(losses=[], step_seconds=[], step_peaks=[])
+    for i in range(steps):
+        with sharding.tally_collective_bytes() as tally:
+            (p, o, m), secs, peak = _lm_mesh_peak(
+                lambda: fn(p, o, b, i), cards)
+        row["step_seconds"].append(secs)
+        row["step_peaks"].append(peak)
+        row["losses"].append(float(m["loss"]))
+        if i == 0:
+            row["step"], row["replicas_equal"] = _first_global(
+                p, o, m, mesh, out_device)
+            row["bytes"] = dict(tally)
+    return row
+
+
+def dlrm_mesh_check(one, got, dev, tie=None, tol=MODEL_STEP_TOL):
+    """The mesh's DLRM row ``got`` held to one device's ``one`` (both
+    from :func:`dlrm_mesh_run`, popped): the first train step by
+    :func:`step_errs` at ``tol``, the serve
+    probabilities and the retrieval's values at ``MODEL_OUT_TOL``, its
+    indices ``==`` (the ``tie``, a pair of candidate indices, kept in
+    order), every replica equal.  Returns ``(row, ok)``."""
+    errs, step_ok = step_errs(got.pop("step"), one.pop("step"), tol,
+                              lr_t=1e-3, step=0, device=dev)
+    probs = lm_err(got.pop("probs"), one.pop("probs"))
+    (gv, gi), (ov, oi) = got.pop("top"), one.pop("top")
+    idx_equal = bool(torch.equal(gi.cpu(), oi.cpu()))
+    ranked = oi.cpu().tolist()
+    tie_kept = tie is None or (all(i in ranked for i in tie) and ranked.index(
+        min(tie)) < ranked.index(max(tie)))
+    vals = lm_err(gv, ov)
+    ok = (step_ok and probs <= MODEL_OUT_TOL and idx_equal
+          and tie_kept and vals <= MODEL_OUT_TOL and got["replicas_equal"]
+          and all(math.isfinite(x) for x in got["losses"]))
+    return dict(ok=ok, err_probs=probs, idx_equal=idx_equal,
+                tie_kept=tie_kept, err_top_values=vals, one_device=one,
+                mesh=got, **{f"err_{k}": v for k, v in errs.items()}), ok
+
+
+def dlrm_mesh_train_bytes(cfg, mesh, batch: int):
+    """One DLRM mesh train step's collective bytes in closed form, by the
+    tally's keys.  A psum over a group of ``g`` positions copies its
+    tensor ``2 (g - 1)`` times (to the group's first position and back).
+    ``psum:lookup``: each data group's bags (its rows x fields x embed)
+    over ``model``, where the table is row-sharded; ``psum:loss``: a scalar
+    over ``(pod, data)`` in each of the ``tp`` groups; ``psum:grads``: the
+    table's shard and every MLP leaf over ``(pod, data)``, and the global
+    norm's scalar over every axis."""
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models import sharding
+
+    lay = sharding.layout(mesh)
+    dp = lay.size(tuple(a for a in ("pod", "data") if a in lay.names))
+    tp = lay.size(("model",) if "model" in lay.names else ())
+    _, info = gs.build_dlrm_train_step(cfg, mesh)
+    size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    leaves = {k: sum(t.numel() for t in _lm_leaves(info["dummy"][k])) * size
+              for k in info["dummy"]}
+    table, mlp = leaves.pop("emb"), sum(leaves.values())
+    sharded = info["params"]["emb"]["table"][0] is not None
+    shard = table // tp if sharded else table  # one position's table
+    out = {
+        "psum:lookup": (2 * (tp - 1) * batch * cfg.n_sparse * cfg.embed_dim
+                        * size if sharded else 0),
+        "psum:loss": 2 * tp * (dp - 1) * size,
+        "psum:grads": (2 * (dp - 1) * tp * (shard + mlp)
+                       + 2 * (lay.n - 1) * 4),
+    }
+    return {k: v for k, v in out.items() if v}
+
+
+def dlrm_mesh_compare(cfg, params, batch, cand, tie, mesh, dev):
+    """DLRM's three steps on ``mesh`` against one device ``dev`` from the
+    same parameters, in float64 and float32 (:func:`dlrm_mesh_check`).
+    Returns ``(row, ok)``."""
+    import dataclasses
+
+    row, ok = dict(config=cfg.name, rows=int(params["emb"]["table"].shape[0]),
+                   tie=list(tie)), True
+    for dt in ("float64", "float32"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        p = _cast_floats(params, getattr(torch, dt))
+        b = _cast_floats(batch, getattr(torch, dt))
+        one = dlrm_mesh_run(c, p, b, b, cand, dev=dev, out_device=dev)
+        got = dlrm_mesh_run(c, p, b, b, cand, mesh=mesh, out_device=dev)
+        row[dt], held = dlrm_mesh_check(one, got, dev, tie)
+        ok = ok and held
+    row["ok"] = ok
+    return row, ok
+
+
+@contextlib.contextmanager
+def _planted_unsummed_table_grads():
+    """A DLRM mesh fault planted for the block: the table's gradient shards
+    not summed over ``(pod, data)``, so each data position updates its
+    rows from its own rows of the batch only."""
+    from repro_torch.models import gnn_steps
+
+    own = gnn_steps._grad_sum
+
+    def skip_table(mesh, path, g, axes):
+        return g if path == "emb/table" else own(mesh, path, g, axes)
+
+    gnn_steps._grad_sum = skip_table
+    try:
+        yield
+    finally:
+        gnn_steps._grad_sum = own
+
+
+@contextlib.contextmanager
+def _planted_energy_per_position():
+    """A NequIP mesh fault planted for the block: each position's copy of
+    the replicated energy seeded with the sum of every copy's cotangent,
+    so the forces count the energy once per position."""
+    from repro_torch.models import lockstep
+
+    own = lockstep._grad_seeds
+
+    def summed(mesh_run, outs):
+        return [torch.full_like(o, float(len(outs))) for o in outs]
+
+    lockstep._grad_seeds = summed
+    try:
+        yield
+    finally:
+        lockstep._grad_seeds = own
+
+
+def model_mesh_smoke(dev, mesh, names=GNN_ARCH_NAMES, seed=3):
+    """Every GNN ``-smoke`` config's train step and DLRM's smoke widths
+    (``MODEL_MESH_TABLES``: a row-sharded table) on ``mesh`` against one
+    device ``dev``, from parameters drawn on the CPU; then the two
+    planted faults, each of which the same checks must catch.  Returns
+    ``(rows, failed, faults)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.models.gnn_steps import gnn_init
+
+    cpu = torch.device("cpu")
+    rows, bad, faults, inputs = {}, [], {}, {}
+    for name in names:
+        cfg = get_config(name + "-smoke")
+        b, d_feat = gnn_smoke_batch(cfg, np.random.default_rng(seed))
+        params = gnn_init(torch.Generator().manual_seed(0), cfg, d_feat,
+                          device=cpu)
+        inputs[cfg.arch] = (cfg.name, params, b, d_feat)
+        rows[cfg.name], ok = gnn_mesh_compare(cfg.name, params, b, d_feat,
+                                              mesh, dev)
+        if not ok:
+            bad.append(cfg.name)
+    cfg = model_mesh_dlrm_cfg()
+    params = dlrm_init(torch.Generator().manual_seed(0), cfg, device=cpu)
+    batch = RecsysPipeline(cfg, MODEL_MESH_BATCH).next_batch()
+    params, cand, tie = dlrm_tie_candidates(params, cfg, batch["dense"],
+                                            MODEL_MESH_CANDS, mesh)
+    rows[cfg.name], ok = dlrm_mesh_compare(cfg, params, batch, cand, tie,
+                                           mesh, dev)
+    if not ok:
+        bad.append(cfg.name)
+    with _planted_unsummed_table_grads():
+        row, ok = dlrm_mesh_compare(cfg, params, batch, cand, tie, mesh, dev)
+    faults["unsummed_table_grads"] = dict(caught=not ok, **{
+        dt: {k: row[dt][k] for k in ("err_states", "err_params",
+                                     "err_grad_norm")}
+        for dt in ("float64", "float32")})
+    name, params, b, d_feat = inputs["nequip"]
+    with _planted_energy_per_position():
+        row, ok = gnn_mesh_compare(name, params, b, d_feat, mesh, dev)
+    faults["energy_per_position"] = dict(caught=not ok, **{
+        dt: {k: row[dt][k] for k in ("err_loss", "err_grad_norm",
+                                     "err_states")}
+        for dt in ("float64", "float32")})
+    return rows, bad, faults
+
+
+def dlrm_mesh_sizing(mesh, batch, caps=DLRM_MESH_CAPS, card_bytes=None,
+                     compare=False):
+    """Each cap's per-card peak as the port's tools put it: the dry run's
+    walk of the one-device train step at ``batch`` (meta tensors) scaled
+    by the share of the parameters' and AdamW state's bytes that one
+    position holds (``roofline.shard_bytes`` over the global bytes),
+    times the positions on the first card.  With ``compare`` (a
+    one-device comparison on the first card) the largest of: the
+    one-device step (the walk's peak), the mesh's beside
+    ``DLRM_MESH_HOLD`` whole tables (the parameters drawn and one
+    device's new parameters and moments), and :func:`step_errs`' float64
+    comparison, ``DLRM_MESH_COMPARE`` tables.  Returns ``(rows, the
+    largest cap that fits card_bytes)``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import shard_bytes
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models.dlrm import padded_rows
+
+    rows, pick = [], None
+    on_card = sum(d == mesh.first for d in mesh.devices)
+    for cap in caps:
+        cfg = capped_recsys(cap=cap)
+        _, info = gs.build_dlrm_train_step(cfg, mesh)
+        full = sum(t.numel() * t.element_size()
+                   for t in _lm_leaves(info["dummy"])
+                   + _lm_leaves(info["opt_shape"]))
+        mine = (shard_bytes(info["dummy"], info["params"], mesh)
+                + shard_bytes(info["opt_shape"], info["opt"], mesh))
+        walk, _ = dryrun.walk_cell(cfg, dict(kind="train", batch=batch))
+        table = padded_rows(cfg) * cfg.embed_dim * 4
+        est = int(walk.peak_bytes * mine / full) * on_card
+        row = dict(cap=cap, rows=padded_rows(cfg), table_bytes=table,
+                   walk_peak_one_device=walk.peak_bytes,
+                   state_share=mine / full, positions_on_card=on_card,
+                   mesh_per_card=est)
+        if compare:
+            est = max(walk.peak_bytes, est + DLRM_MESH_HOLD * table,
+                      DLRM_MESH_COMPARE * table)
+        row.update(per_card=est,
+                   fits=card_bytes is None or est <= card_bytes)
+        rows.append(row)
+        if row["fits"] and pick is None:
+            pick = cap
+    return rows, pick
+
+
+def dlrm_mesh_full(dev, mesh, cfg=None, train=DLRM_MESH_TRAIN,
+                   serve_batch=DLRM_MESH_SERVE, n_cand=RECSYS_CANDIDATES,
+                   f64_cap=MODEL_MESH_F64_CAP, seed=0):
+    """DLRM at its published widths on ``mesh`` against one device
+    ``dev``, parameters drawn on ``dev``: in float32 with the rows cap
+    sized by :func:`dlrm_mesh_sizing` (or ``cfg`` given) — the serve
+    step at ``serve_batch``, one query's retrieval over ``n_cand`` rows
+    of table 0, ``train`` steps of a ``RecsysPipeline`` batch, the first
+    held to one device's (:func:`dlrm_mesh_check`), each card's peak —
+    and the same in float64 with every table capped at ``f64_cap``
+    rows."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.models.dlrm import dlrm_init, padded_rows
+
+    batch_n, steps = train
+    sizing = None
+    if cfg is None:
+        sizing, cap = dlrm_mesh_sizing(
+            mesh, batch_n, card_bytes=torch.cuda.get_device_properties(
+                dev).total_memory, compare=True)
+        if cap is None:
+            return dict(sizing=sizing, ok=False), False
+        cfg = capped_recsys(cap=cap)
+    cards = _lm_cards(dev, mesh)
+    row, ok = dict(config=cfg.name, sizing=sizing, train=list(train),
+                   serve_batch=serve_batch), True
+    f64 = dataclasses.replace(capped_recsys(cap=f64_cap), dtype="float64")
+    for dt, c, n_steps in (("float32", cfg, steps), ("float64", f64, 1)):
+        t0 = time.perf_counter()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        params = dlrm_init(torch.Generator(device=dev).manual_seed(seed), c,
+                           device=dev)
+        batch = RecsysPipeline(c, batch_n).next_batch()
+        if dt == "float64":
+            batch = {k: v.astype(np.float64) if v.dtype == np.float32
+                     else v for k, v in batch.items()}
+        served = {k: batch[k][:serve_batch] for k in ("dense", "sparse_ids")}
+        cand = np.random.default_rng(seed).choice(
+            c.table_sizes[0], min(n_cand, c.table_sizes[0]),
+            replace=False).astype(np.int32)
+        one = dlrm_mesh_run(c, params, batch, served, cand, dev=dev,
+                            steps=1, out_device=dev)
+        got = dlrm_mesh_run(c, params, batch, served, cand, mesh=mesh,
+                            steps=n_steps, out_device=dev)
+        del params
+        row[dt], held = dlrm_mesh_check(
+            one, got, dev, tol=DLRM_FULL_F32_TOL if dt == "float32"
+            else MODEL_STEP_TOL)
+        row[dt].update(
+            rows_cap=max(c.table_sizes), rows=padded_rows(c),
+            candidates=len(cand), seconds=time.perf_counter() - t0,
+            card_peak={str(d): torch.cuda.max_memory_allocated(d)
+                       for d in cards} or None)
+        ok = ok and held
+        if cards:
+            torch.cuda.empty_cache()
+    row["ok"] = ok
+    return row, ok
+
+
+def gnn_mesh_full(dev, mesh, full=GNN_MESH_FULL, steps=GNN_MESH_STEPS,
+                  seed=0):
+    """Each of ``full`` (config, cell) at its published widths on
+    ``mesh`` against one device ``dev``: parameters drawn on the CPU,
+    one :func:`gnn_cell_batch`, ``steps`` steps, the first held to one
+    device's in both dtypes (:func:`gnn_mesh_compare`)."""
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.models.gnn_steps import gnn_init
+
+    rows, bad = {}, []
+    for name, shape in full:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        shape = GNN_SHAPES[shape] if isinstance(shape, str) else shape
+        b, d_feat = gnn_cell_batch(cfg, shape, np.random.default_rng(seed))
+        params = gnn_init(torch.Generator().manual_seed(seed), cfg, d_feat,
+                          device="cpu")
+        rows[name], ok = gnn_mesh_compare(name, params, b, d_feat, mesh, dev,
+                                          steps=steps)
+        rows[name].update(shape=shape, seconds=time.perf_counter() - t0)
+        if not ok:
+            bad.append(name)
+    return rows, bad
+
+
+def model_mesh_path(dev, smi, devices=None, **sizes):
+    """The GNN and recsys steps on a device mesh: a ``MODEL_MESH`` mesh
+    of four positions (on ``devices``, by default all on ``dev``); every
+    GNN ``-smoke`` config's train step and DLRM's three steps with a
+    row-sharded table against one device, both planted faults
+    (:func:`model_mesh_smoke`); DLRM at its published
+    widths (:func:`dlrm_mesh_full`; ``sizes`` its ``cfg``, ``train``,
+    ``serve_batch``, ``n_cand``, ``f64_cap`` where given) and NequIP and
+    GAT at theirs (:func:`gnn_mesh_full`; ``gnn`` where given).  No hand-written kernel
+    runs here: the JAX package has no Pallas kernel on this path."""
+    t0 = time.perf_counter()
+    mesh = lm_mesh_of(MODEL_MESH,
+                      devices or [dev] * math.prod(MODEL_MESH))
+    smoke, bad, faults = model_mesh_smoke(dev, mesh)
+    t_smoke = time.perf_counter() - t0
+    gnn_rows, gnn_bad = gnn_mesh_full(
+        dev, mesh, **({"full": sizes.pop("gnn")} if "gnn" in sizes else {}))
+    bad += gnn_bad
+    dlrm_row, dlrm_ok = dlrm_mesh_full(dev, mesh, **sizes)
+    if not dlrm_ok:
+        bad.append("dlrm-mlperf")
+    secs = time.perf_counter() - t0
+    caught = all(f["caught"] for f in faults.values())
+    ok = not bad and caught and secs <= MODEL_MESH_BUDGET_S
+    emit("model_mesh_path", ok=ok, gpu=smi, mesh=list(MODEL_MESH),
+         devices=[str(d) for d in mesh.devices], failed=bad, smoke=smoke,
+         planted_faults=faults, full_dlrm=dlrm_row, full_gnn=gnn_rows,
+         smoke_seconds=t_smoke, seconds=secs,
+         budget_seconds=MODEL_MESH_BUDGET_S)
+    if bad:
+        fail(f"GNN or DLRM steps on the mesh differ from one device: {bad}")
+    if not caught:
+        fail(f"a planted mesh fault went unseen: {faults}")
+    if secs > MODEL_MESH_BUDGET_S:
+        fail(f"model_mesh_path took {secs:.1f} s, over its "
+             f"{MODEL_MESH_BUDGET_S} s budget")
+
+
+def _mesh_dlrm_params(cfg, mesh, seed=0):
+    """DLRM's parameters laid out on ``mesh`` by ``dlrm_param_specs``
+    without the whole table on any one device: each shard of the
+    row-sharded table drawn on its card (normal · 0.01, as ``dlrm_init``
+    draws it), the MLPs drawn on the CPU and replicated."""
+    from repro_torch.models import nn, sharding
+    from repro_torch.models.dlrm import padded_rows
+    from repro_torch.models.gnn_steps import build_dlrm_serve_step
+
+    _, info = build_dlrm_serve_step(cfg, mesh)
+    specs = info["params"]
+    spec = sharding._full_spec(specs["emb"]["table"], 2)
+    shape = (padded_rows(cfg), cfg.embed_dim)
+    lay = sharding.layout(mesh)
+    shards = []
+    for p, dev in enumerate(mesh.devices):
+        rows = lay.slices(p, spec, shape)[0]
+        gen = torch.Generator(device=dev).manual_seed(
+            seed + 1 + lay.index(p, spec[0]))
+        shards.append(torch.randn((rows.stop - rows.start, shape[1]),
+                                  generator=gen, device=dev).mul_(0.01))
+    gen = torch.Generator().manual_seed(seed)
+    mlps = {k: nn.mlp_init(gen, getattr(cfg, f"{k}_mlp"), device="cpu")
+            for k in ("bot", "top")}
+    return {"emb": {"table": sharding.ShardedTensor(shards, spec, shape,
+                                                    mesh)},
+            **sharding.shard_tree(mlps, {k: specs[k] for k in mlps}, mesh)}
+
+
+def mesh_table_rows(st, ids, dev):
+    """Rows ``ids`` (a 1-D host tensor of global ids) of a row-sharded
+    table, copied from the shards that hold them onto ``dev``."""
+    from repro_torch.models import sharding
+
+    lay = sharding.layout(st.mesh)
+    ids = torch.as_tensor(ids).long()
+    out = torch.empty((ids.numel(), st.shape[1]), dtype=st.dtype, device=dev)
+    for p in lay.owners(st.spec, 2):
+        rows = lay.slices(p, st.spec, st.shape)[0]
+        sel = (ids >= rows.start) & (ids < rows.stop)
+        if bool(sel.any()):
+            shard = st.shards[p]
+            out[sel.to(dev)] = shard[(ids[sel] - rows.start).to(
+                shard.device)].to(dev)
+    return out
+
+
+def dlrm_mesh_big(cards, smi, seed=0, serve_batch=DLRM_MESH_SERVE,
+                  n_cand=RECSYS_CANDIDATES, train=RECSYS_TRAIN[0],
+                  steps=DLRM_MESH_BIG_STEPS, calls=5, cfg=None,
+                  caps=DLRM_MESH_BIG_CAPS, card_bytes=DLRM_MESH_BIG_CARD):
+    """DLRM at its published widths on a ``DLRM_MESH_BIG`` mesh with one
+    card a position (the four-card run): the uncapped table (177,944,576
+    rows) row-sharded, each card's shard drawn there; the serve step at
+    ``serve_batch`` and one query's retrieval over ``n_cand`` rows of
+    table 0, each held against the one-device forward over just the rows
+    they read, gathered from the shards (the retrieval also against a
+    float64 rescoring); then ``steps`` train steps at the largest rows
+    cap whose walk fits ``DLRM_MESH_BIG_CARD`` a card.  Each card's
+    ``max_memory_allocated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.models import gnn_steps as gs
+    from repro_torch.models.dlrm import (dlrm_forward, dlrm_retrieval,
+                                         padded_rows)
+    from repro_torch.models.nn import mlp
+    from repro_torch.sparse.embedding_bag import flatten_ids, table_offsets
+
+    t0 = time.perf_counter()
+    mesh = lm_mesh_of(DLRM_MESH_BIG, cards)
+    first = mesh.first
+    used = sorted(set(mesh.devices), key=str)
+
+    def peaks():
+        return {str(d): torch.cuda.max_memory_allocated(d) for d in used}
+
+    cfg = cfg or get_config(RECSYS_FULL)
+    for d in used:
+        torch.cuda.reset_peak_memory_stats(d)
+    params = _mesh_dlrm_params(cfg, mesh, seed)
+    table = params["emb"]["table"]
+    local = {k: {n: {m: t.shards[0].to(first) for m, t in layer.items()}
+                 for n, layer in params[k].items()} for k in ("bot", "top")}
+    serve, _ = gs.build_dlrm_serve_step(cfg, mesh)
+    ret, _ = gs.build_dlrm_retrieval_step(cfg, mesh)
+    batch = RecsysPipeline(cfg, serve_batch, seed=1).next_batch()
+    probs = serve(params, batch["dense"], batch["sparse_ids"])
+    serve_s = []
+    for _ in range(calls):
+        _lm_sync(used)
+        t = time.perf_counter()
+        serve(params, batch["dense"], batch["sparse_ids"])
+        _lm_sync(used)
+        serve_s.append(time.perf_counter() - t)
+    flat = flatten_ids(torch.from_numpy(batch["sparse_ids"]),
+                       table_offsets(cfg.table_sizes)).long()
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    offs = torch.as_tensor(table_offsets(cfg.table_sizes))
+    with torch.no_grad():
+        want = torch.sigmoid(dlrm_forward(
+            {"emb": {"table": mesh_table_rows(table, uniq, first)}, **local},
+            cfg, torch.from_numpy(batch["dense"]).to(first),
+            (inv - offs[None, :, None]).to(first)))
+    err_probs = lm_err(probs, want)
+    cand = np.random.default_rng(seed).choice(
+        cfg.table_sizes[0], n_cand, replace=False).astype(np.int32)
+    dense = batch["dense"][:1]
+    vals, idx = ret(params, dense, cand)
+    ret_s = []
+    for _ in range(calls):
+        _lm_sync(used)
+        t = time.perf_counter()
+        ret(params, dense, cand)
+        _lm_sync(used)
+        ret_s.append(time.perf_counter() - t)
+    rows = mesh_table_rows(table, torch.from_numpy(cand), first)
+    with torch.no_grad():
+        ov, oi = dlrm_retrieval({"emb": {"table": rows}, **local}, cfg,
+                                torch.from_numpy(dense).to(first),
+                                torch.arange(n_cand, device=first))
+        bot = {k: {n: t.double().cpu() for n, t in v.items()}
+               for k, v in local["bot"].items()}
+        q = mlp(bot, torch.from_numpy(dense).double(), final_act=True)
+        scores = rows.double().cpu() @ q[0]
+    top = retrieval_errs(vals, idx, scores)  # against the float64 scores
+    idx_equal = bool(torch.equal(idx.cpu(), oi.cpu()))
+    err_vals = lm_err(vals, ov)
+    serve_peaks = peaks()
+    shard_bytes = {str(d): table.shards[i].numel() * 4
+                   for i, d in enumerate(mesh.devices)}
+    del params, table, rows, local
+    torch.cuda.empty_cache()
+    serve_ok = (err_probs <= MODEL_OUT_TOL and idx_equal
+                and err_vals <= MODEL_OUT_TOL and top["distinct"]
+                and top["err_rank"] <= MODEL_OUT_TOL)
+
+    sizing, cap = dlrm_mesh_sizing(mesh, train, caps, card_bytes)
+    row_train = dict(sizing=sizing, cap=cap)
+    train_ok = cap is not None
+    if train_ok:
+        ccfg = capped_recsys(cap=cap)
+        for d in used:
+            torch.cuda.reset_peak_memory_stats(d)
+        fn, info = gs.build_dlrm_train_step(ccfg, mesh)
+        p = _mesh_dlrm_params(ccfg, mesh, seed)
+        o = info["opt_init"](p)
+        pipe = RecsysPipeline(ccfg, train)
+        losses, secs = [], []
+        for i in range(steps):
+            b = info["shard_batch"](pipe.next_batch())
+            _lm_sync(used)
+            t = time.perf_counter()
+            p, o, m = fn(p, o, b, i)
+            losses.append(float(m["loss"]))
+            _lm_sync(used)
+            secs.append(time.perf_counter() - t)
+        est = next(r["per_card"] for r in sizing if r["cap"] == cap)
+        card_peaks = peaks()
+        row_train.update(rows_cap=cap, losses=losses, step_seconds=secs,
+                         card_peaks=card_peaks, sizing_per_card=est,
+                         peak_over_sizing=max(card_peaks.values()) / est)
+        train_ok = all(math.isfinite(x) for x in losses)
+        del p, o
+        torch.cuda.empty_cache()
+    ok = serve_ok and train_ok
+    emit("dlrm_mesh_big", gpu=smi, ok=ok, mesh=list(DLRM_MESH_BIG),
+         devices=[str(d) for d in mesh.devices], config=cfg.name,
+         rows=padded_rows(cfg),
+         table_shard_bytes=shard_bytes,
+         serve=dict(batch=serve_batch, err_probs=err_probs,
+                    median_ms=float(np.median(serve_s)) * 1e3,
+                    seconds=serve_s),
+         retrieval=dict(candidates=n_cand, one_device_idx_equal=idx_equal,
+                        one_device_err_values=err_vals,
+                        median_ms=float(np.median(ret_s)) * 1e3,
+                        seconds=ret_s, **top),
+         serve_card_peaks=serve_peaks, train=row_train,
+         seconds=time.perf_counter() - t0)
+    if not serve_ok:
+        fail("DLRM's uncapped serve or retrieval on four cards differs from "
+             "the one-device forward over the rows they read")
+    if not train_ok:
+        fail("DLRM on four cards: no cap fits by the walk, or a loss is "
+             "not finite")
+
+
+# ----------------------------------------------------------------------
 # what ptxas says of each kernel
 # ----------------------------------------------------------------------
 def start_ptxas(_build):
@@ -6358,9 +7176,10 @@ def main():
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels, run the main path (its plan "
                          "and oracle), then only mesh_path, "
-                         "mesh_runtime_path and lm_mesh_path (one card a "
-                         "position where there are four cards, and then "
-                         "lm_mesh_big), and stop (no kernels line and no "
+                         "mesh_runtime_path, lm_mesh_path and "
+                         "model_mesh_path (one card a position where there "
+                         "are four cards, and then lm_mesh_big and "
+                         "dlrm_mesh_big), and stop (no kernels line and no "
                          "final line: this is not the smoke test)")
     args = ap.parse_args()
 
@@ -6414,8 +7233,10 @@ def main():
         del g
         cards = mesh_cards(math.prod(LM_MESH))
         phase("lm_mesh_path", lm_mesh_path, dev, smi, cards)
+        phase("model_mesh_path", model_mesh_path, dev, smi, cards)
         if len(set(cards)) == len(cards):
             phase("lm_mesh_big", lm_mesh_big, cards, smi)
+            phase("dlrm_mesh_big", dlrm_mesh_big, cards, smi)
         emit("total", seconds=time.perf_counter() - t_start, phases=phases,
              mesh_only=True)
         return
@@ -6426,6 +7247,7 @@ def main():
     phase("lm_path", lm_path, dev, smi)
     phase("lm_train_path", lm_train_path, dev, smi)
     phase("lm_mesh_path", lm_mesh_path, dev, smi)
+    phase("model_mesh_path", model_mesh_path, dev, smi)
     phase("recsys_path", recsys_path, dev, smi)
     phase("gnn_path", gnn_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))

@@ -19,17 +19,20 @@ GNN or triangle-count config exits with the reference's message (the GNNs
 train through ``repro_torch.examples.train_gnn``).  On a CPU use the
 ``-smoke`` configs.
 
-``--mesh [N]`` trains an LM on a ``(1, N)`` ``("data", "model")`` mesh,
-the reference's rule for a host with N devices: the first N CUDA cards
-(by default every card; fewer raise), or with ``--device cpu`` N
-positions on the CPU (N required).  Parameters are drawn as without a
-mesh and sharded (``models.steps``' mesh step); checkpoints hold the
-global arrays, so a run resumes across meshes and from or into a
-one-device run's directory.  DLRM's sharded step is not ported yet, so a
-recsys ``--arch`` with ``--mesh`` raises.
+``--mesh [N]`` trains an LM or DLRM on a ``(1, N)`` ``("data",
+"model")`` mesh, the reference's rule for a host with N devices: the
+first N CUDA cards (by default every card; fewer raise), or with
+``--device cpu`` N positions on the CPU (N required).  Parameters are
+drawn as without a mesh and sharded (``models.steps``' and
+``models.gnn_steps``' mesh steps: DLRM's table row-sharded over
+``model`` past 4,096 rows); an LM's checkpoints hold the global arrays,
+so a run resumes across meshes and from or into a one-device run's
+directory.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b-smoke \
         --mesh 4 --device cpu --steps 10 --ckpt-dir /tmp/lm_mesh
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch dlrm-mlperf-smoke --mesh 4 --device cpu --steps 20
 """
 from __future__ import annotations
 
@@ -100,18 +103,13 @@ def main(argv=None):
 
     mesh = None
     if args.mesh is not None:
-        if cfg.family != "lm":
-            raise SystemExit(
-                f"--mesh: the {cfg.family} family's sharded step is not "
-                "ported yet (ROADMAP: the GNN and DLRM sharded steps come "
-                "next); train it without --mesh")
         mesh = lm_mesh(args.mesh, args.device)
     dev = mesh.first if mesh is not None else resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     mgr = (CheckpointManager(args.ckpt_dir, keep=2, async_save=False)
            if args.ckpt_dir else None)
     if cfg.family == "recsys":
-        return _train_recsys(cfg, args, dev, gen)
+        return _train_recsys(cfg, args, dev, gen, mesh)
 
     from ..data.pipeline import TokenPipeline
     from ..models.steps import build_lm_train_step
@@ -153,15 +151,20 @@ def _report(step, steps, metrics):
         print(f"step {step:4d}  loss {float(metrics['loss']):.4f}")
 
 
-def _train_recsys(cfg, args, dev, gen):
+def _train_recsys(cfg, args, dev, gen, mesh=None):
     """The reference's recsys branch: DLRM from step 0 on
-    ``RecsysPipeline`` batches; no checkpoint is saved or restored."""
+    ``RecsysPipeline`` batches, on one device or sharded on ``mesh``; no
+    checkpoint is saved or restored."""
     from ..data.pipeline import RecsysPipeline
     from ..models.dlrm import dlrm_init
     from ..models.gnn_steps import build_dlrm_train_step
 
     params = dlrm_init(gen, cfg, device=dev)
-    fn, info = build_dlrm_train_step(cfg, device=dev)
+    if mesh is None:
+        fn, info = build_dlrm_train_step(cfg, device=dev)
+    else:
+        fn, info = build_dlrm_train_step(cfg, mesh)
+        params = info["shard"](params)
     opt = info["opt_init"](params)
     pipe = RecsysPipeline(cfg, args.batch)
     losses = {}

@@ -13,8 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import RecsysConfig
-from ..sparse.embedding_bag import embedding_bag, flatten_ids, table_offsets
-from . import nn
+from ..sparse.embedding_bag import flatten_ids, table_offsets
+from . import lockstep, nn
+from .lockstep import Bag, Mean, TableRows, TopK
 
 __all__ = ["dlrm_init", "dlrm_forward", "dlrm_loss", "dlrm_retrieval",
            "padded_rows"]
@@ -51,11 +52,14 @@ def _interact_dot(dense_v, sparse_v):
     return torch.cat([dense_v, pairs], dim=1)
 
 
+@lockstep.body
 def dlrm_forward(params, cfg: RecsysConfig, dense, sparse_ids):
-    """dense (B, 13); sparse_ids (B, F, H) local per-table ids -> (B,) logit."""
+    """dense (B, 13); sparse_ids (B, F, H) local per-table ids -> (B,) logit.
+    On a mesh the batch is each position's rows and the table its shard
+    of rows (:class:`~repro_torch.models.lockstep.Bag`)."""
     offs = table_offsets(cfg.table_sizes)
     flat = flatten_ids(sparse_ids, offs)
-    emb = embedding_bag(params["emb"]["table"], flat)  # (B, F, d)
+    emb = yield Bag(params["emb"]["table"], flat)  # (B, F, d)
     dv = nn.mlp(params["bot"], dense, final_act=True)  # (B, d)
     feats = _interact_dot(dv, emb)
     # pad/crop interaction features to the top MLP's input width
@@ -68,14 +72,16 @@ def dlrm_forward(params, cfg: RecsysConfig, dense, sparse_ids):
     return nn.mlp(params["top"], feats)[:, 0]
 
 
+@lockstep.body
 def dlrm_loss(params, cfg: RecsysConfig, dense, sparse_ids, labels):
-    """BCE with logits, the reference's formula op by op.  At a logit of
-    exactly 0 its gradient is ``jnp``'s too: ``maximum`` splits the tie,
-    and ``|x|`` takes the ``x >= 0`` branch (``torch.abs``'s gradient there
-    is 0, ``jnp.abs``'s is 1)."""
-    logits = dlrm_forward(params, cfg, dense, sparse_ids)
+    """BCE with logits, the reference's formula op by op, its mean over
+    the global batch.  At a logit of exactly 0 its gradient is ``jnp``'s
+    too: ``maximum`` splits the tie, and ``|x|`` takes the ``x >= 0``
+    branch (``torch.abs``'s gradient there is 0, ``jnp.abs``'s is 1)."""
+    logits = yield from lockstep.call(dlrm_forward, params, cfg, dense,
+                                      sparse_ids)
     absolute = torch.where(logits >= 0, logits, -logits)
-    loss = torch.mean(
+    loss = yield Mean(
         torch.maximum(logits, logits.new_zeros(()))
         - logits * labels
         + torch.log1p(torch.exp(-absolute))
@@ -83,17 +89,18 @@ def dlrm_loss(params, cfg: RecsysConfig, dense, sparse_ids, labels):
     return loss, {"loss": loss}
 
 
+@lockstep.body
 def dlrm_retrieval(params, cfg: RecsysConfig, dense, cand_ids, k: int = 100):
     """Score 1 query against N candidates: one matmul, then the top k.
 
     dense (1, 13) query features; cand_ids (N,) candidate rows of table 0.
     Returns ``(values, indices)``, indices int32; equal scores keep the
     lower index first, as ``jax.lax.top_k`` does (a stable descending
-    sort: ``torch.topk`` promises no order among ties).
+    sort: ``torch.topk`` promises no order among ties).  On a mesh the
+    candidates are sharded and the indices global
+    (:class:`~repro_torch.models.lockstep.TopK`).
     """
     q = nn.mlp(params["bot"], dense, final_act=True)  # (1, d)
-    cand = params["emb"]["table"][cand_ids.long()]  # (N, d)
+    cand = yield TableRows(params["emb"]["table"], cand_ids)  # (N, d)
     scores = (cand @ q[0]).to(torch.float32)  # (N,)
-    vals, idx = torch.sort(scores, descending=True, stable=True)
-    k = min(k, scores.shape[0])
-    return vals[:k], idx[:k].to(torch.int32)
+    return (yield TopK(scores, k))

@@ -25,8 +25,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ...sparse.segment import segment_softmax, segment_sum
-from .. import nn
+from ...sparse.segment import segment_sum
+from .. import lockstep, nn
+from ..lockstep import Gather, Psum, Rows, ScatterSum, SegmentSoftmax
 from .irreps import RotationBasis, _z_pairing
 from .nequip import _embed, _per_l, _shared, bessel_rbf, edge_geometry
 
@@ -178,15 +179,17 @@ def _rotate(d_align, x, lm, back=False):
                       for l in range(lm + 1)], dim=-1)
 
 
+@lockstep.body
 def equiformer_energy(params, cfg, species, positions, edge_src, edge_dst,
                       graph_id, n_graphs):
     n = species.shape[0]
+    n_all = yield Rows(species)
     c, lm = cfg.d_hidden, cfg.l_max
     edge_src, edge_dst = edge_src.long(), edge_dst.long()
     rb = RotationBasis(lm, device=positions.device)
     x = _embed(params, species, n, c, lm, positions.dtype)
 
-    r, unit = edge_geometry(positions, edge_src, edge_dst)
+    r, unit = edge_geometry((yield Gather(positions)), edge_src, edge_dst)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)
     # zero-length edges (self loops / padding) have no defined alignment
     # frame — their messages are masked out (required for equivariance)
@@ -196,7 +199,7 @@ def equiformer_energy(params, cfg, species, positions, edge_src, edge_dst,
 
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
-        xs = _equiv_layernorm(x)[edge_src]  # (E, C, S)
+        xs = (yield Gather(_equiv_layernorm(x)))[edge_src]  # (E, C, S)
         x_rot = _rotate(d_align, xs, lm)  # into the edge frame
         msg = _escn_message(p, cfg, x_rot)
         msg = msg * nn.mlp(p["radial"], rbf)[:, :, None]  # radial modulation
@@ -204,17 +207,17 @@ def equiformer_energy(params, cfg, species, positions, edge_src, edge_dst,
         msg = _rotate(d_align, msg, lm, back=True)
         # graph attention on scalar channel
         logits = nn.dense(p["attn"], msg[..., 0])  # (E, heads)
-        alpha = segment_softmax(logits, edge_dst, n)  # (E, heads)
+        alpha = yield SegmentSoftmax(logits, edge_dst, n_all)  # (E, heads)
         msg = msg * torch.mean(alpha, dim=-1)[:, None, None]
-        agg = segment_sum(msg, edge_dst, n)
+        agg = yield ScatterSum(msg, edge_dst, n_all)
         agg = _per_l(agg, p["post"], lm)
         # gated nonlinearity + scalar FFN (added to the l=0 line)
         scal = agg[..., 0]
-        gates = torch.sigmoid(nn.dense(p["gate"], scal).reshape(n, lm, c))
+        gates = torch.sigmoid(nn.dense(p["gate"], scal).reshape(-1, lm, c))
         parts = [(nn.silu(scal) + nn.mlp(p["ffn"], scal))[..., None]]
         for l in range(1, lm + 1):
             parts.append(agg[..., _sl(l)] * gates[:, l - 1, :, None])
         x = x + torch.cat(parts, dim=-1)
 
     e_atom = nn.mlp(params["readout"], x[..., 0])[:, 0]
-    return segment_sum(e_atom, graph_id, n_graphs)
+    return (yield Psum(segment_sum(e_atom, graph_id, n_graphs), "energy"))

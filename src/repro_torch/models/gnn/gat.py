@@ -2,15 +2,16 @@
 package's ``models/gnn/gat.py``).
 
 SDDMM edge scores -> segment softmax -> SpMM, all on edge lists through
-the :mod:`repro_torch.sparse` substrate.
+the :mod:`repro_torch.sparse` substrate, one body for one device and a
+device mesh (:mod:`repro_torch.models.lockstep`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ...sparse.segment import segment_softmax, segment_sum
-from .. import nn
+from .. import lockstep, nn
+from ..lockstep import Gather, Rows, ScatterSum, SegmentSoftmax
 
 __all__ = ["gat_init", "gat_apply"]
 
@@ -43,13 +44,14 @@ def _gat_layer(p, x, edge_src, edge_dst, n_nodes, heads, *, concat, act):
     h = nn.dense(p["w"], x)
     d_out = p["a_src"].shape[1]
     h = h.reshape(-1, heads, d_out)  # (N, H, d)
+    h = yield Gather(h)  # every node's rows, for the edges
     s_src = torch.einsum("nhd,hd->nh", h, p["a_src"])
     s_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
     logits = F.leaky_relu(s_src[edge_src] + s_dst[edge_dst],
                           negative_slope=0.2)  # (E, H)
-    alpha = segment_softmax(logits, edge_dst, n_nodes)  # (E, H)
+    alpha = yield SegmentSoftmax(logits, edge_dst, n_nodes)  # (E, H)
     msg = h[edge_src] * alpha[..., None]  # (E, H, d)
-    out = segment_sum(msg, edge_dst, n_nodes)  # (N, H, d)
+    out = yield ScatterSum(msg, edge_dst, n_nodes)  # (N, H, d)
     if concat:
         out = out.reshape(-1, heads * d_out)
     else:
@@ -57,16 +59,18 @@ def _gat_layer(p, x, edge_src, edge_dst, n_nodes, heads, *, concat, act):
     return act(out) if act is not None else out
 
 
+@lockstep.body
 def gat_apply(params, cfg, feats, edge_src, edge_dst):
     """feats (N, d_feat) -> logits (N, d_out).  Self-loops are the caller's
-    responsibility (Cora preprocessing adds them)."""
-    n = feats.shape[0]
+    responsibility (Cora preprocessing adds them).  On a mesh ``feats``
+    is each position's node rows and the edges its edges (global ids)."""
+    n = yield Rows(feats)
     edge_src, edge_dst = edge_src.long(), edge_dst.long()
     x = feats
     nl = cfg.n_layers
     for i in range(nl):
         last = i == nl - 1
-        x = _gat_layer(
+        x = yield from _gat_layer(
             params[f"layer{i}"],
             x,
             edge_src,

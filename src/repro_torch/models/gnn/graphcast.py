@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ...sparse.segment import segment_sum
-from .. import nn
+from .. import lockstep, nn
+from ..lockstep import Gather, Rows, ScatterSum
 
 __all__ = ["graphcast_init", "graphcast_apply"]
 
@@ -34,16 +34,18 @@ def graphcast_init(gen, cfg, d_feat: int, *, device=None):
     return params
 
 
+@lockstep.body
 def graphcast_apply(params, cfg, feats, edge_src, edge_dst):
     """feats (N, n_vars) -> next-state prediction (N, n_vars)."""
-    n = feats.shape[0]
+    n = yield Rows(feats)
     edge_src, edge_dst = edge_src.long(), edge_dst.long()
     h = nn.mlp(params["encoder"], feats)
     for i in range(cfg.n_layers):
         p = params[f"proc{i}"]
-        e_in = torch.cat([h[edge_src], h[edge_dst]], dim=-1)
+        h_all = yield Gather(h)
+        e_in = torch.cat([h_all[edge_src], h_all[edge_dst]], dim=-1)
         m = nn.layernorm(p["ln_e"], nn.mlp(p["edge_mlp"], e_in))
-        agg = segment_sum(m, edge_dst, n)
+        agg = yield ScatterSum(m, edge_dst, n)
         upd = nn.mlp(p["node_mlp"], torch.cat([h, agg], dim=-1))
         h = h + nn.layernorm(p["ln_n"], upd)  # residual processor step
     return nn.mlp(params["decoder"], h)

@@ -20,7 +20,8 @@ import math
 import torch
 
 from ...sparse.segment import segment_sum
-from .. import nn
+from .. import lockstep, nn
+from ..lockstep import Gather, Grad, Psum, Rows, ScatterSum
 from .irreps import _cg_tensor, sph_dim, sph_harm, tp_paths
 
 __all__ = ["nequip_init", "nequip_energy", "nequip_energy_forces",
@@ -158,15 +159,19 @@ def edge_geometry(positions, edge_src, edge_dst):
     return r, unit
 
 
+@lockstep.body
 def nequip_energy(params, cfg, species, positions, edge_src, edge_dst,
                   graph_id, n_graphs):
-    """Total energy per graph: (n_graphs,)."""
+    """Total energy per graph: (n_graphs,).  On a mesh the node arrays
+    are each position's rows and the edges its edges (global ids); the
+    energy's per-graph sums are psum-ed, so every position holds it."""
     n = species.shape[0]
+    n_all = yield Rows(species)
     c, lm = cfg.d_hidden, cfg.l_max
     edge_src, edge_dst = edge_src.long(), edge_dst.long()
     x = _embed(params, species, n, c, lm, positions.dtype)
 
-    r, unit = edge_geometry(positions, edge_src, edge_dst)
+    r, unit = edge_geometry((yield Gather(positions)), edge_src, edge_dst)
     y_edge = sph_harm(lm, unit)  # (E, S)
     rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)
     cg_terms = _cg_edge_terms(cfg, y_edge)
@@ -174,16 +179,17 @@ def nequip_energy(params, cfg, species, positions, edge_src, edge_dst,
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
         xm = _per_l(x, p["self"], lm)  # self-interaction pre-mix
-        msg = _tensor_product_messages(p, cfg, xm, edge_src, y_edge,
-                                       cg_terms, rbf)
-        agg = segment_sum(msg, edge_dst, n)
+        msg = _tensor_product_messages(p, cfg, (yield Gather(xm)), edge_src,
+                                       y_edge, cg_terms, rbf)
+        agg = yield ScatterSum(msg, edge_dst, n_all)
         agg = _per_l(agg, p["post"], lm)
         x = x + _gate(p, cfg, agg)
 
     e_atom = nn.mlp(params["readout"], x[..., 0])[:, 0]  # (N,)
-    return segment_sum(e_atom, graph_id, n_graphs)
+    return (yield Psum(segment_sum(e_atom, graph_id, n_graphs), "energy"))
 
 
+@lockstep.body
 def nequip_energy_forces(params, cfg, species, positions, edge_src,
                          edge_dst, graph_id, n_graphs):
     """``(energies, forces)``, forces ``-∂ΣE/∂positions``.
@@ -192,13 +198,17 @@ def nequip_energy_forces(params, cfg, species, positions, edge_src,
     grad mode is on at the call (a train step), the forces keep their
     graph (``create_graph=True``), so a loss on them differentiates twice
     and reaches the parameters; the positions themselves get no gradient.
+    On a mesh the energy is replicated and each position's copy is
+    seeded with one (:class:`~repro_torch.models.lockstep.Grad`): the
+    energy counts once, and each position gets its own atoms' forces.
     """
     keep = torch.is_grad_enabled()
     with torch.enable_grad():
         pos = positions.detach().requires_grad_(True)
-        e = nequip_energy(params, cfg, species, pos, edge_src, edge_dst,
-                          graph_id, n_graphs)
-        (grad,) = torch.autograd.grad(e.sum(), pos, create_graph=keep)
+        e = yield from nequip_energy.steps(params, cfg, species, pos,
+                                           edge_src, edge_dst, graph_id,
+                                           n_graphs)
+        (grad,) = yield Grad(e.sum(), (pos,), keep)
     if not keep:
         e = e.detach()
     return e, -grad

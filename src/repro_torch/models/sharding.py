@@ -21,7 +21,14 @@ and the two halves of a tensor-parallel region, :func:`replicate`
 (identity forward, psum backward) and :func:`split` (the position's chunk
 of a replicated value forward, all-gather backward) — are
 ``torch.autograd.Function``\\ s whose backward is the dual collective,
-given by hand: all-gather ↔ reduce-scatter, psum ↔ identity.  Every
+given by hand: all-gather ↔ reduce-scatter, psum ↔ identity, and
+:func:`all_reduce` (a sum that each member goes on to use in its own
+way) ↔ itself.  The backwards are made of differentiable ops (copies,
+slices, sums) or of the dual Function's ``apply``, so a graph built
+under ``create_graph`` (NequIP's forces) is differentiated again through
+them.  :func:`psum`'s identity backward holds where every member uses
+the sum alike (a loss, a replicated energy): each member's cotangent is
+then the one value's.  Every
 crossing between positions is an explicit copy (``_send``), counted in
 bytes under ``"<collective>:<what>"`` by :func:`tally_collective_bytes`;
 a group of one position moves nothing.  A psum sums on the group's first
@@ -53,6 +60,7 @@ __all__ = [
     "all_gather",
     "reduce_scatter",
     "psum",
+    "all_reduce",
     "pmax",
     "replicate",
     "split",
@@ -382,16 +390,16 @@ def _reduce_scatter(lay, axes, dim, xs, key, sizes=None):
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lay, axes, dim, tag, *xs):
+    def forward(ctx, lay, axes, dim, tag, sizes, *xs):
         out = _reduce_scatter_impl(lay, axes, dim, xs,
-                                   f"reduce_scatter:{tag}")
+                                   f"reduce_scatter:{tag}", sizes)
         ctx.meta = (lay, axes, dim, tag)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *gs):
         lay, axes, dim, tag = ctx.meta
-        return (None, None, None, None,
+        return (None, None, None, None, None,
                 *_gather_impl(lay, axes, dim, gs, f"all_gather:{tag}"))
 
 
@@ -403,6 +411,22 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         return (None, None, None, *gs)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lay, axes, tag, *xs):
+        ctx.meta = (lay, axes, tag)
+        return tuple(_psum_impl(lay, axes, xs, f"psum:{tag}"))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        lay, axes, tag = ctx.meta
+        gs = [g if g is not None else torch.zeros_like(_first(gs),
+                                                       device=lay.devices[p])
+              for p, g in enumerate(gs)]
+        return (None, None, None,
+                *_AllReduce.apply(lay, axes, f"{tag}-grad", *gs))
 
 
 class _Replicate(torch.autograd.Function):
@@ -465,14 +489,17 @@ def all_gather(xs: Sequence[torch.Tensor], mesh, axes, dim: int,
     return list(_AllGather.apply(lay, axes, dim % xs[0].dim(), tag, *xs))
 
 
-def reduce_scatter(xs, mesh, axes, dim: int, tag: str = "act"):
-    """The group's sum, cut into ceil chunks along ``dim``: member ``i``
+def reduce_scatter(xs, mesh, axes, dim: int, tag: str = "act", sizes=None):
+    """The group's sum, cut into ceil chunks along ``dim`` (or chunks of
+    ``sizes[p]`` for position ``p``, in the group's order): member ``i``
     keeps chunk ``i``; backward: all-gather."""
     lay = layout(mesh)
     axes = _norm_axes(lay, axes)
     if _trivial(lay, axes):
         return list(xs)
-    return list(_ReduceScatter.apply(lay, axes, dim % xs[0].dim(), tag, *xs))
+    sizes = None if sizes is None else tuple(sizes)
+    return list(_ReduceScatter.apply(lay, axes, dim % xs[0].dim(), tag,
+                                     sizes, *xs))
 
 
 def psum(xs, mesh, axes, tag: str = "act"):
@@ -484,8 +511,22 @@ def psum(xs, mesh, axes, tag: str = "act"):
     return list(_Psum.apply(lay, axes, tag, *xs))
 
 
+def all_reduce(xs, mesh, axes, tag: str = "act"):
+    """The group's sum on every member, where each member goes on to use
+    it in its own way (a softmax's denominators over each member's own
+    edges); backward: the sum of the members' cotangents (itself)."""
+    lay = layout(mesh)
+    axes = _norm_axes(lay, axes)
+    if _trivial(lay, axes):
+        return list(xs)
+    return list(_AllReduce.apply(lay, axes, tag, *xs))
+
+
 def pmax(xs, mesh, axes, tag: str = "act"):
-    """The group's elementwise maximum on every member (no gradient)."""
+    """The group's elementwise maximum on every member (no gradient:
+    every use in the models is a softmax's shift — the vocabulary CE,
+    the decode combine, the segment softmax — whose gradient the softmax
+    cancels)."""
     lay = layout(mesh)
     axes = _norm_axes(lay, axes)
     xs = [x.detach() for x in xs]

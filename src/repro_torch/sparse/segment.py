@@ -14,8 +14,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["segment_sum", "segment_max", "segment_softmax", "spmm_edges",
-           "degree"]
+__all__ = ["segment_sum", "segment_max", "segment_softmax",
+           "softmax_numerator", "softmax_normalise", "spmm_edges", "degree"]
 
 
 def _spare(segment_ids, num_segments: int):
@@ -41,12 +41,26 @@ def segment_max(data, segment_ids, num_segments: int):
 
 
 def segment_softmax(logits, segment_ids, num_segments: int):
-    """Numerically-stable softmax over variable-size segments (edge->dst)."""
+    """Numerically-stable softmax over variable-size segments (edge->dst).
+    On a device mesh the same three steps run on each position's edges,
+    the maxima and the denominators combined over the mesh between them
+    (:class:`repro_torch.models.lockstep.SegmentSoftmax`)."""
     seg_max = segment_max(logits, segment_ids, num_segments)
+    ex = softmax_numerator(logits, segment_ids, seg_max)
+    denom = segment_sum(ex, segment_ids, num_segments)
+    return softmax_normalise(ex, denom, segment_ids)
+
+
+def softmax_numerator(logits, segment_ids, seg_max):
+    """``exp(logit - max)`` of each edge, an empty segment's max taken as
+    zero."""
     seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                           seg_max.new_zeros(()))
-    ex = torch.exp(logits - seg_max[segment_ids.long()])
-    denom = segment_sum(ex, segment_ids, num_segments)
+    return torch.exp(logits - seg_max[segment_ids.long()])
+
+
+def softmax_normalise(ex, denom, segment_ids):
+    """Each edge's numerator over its segment's denominator."""
     return ex / torch.clamp(denom[segment_ids.long()], min=1e-16)
 
 

@@ -689,12 +689,15 @@ def test_the_reference_checkpoint_restores_onto_a_mesh(tmp_path):
 
 
 def test_train_mesh_refuses_recsys_and_a_short_host(monkeypatch):
-    """DLRM's sharded step is not ported: a recsys ``--arch`` with
-    ``--mesh`` exits naming the next slice; ``--mesh`` without N on the
-    CPU, or with more cards than the host has, exits too."""
-    with pytest.raises(SystemExit, match="GNN and DLRM sharded steps"):
-        _train(["--arch", "dlrm-mlperf-smoke", "--mesh", "2", "--device",
-                "cpu"])
+    """A GNN ``--arch`` with ``--mesh`` exits with the reference's message
+    (it has no GNN branch; DLRM trains on the mesh since its sharded step
+    was ported: ``test_torch_recsys_mesh.py``); ``--mesh`` without N on
+    the CPU, for DLRM as for an LM, or with more cards than the host has,
+    exits too."""
+    with pytest.raises(SystemExit, match="use examples/train_gnn.py"):
+        _train(["--arch", "nequip-smoke", "--mesh", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs N"):
+        _train(["--arch", "dlrm-mlperf-smoke", "--mesh", "--device", "cpu"])
     with pytest.raises(SystemExit, match="needs N"):
         _train(["--arch", "qwen2-0.5b-smoke", "--mesh", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

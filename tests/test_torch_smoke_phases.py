@@ -3,9 +3,10 @@
 The script runs only on a GPU; its ``hub_path``, ``rebalance_path``,
 ``many_path``, ``delta_path``, ``serve_path``, ``pod_path`` and
 ``measured_path`` phases, its ``search2`` phase, its ``dryrun_path``
-and ``substrate_path`` phases and its ``lm_path``, ``lm_train_path``
-and ``lm_mesh_path`` phases (on ``-smoke``
-configs only) are called here at a tiny scale with ``dev=cpu``,
+and ``substrate_path`` phases and its ``lm_path``, ``lm_train_path``,
+``lm_mesh_path`` and ``model_mesh_path`` phases (on ``-smoke``
+configs only), and ``dlrm_mesh_big`` on four CPU positions are called
+here at a tiny scale with ``dev=cpu``,
 with the CUDA timing calls stubbed, the entry points' device resolved to
 the CPU, and the fused kernel's launch counter bumped where the engine
 would launch it (on the CPU the wrapper takes its plain route and counts
@@ -507,7 +508,8 @@ def test_lm_train_path_phase(on_cpu, capsys, monkeypatch):
 
 def test_lm_mesh_path_phase(on_cpu, capsys, monkeypatch):
     """The five smoke configs' train, prefill and decode steps on a (2, 2)
-    mesh of four CPU positions against one device in both dtypes, each
+    mesh of four CPU positions against one device in the card's dtype
+    for each (``LM_MESH_SMOKE``: bfloat16 for the MoE configs), each
     train step's parameter traffic equal to its closed form, both planted
     faults caught (the gradients' reduce-scatter over ``data`` skipped;
     the decode combine without its rescale), and the full-width parts on
@@ -518,7 +520,8 @@ def test_lm_mesh_path_phase(on_cpu, capsys, monkeypatch):
     line = _line(capsys, "lm_mesh_path")
     assert line["ok"] and not line["failed"]
     assert line["mesh"] == [2, 2] and line["devices"] == ["cpu"] * 4
-    assert len(line["smoke"]) == 10
+    assert sorted(line["smoke"]) == sorted(
+        f"{n}/{d}" for n, d in chip_smoke.LM_MESH_SMOKE)
     for key, row in line["smoke"].items():
         assert row["ok"] and row["train"]["param_bytes_equal"], key
         moe = key.startswith(("grok", "deepseek"))
@@ -543,6 +546,70 @@ def test_lm_mesh_path_phase(on_cpu, capsys, monkeypatch):
     assert full["decode"]["ok"] and full["decode"]["tokens_differ"] == 0
     assert full["decode"]["err_prefill_logits"] <= chip_smoke.LM_FULL_CPU_TOL
     assert line["seconds"] <= chip_smoke.LM_MESH_BUDGET_S
+
+
+def test_model_mesh_path_phase(on_cpu, capsys):
+    """Every GNN smoke config's step and DLRM's three steps with a
+    row-sharded table on a (2, 2) mesh of four CPU positions against one
+    device in both dtypes, every replica equal, the retrieval tie kept,
+    both planted faults caught (the table's gradient not summed over
+    ``data``; NequIP's energy counted once a position), and the
+    full-width parts at small sizes: dlrm-mlperf with its tables capped
+    at 256 rows (5,120 after padding: row-sharded), NequIP and GAT smoke
+    configs on small cells."""
+    mol = dict(kind="batched", n_nodes=6, n_edges=8, batch=4)
+    graph = dict(kind="full", n_nodes=40, n_edges=120, d_feat=12)
+    chip_smoke.model_mesh_path(
+        CPU, "cpu", cfg=chip_smoke.capped_recsys(cap=256), train=(64, 2),
+        serve_batch=16, n_cand=200, f64_cap=64,
+        gnn=(("nequip-smoke", mol), ("gat-cora-smoke", graph)))
+    line = _line(capsys, "model_mesh_path")
+    assert line["ok"] and not line["failed"]
+    assert line["mesh"] == [2, 2] and line["devices"] == ["cpu"] * 4
+    assert len(line["smoke"]) == 5
+    for key, row in line["smoke"].items():
+        assert row["ok"], key
+        for dt in ("float64", "float32"):
+            assert row[dt]["mesh"]["replicas_equal"], (key, dt)
+            assert row[dt]["err_grad_norm"] <= \
+                chip_smoke.MODEL_STEP_TOL["grad_norm"], (key, dt)
+    dlrm = line["smoke"]["dlrm-mlperf-smoke"]
+    assert dlrm["rows"] == 7168 and dlrm["float32"]["tie_kept"]
+    assert dlrm["float32"]["mesh"]["bytes"]["psum:lookup"] > 0
+    faults = line["planted_faults"]
+    assert faults["unsummed_table_grads"]["caught"]
+    assert faults["energy_per_position"]["caught"]
+    full = line["full_dlrm"]
+    assert full["ok"] and full["float32"]["rows"] == 5120
+    assert len(full["float32"]["mesh"]["losses"]) == 2
+    assert full["float32"]["idx_equal"] and full["float64"]["idx_equal"]
+    assert set(line["full_gnn"]) == {"nequip-smoke", "gat-cora-smoke"}
+    assert all(r["ok"] for r in line["full_gnn"].values())
+    assert line["seconds"] <= chip_smoke.MODEL_MESH_BUDGET_S
+
+
+def test_dlrm_mesh_big_phase(on_cpu, capsys):
+    """``dlrm_mesh_big`` (the four-card phase) on four CPU positions at a
+    small size: dlrm-mlperf's tables capped at 512 rows (9,728 after
+    padding, row-sharded), each position's shard drawn on its own; serve
+    and retrieval held to the one-device forward over the rows they read
+    (gathered from the shards), the retrieval to a float64 rescoring too;
+    two train steps at the largest cap the walk fits."""
+    cpu4 = [CPU] * 4
+    chip_smoke.dlrm_mesh_big(
+        cpu4, "cpu", cfg=chip_smoke.capped_recsys(cap=512), serve_batch=32,
+        n_cand=300, train=256, steps=2, calls=2, caps=(1 << 9, 1 << 8),
+        card_bytes=2e9)
+    line = _line(capsys, "dlrm_mesh_big")
+    assert line["ok"] and line["mesh"] == [1, 4]
+    assert line["rows"] == 9728
+    assert line["serve"]["err_probs"] <= chip_smoke.MODEL_OUT_TOL
+    ret = line["retrieval"]
+    assert ret["one_device_idx_equal"] and ret["idx_equal"] == 100
+    assert ret["distinct"] and ret["err_rank"] <= chip_smoke.MODEL_OUT_TOL
+    train = line["train"]
+    assert train["cap"] == 512 and len(train["losses"]) == 2
+    assert all(np.isfinite(train["losses"]))
 
 
 @pytest.mark.gpu
