@@ -262,18 +262,24 @@ What it does, in order, printing one JSON object per line:
                     kernel launch a counted device-step, the per-position
                     partials against one device's, one device-step's
                     launch against its plain version on each card used,
-                    warm counts on the mesh and on one device in turns,
-                    the bytes each engine phase moved on both; then SUMMA
-                    2 x 8, the ring p = 16 and 2 pods under ``tree`` on
-                    meshes of their own, each against the oracle;
+                    warm counts on the mesh (Cannon's double-buffered and
+                    single-buffered bodies) and on one device in turns,
+                    both bodies' partials against one device's, one warm
+                    count of each body under the profiler (by card: count
+                    and copy ms, their streams, ``overlap_ms``; fails if a
+                    shift copy ran on a compute stream), the bytes each
+                    engine phase moved on both; then SUMMA 2 x 8, the ring
+                    p = 16 and 2 pods under ``tree`` on meshes of their
+                    own, each against the oracle;
    ``mesh_runtime_path`` — the runtime on that mesh, the main fused plan
                     reused: ``supervised_count(g, mesh)`` with transient
                     faults (3 restarts) and with 7 positions lost at step
                     0 (Cannon 3 x 3 on the first 9 positions' cards; one
                     kernel launch a counted device-step, one device-step
                     a card against its plain version), ``tc_run --mesh
-                    --ckpt-dir`` with faults and a resume (each save's
-                    bytes and seconds), ``tc_run --mesh --time-split``
+                    --ckpt-dir`` with faults and a resume (the
+                    double-buffered stepper: each save's bytes, seconds
+                    and 8 carry leaves), ``tc_run --mesh --time-split``
                     (Cannon and the ring at ``rmat(16, 16)``) and
                     ``--opt`` (``rmat(18, 16)``), and
                     ``distributed_degree_rank`` over the 16 positions
@@ -1598,7 +1604,8 @@ def cli_hooks(g, spec):
         out = save(directory, step, tree, **kw)
         saves.append(dict(step=step, seconds=time.perf_counter() - t0,
                           bytes=os.path.getsize(os.path.join(
-                              directory, f"step_{step:010d}.npz"))))
+                              directory, f"step_{step:010d}.npz")),
+                          carry=sum(k.startswith("carry") for k in tree)))
         return out
 
     core.graph_from_spec, manager.save_checkpoint = from_spec, timed_save
@@ -2665,18 +2672,172 @@ def mesh_cards(n):
             for i in range(n)]
 
 
+def _union(spans):
+    """The merged ``[start, end]`` spans of ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys):
+    """How long two sets of spans run at once: the length of the
+    intersection of their unions."""
+    xs, ys = _union(xs), _union(ys)
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        total += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def shift_trace(events, issued, kernel="fused_counts_kernel"):
+    """Where a profiled mesh count's shift copies ran, from its chrome
+    trace ``events`` and the copies the engine issued (``issued``: the
+    ``copy`` entries of its ``lanes.issue_log()``).  A shift copy is a
+    ``gpu_memcpy`` of one of the issued copies' byte sizes; a card's
+    compute stream is the one its count kernels (names holding
+    ``kernel``) ran on; ``memcpys`` counts every copy of the trace by
+    kind and size.  Per card: the streams of each, the count
+    kernels' and the copies' device ms, ``busy_ms`` (the union of both),
+    ``span_ms`` (the first one's start to the last one's end: the card
+    idles for the rest of it) and ``overlap_ms`` (how long a copy and a
+    count kernel ran at once); ``on_compute`` counts the shift copies
+    that ran on a compute stream."""
+    sizes = {e["bytes"] for e in issued}
+    kern, copies, memcpys = {}, {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "gpu_memcpy":  # every copy, by kind and size
+            key = f"{e.get('name')}: {args.get('bytes')} B"
+            memcpys[key] = memcpys.get(key, 0) + 1
+        # a peer copy names the device it ran on "inDevice"
+        device = args.get("device", args.get("inDevice"))
+        if e.get("ph") != "X" or device is None:
+            continue
+        span = (e["ts"] / 1e3, (e["ts"] + e["dur"]) / 1e3, args["stream"])
+        if e.get("cat") == "kernel" and kernel in e.get("name", ""):
+            kern.setdefault(device, []).append(span)
+        elif e.get("cat") == "gpu_memcpy" and args.get("bytes") in sizes:
+            copies.setdefault(device, []).append(span)
+    cards, on_compute = {}, 0
+    for d in sorted(set(kern) | set(copies)):
+        ks, cs = kern.get(d, []), copies.get(d, [])
+        compute = sorted({s for _, _, s in ks})
+        on_compute += sum(1 for _, _, s in cs if s in compute)
+        cards[f"cuda:{d}"] = dict(
+            compute_streams=compute, copy_streams=sorted({s for _, _, s in cs}),
+            count_kernels=len(ks), count_ms=sum(b - a for a, b, _ in ks),
+            copies=len(cs), copy_ms=sum(b - a for a, b, _ in cs),
+            busy_ms=sum(b - a for a, b in _union(
+                [(a, b) for a, b, _ in ks + cs])),
+            span_ms=max(b for _, b, _ in ks + cs) - min(
+                a for a, _, _ in ks + cs),
+            overlap_ms=_overlap([(a, b) for a, b, _ in ks],
+                                [(a, b) for a, b, _ in cs]))
+    return dict(cards=cards, shift_copies_issued=len(issued),
+                shift_copies_traced=sum(c["copies"] for c in cards.values()),
+                on_compute=on_compute, memcpys=memcpys)
+
+
+MESH_ENGINE_REPS = 5  # engine calls a body, the bodies in turns
+
+
+def engine_times(plan, staged, mesh, dev):
+    """The fused engine function over the staged mesh arrays, both bodies
+    in turns, ``MESH_ENGINE_REPS`` calls each: ``issue`` is the host's time
+    until the call returns (every launch and copy queued), ``total`` until
+    the sum is on the host and every card is idle (ms).  Where the two
+    are close, the cards wait on the host."""
+    from repro_torch.core.cannon import build_cannon_fn
+
+    cards = list(dict.fromkeys(mesh.devices))
+
+    def idle():
+        for d in cards:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    fns = {name: build_cannon_fn(plan, method="fused", mesh=mesh,
+                                 double_buffer=name == "double")
+           for name in ("double", "single")}
+    out = {name: dict(issue=[], total=[]) for name in fns}
+    for _ in range(MESH_ENGINE_REPS):
+        for name, fn in fns.items():
+            idle()
+            t0 = time.perf_counter()
+            r = fn(**staged)
+            t1 = time.perf_counter()
+            int(r)
+            idle()
+            out[name]["issue"].append((t1 - t0) * 1e3)
+            out[name]["total"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def traced_mesh_count(count, dev, cards):
+    """``count()`` (a warm mesh count, through ``count_triangles``) once
+    as the profiler's warm-up and once recorded, each under
+    ``lanes.issue_log()``: the recorded count's :func:`shift_trace`
+    (device activity only) and its wall seconds (the warm call's graph
+    digest, ≈ 0.5 s at rmat 20, included).  On the CPU nothing is traced:
+    the issue log's copies and their lanes."""
+    from repro_torch.core import lanes
+
+    def logged():
+        with lanes.issue_log() as log:
+            count()
+        return [e for e in log if e["op"] == "copy"]
+
+    if dev.type != "cuda":
+        copies = logged()
+        return dict(trace="not measured", shift_copies_issued=len(copies),
+                    copy_lanes=sorted({e["src_stream"][0] for e in copies}))
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            copies = logged()
+            for d in cards:
+                torch.cuda.synchronize(d)
+            wall = time.perf_counter() - t0
+            prof.step()
+    with tempfile.TemporaryDirectory(prefix="mesh_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return dict(shift_trace(events, copies), profiled_wall_seconds=wall)
+
+
 def mesh_path(g, oracle, dev, q):
     """The main graph's cached fused plan counted on a device mesh of
     ``q * q`` positions, position ``i`` on card ``i`` mod the cards
     present (``make_grid_mesh(q, devices=...)``): every shift a copy
-    between positions, the sum on the first card.  The count equals the
-    oracle, the per-position partials equal the one-device engine's, the
+    between positions on the cards' copy streams, the sum on the first
+    card.  The count equals the oracle, the per-position partials equal
+    the one-device engine's with Cannon's double buffer and without, the
     fused kernel launches once a counted device-step (the counts set to 0
     just before the mesh count), and on each card used one device-step's
-    launch equals its plain version.  Then SUMMA 2 x 8, the ring p = 16 and
-    2 pods under ``tree`` on meshes of their own, each equal to the
-    oracle.  Reports the cards, the warm count's seconds on the mesh and
-    on one device, and the bytes each engine phase moved on the mesh."""
+    launch equals its plain version.  One warm count of each body runs
+    under the profiler (:func:`traced_mesh_count`): the phase fails if a
+    shift copy ran on a compute stream or went untraced.  Then SUMMA
+    2 x 8, the ring p = 16 and 2 pods under ``tree`` on meshes of their
+    own, each equal to the oracle.  Reports the cards, the warm counts'
+    seconds on the mesh (both bodies) and on one device, the engine
+    call's host issue and total ms in both bodies (:func:`engine_times`),
+    each body's trace by card (count and copy ms, their streams,
+    ``overlap_ms``), and the bytes each engine phase moved on the mesh."""
     import repro_torch as rt
     from repro_torch.core.cannon import build_cannon_fn
     from repro_torch.core.engine import tally_moved_bytes
@@ -2705,23 +2866,49 @@ def mesh_path(g, oracle, dev, q):
     if cold.triangles != oracle:
         fail(f"the mesh count gave {cold.triangles}, not {oracle}")
 
-    warm_mesh, warm_one = [], []
+    t_added = time.perf_counter()
+    warm_mesh, warm_single, warm_one = [], [], []
     for _ in range(MESH_WARM):
         warm_mesh.append(rt.count_triangles(g, mesh, method="fused"))
+        warm_single.append(rt.count_triangles(g, mesh, method="fused",
+                                              double_buffer=False))
         warm_one.append(rt.count_triangles(g, q=q, method="fused"))
-    if {r.triangles for r in warm_mesh + warm_one} != {oracle}:
-        fail("a warm count on the mesh or on one device missed the oracle")
+    if {r.triangles for r in warm_mesh + warm_single + warm_one} != {oracle}:
+        fail("a warm count on the mesh (double- or single-buffered) or on "
+             "one device missed the oracle")
     with tally_moved_bytes() as tally:
         rt.count_triangles(g, mesh, method="fused")
     with tally_moved_bytes() as tally_one:
         rt.count_triangles(g, q=q, method="fused")
 
-    on_mesh = build_cannon_fn(plan, method="fused", reduce_global=False,
-                              mesh=mesh)(**art.staged(mesh))
     one = build_cannon_fn(plan, method="fused", reduce_global=False)(
         **art.staged(dev))
-    if on_mesh.device != mesh.first or on_mesh.tolist() != one.tolist():
-        fail("the mesh's per-position partials differ from one device's")
+    for double in (True, False):
+        on_mesh = build_cannon_fn(plan, method="fused", reduce_global=False,
+                                  double_buffer=double, mesh=mesh)(
+                                      **art.staged(mesh))
+        if on_mesh.device != mesh.first or on_mesh.tolist() != one.tolist():
+            fail(f"the mesh's per-position partials (double_buffer="
+                 f"{double}) differ from one device's")
+    engine_ms = engine_times(plan, art.staged(mesh), mesh, dev)
+
+    bodies = {}
+    for name, double in (("double", True), ("single", False)):
+        def count(double=double):
+            if rt.count_triangles(g, mesh, method="fused",
+                                  double_buffer=double).triangles != oracle:
+                fail(f"the traced {name}-buffered mesh count missed the "
+                     "oracle")
+        bodies[name] = traced_mesh_count(count, dev, dict.fromkeys(
+            mesh.devices))
+    added_seconds = time.perf_counter() - t_added
+    # checked after the line is printed: a shift copy on a compute stream,
+    # or one the trace does not show
+    bad = [name for name, body in bodies.items()
+           if body.get("copy_lanes", ["copy"]) != ["copy"]
+           or body.get("on_compute", 0)
+           or body.get("shift_copies_traced", body["shift_copies_issued"])
+           != body["shift_copies_issued"]]
 
     staged = art.staged(mesh)
     kw = dict(n_long=plan.n_long, d_small=plan.d_small, dpad_long=plan.dmax,
@@ -2757,15 +2944,21 @@ def mesh_path(g, oracle, dev, q):
                             warm_count_seconds=warm.count_seconds)
         if r.triangles != oracle or warm.triangles != oracle:
             fail(f"{name} on the mesh gave {r.triangles}, not {oracle}")
-    emit("mesh_path", ok=True, cards=cards, positions=q * q,
+    emit("mesh_path", ok=not bad, cards=cards, positions=q * q,
          device_count=torch.cuda.device_count(), triangles=cold.triangles,
          triangles_scipy_oracle=oracle, kernel_launches=launches,
          device_steps_counted=expect, cold_count_seconds=cold.count_seconds,
          cold_preprocess_seconds=cold.preprocess_seconds,
          warm_count_seconds_mesh=[r.count_seconds for r in warm_mesh],
+         warm_count_seconds_mesh_single=[r.count_seconds
+                                         for r in warm_single],
          warm_count_seconds_one_device=[r.count_seconds for r in warm_one],
+         engine_ms=engine_ms, overlap=bodies, overlap_seconds=added_seconds,
          moved_bytes_mesh=tally, moved_bytes_one_device=tally_one,
          partials_equal=True, kernel_per_card=per_card, **others)
+    if bad:
+        fail(f"the mesh count's trace ({bad}) shows a shift copy on a "
+             "compute stream, or fewer shift copies than were issued")
 
 
 # ----------------------------------------------------------------------
@@ -2799,7 +2992,9 @@ def mesh_checkpointed_cli(g, oracle, dev, q, graph, cards):
     """``tc_run --mesh --ckpt-dir`` on the ``q x q`` mesh of
     :func:`mesh_cli_cards` at chunk ``CKPT_CHUNK``: with ``CLI_FAULTS``,
     then again in that directory, which resumes at shift ``q``.  Each
-    save's bytes and seconds.  Returns the record and its failed checks."""
+    save's bytes, seconds and carry leaves (8: the double-buffered
+    stepper, where the plan compacts nothing).  Returns the record and its
+    failed checks."""
     bad, runs = [], {}
     with tempfile.TemporaryDirectory(prefix="tc_mesh_ckpt_") as tmp:
         faults = os.path.join(tmp, "faults")
@@ -2815,6 +3010,7 @@ def mesh_checkpointed_cli(g, oracle, dev, q, graph, cards):
                 text, rep, sec = run_cli(base + extra)
                 runs[name] = dict(
                     seconds=sec, triangles=rep["triangles"],
+                    live_steps=rep.get("live_steps"),
                     device=rep.get("device"), ppt_seconds=rep["ppt_seconds"],
                     tct_seconds=rep["tct_seconds"],
                     printed=[ln for ln in text.splitlines()
@@ -2831,6 +3027,9 @@ def mesh_checkpointed_cli(g, oracle, dev, q, graph, cards):
     runs["faults"]["corrupt_files"] = corrupt
     if not ((runs["faults"]["restarts"] or 0) >= 1 and corrupt):
         bad.append("mesh_cli_recovery")
+    if runs["faults"]["live_steps"] == q and {
+            sv["carry"] for sv in runs["faults"]["saves"]} != {8}:
+        bad.append("mesh_cli_double_buffered")
     if (f"resumed at shift {q}" not in runs["resume"]["printed"]
             or runs["resume"]["saves"]):
         bad.append("mesh_cli_resume")

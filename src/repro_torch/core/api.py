@@ -778,8 +778,12 @@ def count_triangles(
     auto: on when the plan staged ``step_keep`` masks; False forces the
     unmasked engine); ``compact`` controls the compacted kept-step
     schedule (None = auto: on when the planner's compaction stage elided
-    a step; False keeps the full loop); ``double_buffer`` is accepted
-    and gives the same count.  Planning goes through the
+    a step; False keeps the full loop); ``double_buffer`` (Cannon) picks
+    the loop body on a mesh: step ``s + 2``'s shift issued before step
+    ``s`` counts (True), or step ``s + 1``'s (False), the copies beside
+    the count on the cards' copy streams; the count is the same either
+    way, and on one device the loop counts, then rolls.  Planning goes
+    through the
     content-addressed plan cache (``cache=None`` uses the process-wide
     default — pass a ``repro_torch.pipeline.PlanCache`` to isolate, or
     one with ``maxsize=0`` to disable): repeated counts of an

@@ -162,8 +162,10 @@ def build_cannon_fn(
     global and search2 kernels pick up planner-staged ``b_aug``
     intersection keys when the plan carries them (no other method reads
     them, so none carries them along).
-    ``double_buffer`` is accepted and gives the same count (see
-    :class:`~repro_torch.core.engine.CannonSchedule`).  A hub-split plan
+    ``double_buffer`` picks the body on a mesh — step ``s + 2``'s shift
+    issued before step ``s`` counts, or step ``s + 1``'s — and gives the
+    same count (see :class:`~repro_torch.core.engine.CannonSchedule`).  A
+    hub-split plan
     adds its hub partial (:class:`~repro_torch.core.engine.HubCount`,
     the plain search whatever ``method`` counts the residual).
     ``batched=True`` builds the multi-graph function of

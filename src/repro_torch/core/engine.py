@@ -38,20 +38,27 @@ The second realisation spreads the grid over a
 :class:`~repro_torch.launch.mesh.DeviceMesh`, as the JAX package's
 ``shard_map`` does: every staged array is a :class:`MeshArray` holding
 position ``(x, y)``'s block on that position's device, and the same
-schedule loop (:meth:`ShiftSchedule.run`) runs over it.  Only three things
-change: the payload's container (a :class:`MeshArray` in place of a
-stacked tensor, packed position by position), the shift
-(:func:`tree_ppermute`: each block is ``copy_``'d into a receive buffer on
-its destination's device, and the buffers swap after the step) and the
-reduction (every partial is copied to the mesh's first device and summed
-there; the pod tree sends per-pod sums between the pods' devices).  A
-SUMMA round copies the owner's panels along its row and column
-(:func:`chain_broadcast`, or the owner sending to each in turn for
-``onehot``).  Ordering across devices rests on PyTorch's stream semantics
-for a peer ``copy_`` (a two-way barrier between the two devices' current
-streams), so no step synchronises.  A shift is not overlapped with the
-count (the JAX package's ``double_buffer``): that is a matter of speed,
-left to later work.
+schedule loop (:meth:`ShiftSchedule.run`) runs over it.  What changes: the
+payload's container (a :class:`MeshArray` in place of a stacked tensor,
+packed position by position), the shift (:func:`tree_ppermute`: each
+block is ``copy_``'d into a receive buffer on its destination's device,
+the buffers a ring the run allocates at its entry), the order of the
+loop's body and the reduction (every partial is copied to the mesh's
+first device and summed there; the pod tree sends per-pod sums between
+the pods' devices).  The bodies are the JAX package's: the shift that
+feeds a later step is issued before the current step counts, so the copy
+and the count touch disjoint buffers — with Cannon's ``double_buffer``
+(the default) step ``s + 2``'s shift before step ``s``'s count, after a
+prologue shift of step 1's blocks; single-buffered, on the ring and on a
+compacted schedule the shift to the next counted step.  The copies run on
+a copy stream of each CUDA device, ordered against the counts by events
+alone (:mod:`repro_torch.core.lanes`), and every run ends with each
+compute stream waiting for its copy stream, so no step synchronises and
+the caller sees finished copies.  A SUMMA round copies the owner's panels
+along its row and column (:func:`chain_broadcast`, or the owner sending
+to each in turn for ``onehot``) on the current streams, whose peer
+``copy_`` is a two-way barrier between the two devices' current streams,
+as are the reduction's copies.
 
 Carried over here: the CSR-kernel registry (``search``, ``search2``,
 ``global``, ``fused``), :class:`CSRStore` (with ``with_aug``),
@@ -97,6 +104,7 @@ import torch
 from ..kernels.tc_tile import tile_pair_count
 from ..launch.mesh import DeviceMesh
 from . import count as count_mod
+from . import lanes as lanes_mod
 from .blob import blob_layout, pack_blob, unpack_blob
 
 __all__ = [
@@ -182,21 +190,21 @@ class MeshArray:
     It is indexed as the stacked tensor it stands for: ``t[pos]`` is the
     block and ``t[pos + rest]`` is ``block[rest]``, so the stores read a
     position's operands alike on one device and on a mesh; ``shape`` is
-    the grid's shape followed by a block's.  ``owned`` marks blocks the
-    engine made (packed blobs, received shifts), which a later shift may
-    overwrite; staged blocks are never written.  ``spare`` holds the
-    previous generation's blocks of a shifted payload: the next shift's
-    receive buffers.
+    the grid's shape followed by a block's.  A shifted payload's arrays
+    carry ``ring``, the receive buffers a run allocated at its entry
+    (:func:`_ringed`), and ``gen``, the shifts since that entry: the next
+    shift writes ``ring[gen % len(ring)]`` (:func:`tree_ppermute`).  No
+    other block is ever written by a shift.
     """
 
-    __slots__ = ("mesh", "blocks", "owned", "spare")
+    __slots__ = ("mesh", "blocks", "ring", "gen")
 
     def __init__(self, mesh, blocks: Dict[tuple, torch.Tensor], *,
-                 owned: bool = False, spare: Optional[Dict] = None):
+                 ring: Tuple[Dict, ...] = (), gen: int = 0):
         self.mesh = mesh
         self.blocks = blocks
-        self.owned = owned
-        self.spare = spare
+        self.ring = ring
+        self.gen = gen
 
     def _split(self, idx):
         idx = idx if isinstance(idx, tuple) else (idx,)
@@ -240,7 +248,7 @@ class MeshArray:
         ``others``'), on that position: a new array the engine owns."""
         return MeshArray(self.mesh, {
             pos: fn(b, *(o.blocks[pos] for o in others))
-            for pos, b in self.blocks.items()}, owned=True)
+            for pos, b in self.blocks.items()})
 
 
 def _on_mesh(t) -> bool:
@@ -310,28 +318,53 @@ def _roll_tree(tree, k: int, dim: int):
 def tree_ppermute(tree, dim: int, perm):
     """Permute every :class:`MeshArray` of a payload along grid dimension
     ``dim`` by the ``(source, destination)`` pairs ``perm``: each block is
-    ``copy_``'d into a receive buffer on its destination's device.  The
-    buffers are the payload's previous generation where the engine owns it
-    (so two generations swap from step to step), else new ones; staged
-    blocks are only read.  No synchronisation: a peer ``copy_`` orders
-    itself after the work queued on both devices' current streams, and
-    the receiver's later work after it."""
+    ``copy_``'d into a receive buffer on its destination's device.
+
+    The receive buffers are the payload's ring, allocated at the run's
+    entry (:func:`_ringed`): generation ``g`` of a ring of ``n`` lands in
+    ``ring[(g - 1) % n]``, so a run keeping ``n`` generations alive (2,
+    or 3 with Cannon's double buffer) writes the buffers of the generation
+    ``n`` behind, whose last count was issued before.  Staged blocks are
+    only read.  The copies run on the devices' copy streams
+    (:meth:`~repro_torch.core.lanes.Lanes.shift`), after the last count
+    that read the buffer's earlier generation; a call outside a run
+    allocates its own buffers and joins its copies before it returns.
+    Nothing synchronises."""
     dest = dict(perm)
-    out = []
-    for t in tree:
-        recv = {}
-        for pos, block in t.blocks.items():
-            to = pos[:dim] + (dest[pos[dim]],) + pos[dim + 1:]
-            if t.spare is not None:
-                buf = t.spare[to]
-                buf.copy_(block)
-                _tally("shift", buf)
-            else:
-                buf = _send(block, t.mesh.device_at(to), "shift")
-            recv[to] = buf
-        out.append(MeshArray(t.mesh, recv, owned=True,
-                             spare=t.blocks if t.owned else None))
+    mesh = tree[0].mesh
+    if lanes_mod.active() is None:
+        tree = _ringed(tree, 1)
+    (gen, n), = {(t.gen, len(t.ring)) for t in tree}
+    if not n:
+        raise ValueError("a shift inside a run writes the receive buffers "
+                         "the run allocated at its entry: the payload has "
+                         "none")
+    slot, out, moves = gen % n, [], []
+    with lanes_mod.lanes(mesh) as ln:
+        for t in tree:
+            recv = t.ring[slot]
+            for pos, block in t.blocks.items():
+                to = pos[:dim] + (dest[pos[dim]],) + pos[dim + 1:]
+                moves.append((block, pos, recv[to], to))
+                _tally("shift", recv[to])
+            out.append(MeshArray(t.mesh, recv, ring=t.ring, gen=gen + 1))
+        ln.shift(moves, gen + 1, slot, n)
     return tuple(out)
+
+
+def _ringed(tree, n: int):
+    """``tree``'s mesh arrays, each with a ring of ``n`` receive buffers
+    like its blocks, on each position's device, and its generation 0; on
+    one device ``tree`` as it is.  A run calls it before its entry
+    (:func:`~repro_torch.core.lanes.lanes`), so every copy of the run
+    waits for the allocation."""
+    if isinstance(tree, tuple):
+        return tuple(_ringed(t, n) for t in tree)
+    if not _on_mesh(tree):
+        return tree
+    ring = tuple({pos: torch.empty_like(b) for pos, b in tree.blocks.items()}
+                 for _ in range(n))
+    return MeshArray(tree.mesh, tree.blocks, ring=ring)
 
 
 def _onehot_broadcast(x, devices, owner: int):
@@ -862,7 +895,7 @@ class SummaCSRStore(OperandStore):
             for k in ("b_indptr", "b_indices"):
                 got[k].update(zip(line, send(
                     arrays[k][z % self.r, y, z // self.r], devs, z % self.r)))
-        return tuple(MeshArray(mesh, got[k], owned=True)
+        return tuple(MeshArray(mesh, got[k])
                      for k in self.operand_names)
 
     def count(self, state, arrays, dev, step, cnt):
@@ -931,14 +964,21 @@ def masked_count(store, state, arrays, dev, step, cnt, step_keep, home=None):
     device) and the ORIGINAL step; returns ``None`` when the step is
     masked off or the device has no tasks that step, so no kernel is
     launched at all.  Shifts stay outside — the whole grid rolls together
-    whether or not a device counts.
+    whether or not a device counts.  Inside a mesh run the count goes
+    through the run's lanes (:meth:`~repro_torch.core.lanes.Lanes.count`):
+    after the shifts that wrote ``state``'s blocks.
     """
     home = dev if home is None else home
     if step_keep is not None and not step_keep[home + (step,)]:
         return None
     if cnt <= 0:
         return None
-    return store.count(state, arrays, dev, step, cnt)
+    ln = lanes_mod.active()
+    gens = {t.gen for t in _leaves(state) if _on_mesh(t)}
+    if ln is None or not gens:
+        return store.count(state, arrays, dev, step, cnt)
+    return ln.count(dev, step, gens,
+                    lambda: store.count(state, arrays, dev, step, cnt))
 
 
 class ShiftSchedule:
@@ -953,6 +993,12 @@ class ShiftSchedule:
     multi-hop rolls.  Step indices stay in the ORIGINAL numbering either
     way, so the staged ``step_keep`` mask (and the ring's task groups) are
     indexed unremapped.
+
+    On one device a step counts, then rolls the payload on.  On a mesh
+    the body is the JAX package's: the shift that feeds the next counted
+    step is issued before the current step counts (its copies then run on
+    the copy streams beside the count, :mod:`repro_torch.core.lanes`),
+    and no shift is issued that no count reads.
     """
 
     live_steps: Optional[Tuple[int, ...]] = None
@@ -990,32 +1036,64 @@ class ShiftSchedule:
             if c is not None:
                 out[dev] += c
 
+    def _walk(self):
+        """``(prologue hop, [(step, hop to the next counted step), ...])``
+        of the loop: every step one hop apart, or the live steps of a
+        compacted schedule, reached by one fused multi-hop shift each (the
+        prologue hop ``live[0]``, then differences of ORIGINAL step
+        indices); the last step's hop is 0."""
+        live = self.live_steps
+        if live is None:
+            n = self.nsteps
+            return 0, [(s, int(s + 1 < n)) for s in range(n)]
+        if not live:
+            return 0, []  # everything elided: no shifts, no counts
+        return live[0], [(s, live[i + 1] - s if i + 1 < len(live) else 0)
+                         for i, s in enumerate(live)]
+
     def run(self, store, arrays, *, m_cnt, step_keep=None):
         out = _zero_partials(arrays[store.static_names[0]], self.grid)
         payload = store.payload(arrays)
-        if self.live_steps is not None:
-            return self._run_compacted(
-                store, payload, arrays, m_cnt, step_keep, out
-            )
-        for s in range(self.nsteps):
-            self._count_grid(store, payload, arrays, s, m_cnt, step_keep, out)
-            if s + 1 < self.nsteps:
-                payload = self._shift_k(payload, 1)
+        hop0, walk = self._walk()
+        if not (_on_mesh(out) and payload):  # one device, or SUMMA's rounds
+            if walk and hop0:
+                payload = self._shift_k(payload, hop0)
+            for s, hop in walk:
+                self._count_grid(store, payload, arrays, s, m_cnt, step_keep,
+                                 out)
+                if hop:
+                    payload = self._shift_k(payload, hop)
+            return out
+        double = (getattr(self, "double_buffer", False)
+                  and self.live_steps is None)
+        shifts = int(bool(walk) and hop0 > 0) + sum(1 for _, h in walk if h)
+        payload = _ringed(payload, min(3 if double else 2, shifts))
+        with lanes_mod.lanes(out.mesh):
+            if double:
+                self._run_double(store, payload, arrays, m_cnt, step_keep, out)
+                return out
+            if walk and hop0:
+                payload = self._shift_k(payload, hop0)
+            for s, hop in walk:
+                nxt = self._shift_k(payload, hop) if hop else None
+                self._count_grid(store, payload, arrays, s, m_cnt, step_keep,
+                                 out)
+                payload = nxt
         return out
 
-    def _run_compacted(self, store, payload, arrays, m_cnt, step_keep, out):
-        """Kept-step loop: count only the live steps, reach each via one
-        fused multi-hop roll — the prologue hop is ``live[0]``, later hops
-        are differences of ORIGINAL step indices."""
-        live = self.live_steps
-        if not live:
-            return out  # everything elided: no shifts, no counts
-        payload = self._shift_k(payload, live[0])
-        for i, s in enumerate(live):
-            self._count_grid(store, payload, arrays, s, m_cnt, step_keep, out)
-            if i + 1 < len(live):
-                payload = self._shift_k(payload, live[i + 1] - s)
-        return out
+    def _run_double(self, store, payload, arrays, m_cnt, step_keep, out):
+        """The double-buffered body on a mesh: a prologue shift puts step
+        1's blocks in flight, and at step ``s`` the shift feeding step
+        ``s + 2`` is issued from them before step ``s`` counts, so three
+        generations are alive: the one counted, the one the copy reads and
+        the one it writes."""
+        n = self.nsteps
+        cur = payload
+        inflight = self._shift_k(cur, 1) if n > 1 else None
+        for s in range(n):
+            nxt = self._shift_k(inflight, 1) if s + 2 < n else None
+            self._count_grid(store, cur, arrays, s, m_cnt, step_keep, out)
+            cur, inflight = inflight, nxt
 
 
 def _zero_partials(like, grid):
@@ -1031,20 +1109,30 @@ def _zero_partials(like, grid):
             f"{tuple(mesh.shape)}")
     return MeshArray(mesh, {
         pos: torch.zeros((), dtype=torch.int64, device=mesh.device_at(pos))
-        for pos in np.ndindex(*grid)}, owned=True)
+        for pos in np.ndindex(*grid)})
 
 
 @dataclasses.dataclass
 class CannonSchedule(ShiftSchedule):
     """Cannon's q-step {count, shift-A-left, shift-B-up} rotation.
 
-    ``double_buffer`` is accepted for signature parity and gives the same
-    count: the JAX package overlaps the next shift's collective with the
-    current count by carrying two payload generations; in an eager loop
-    on one device there is no collective to overlap (a roll is an
-    ordinary kernel on the same stream), so :meth:`run` carries one.  The
-    stepper (:func:`build_engine_stepper`) carries both, so a checkpoint
-    holds what the JAX package's holds.
+    ``double_buffer=True`` (the default) runs the JAX package's
+    communication-overlapped body on a mesh: the loop carries two payload
+    generations ``(cur, inflight)``, a prologue shift puts step 1's
+    blocks in flight, and at step ``s`` the shift feeding step ``s + 2``
+    is issued from ``inflight`` before ``cur`` counts, into a third
+    receive buffer, so the copies on the copy streams and the count
+    touch disjoint buffers.  With ``double_buffer=False`` step ``s + 1``'s
+    shift is issued before step ``s`` counts, from the generation that
+    count reads.  A compacted schedule issues the hop to the next live
+    step before the current one counts, single-buffered as in the JAX
+    package.  No shift is issued that no count reads (the JAX package's
+    body shifts once more at the end and discards it).  On one device a
+    roll is an ordinary kernel on the same stream, with no collective to
+    overlap: :meth:`run` counts, then rolls, whatever the knob.  The
+    stepper (:func:`build_engine_stepper`) carries both generations on
+    either realisation, so a checkpoint holds what the JAX package's
+    holds.
 
     ``elide_shifts=True`` is a timing probe: every shift is left out, so
     each device counts the blocks it started with (counts are wrong for
@@ -1537,10 +1625,11 @@ def _unleaves(template, leaves) -> tuple:
     return leaves.pop(0)
 
 
-def _unowned(t):
-    """A mesh leaf of a stepper's state with no receive buffers attached:
-    its next shift copies into new blocks, so no call writes into a state
-    the caller still holds (on one device every roll is a new tensor)."""
+def _bare(t):
+    """A mesh leaf of a stepper's state without the call's receive ring
+    and generation: the next call allocates its own ring, so no call
+    writes into a state the caller still holds (on one device every roll
+    is a new tensor)."""
     return MeshArray(t.mesh, t.blocks) if _on_mesh(t) else t
 
 
@@ -1579,10 +1668,12 @@ def build_engine_stepper(
     With a ``double_buffer`` schedule (and no compaction) the carry is
     two payload generations, as in the JAX package's scan body: the
     current one, counted at step ``s``, and the next one, already shifted
-    for step ``s + 1``; each call counts the first and shifts the second
-    on.  Both round-trip through a checkpoint like any other state (and
-    only the stepper holds a second generation: the whole-count loop of
-    :class:`CannonSchedule` carries one).
+    for step ``s + 1``; each call issues the second's shift on, then
+    counts the first.  Both round-trip through a checkpoint like any other
+    state.  On a mesh a call's copies run on the copy streams beside its
+    count (:mod:`repro_torch.core.lanes`), and every compute stream waits
+    for them before the call returns: a checkpoint of the state it
+    returns reads finished copies.
 
     ``one_shift.prime(operands) -> carry`` builds the step-0 carry from
     the staged operand tensors (issuing the prologue shift);
@@ -1619,12 +1710,15 @@ def build_engine_stepper(
     def prime(operands):
         placed([operands[k] for k in op_names])
         payload = store.payload({k: operands[k] for k in op_names})
-        if live is not None:
-            if live:
-                payload = schedule._shift_k(payload, live[0])
-        elif double:  # prologue: step 1's blocks shifted before step 0 counts
-            payload = (payload, schedule._shift_k(payload, 1))
-        return tuple(_unowned(t) for t in _leaves(payload))
+        # the prologue: step 1's blocks in flight before step 0, or the
+        # hop to the first live step
+        hop = live[0] if live else int(double)
+        payload = _ringed(payload, int(hop > 0))
+        with lanes_mod.lanes(mesh):
+            if hop:
+                shifted = schedule._shift_k(payload, hop)
+                payload = (payload, shifted) if double else shifted
+        return tuple(_bare(t) for t in _leaves(payload))
 
     def one_shift(state, statics, step=0):
         *carry, acc = state
@@ -1640,15 +1734,16 @@ def build_engine_stepper(
             i = live.index(step)  # the host loop must pass a live step
             hop = live[i + 1] - live[i] if i + 1 < len(live) else 0
         carry = _unleaves(template, list(carry))
-        if double:
-            cur, inflight = carry
-            nxt = (inflight, schedule._shift_k(inflight, hop))
-        else:
-            cur = carry
-            nxt = schedule._shift_k(carry, hop)
         acc = acc.map(torch.clone) if _on_mesh(acc) else acc.clone()
-        schedule._count_grid(store, cur, statics, step, m_cnt, keep, acc)
-        return tuple(_unowned(t) for t in _leaves(nxt)) + (_unowned(acc),)
+        # double-buffered, step s + 2's shift is issued before step s
+        # counts; single-buffered, step s + 1's
+        cur, moving = carry if double else (carry, carry)
+        moving = _ringed(moving, int(hop > 0))
+        with lanes_mod.lanes(mesh):  # joined before the state is returned
+            shifted = schedule._shift_k(moving, hop)
+            schedule._count_grid(store, cur, statics, step, m_cnt, keep, acc)
+        nxt = (moving, shifted) if double else shifted
+        return tuple(_bare(t) for t in _leaves(nxt)) + (_bare(acc),)
 
     one_shift.prime = prime
     one_shift.n_carry = n_carry

@@ -176,4 +176,4 @@ def _mesh_degree_rank(degrees):
         local[order] = torch.arange(d.numel(), device=d.device)
         within = local - (torch.cumsum(h, 0) - h)[d]
         ranks[pos] = bucket_starts[d] + before[pos][d] + within
-    return MeshArray(mesh, ranks, owned=True)
+    return MeshArray(mesh, ranks)

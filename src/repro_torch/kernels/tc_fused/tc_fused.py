@@ -215,9 +215,16 @@ def _launch(name, a_indptr, a_indices, b_indptr, b_indices, ti, tj,
     tmax = ti.shape[0]
     ntile = fused_tiles(tmax, n_long, tile)[1]
     out = torch.empty(ntile, dtype=torch.int32, device=dev)
-    # The launch is asynchronous.  Inputs that the caller drops right after
-    # this call (task-list slices) stay valid for it: PyTorch's allocator
-    # reuses freed memory only for later work on the same stream.
+    # The launch is asynchronous, on the current (compute) stream.  Inputs
+    # that the caller drops right after this call (task-list slices) stay
+    # valid for it: PyTorch's allocator hands freed memory only to later
+    # allocations on the stream that allocated it, here this one, even
+    # while this launch is queued.  Across streams that does not hold by
+    # itself: a mesh's shift copies run on copy streams, so a mesh run
+    # allocates the buffers they write before its entry event, which they
+    # wait for, every block they read or write is marked with
+    # ``record_stream``, and a count reads a received block only after the
+    # event of the copy that wrote it (core/lanes.py).
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -560,6 +560,17 @@ def test_mesh_path_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert line["pods_tree"]["grid"] == [chip_smoke.MESH_PODS, q, q]
     for name in ("summa", "oned", "pods_tree"):
         assert line[name]["triangles"] == oracle
+    # both Cannon bodies: warm counts, and each traced count's copies (on
+    # the CPU not traced: the issue log's lanes)
+    assert len(line["warm_count_seconds_mesh_single"]) == chip_smoke.MESH_WARM
+    for body in ("double", "single"):
+        times = line["engine_ms"][body]
+        assert len(times["issue"]) == chip_smoke.MESH_ENGINE_REPS
+        assert all(0 < a <= b for a, b in zip(times["issue"], times["total"]))
+    for body in ("double", "single"):
+        got = line["overlap"][body]
+        assert got["trace"] == "not measured" and got["copy_lanes"] == ["copy"]
+        assert got["shift_copies_issued"] == 2 * q * q * (q - 1)
 
 
 @pytest.mark.gpu

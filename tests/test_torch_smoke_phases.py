@@ -758,3 +758,44 @@ def test_molecule_cell_pads_as_the_input_specs_do():
     assert (b["edge_src"] // 30 == b["edge_dst"] // 30).all()
     assert (b["edge_src"] != b["edge_dst"]).all()
     assert (b["graph_id"][b["edge_src"]] == b["edge_src"] // 30).all()
+
+
+def _span(cat, ts, dur, device, stream, **args):
+    name = "fused_counts_kernel" if cat == "kernel" else "Memcpy DtoD"
+    return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                args=dict(device=device, stream=stream, **args))
+
+
+def test_mesh_path_shift_trace_reads_streams_and_overlap():
+    """``mesh_path``'s trace reading (``shift_trace``) on a hand-made trace
+    of two cards: a shift copy is a memcpy of an issued copy's bytes, a
+    card's compute stream is its count kernels', ``overlap_ms`` is how long
+    a copy and a count kernel ran at once, and a shift copy on a compute
+    stream is counted (the phase fails on it); the reduction's 8-byte
+    copies are not shift copies."""
+    issued = [{"bytes": 4096}] * 3
+    events = [
+        _span("kernel", 0, 100, 0, 7), _span("kernel", 150, 100, 0, 7),
+        _span("gpu_memcpy", 50, 150, 0, 13, bytes=4096),   # 50 + 50 µs
+        _span("gpu_memcpy", 300, 10, 0, 7, bytes=8),       # a partial
+        _span("kernel", 120, 100, 1, 7),
+        dict(ph="X", cat="gpu_memcpy", name="Memcpy PtoP", ts=0, dur=130,
+             args=dict(fromDevice=2, inDevice=1, toDevice=0, stream=21,
+                       bytes=4096)),                       # 10 µs, peer
+        _span("gpu_memcpy", 400, 5, 1, 7, bytes=4096),     # on compute
+        dict(ph="X", cat="cpu_op", name="aten::copy_", ts=0, dur=1, args={}),
+    ]
+    got = chip_smoke.shift_trace(events, issued)
+    c0, c1 = got["cards"]["cuda:0"], got["cards"]["cuda:1"]
+    assert c0["compute_streams"] == [7] and c0["copy_streams"] == [13]
+    assert c0["count_kernels"] == 2 and c0["copies"] == 1
+    assert c0["count_ms"] == pytest.approx(0.2)
+    assert c0["copy_ms"] == pytest.approx(0.15)
+    assert c0["overlap_ms"] == pytest.approx(0.1)
+    assert c0["busy_ms"] == pytest.approx(0.25)
+    assert c0["span_ms"] == pytest.approx(0.25)  # the partial is no shift
+    assert c1["copy_streams"] == [7, 21] and c1["overlap_ms"] == pytest.approx(
+        0.01)
+    assert got["on_compute"] == 1
+    assert got["shift_copies_issued"] == got["shift_copies_traced"] == 3
+
