@@ -265,12 +265,20 @@ What it does, in order, printing one JSON object per line:
                     warm counts on the mesh (Cannon's double-buffered and
                     single-buffered bodies) and on one device in turns,
                     both bodies' partials against one device's, one warm
-                    count of each body under the profiler (by card: count
-                    and copy ms, their streams, ``overlap_ms``; fails if a
-                    shift copy ran on a compute stream), the bytes each
-                    engine phase moved on both; then SUMMA 2 x 8, the ring
-                    p = 16 and 2 pods under ``tree`` on meshes of their
-                    own, each against the oracle;
+                    engine call of each body under the profiler (by card:
+                    count and copy ms, their streams, ``overlap_ms``; fails
+                    if a shift copy ran on a compute stream or the trace
+                    misses a count kernel), the bytes each engine phase
+                    moved on both; then SUMMA 2 x 8, the ring p = 16 and 2
+                    pods under ``tree`` on meshes of their own, each
+                    against the oracle; then what each card holds
+                    (``mesh_memory``): each body's count from nothing
+                    staged, each card's ``max_memory_allocated`` within 5 %
+                    of the walk of the same plan, beside one device's; and
+                    with two cards or more, under a per-card cap between
+                    the two walks, the one-device count raising
+                    ``torch.OutOfMemoryError`` while the mesh counts both
+                    bodies;
    ``mesh_runtime_path`` — the runtime on that mesh, the main fused plan
                     reused: ``supervised_count(g, mesh)`` with transient
                     faults (3 restarts) and with 7 positions lost at step
@@ -315,8 +323,9 @@ What it does, in order, printing one JSON object per line:
 The ``total`` line gives the whole run's seconds and each phase's.
 ``--mesh-only`` runs the main path and then only ``mesh_path``,
 ``mesh_runtime_path``, ``lm_mesh_path`` and ``model_mesh_path`` (a probe
-of the mesh phases on the cards present; it prints neither the kernels
-line nor the final line); with four cards the two model phases put one
+of the mesh phases on the cards present; it prints every card's name and
+power limit, one ``nvidia-smi`` line each, first and last, and neither
+the kernels line nor the final line); with four cards the two model phases put one
 position on each, ``lm_mesh_big`` trains chatglm3-6b at its published
 widths and depth on them (the batch sized by the dry run's walk and
 ``shard_bytes``; three steps' seconds and losses, each card's peak
@@ -2662,7 +2671,8 @@ def serve_path(g, oracle, dev, q, graph):
 # ----------------------------------------------------------------------
 MESH_SUMMA = SUMMA_GRID  # SUMMA 2 x 8 and the ring p = 16 on the mesh too
 MESH_PODS = 2  # Cannon q = 4 with 2 pods under "tree": 32 positions
-MESH_WARM = 3  # warm counts on the mesh and on one device, in turns
+MESH_WARM = 2  # warm counts on the mesh and one device, in turns (3 until
+# mesh_memory and the dry run's card walks needed the seconds)
 
 
 def mesh_cards(n):
@@ -2782,13 +2792,21 @@ def engine_times(plan, staged, mesh, dev):
     return out
 
 
+TRACE_MARGIN_S = 0.1  # host idle before and after each traced count: the
+# profiler keeps only the device activity inside its window, and device
+# timestamps mapped onto the host's clock stray from it (a kernel can be
+# stamped before its own launch), so a kernel at the window's edge can be
+# dropped, or one of the warm-up cycle's let in
+
+
 def traced_mesh_count(count, dev, cards):
-    """``count()`` (a warm mesh count, through ``count_triangles``) once
+    """``count()`` (one call of a built mesh engine function over its
+    staged arrays, so no graph digest or planning is in the window) once
     as the profiler's warm-up and once recorded, each under
-    ``lanes.issue_log()``: the recorded count's :func:`shift_trace`
-    (device activity only) and its wall seconds (the warm call's graph
-    digest, ≈ 0.5 s at rmat 20, included).  On the CPU nothing is traced:
-    the issue log's copies and their lanes."""
+    ``lanes.issue_log()`` and between ``TRACE_MARGIN_S`` of host idle on
+    either side: the recorded count's :func:`shift_trace` (device
+    activity only) and its wall seconds (the margins left out).  On the
+    CPU nothing is traced: the issue log's copies and their lanes."""
     from repro_torch.core import lanes
 
     def logged():
@@ -2806,11 +2824,13 @@ def traced_mesh_count(count, dev, cards):
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(TRACE_MARGIN_S)
             t0 = time.perf_counter()
             copies = logged()
             for d in cards:
                 torch.cuda.synchronize(d)
             wall = time.perf_counter() - t0
+            time.sleep(TRACE_MARGIN_S)
             prof.step()
     with tempfile.TemporaryDirectory(prefix="mesh_trace_") as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -2820,7 +2840,190 @@ def traced_mesh_count(count, dev, cards):
     return dict(shift_trace(events, copies), profiled_wall_seconds=wall)
 
 
-def mesh_path(g, oracle, dev, q):
+MESH_MEMORY_TOL = 0.05  # a card's measured peak against the walk's
+
+
+def held_from_nothing(count, cards):
+    """``count()`` with no cached artifact holding anything on a card
+    (``PlanCache.release``: staged tensors and engine fns dropped, the
+    entries kept) and the allocator's cached blocks returned: its result,
+    and by card ``max_memory_allocated`` over the bytes allocated before
+    it, and the same of the bytes requested (``requested_bytes.all``:
+    without the allocator's rounding to its blocks), ``None`` off the
+    card."""
+    from repro_torch.pipeline import default_cache
+
+    default_cache().release()
+    cuda = [c for c in cards if c.type == "cuda"]
+    for c in cuda:
+        torch.cuda.synchronize(c)
+    if cuda:
+        torch.cuda.empty_cache()
+    before = {}
+    for c in cuda:
+        torch.cuda.reset_peak_memory_stats(c)
+        before[c] = (torch.cuda.memory_allocated(c), torch.cuda.memory_stats(
+            c)["requested_bytes.all.current"])
+    out = count()
+    held = {str(c): (None, None) for c in cards}
+    for c in cuda:
+        torch.cuda.synchronize(c)
+        held[str(c)] = (torch.cuda.max_memory_allocated(c) - before[c][0],
+                        torch.cuda.memory_stats(c)["requested_bytes.all.peak"]
+                        - before[c][1])
+    return out, held
+
+
+CAPPED_TIMEOUT = 600  # seconds for the capped process (it plans anew)
+
+
+def capped_child(graph, q, cap):
+    """The capped counts, in a process of their own that has made nothing
+    on a card before: every card of the ``q x q`` mesh (:func:`mesh_cards`)
+    capped at ``cap`` bytes (``torch.cuda.empty_cache``, then
+    ``torch.cuda.set_per_process_memory_fraction(cap / total, card)``:
+    this process's allocator only), an allocation past the cap refused on
+    each card (the cap holds), the mesh counting ``graph`` (a
+    ``graph_from_spec`` string) with both Cannon bodies, then the
+    one-device count on ``cuda:0``, which must raise
+    ``torch.OutOfMemoryError`` from that call (each card's peaks during it
+    kept).  The fraction goes back to 1.0 on every card in a ``finally``.
+    Prints one JSON line."""
+    import repro_torch as rt
+
+    g = rt.graph_from_spec(graph)
+    mesh = rt.make_grid_mesh(q, devices=mesh_cards(q * q))
+    cards = list(dict.fromkeys(mesh.devices))
+    out = dict(cap_bytes=int(cap), counts={}, cap_holds={})
+    try:
+        torch.cuda.empty_cache()
+        for c in cards:
+            total = torch.cuda.get_device_properties(c).total_memory
+            torch.cuda.set_per_process_memory_fraction(cap / total, c)
+            try:
+                torch.empty(int(cap) + 2 ** 21, dtype=torch.uint8, device=c)
+            except torch.OutOfMemoryError:
+                out["cap_holds"][str(c)] = True
+            else:
+                out["cap_holds"][str(c)] = False
+        for name, double in (("double", True), ("single", False)):
+            out["counts"][name] = rt.count_triangles(
+                g, mesh, method="fused", double_buffer=double).triangles
+        out["mesh_peaks"] = {str(c): torch.cuda.max_memory_allocated(c)
+                             for c in cards}
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        try:
+            rt.count_triangles(g, q=q, method="fused",
+                               device=torch.device("cuda", 0))
+        except torch.OutOfMemoryError as e:
+            out["one_device"] = str(e).splitlines()[0]
+        else:
+            out["one_device"] = "fit"
+        out["during_one_device"] = {str(c): dict(
+            allocated=torch.cuda.max_memory_allocated(c),
+            reserved=torch.cuda.max_memory_reserved(c)) for c in cards}
+    finally:
+        for c in cards:
+            torch.cuda.set_per_process_memory_fraction(1.0, c)
+    print(json.dumps(out), flush=True)
+
+
+def capped_counts(graph, oracle, q, cap):
+    """:func:`capped_child` in a fresh process (this one's cards hold what
+    earlier phases left, and the allocator's fraction caps what it
+    reserves, fragments included): its report and what failed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.capped_child({graph!r}, {int(q)}, {int(cap)})"],
+        capture_output=True, text=True, timeout=CAPPED_TIMEOUT, cwd=here)
+    if proc.returncode != 0:
+        return dict(stderr=proc.stderr[-2000:]), [
+            f"the capped process exited {proc.returncode}"]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [f"an allocation past the cap fit on {c}"
+           for c, held in out["cap_holds"].items() if not held]
+    if set(out["counts"].values()) != {oracle}:
+        bad.append(f"the capped mesh counts gave {out['counts']}, not "
+                   f"{oracle}")
+    if not out["one_device"].startswith("CUDA out of memory"):
+        bad.append(f"the one-device count under the cap of {int(cap)} bytes "
+                   f"a card did not run out of memory: {out['one_device']}")
+    return out, bad
+
+
+def mesh_memory(g, oracle, art, mesh, dev, q, graph):
+    """What each card holds for the main graph's count on ``mesh``: one
+    device's count and each Cannon body's mesh count from nothing staged
+    (:func:`held_from_nothing`), each card's ``max_memory_allocated``
+    held to the walk of the same plan over the same staged arrays
+    (``roofline.walk_engine``, a card a device) within
+    ``MESH_MEMORY_TOL``, beside the one-device peak and the receive
+    buffers' bytes; then, with two cards or more, :func:`capped_counts` at
+    a cap halfway between the largest card's walk and the one-device
+    walk (in a process of its own), ``graph`` naming the graph there."""
+    import repro_torch as rt
+    from repro_torch.core.cannon import build_cannon_fn
+    from repro_torch.launch.roofline import walk_engine
+
+    t0 = time.perf_counter()
+    cards = list(dict.fromkeys(mesh.devices))
+    plan = art.plan
+    one, one_held = held_from_nothing(lambda: rt.count_triangles(
+        g, q=q, method="fused", device=dev).triangles, [dev])
+    one_peak, one_requested = one_held[str(dev)]
+    one_walk = walk_engine(build_cannon_fn(plan, method="fused"),
+                           art.staged(dev))
+    row = dict(cards=[str(c) for c in cards], one_device=dict(
+        triangles=one, measured_peak=one_peak, requested_peak=one_requested,
+        walk_peak=one_walk.peak_bytes,
+        measured_over_walk=(one_peak / one_walk.peak_bytes
+                            if one_peak else None)))
+    bad, largest = [], 0
+    for name, double in (("double", True), ("single", False)):
+        got, held = held_from_nothing(lambda: rt.count_triangles(
+            g, mesh, method="fused", double_buffer=double).triangles, cards)
+        fn = build_cannon_fn(plan, method="fused", mesh=mesh,
+                             double_buffer=double)
+        walk = walk_engine(fn, art.staged(mesh))
+        per = {}
+        for c in map(str, cards):
+            w = walk.cards[c]
+            largest = max(largest, w.peak_bytes)
+            peak, requested = held[c]
+            per[c] = dict(positions=len(w.positions), walk_peak=w.peak_bytes,
+                          staged=w.staged_bytes, payload=w.payload_bytes,
+                          ring=w.ring_bytes, step_temps=w.step_temps,
+                          measured_peak=peak, requested_peak=requested)
+            if peak is not None:
+                ratio = peak / w.peak_bytes
+                per[c].update(measured_over_walk=ratio,
+                              requested_over_walk=requested / w.peak_bytes,
+                              over_one_device=peak / one_peak)
+                if abs(ratio - 1) > MESH_MEMORY_TOL:
+                    bad.append((name, c, ratio))
+        row[name] = dict(triangles=got, per_card=per)
+        if got != oracle:
+            bad.append((name, "triangles", got))
+    if one != oracle:
+        bad.append(("one_device", "triangles", one))
+    if len(cards) < 2:
+        row["capped"] = "needs 2+ cards"
+    elif dev.type == "cuda":
+        row["capped"], failed = capped_counts(
+            graph, oracle, q, (largest + one_walk.peak_bytes) // 2)
+        row["capped"]["largest_card_walk"] = largest
+        bad += failed
+    emit("mesh_memory", ok=not bad, tolerance=MESH_MEMORY_TOL,
+         seconds=time.perf_counter() - t0, **row)
+    if bad:
+        fail(f"a card's peak on the mesh is off the walk by more than "
+             f"{MESH_MEMORY_TOL:.0%}, a count missed the oracle, or the "
+             f"capped counts failed: {bad}")
+
+
+def mesh_path(g, oracle, dev, q, graph):
     """The main graph's cached fused plan counted on a device mesh of
     ``q * q`` positions, position ``i`` on card ``i`` mod the cards
     present (``make_grid_mesh(q, devices=...)``): every shift a copy
@@ -2894,21 +3097,29 @@ def mesh_path(g, oracle, dev, q):
 
     bodies = {}
     for name, double in (("double", True), ("single", False)):
-        def count(double=double):
-            if rt.count_triangles(g, mesh, method="fused",
-                                  double_buffer=double).triangles != oracle:
+        fn = build_cannon_fn(plan, method="fused", mesh=mesh,
+                             double_buffer=double)
+
+        def count(fn=fn, name=name):
+            if int(fn(**art.staged(mesh))) != oracle:
                 fail(f"the traced {name}-buffered mesh count missed the "
                      "oracle")
         bodies[name] = traced_mesh_count(count, dev, dict.fromkeys(
             mesh.devices))
     added_seconds = time.perf_counter() - t_added
     # checked after the line is printed: a shift copy on a compute stream,
-    # or one the trace does not show
-    bad = [name for name, body in bodies.items()
-           if body.get("copy_lanes", ["copy"]) != ["copy"]
-           or body.get("on_compute", 0)
-           or body.get("shift_copies_traced", body["shift_copies_issued"])
-           != body["shift_copies_issued"]]
+    # one the trace does not show, or a count kernel it does not show
+    bad = []
+    for name, body in bodies.items():
+        if "cards" in body:  # traced on the card
+            body["count_kernels_traced"] = sum(
+                c["count_kernels"] for c in body["cards"].values())
+            if (body["on_compute"] or body["count_kernels_traced"] != expect
+                    or body["shift_copies_traced"]
+                    != body["shift_copies_issued"]):
+                bad.append(name)
+        elif body["copy_lanes"] != ["copy"]:
+            bad.append(name)
 
     staged = art.staged(mesh)
     kw = dict(n_long=plan.n_long, d_small=plan.d_small, dpad_long=plan.dmax,
@@ -2957,8 +3168,13 @@ def mesh_path(g, oracle, dev, q):
          moved_bytes_mesh=tally, moved_bytes_one_device=tally_one,
          partials_equal=True, kernel_per_card=per_card, **others)
     if bad:
-        fail(f"the mesh count's trace ({bad}) shows a shift copy on a "
-             "compute stream, or fewer shift copies than were issued")
+        seen = {name: {k: bodies[name].get(k) for k in (
+            "on_compute", "shift_copies_traced", "shift_copies_issued",
+            "count_kernels_traced", "copy_lanes")} for name in bad}
+        fail(f"the mesh count's trace shows a shift copy on a compute "
+             f"stream, not the shift copies issued, or not the {expect} "
+             f"count kernels launched: {seen}")
+    mesh_memory(g, oracle, art, mesh, dev, q, graph)
 
 
 # ----------------------------------------------------------------------
@@ -7391,14 +7607,17 @@ def main():
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
+    gpus = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = gpus[0]
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
-         cuda=torch.version.cuda, gpu=smi,
+         cuda=torch.version.cuda, gpu=smi, gpus=gpus,
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
+    if args.mesh_only:  # every card's name and power limit, a line each
+        print("\n".join(gpus), flush=True)
 
     ptxas = start_ptxas(_build)
     build_s = _build.build_all()
@@ -7426,7 +7645,7 @@ def main():
     graph = f"rmat:{args.scale},{EDGE_FACTOR},{args.seed}"
     if args.mesh_only:
         del art
-        phase("mesh_path", mesh_path, g, oracle, dev, GRID)
+        phase("mesh_path", mesh_path, g, oracle, dev, GRID, graph)
         phase("mesh_runtime_path", mesh_runtime_path, g, oracle, dev, GRID,
               graph)
         del g
@@ -7438,6 +7657,7 @@ def main():
             phase("dlrm_mesh_big", dlrm_mesh_big, cards, smi)
         emit("total", seconds=time.perf_counter() - t_start, phases=phases,
              mesh_only=True)
+        print("\n".join(gpus), flush=True)
         return
     kernels = [phase("kernels", kernel_report, art, dev, launches)]
     phase("dryrun_path", dryrun_path, dev, art.plan, args.scale)
@@ -7486,7 +7706,7 @@ def main():
              "table wrongly, or a candidate shape disagreed with the plain "
              "route")
     kernels += phase("hub_path", hub_path, g, oracle, dev, graph)
-    phase("mesh_path", mesh_path, g, oracle, dev, GRID)
+    phase("mesh_path", mesh_path, g, oracle, dev, GRID, graph)
     phase("mesh_runtime_path", mesh_runtime_path, g, oracle, dev, GRID, graph)
     del g
     phase("small_graphs", small_graphs)

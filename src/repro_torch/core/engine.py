@@ -137,6 +137,8 @@ __all__ = [
     "restage_device_arrays",
     "shift_perm",
     "tally_moved_bytes",
+    "placed_at",
+    "current_place",
 ]
 
 
@@ -255,10 +257,34 @@ def _on_mesh(t) -> bool:
     return isinstance(t, MeshArray)
 
 
-def _send(x: torch.Tensor, device, phase: str) -> torch.Tensor:
-    """A copy of ``x`` received on ``device``: one crossing of positions,
-    tallied under ``phase``."""
-    buf = torch.empty_like(x, device=device)
+_PLACE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_place", default=None)
+
+
+@contextlib.contextmanager
+def placed_at(pos):
+    """The tensors the engine makes while the block runs belong to grid
+    position ``pos``.  Several positions of a mesh may share a device, so
+    the device alone does not say whose a tensor is; the memory walk
+    (:func:`~repro_torch.launch.roofline.walk_engine`) reads this to
+    charge each tensor to its position's card."""
+    token = _PLACE.set(tuple(int(i) for i in pos))
+    try:
+        yield
+    finally:
+        _PLACE.reset(token)
+
+
+def current_place():
+    """The grid position of :func:`placed_at` in force, or ``None``."""
+    return _PLACE.get()
+
+
+def _send(x: torch.Tensor, mesh, pos, phase: str) -> torch.Tensor:
+    """A copy of ``x`` received at grid position ``pos`` of ``mesh``: one
+    crossing of positions, tallied under ``phase``."""
+    with placed_at(pos):
+        buf = torch.empty_like(x, device=mesh.device_at(pos))
     buf.copy_(x)
     _tally(phase, buf)
     return buf
@@ -367,28 +393,30 @@ def _ringed(tree, n: int):
     return MeshArray(tree.mesh, tree.blocks, ring=ring)
 
 
-def _onehot_broadcast(x, devices, owner: int):
-    """``owner``'s ``x`` at every position of a line: the owner sends it to
-    each other position in turn (the JAX package's masked psum moves the
-    same panel with an all-reduce)."""
-    return [x if t == owner else _send(x, d, "broadcast")
-            for t, d in enumerate(devices)]
+def _onehot_broadcast(x, mesh, line, owner: int):
+    """``owner``'s ``x`` at every position of ``line`` (a list of
+    ``mesh``'s positions): the owner sends it to each other position in
+    turn (the JAX package's masked psum moves the same panel with an
+    all-reduce)."""
+    return [x if t == owner else _send(x, mesh, pos, "broadcast")
+            for t, pos in enumerate(line)]
 
 
-def chain_broadcast(x, devices, owner: int):
-    """``owner``'s ``x`` at every position of a line of ``len(devices)``
-    positions, by the JAX package's doubling chain: in each round every
+def chain_broadcast(x, mesh, line, owner: int):
+    """``owner``'s ``x`` at every position of ``line`` (``n`` positions of
+    ``mesh``), by the JAX package's doubling chain: in each round every
     position already covered sends to the one ``cover`` ahead (mod n, never
     past the owner), so ``n - 1`` copies in ``ceil(log2 n)`` rounds, a
     relay sending what it received."""
-    n = len(devices)
+    n = len(line)
     held = {owner % n: x}
     cover = 1
     while cover < n:
         for t in range(n):
             rel = (t - owner) % n
             if rel < cover and rel + cover < n:
-                held[(t + cover) % n] = _send(held[t], devices[(t + cover) % n],
+                held[(t + cover) % n] = _send(held[t], mesh,
+                                              line[(t + cover) % n],
                                               "broadcast")
         cover *= 2
     return [held[t] for t in range(n)]
@@ -885,16 +913,15 @@ class SummaCSRStore(OperandStore):
         got = {k: {} for k in self.operand_names}
         for x in range(self.r):
             line = [(x, y) for y in range(self.c)]
-            devs = [mesh.device_at(pos) for pos in line]
             for k in ("a_indptr", "a_indices"):
                 got[k].update(zip(line, send(
-                    arrays[k][x, z % self.c], devs, z % self.c)))
+                    arrays[k][x, z % self.c], mesh, line, z % self.c)))
         for y in range(self.c):
             line = [(x, y) for x in range(self.r)]
-            devs = [mesh.device_at(pos) for pos in line]
             for k in ("b_indptr", "b_indices"):
                 got[k].update(zip(line, send(
-                    arrays[k][z % self.r, y, z // self.r], devs, z % self.r)))
+                    arrays[k][z % self.r, y, z // self.r], mesh, line,
+                    z % self.r)))
         return tuple(MeshArray(mesh, got[k])
                      for k in self.operand_names)
 
@@ -975,10 +1002,11 @@ def masked_count(store, state, arrays, dev, step, cnt, step_keep, home=None):
         return None
     ln = lanes_mod.active()
     gens = {t.gen for t in _leaves(state) if _on_mesh(t)}
-    if ln is None or not gens:
-        return store.count(state, arrays, dev, step, cnt)
-    return ln.count(dev, step, gens,
-                    lambda: store.count(state, arrays, dev, step, cnt))
+    with placed_at(dev):
+        if ln is None or not gens:
+            return store.count(state, arrays, dev, step, cnt)
+        return ln.count(dev, step, gens,
+                        lambda: store.count(state, arrays, dev, step, cnt))
 
 
 class ShiftSchedule:
@@ -1107,9 +1135,12 @@ def _zero_partials(like, grid):
         raise ValueError(
             f"the schedule's grid {tuple(grid)} is not the mesh's "
             f"{tuple(mesh.shape)}")
-    return MeshArray(mesh, {
-        pos: torch.zeros((), dtype=torch.int64, device=mesh.device_at(pos))
-        for pos in np.ndindex(*grid)})
+    blocks = {}
+    for pos in np.ndindex(*grid):
+        with placed_at(pos):
+            blocks[pos] = torch.zeros((), dtype=torch.int64,
+                                      device=mesh.device_at(pos))
+    return MeshArray(mesh, blocks)
 
 
 @dataclasses.dataclass
@@ -1253,7 +1284,7 @@ class RingSchedule(ShiftSchedule):
 # ======================================================================
 # reductions
 # ======================================================================
-def pod_tree_allreduce(x, n: int):
+def pod_tree_allreduce(x, n: int, mesh=None, firsts=None):
     """Binomial-tree all-reduce over the pod dimension: dim 0 of ``x``,
     of size ``n`` (a power of two).
 
@@ -1265,9 +1296,10 @@ def pod_tree_allreduce(x, n: int):
     the sum back (``t % 2k == 0`` sends to ``t + k``, which replaces its
     stale partial).  Every position ends holding the sum.
 
-    On a mesh ``x`` is a list of the pods' partials, each on its pod's
-    first device, and every send is a copy to the receiver's device; the
-    result is that list with the sum at every pod.
+    On a mesh ``x`` is a list of the pods' partials, pod ``t``'s at
+    position ``firsts[t]`` of ``mesh``, and every send is a copy to the
+    receiver's position; the result is that list with the sum at every
+    pod.
     """
     if n == 1:
         return x
@@ -1282,10 +1314,11 @@ def pod_tree_allreduce(x, n: int):
         x = list(x)
         for k in rounds:
             for t in range(k, n, 2 * k):
-                x[t - k] = x[t - k] + _send(x[t], x[t - k].device, "reduce")
+                x[t - k] = x[t - k] + _send(x[t], mesh, firsts[t - k],
+                                            "reduce")
         for k in reversed(rounds):
             for t in range(0, n, 2 * k):
-                x[t + k] = _send(x[t], x[t + k].device, "reduce")
+                x[t + k] = _send(x[t], mesh, firsts[t + k], "reduce")
         return x
     pos = torch.arange(n, device=x.device).view(-1, *([1] * (x.dim() - 1)))
     for k in rounds:
@@ -1371,21 +1404,22 @@ class Reduction:
         mesh = per.mesh
         every = list(np.ndindex(*mesh.shape))
         if not self.global_sum:
-            return _gather(per, every, mesh.first).view(tuple(mesh.shape))
+            return _gather(per, every, every[0]).view(tuple(mesh.shape))
         if self.strategy == "tree":
-            pods = [
-                _gather(per, [p for p in every if p[0] == t],
-                        mesh.device_at((t,) + (0,) * (len(mesh.shape) - 1))
-                        ).sum()
-                for t in range(self.npods)]
-            return pod_tree_allreduce(pods, self.npods)[0]
-        return _gather(per, every, mesh.first).sum()
+            firsts = [(t,) + (0,) * (len(mesh.shape) - 1)
+                      for t in range(self.npods)]
+            pods = [_gather(per, [p for p in every if p[0] == t], first).sum()
+                    for t, first in enumerate(firsts)]
+            return pod_tree_allreduce(pods, self.npods, mesh, firsts)[0]
+        return _gather(per, every, every[0]).sum()
 
 
-def _gather(per, positions, device):
-    """The partials of ``positions`` copied into one int64 vector on
-    ``device`` (tallied under ``reduce``)."""
-    buf = torch.empty(len(positions), dtype=torch.int64, device=device)
+def _gather(per, positions, at):
+    """The partials of ``positions`` copied into one int64 vector at
+    position ``at`` (tallied under ``reduce``)."""
+    with placed_at(at):
+        buf = torch.empty(len(positions), dtype=torch.int64,
+                          device=per.mesh.device_at(at))
     for i, pos in enumerate(positions):
         buf[i].copy_(per.blocks[pos])
     _tally("reduce", buf)
@@ -1450,13 +1484,14 @@ class HubCount:
                 if cnt <= 0:
                     continue
                 at = pod0 + dev if mesh else dev
-                out[pod0 + dev] += count_mod.count_pair_search(
-                    ptr[at], idx[at], ptr[at], idx[at],
-                    arrays["hub_ti"][at], arrays["hub_tj"][at], cnt,
-                    dpad=self.dpad, chunk=self.chunk,
-                    probe_shorter=self.probe_shorter,
-                    sentinel=self.sentinel,
-                )
+                with placed_at(pod0 + dev):
+                    out[pod0 + dev] += count_mod.count_pair_search(
+                        ptr[at], idx[at], ptr[at], idx[at],
+                        arrays["hub_ti"][at], arrays["hub_tj"][at], cnt,
+                        dpad=self.dpad, chunk=self.chunk,
+                        probe_shorter=self.probe_shorter,
+                        sentinel=self.sentinel,
+                    )
         return out
 
 

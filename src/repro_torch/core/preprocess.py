@@ -158,18 +158,16 @@ def _mesh_degree_rank(degrees):
                                  0, d, torch.ones_like(d))
             for pos, d in deg.items()}
     # the all-reduce: every histogram to the first device, summed, back
-    first = mesh.devices[0]
-    ghist = sum(_send(h, first, "reduce") for h in hist.values())
+    ghist = sum(_send(h, mesh, positions[0], "reduce") for h in hist.values())
     before, carried = {}, None
     for pos in positions:  # the prefix over earlier shards, along the ring
-        dev = mesh.device_at(pos)
         before[pos] = (torch.zeros_like(hist[pos]) if carried is None
-                       else _send(carried, dev, "shift"))
+                       else _send(carried, mesh, pos, "shift"))
         carried = before[pos] + hist[pos]
     ranks = {}
     for pos in positions:
         d, h = deg[pos], hist[pos]
-        g = _send(ghist, d.device, "broadcast")
+        g = _send(ghist, mesh, pos, "broadcast")
         bucket_starts = torch.cumsum(g, 0) - g
         order = torch.argsort(d, stable=True)
         local = torch.empty_like(order)

@@ -8,7 +8,11 @@ own program, walked on ``meta`` tensors by
 :mod:`repro_torch.launch.roofline` — shape-only, nothing allocated, no
 value read, and no card needed.  The walk is on meta by design, not in
 place of a card.  Its rows answer the port's own question: does this
-step run unsharded on one card (``grid_bytes``, ``fits``)?
+step run unsharded on one card (``grid_bytes``, ``fits``)?  A
+triangle-count row also answers the reference's: does each card hold its
+share when the grid's positions lie one to a card (``card_bytes``,
+``card_fits``: the same walk over a mesh of ``meta`` positions,
+:func:`walk_cell_cards`)?
 
 **Model cells** (5 LM archs x 3 shapes, 5 GNN / recsys archs x 4 shapes,
 each under ``pod`` and ``multipod``): the reference's step per ``kind``
@@ -39,6 +43,7 @@ adds it once for every repeat; that is exact here.
 Usage:
   python -m repro_torch.launch.dryrun --cell <arch>:<shape>:<mesh>
   python -m repro_torch.launch.dryrun --list
+  python -m repro_torch.launch.dryrun --fewest-cards
 
 Mesh names: "pod" = a 16x16 logical grid (256 logical devices),
 "multipod" = 2x16x16 (512).  Triangle-count schedules: ``cannon``,
@@ -47,7 +52,9 @@ gather-free keys and uint16-length blobs), ``cannon25d`` (2 pods) and
 ``oned`` (the ring, p = 256).  Each cell prints one JSON row: the JAX
 package's roofline fields, ``grid_bytes`` and ``fits``
 (:class:`~repro_torch.launch.roofline.RooflineReport`), and for a
-triangle-count cell ``nshifts`` and ``nnz_pad_per_device``.
+triangle-count cell ``nshifts``, ``nnz_pad_per_device``, ``card_bytes``
+and ``card_fits``.  ``--fewest-cards`` prints, for each triangle-count
+cell, the fewest cards that hold its count (:func:`fewest_cards`).
 """
 from __future__ import annotations
 
@@ -196,10 +203,80 @@ def useful_ops(cfg) -> float:
     return cfg.n_edges * (d_avg / 2.0) * max(1.0, math.log2(max(2, d_avg)))
 
 
+def cell_mesh(cell: TCCell, sched: str, mesh):
+    """``(DeviceMesh, arrays)``: the cell's meta arguments spread over a
+    mesh of ``mesh``'s shape (the ring: one ``("flat",)`` axis of all its
+    positions), every position on ``meta`` with its block of each array,
+    split as the JAX package's in-specs split it (Cannon's task lists
+    replicated over the pods)."""
+    from ..core.cannon import cannon_in_specs
+    from ..core.engine import MeshArray
+    from .mesh import DeviceMesh
+
+    shape, axes = tuple(mesh.shape), tuple(mesh.axis_names)
+    specs = {}
+    if sched == "oned":
+        shape, axes = (math.prod(shape),), ("flat",)
+    elif len(shape) == 3:
+        specs = cannon_in_specs(axes[1], axes[2], axes[0])
+    dmesh = DeviceMesh(shape, axes, ("meta",) * math.prod(shape))
+    arrays = {}
+    for k, v in cell.arrays.items():
+        block = tuple(v.shape[len(specs.get(k, axes)):])
+        arrays[k] = MeshArray(dmesh, {
+            pos: torch.empty(block, dtype=v.dtype, device="meta")
+            for pos in np.ndindex(*shape)})
+    return dmesh, arrays
+
+
+def walk_cell_cards(cfg, sched: str, mesh, per_card: int = 1):
+    """The sampled walk of one triangle-count cell over a mesh of
+    ``mesh``'s positions (:func:`cell_mesh`), ``per_card`` consecutive
+    positions (in row-major order) a card; its ``cards`` hold each card's
+    books (:class:`~repro_torch.launch.roofline.CardWalk`)."""
+    from .roofline import walk_engine
+
+    cell = tc_cell(cfg, sched, mesh.size, q=mesh.shape[-1])
+    dmesh, arrays = cell_mesh(cell, sched, mesh)
+    index = {pos: i for i, pos in enumerate(np.ndindex(*dmesh.shape))}
+    return walk_engine(cell.fn, arrays, sample=True,
+                       cards=lambda pos: index[pos] // per_card)
+
+
+def fewest_cards(cfg, sched: str, mesh, memory: Optional[int] = None):
+    """``(cards, card_bytes)``: the fewest cards of ``memory`` bytes each
+    (default :func:`~repro_torch.launch.roofline.card_memory_bytes`) that
+    hold the cell's count with its positions spread evenly (a power of two
+    dividing the mesh's positions, consecutive positions on a card), and
+    the walk's largest card peak there; ``(None, peak at one a card)``
+    where even one position a card does not fit."""
+    from .roofline import card_memory_bytes
+
+    memory = card_memory_bytes() if memory is None else memory
+    n = mesh.size
+
+    def peak(cards):
+        walk = walk_cell_cards(cfg, sched, mesh, per_card=n // cards)
+        return max(c.peak_bytes for c in walk.cards.values())
+
+    lo, hi = 1, n  # the answer is a power of two in [lo, hi]
+    best = peak(hi)
+    if best > memory:
+        return None, best
+    while lo < hi:
+        mid = 1 << ((lo.bit_length() + hi.bit_length() - 2) // 2)
+        got = peak(mid)
+        if got <= memory:
+            hi, best = mid, got
+        else:
+            lo = mid * 2
+    return hi, best
+
+
 def _run_tc_cell(cfg, sched: str, mesh, label: str) -> dict:
     """TC dry run from the analytic plan (shape-only, nothing
     allocated)."""
-    from .roofline import roofline_from_walk, walk_engine
+    from .roofline import card_memory_bytes, roofline_from_walk, walk_engine
 
     cell = tc_cell(cfg, sched, mesh.size)
     walk = walk_engine(cell.fn, cell.arrays, sample=True)
@@ -213,6 +290,9 @@ def _run_tc_cell(cfg, sched: str, mesh, label: str) -> dict:
     row = rep.row()
     row["nshifts"] = cell.nshifts
     row["nnz_pad_per_device"] = cell.plan.nnz_pad
+    cards = walk_cell_cards(cfg, sched, mesh).cards
+    row["card_bytes"] = max(c.peak_bytes for c in cards.values())
+    row["card_fits"] = row["card_bytes"] <= card_memory_bytes()
     return row
 
 
@@ -522,12 +602,29 @@ def main(argv=None):
         description="Dry-run a cell on meta tensors.")
     ap.add_argument("--cell", help="arch:shape:mesh")
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--fewest-cards", action="store_true",
+                    help="for each triangle-count cell, the fewest cards "
+                         "that hold its count (fewest_cards), one JSON line "
+                         "each")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     if args.list:
         for c in all_cells():
             print(":".join(c))
+        return
+    if args.fewest_cards:
+        from ..configs import TC_GRAPHS, get_config
+        from .mesh import make_production_mesh
+
+        for arch, sched, mesh_name in all_cells():
+            if arch not in TC_GRAPHS:
+                continue
+            mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
+            cards, peak = fewest_cards(get_config(arch), sched, mesh)
+            print(json.dumps(dict(name=f"{arch}:{sched}:{mesh_name}",
+                                  positions=mesh.size, cards=cards,
+                                  card_bytes=peak)), flush=True)
         return
     if not args.cell:
         ap.error("give --cell arch:shape:mesh or --list")

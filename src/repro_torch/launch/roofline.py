@@ -45,7 +45,7 @@ import math
 import sys
 import weakref
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,7 @@ from .hlo import (collective_by_source, collective_bytes,  # noqa: F401
                   hlo_collective_phases, hlo_cost, infer_num_devices)
 
 __all__ = ["HW", "measure_hw", "collective_phases", "RooflineReport",
-           "EngineWalk", "walk_engine", "roofline_from_walk",
+           "EngineWalk", "CardWalk", "walk_engine", "roofline_from_walk",
            "card_memory_bytes", "StepWalk", "walk_step", "combine_walks",
            "tree_tensors", "shard_bytes", "roofline_from_step", "model_flops_lm",
            "infer_num_devices", "hlo_cost", "collective_bytes",
@@ -200,7 +200,10 @@ class EngineWalk:
     device-step above those live when it began.  ``peak_bytes``: the most
     bytes live at once during the call, arguments included.
     ``device_steps``: device-steps counted.  ``searched``: searches by
-    the dtype of the keys searched.
+    the dtype of the keys searched.  ``cards``: on a device mesh, what
+    each card held (:class:`CardWalk`), by card; ``None`` on one device.
+    On a mesh ``args_per_device`` is the largest grid position's staged
+    bytes, and ``step_temps`` and ``peak_bytes`` are the whole mesh's.
     """
 
     grid: Tuple[int, ...]
@@ -215,6 +218,29 @@ class EngineWalk:
     device_steps: int
     searched: Dict[str, float]
     sampled: bool
+    cards: Optional[Dict[Hashable, "CardWalk"]] = None
+
+
+@dataclasses.dataclass
+class CardWalk:
+    """What one card of a device mesh held during a walked call, in bytes.
+
+    ``positions``: the grid positions on the card.  ``staged_bytes``:
+    their staged blocks.  ``payload_bytes``: the payload the store packed
+    there for the run (the blobs).  ``ring_bytes``: the receive buffers
+    the run allocated there before its entry.  ``step_temps``: the most
+    bytes one device-step there made above those live when it began.
+    ``peak_bytes``: the most bytes live there at once, the staged blocks
+    included; it holds whatever else the call made there too (the
+    partials, a SUMMA round's received panels, the gathered partials on
+    the card the sum lands on)."""
+
+    positions: Tuple[Tuple[int, ...], ...]
+    staged_bytes: int
+    payload_bytes: int
+    ring_bytes: int
+    step_temps: int
+    peak_bytes: int
 
 
 # ops that read a tensor's values: a meta tensor has none
@@ -279,11 +305,27 @@ def _tensors(items, out=None) -> list:
 
 class _Walk(TorchDispatchMode):
     """Counts every aten op with a result on ``device`` (ops and bytes, at
-    the current ``weight``) and the live bytes of every storage there."""
+    the current ``weight``) and the live bytes of every storage there.
 
-    def __init__(self, device: torch.device):
+    With ``card_of`` (a device mesh: grid position to card) the devices
+    are the mesh's, and every storage is also charged to the card of the
+    grid position it belongs to: the engine's :func:`placed_at` where it
+    says, else the one position of the storages the op read."""
+
+    def __init__(self, device: Optional[torch.device], *, mesh=None,
+                 card_of: Optional[Dict[tuple, Hashable]] = None):
         super().__init__()
         self.device = device
+        self.devices = ({device} if mesh is None else set(mesh.devices))
+        self.mesh = mesh
+        self.card_of = card_of
+        self.card_live: Counter = Counter()
+        self.card_peak: Counter = Counter()
+        self.card_temps: Counter = Counter()
+        self._places: Dict[int, tuple] = {}
+        self.step_card: Optional[Hashable] = None
+        self.step_peak = 0
+        self.last_step_temps = 0
         self.weight = 1
         self.ops = 0.0
         self.bytes = 0.0
@@ -296,23 +338,74 @@ class _Walk(TorchDispatchMode):
         self.flops: Counter = Counter()
         self.segment = ""
         self.points: Optional[Dict[tuple, list]] = None
-        self._storages: Dict[int, int] = {}
+        self._storages: Dict[int, Tuple[int, Optional[Hashable]]] = {}
 
     # -- memory --------------------------------------------------------
-    def track(self, t: torch.Tensor) -> None:
-        if t.device != self.device:
+    def track(self, t: torch.Tensor, place: Optional[tuple] = None,
+              read=(), op: str = "") -> None:
+        """Count ``t``'s storage live from now until it is freed; on a mesh
+        charge it to the card of grid position ``place``, or of the
+        position :func:`placed_at` names, or of the one position of the
+        storages of ``read`` (the op's inputs)."""
+        if t.device not in self.devices:
             return
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:
             return
         n = st.nbytes()
-        self._storages[key] = n
+        card = None
+        if self.card_of is not None:
+            pos = self._place(t, place, read, op)
+            self._places[key] = pos
+            card = self.card_of[pos]
+            self.card_live[card] += n
+            self.card_peak[card] = max(self.card_peak[card],
+                                       self.card_live[card])
+            if card == self.step_card:
+                self.step_peak = max(self.step_peak, self.card_live[card])
+        self._storages[key] = (n, card)
         self.live += n
         self.peak = max(self.peak, self.live)
         if self.points is not None:
             self.points.setdefault(self._point(), []).append(self.live)
         weakref.finalize(st, self._free, key, n)
+
+    def _place(self, t, place, read, op) -> tuple:
+        """The grid position ``t`` belongs to (see :meth:`track`), checked
+        against the device it lies on."""
+        from ..core.engine import current_place
+
+        pos = place if place is not None else current_place()
+        if pos is None:
+            seen = {self._places.get(id(r.untyped_storage())) for r in read
+                    if r.device in self.devices} - {None}
+            if len(seen) != 1:
+                raise ValueError(
+                    f"the walk cannot tell which grid position a tensor made "
+                    f"by aten.{op} belongs to: it read "
+                    f"{sorted(seen) or 'no placed tensor'} outside "
+                    "engine.placed_at")
+            (pos,) = seen
+        pos = tuple(int(i) for i in pos)
+        if self.mesh.device_at(pos) != t.device:
+            raise ValueError(
+                f"a tensor of grid position {pos} lies on {t.device}, not on "
+                f"the position's {self.mesh.device_at(pos)}")
+        return pos
+
+    def touch(self, temps: int) -> None:
+        """What a device-step that made ``temps`` bytes above those live
+        would add to the peaks, without making them: a replayed step of a
+        sampled walk, on the card of the position :func:`placed_at`
+        names."""
+        from ..core.engine import current_place
+
+        card = self.card_of[current_place()]
+        self.card_peak[card] = max(self.card_peak[card],
+                                   self.card_live[card] + temps)
+        self.card_temps[card] = max(self.card_temps[card], temps)
+        self.peak = max(self.peak, self.live + temps)
 
     def _point(self) -> tuple:
         """Where in the program a tensor is being made: the segment, the
@@ -334,8 +427,12 @@ class _Walk(TorchDispatchMode):
                 tuple(chain))
 
     def _free(self, key: int, n: int) -> None:
-        if self._storages.pop(key, None) is not None:
+        entry = self._storages.pop(key, None)
+        if entry is not None:
             self.live -= n
+            if entry[1] is not None:
+                self.card_live[entry[1]] -= n
+                self._places.pop(key, None)
 
     # -- cost ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -349,9 +446,9 @@ class _Walk(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
         for t in outs:
-            self.track(t)
+            self.track(t, read=ins, op=base)
         if self.counting and outs and not view and any(
-                t.device == self.device for t in outs):
+                t.device in self.devices for t in outs):
             self._cost(base, args, ins, outs)
             if base in _PRODUCTS:
                 operand = args[1] if base in _BIASED else args[0]
@@ -430,7 +527,7 @@ class _Walk(TorchDispatchMode):
                 rec = (self.ops - ops, self.bytes - byts,
                        self.device_steps - steps,
                        {k: moved[k] - mv[k] for k in moved},
-                       self.searched - srch, like)
+                       self.searched - srch, like, self.last_step_temps)
                 return out
             self.ops += rec[0]
             self.bytes += rec[1]
@@ -438,6 +535,8 @@ class _Walk(TorchDispatchMode):
             for k, v in rec[3].items():
                 moved[k] += v
             self.searched.update(rec[4])
+            if fresh and self.card_of is not None:
+                self.touch(rec[6])  # a count: the card sees its temps
             if fresh:
                 shape, dtype, device = rec[5]
                 self.counting = False
@@ -470,11 +569,21 @@ class _Walk(TorchDispatchMode):
             self.device_steps += self.weight
             live0, peak0 = self.live, self.peak
             self.peak = self.live
+            if self.card_of is not None:
+                from ..core.engine import current_place
+
+                self.step_card = self.card_of[current_place()]
+                card0 = self.step_peak = self.card_live[self.step_card]
             try:
                 return count(*args, **kw)
             finally:
                 self.step_temps = max(self.step_temps, self.peak - live0)
                 self.peak = max(peak0, self.peak)
+                if self.card_of is not None:
+                    self.last_step_temps = self.step_peak - card0
+                    self.card_temps[self.step_card] = max(
+                        self.card_temps[self.step_card], self.last_step_temps)
+                    self.step_card = None
 
         return wrapper
 
@@ -523,7 +632,9 @@ def _check_uniform(fn) -> None:
 
 
 def walk_engine(fn, arrays: Dict[str, torch.Tensor], *,
-                sample: bool = False) -> EngineWalk:
+                sample: bool = False,
+                cards: Optional[Callable[[tuple], Hashable]] = None
+                ) -> EngineWalk:
     """One call ``fn(**arrays)`` of an engine function
     (:func:`~repro_torch.core.engine.build_engine_fn`) walked op by op:
     its ops, bytes, the engine's byte tally and its live bytes
@@ -539,30 +650,83 @@ def walk_engine(fn, arrays: Dict[str, torch.Tensor], *,
     plan's all-zero ``m_cnt`` counts nothing and is refused: rebind it
     first (``fn.rebind(m_cnt=...)``).
 
+    ``arrays`` may be a mesh count's staged arrays, every one a
+    :class:`~repro_torch.core.engine.MeshArray` over one
+    :class:`~repro_torch.launch.mesh.DeviceMesh` (on any devices, ``meta``
+    too).  The walk then also keeps each card's books
+    (``EngineWalk.cards``, a :class:`CardWalk` a card): ``cards(pos)``
+    names the card of grid position ``pos``, by default the device it
+    lies on; ``cards=lambda pos: pos`` puts each position on a card of
+    its own, as the JAX package's mesh places them.
+
     ``sample=True`` walks what repeats once and adds it again for every
     repeat: one device-step (its first two full task chunks and its
     ragged last one, the first weighted by the full chunks it stands
     for), the first schedule step over the whole grid, and the first
-    shift.  It is exact where every device-step has the same shapes (an
-    analytic plan), and refused anywhere else.
+    shift.  On a mesh every later device-step of the first schedule step
+    adds the walked one's temps to its card's peak.  It is exact where
+    every device-step has the same shapes (an analytic plan), and refused
+    anywhere else.
     """
     from ..core import count as count_mod
-    from ..core.engine import tally_moved_bytes
+    from ..core import engine as engine_mod
 
-    devices = {v.device for v in arrays.values()}
-    if len(devices) != 1:
-        raise ValueError(f"the walk takes tensors on one device, got "
-                         f"{sorted(map(str, devices))}")
+    on_mesh = [isinstance(v, engine_mod.MeshArray) for v in arrays.values()]
+    mesh = None
+    if any(on_mesh):
+        meshes = {v.mesh for v in arrays.values()
+                  if isinstance(v, engine_mod.MeshArray)}
+        if not all(on_mesh) or len(meshes) != 1:
+            raise ValueError("the walk takes a mesh count's arrays all on one "
+                             "mesh, or tensors on one device")
+        (mesh,) = meshes
+        walk = _Walk(None, mesh=mesh, card_of={
+            pos: (str(mesh.device_at(pos)) if cards is None else cards(pos))
+            for pos in np.ndindex(*mesh.shape)})
+    else:
+        if cards is not None:
+            raise ValueError("cards= places a mesh's positions; these tensors "
+                             "lie on one device")
+        devices = {v.device for v in arrays.values()}
+        if len(devices) != 1:
+            raise ValueError(f"the walk takes tensors on one device, got "
+                             f"{sorted(map(str, devices))}")
+        walk = _Walk(devices.pop())
     if sample:
         _check_uniform(fn)
     grid = tuple(fn.schedule.grid)
-    walk = _Walk(devices.pop())
+    booked = {k: Counter() for k in ("staged", "payload", "ring")}
+    seen = set()  # _ringed recurses through the payload's tuples
     for t in arrays.values():
-        walk.track(t)
+        if mesh is None:
+            walk.track(t)
+        else:
+            for pos, block in t.blocks.items():
+                walk.track(block, place=pos)
+                booked["staged"][walk.card_of[pos]] += _nbytes(block)
     staged = walk.live
     store, schedule = fn.store, fn.schedule
+
+    def book(kind, method):
+        """``method`` whose result's mesh blocks (and their receive
+        buffers) are booked to their cards under ``kind``."""
+
+        def wrapper(*args, **kw):
+            out = method(*args, **kw)
+            for t in engine_mod._leaves(out):
+                if isinstance(t, engine_mod.MeshArray):
+                    for part in (t.blocks,) if kind == "payload" else t.ring:
+                        for pos, block in part.items():
+                            if id(block) not in seen:
+                                seen.add(id(block))
+                                booked[kind][walk.card_of[pos]] += _nbytes(
+                                    block)
+            return out
+
+        return wrapper
+
     with contextlib.ExitStack() as stack:
-        moved = stack.enter_context(tally_moved_bytes())
+        moved = stack.enter_context(engine_mod.tally_moved_bytes())
         count = walk.device_step(store.count)
         if sample:
             count = walk.replayed(count, moved, fresh=True, real=2)
@@ -573,6 +737,11 @@ def walk_engine(fn, arrays: Dict[str, torch.Tensor], *,
                     schedule, name,
                     walk.replayed(getattr(schedule, name), moved)))
         stack.enter_context(_on_instance(store, "count", count))
+        if mesh is not None:
+            stack.enter_context(_on_instance(
+                store, "payload", book("payload", store.payload)))
+            stack.enter_context(_on_instance(
+                engine_mod, "_ringed", book("ring", engine_mod._ringed)))
         stack.enter_context(walk)
         out = fn(**arrays)
     if walk.device_steps == 0:
@@ -580,19 +749,35 @@ def walk_engine(fn, arrays: Dict[str, torch.Tensor], *,
             "the walk counted no device-step: every task count is 0 (an "
             "analytic plan's m_cnt is all zeros; rebind it to tmax) or "
             "every step is masked off")
+    if mesh is None:
+        args = sum(_device_share(t, grid) for t in arrays.values())
+        by_card = None
+    else:
+        args = max(sum(_nbytes(t.blocks[pos]) for t in arrays.values())
+                   for pos in np.ndindex(*mesh.shape))
+        by_card = {}
+        for pos, card in walk.card_of.items():
+            by_card.setdefault(card, []).append(pos)
+        by_card = {card: CardWalk(
+            positions=tuple(ps), staged_bytes=booked["staged"][card],
+            payload_bytes=booked["payload"][card],
+            ring_bytes=booked["ring"][card],
+            step_temps=walk.card_temps[card], peak_bytes=walk.card_peak[card])
+            for card, ps in by_card.items()}
     return EngineWalk(
         grid=grid,
         ops=walk.ops,
         bytes=walk.bytes,
         moved=dict(moved),
         staged_bytes=staged,
-        args_per_device=sum(_device_share(t, grid) for t in arrays.values()),
+        args_per_device=args,
         step_temps=walk.step_temps,
         peak_bytes=walk.peak,
         output_bytes=sum(_nbytes(t) for t in _tensors((out,))),
         device_steps=walk.device_steps,
         searched=dict(walk.searched),
         sampled=sample,
+        cards=by_card,
     )
 
 

@@ -130,6 +130,15 @@ class PlanCache:
         for old in dropped:
             self._release(old)
 
+    def release(self) -> None:
+        """Drop the device state every entry pins (its ``release()``: staged
+        tensors, engine fns), keeping the entries: the next use re-stages,
+        and planning still hits."""
+        with self._lock:
+            held = list(self._entries.values())
+        for value in held:
+            self._release(value)
+
     def __len__(self) -> int:
         return len(self._entries)
 

@@ -219,9 +219,10 @@ def rows():
     return {c: dryrun.run_cell(*c) for c in cells}
 
 
-def test_row_keys_are_the_reference_report_plus_four(rows):
+def test_row_keys_are_the_reference_report_plus_six(rows):
     ref = {f.name for f in dataclasses.fields(jroof.RooflineReport)}
-    extra = {"nshifts", "nnz_pad_per_device", "grid_bytes", "fits"}
+    extra = {"nshifts", "nnz_pad_per_device", "grid_bytes", "fits",
+             "card_bytes", "card_fits"}
     for row in rows.values():
         assert set(row) == ref | extra
         assert set(row["memory_per_device"]) == {"args", "outputs", "temps",

@@ -546,7 +546,7 @@ def test_mesh_path_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     tc.count_triangles(g, q=q, method="fused")  # the main path's plan
     for sched, grid in (("summa", chip_smoke.MESH_SUMMA), ("oned", (q, q))):
         tc.count_triangles(g, grid=grid, schedule=sched, method="fused")
-    chip_smoke.mesh_path(g, oracle, cpu, q)
+    chip_smoke.mesh_path(g, oracle, cpu, q, "rmat:10,16,1")
     out = capsys.readouterr().out
     (line,) = [json.loads(ln)["mesh_path"] for ln in out.splitlines()
                if ln.startswith('{"mesh_path"')]
@@ -571,6 +571,20 @@ def test_mesh_path_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
         got = line["overlap"][body]
         assert got["trace"] == "not measured" and got["copy_lanes"] == ["copy"]
         assert got["shift_copies_issued"] == 2 * q * q * (q - 1)
+    # what each card holds: the walk's books; nothing measured off the
+    # card, and no cap with one card
+    (memory,) = [json.loads(ln)["mesh_memory"] for ln in out.splitlines()
+                 if ln.startswith('{"mesh_memory"')]
+    assert memory["ok"] and memory["capped"] == "needs 2+ cards"
+    assert memory["one_device"]["triangles"] == oracle
+    assert memory["one_device"]["measured_peak"] is None
+    for body, ring in (("double", 3), ("single", 2)):
+        card = memory[body]["per_card"]["cpu"]
+        assert memory[body]["triangles"] == oracle
+        assert card["positions"] == q * q and card["measured_peak"] is None
+        assert card["ring"] == ring * card["payload"] > 0
+        assert card["walk_peak"] > card["staged"] + card["payload"] + card[
+            "ring"]
 
 
 @pytest.mark.gpu
