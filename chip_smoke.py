@@ -155,12 +155,20 @@ What it does, in order, printing one JSON object per line:
                     128 molecules of 30 atoms and 64 edges (padded to
                     4,096 atoms and 8,192 edges), GraphCast (16 x 512,
                     227 variables) and GAT-Cora (1,433 features) on
-                    3,072 nodes and 10,752 edges: 4 train steps each
-                    (seconds, launches, busy share, peak; Equiformer-v2's
-                    peak against the dry run's walk, at most 10 % under);
-                    and
+                    3,072 nodes and 10,752 edges: 2 train steps each
+                    (seconds, launches, busy share, peak against the dry
+                    run's walk, at most 10 % under); and
                     ``repro_torch.examples.train_gnn`` on the card
                     (held-out accuracy over 0.7);
+   ``fit_cells_path`` — every other model cell the dry run fits on one
+                    card, once at its input specs' shapes, its peak
+                    against the walk: qwen2-0.5b ``decode_32k`` (128 rows,
+                    32,768 slots, junk past each row's length; in place,
+                    rows 0 and 127 against the CPU in float32, a planted
+                    longest-row mask), GAT and GraphCast on ``molecule``,
+                    NequIP and Equiformer-v2 on ``full_graph_sm``, GAT and
+                    NequIP on ``minibatch_lg`` (one sample of the cell's
+                    host graph), each with its CPU or equivariance check;
    ``pod_path``   — the main graph's cached plan counted with 2.5D pods
                     (``npods`` 2 with ``flat`` and ``tree``, 4 with
                     ``tree`` and ``auto``): pod-staging seconds, cold and
@@ -925,6 +933,13 @@ def kernel_report(art, dev, launches):
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
+TRACE_MARGIN_S = 0.1  # host idle before and after each traced count: the
+# profiler keeps only the device activity inside its window, and device
+# timestamps mapped onto the host's clock stray from it (a kernel can be
+# stamped before its own launch), so a kernel at the window's edge can be
+# dropped, or one of the warm-up cycle's let in
+
+
 def profile_count(count, expect, kernel="fused_counts_kernel",
                   label="fused", spans=(), cpu=True):
     """Where a warm count's device time goes: ``count`` under
@@ -933,9 +948,13 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     whose name holds ``kernel`` as ``<label>_kernel_seconds``.  ``complete``
     says whether the profiler saw all ``expect`` launches of that kernel
     the count made.  Tracing slows the host down, so the busy share is
-    taken against the recorded run's own wall time and says so.
-    ``device_seconds`` of 0 means the profiler saw no device activity
-    here, and nothing was measured.  ``spans`` names more kernels (by a
+    taken against the recorded run's own wall time and says so.  Host
+    idle of ``TRACE_MARGIN_S`` parts the two counts and follows the
+    recorded one (the margins left out of its wall time): without it the
+    profiler dropped 4 of a delta plan's 64 kernels at its window's edge
+    once on an NVIDIA H100 80GB HBM3 at 700 W.  ``device_seconds`` of 0
+    means the profiler saw no device activity here, and nothing was
+    measured.  ``spans`` names more kernels (by a
     substring of their names) whose device seconds and launches are
     summed under ``spans``.  ``cpu=False`` records the device activity
     only (a train step's host ops are many, and tracing them costs
@@ -949,12 +968,15 @@ def profile_count(count, expect, kernel="fused_counts_kernel",
     with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for _ in range(2):
+        for i in range(2):
             torch.cuda.synchronize()
+            if i:
+                time.sleep(TRACE_MARGIN_S)
             t0 = time.perf_counter()
             count()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            time.sleep(TRACE_MARGIN_S)
             prof.step()
     events = prof.key_averages()
     kernels = [  # the step's own annotation spans the whole step: no kernel
@@ -2792,13 +2814,6 @@ def engine_times(plan, staged, mesh, dev):
     return out
 
 
-TRACE_MARGIN_S = 0.1  # host idle before and after each traced count: the
-# profiler keeps only the device activity inside its window, and device
-# timestamps mapped onto the host's clock stray from it (a kernel can be
-# stamped before its own launch), so a kernel at the window's edge can be
-# dropped, or one of the warm-up cycle's let in
-
-
 def traced_mesh_count(count, dev, cards):
     """``count()`` (one call of a built mesh engine function over its
     staged arrays, so no graph digest or planning is in the window) once
@@ -3981,7 +3996,8 @@ def walk_sizing(cfg, shape, measured, excluded=0):
     seconds = time.perf_counter() - t0
     peak = walk.peak_bytes - excluded
     row = dict(shape=shape, walks=walk.walks, walk_seconds=seconds,
-               walk_peak=peak, measured_peak=measured,
+               grid_bytes=walk.peak_bytes, walk_peak=peak,
+               measured_peak=measured,
                walk_over_measured=peak / measured if measured else None,
                segment_peaks=walk.segment_peaks, walk_flops=walk.flops,
                under=bool(measured and peak < (1 - DRYRUN_UNDER) * measured))
@@ -4419,11 +4435,17 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
     elements over ``tol`` are counted as ``flips``.  An element whose
     gradient ``√v̂`` (``ref``'s) is at most ``STEP_NEAR_EPS`` may move by
     the difference of the two updates, ``lr_t · |Δ(m̂ / (√v̂ + eps))|``
-    (from both sides' moments); such elements over ``tol`` are counted
-    as ``near``, and ``g_over`` is the largest ``√v̂`` of an element over
-    ``tol`` that did not flip (0 where none).  ``tol`` maps ``loss``,
-    ``grad_norm``, ``states`` and ``params`` to their bounds; the
-    comparison runs in float64 on the host or on ``device``.  Returns
+    (from both sides' moments); a flipped one only where ``got``'s
+    ``√v̂`` is at most ``STEP_NEAR_EPS`` too, rounding noise on both
+    sides (such a gradient that rounded larger on ``got``'s side moves
+    by more than the flip's bound).  Such elements over ``tol`` after the
+    flip's bound are counted as ``near``, the flipped ones among them as
+    ``near_flipped``, and ``g_over`` is the largest ``√v̂`` of an element
+    over ``tol`` after the flip's bound (0 where none).
+    ``errs["worst"]`` places the largest difference left: its leaf's
+    index, both values and, with AdamW, both gradients.  ``tol`` maps
+    ``loss``, ``grad_norm``, ``states`` and ``params`` to their bounds;
+    the comparison runs in float64 on the host or on ``device``.  Returns
     ``(errs, ok)``."""
     gp, go, gm = got
     rp, ro, rm = ref
@@ -4446,8 +4468,8 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
 
         def update(m, v):
             return (m / bc1) / ((v / bc2).sqrt() + eps)
-    worst, flips, near, g_over = 0.0, 0, 0, 0.0
-    for a, b in zip(_lm_leaves(gp), _lm_leaves(rp)):
+    worst, flips, near, near_flipped, g_over = 0.0, 0, 0, 0, 0.0
+    for leaf, (a, b) in enumerate(zip(_lm_leaves(gp), _lm_leaves(rp))):
         a, b = f64(a), f64(b)
         if a.shape != b.shape:
             fail(f"train step: parameter shapes {tuple(a.shape)} and "
@@ -4463,21 +4485,37 @@ def step_errs(got, ref, tol, *, lr_t=None, step=0, device=None):
             flips += int((flipped & over).sum())
             d = torch.where(flipped, (d - slack).clamp_min(0), d)
             del slack
-            over &= ~flipped
+            over = d > tol["params"] * (1 + b.abs())
             if bool(over.any()):
                 g = (v_ref[over] / bc2).sqrt()
-                du = lr_t * (update(m_got[over], _f64_at(v_got, over))
+                v_at = _f64_at(v_got, over)
+                du = lr_t * (update(m_got[over], v_at)
                              - update(m_ref[over], v_ref[over])).abs()
-                small = g <= STEP_NEAR_EPS
+                fl = flipped[over]
+                small = (g <= STEP_NEAR_EPS) & (
+                    ~fl | ((v_at / bc2).sqrt() <= STEP_NEAR_EPS))
                 near += int(small.sum())
+                near_flipped += int((small & fl).sum())
                 g_over = max(g_over, float(g.max()))
                 d[over] = torch.where(small, (d[over] - du).clamp_min(0),
                                       d[over])
-        worst = max(worst, float((d / (1 + b.abs())).max()))
+        rel = d / (1 + b.abs())
+        i = int(rel.argmax())
+        if float(rel.reshape(-1)[i]) > worst:
+            worst = float(rel.reshape(-1)[i])
+            at = dict(leaf=leaf, a=float(a.reshape(-1)[i]),
+                      b=float(b.reshape(-1)[i]))
+            if adamw:
+                at.update(flipped=bool(flipped.reshape(-1)[i]),
+                          g_ref=float((v_ref.reshape(-1)[i] / bc2).sqrt()),
+                          g_got=math.sqrt(float(torch.as_tensor(
+                              v_got).reshape(-1)[i]) / bc2))
+            errs["worst"] = at
     errs["params"] = worst
     errs["flips"] = flips
     if adamw:
         errs["near"], errs["g_over"] = near, g_over
+        errs["near_flipped"] = near_flipped
     ok = (set(gm) == set(rm)
           and all(errs[k] <= tol[k] for k in (*rm, "states", "params")))
     return errs, ok
@@ -5339,7 +5377,12 @@ LM_MESH_DECODE = (8, 16)
 # tensor-parallel partial rounded to bfloat16 still by 0.0644
 # (lm_mesh_full's "one_device_rows_split" and "f32_partials")
 LM_MESH_FULL_TOL = dict(LM_TRAIN_TOL["bfloat16"], states=2 ** -3)
-LM_MESH_BUDGET_S = 60.0
+LM_MESH_BUDGET_S = 60.0  # the four positions on one card: ≈ 47 s cold
+# ... on more than one card, where every collective copies between cards
+# and one host thread drives them all: 63.7 s and 50.6 s on four NVIDIA
+# H100 80GB HBM3 at 700 W (two runs on two hosts), with one card's
+# headroom over its ≈ 47 s over the slower, and more for the hosts' spread
+LM_MESH_CARDS_BUDGET_S = 90.0
 # the smoke configs on the card's mesh, one dtype each (both until the
 # model mesh phase needed the seconds; the CPU tests hold every smoke
 # config in both dtypes on every mesh)
@@ -6042,25 +6085,26 @@ def lm_mesh_path(dev, smi, devices=None, full=LM_FULL, **sizes):
     on this path."""
     t0 = time.perf_counter()
     mesh = lm_mesh_of(LM_MESH, devices or [dev] * math.prod(LM_MESH))
+    budget = (LM_MESH_BUDGET_S if len(set(mesh.devices)) == 1
+              else LM_MESH_CARDS_BUDGET_S)
     smoke, bad, faults = lm_mesh_smoke(dev, mesh)
     t_smoke = time.perf_counter() - t0
     full_row, full_ok = lm_mesh_full(dev, mesh, full, **sizes)
     secs = time.perf_counter() - t0
     caught = all(f["caught"] for f in faults.values())
-    ok = not bad and full_ok and caught and secs <= LM_MESH_BUDGET_S
+    ok = not bad and full_ok and caught and secs <= budget
     emit("lm_mesh_path", ok=ok, gpu=smi, mesh=list(LM_MESH),
          devices=[str(d) for d in mesh.devices], failed=bad, smoke=smoke,
          planted_faults=faults, full=full_row, smoke_seconds=t_smoke,
-         seconds=secs, budget_seconds=LM_MESH_BUDGET_S)
+         seconds=secs, budget_seconds=budget)
     if bad:
         fail(f"LM steps on the mesh differ from one device: {bad}")
     if not caught:
         fail(f"a planted mesh fault went unseen: {faults}")
     if not full_ok:
         fail(f"{full} on the mesh differs from one device")
-    if secs > LM_MESH_BUDGET_S:
-        fail(f"lm_mesh_path took {secs:.1f} s, over its "
-             f"{LM_MESH_BUDGET_S} s budget")
+    if secs > budget:
+        fail(f"lm_mesh_path took {secs:.1f} s, over its {budget} s budget")
 
 
 LM_MESH_BIG = "chatglm3-6b"  # AdamW's states alone ~87 GB: four cards
@@ -6190,11 +6234,11 @@ GNN_ARCH_NAMES = ("gat-cora", "graphcast", "nequip", "equiformer-v2")
 # the molecule cell: 128 molecules x 30 atoms, 64 edges each
 MOLECULE = dict(kind="batched", n_nodes=30, n_edges=64, batch=128)
 GNN_FULL_STEPS = 2  # 4 until the model mesh phase needed the seconds
-GNN_SIZED = ("equiformer_v2",)  # full steps whose peak the walk is held to
 # the reference's equivariance tests' bounds (tests/test_arch_smoke.py):
 # energy |e1 - e2| < atol + rtol |e1|, forces elementwise atol
 EQUIV_NEQUIP = dict(atol=1e-4, rtol=1e-3, force_atol=2e-4)
 EQUIV_EQUIFORMER = dict(atol=1e-3, rtol=5e-3)
+FIT_ROTATION_SEED = 5  # the rotation of a cell's own equivariance check
 
 
 def _tensors(batch, dev):
@@ -6487,57 +6531,186 @@ def gnn_smoke_batch(cfg, rng, n=24, e=72):
                 edge_src=src, edge_dst=dst), cfg.n_vars
 
 
-def gnn_cell_batch(cfg, shape, rng):
-    """A synthetic batch of ``shape`` (a ``GNN_SHAPES`` entry) at
-    ``gnn_input_specs``' padded sizes, as numpy.  Molecules: each of
-    ``batch`` molecules has ``n_nodes`` atoms (positions normal, 1.5 Å)
-    and ``n_edges`` edges between two distinct atoms of it; padding atoms
-    sit at the origin with ``graph_id = batch`` (dropped by the energy's
-    segment sum), padding edges are zero-length loops on the first padding
-    atom.  Full graphs: random edges and inputs over every padded node,
-    GAT's label mask on the unpadded ones.  Returns ``(batch, d_feat)``."""
-    from repro_torch.models.gnn.nequip import N_SPECIES
-    from repro_torch.models.gnn_steps import gnn_feat_dim, gnn_input_specs
+class HostGraph:
+    """A host graph as ``repro_torch.data.pipeline.GraphPipeline`` reads
+    it: ``n`` nodes and ``adjacency_csr()`` (the graph itself, with its
+    ``indptr`` and ``indices``)."""
 
+    def __init__(self, n, indptr, indices):
+        self.n, self.indptr, self.indices = n, indptr, indices
+
+    def adjacency_csr(self):
+        return self
+
+
+def sampled_host_graph(n, slots, rng):
+    """A host graph of ``n`` nodes and ``slots`` neighbour slots (a
+    sampled cell's ``n_nodes`` and ``n_edges``) built straight into a CSR
+    with numpy: every degree is ``slots // n`` or one more, and node v's
+    neighbours are v plus the running sums of uniform gaps in ``[1, g]``,
+    modulo ``n``, with ``g = (n - 1) // d`` for the largest degree d — so
+    they are distinct and none is v."""
+    deg, extra = divmod(slots, n)
+    width = deg + (extra > 0)
+    g = (n - 1) // width
+    if g < 1:
+        raise ValueError(f"{slots} distinct neighbour slots over {n} nodes")
+    nbr = rng.integers(1, g + 1, size=(n, width), dtype=np.int32)
+    np.cumsum(nbr, axis=1, out=nbr)
+    nbr += np.arange(n, dtype=np.int32)[:, None]
+    np.subtract(nbr, n, out=nbr, where=nbr >= n)
+    indptr = np.zeros(n + 1, np.int64)
+    indptr[1:] = deg
+    indptr[1:extra + 1] += 1
+    np.cumsum(indptr, out=indptr)
+    indices = (np.concatenate([nbr[:extra].ravel(), nbr[extra:, :deg].ravel()])
+               if extra else nbr.ravel())
+    return HostGraph(n, indptr, indices)
+
+
+def sampled_edges(shape, graph, n_pad, e_pad, seed):
+    """One batch of ``shape``'s seeds drawn through the port's sampler as
+    ``GraphPipeline.next_batch`` draws it, trimmed to the specs' ``n_pad``
+    nodes and ``e_pad`` edges: ``(src, dst, n, e, seed_rows)``, the ``n``
+    real nodes first (the sampler's sorted global ids) and the ``e`` real
+    edges first; padding edges are loops on node ``n``, the first padding
+    node (the sampler pads with loops on local node 0, a real node: it
+    always adds global node 0).  ``seed_rows`` are the seeds' local
+    rows."""
+    from repro_torch.data.pipeline import GraphPipeline
+
+    sub = GraphPipeline(graph, shape["batch_nodes"], shape["fanout"],
+                        seed=seed).next_batch()
+    ids = sub.node_ids
+    n = int((ids >= 0).sum())
+    real = (sub.edge_src != 0) | (sub.edge_dst != 0)  # the graph has no loop
+    e = int(real.sum())
+    if not (real[:e].all() and (ids[:n] >= 0).all() and n < n_pad
+            and e <= e_pad):
+        raise ValueError(f"a sample of {n} nodes and {e} edges does not fit "
+                         f"{n_pad} nodes and {e_pad} edges")
+    src = np.full(e_pad, n, np.int32)
+    dst = np.full(e_pad, n, np.int32)
+    src[:e], dst[:e] = sub.edge_src[:e], sub.edge_dst[:e]
+    return src, dst, n, e, np.searchsorted(ids[:n], sub.seeds)
+
+
+def gnn_cell_batch(cfg, shape, rng, graph=None, facts=None):
+    """A synthetic batch of ``shape`` (a ``GNN_SHAPES`` entry) at
+    ``gnn_input_specs``' padded sizes, as numpy.
+
+    * Molecules: each of ``batch`` molecules has ``n_nodes`` atoms and
+      ``n_edges`` edges between two distinct atoms of it; padding edges
+      are loops on the first padding atom.
+    * A full graph: an equivariant model's edges join two distinct real
+      nodes at random (padding edges as above); GAT and GraphCast take
+      random edges and inputs over every padded node, GAT's label mask
+      on the unpadded ones.
+    * A sampled shape: one draw of ``sampled_edges`` over ``graph`` (an
+      object with ``n`` and ``adjacency_csr()``; by default
+      ``sampled_host_graph`` of the shape's sizes).
+
+    An equivariant model's atoms have positions normal at 1.5 Å (padding
+    atoms at the origin) and ``graph_id`` their molecule's (0 on a graph),
+    padding atoms the number of graphs (dropped by the energy's segment
+    sum).  GAT's and GraphCast's inputs, and GAT's labels and label mask,
+    cover the real nodes of molecules and of a sample; a sample's mask is
+    its seeds' rows only.  ``facts`` (a dict), where given, receives the
+    real ``nodes`` and ``edges``, the host seconds of each part and, for
+    an equivariant model, the share of real edges shorter than its
+    cutoff.  Returns ``(batch, d_feat)``."""
+    from repro_torch.models.gnn.nequip import N_SPECIES
+    from repro_torch.models.gnn_steps import (EQUIVARIANT, gnn_feat_dim,
+                                              gnn_input_specs)
+
+    t0 = time.perf_counter()
+    facts = {} if facts is None else facts
     specs = gnn_input_specs(cfg, shape)
     e_pad = specs["edge_src"].shape[0]
+    equivariant = cfg.arch in EQUIVARIANT
+    n_pad = specs["species" if equivariant else "feats"].shape[0]
     d_feat = gnn_feat_dim(cfg, shape)
-    if shape["kind"] == "batched":
-        mols, atoms, edges = shape["batch"], shape["n_nodes"], shape["n_edges"]
-        n_pad = specs["species"].shape[0]
-        n, e = mols * atoms, mols * edges
-        off = np.repeat(np.arange(mols) * atoms, edges)
+    kind = shape["kind"]
+    if kind == "full" and not equivariant:
+        src = rng.integers(0, n_pad, e_pad).astype(np.int32)
+        dst = rng.integers(0, n_pad, e_pad).astype(np.int32)
+        feats = rng.normal(size=specs["feats"].shape).astype(np.float32)
+        facts.update(nodes=n_pad, edges=e_pad,
+                     batch_seconds=time.perf_counter() - t0)
+        if cfg.arch == "gat":
+            mask = np.zeros(n_pad, np.float32)
+            mask[:shape["n_nodes"]] = 1
+            return dict(feats=feats, edge_src=src, edge_dst=dst,
+                        labels=rng.integers(0, cfg.d_out, n_pad).astype(
+                            np.int32),
+                        label_mask=mask), d_feat
+        return dict(feats=feats, edge_src=src, edge_dst=dst,
+                    target=rng.normal(size=feats.shape).astype(np.float32)
+                    ), d_feat
+    graphs = shape.get("batch", 1)
+    seed_rows = None
+    if kind == "batched":
+        atoms, edges = shape["n_nodes"], shape["n_edges"]
+        n, e = graphs * atoms, graphs * edges
+        off = np.repeat(np.arange(graphs) * atoms, edges)
         a = rng.integers(0, atoms, e)
         bb = (a + rng.integers(1, atoms, e)) % atoms
-        src = np.full(e_pad, n, np.int64)
-        dst = np.full(e_pad, n, np.int64)
+        src, dst = np.full(e_pad, n, np.int32), np.full(e_pad, n, np.int32)
         src[:e], dst[:e] = a + off, bb + off
+        gid = np.repeat(np.arange(graphs), atoms)
+    elif kind == "full":
+        n, e = shape["n_nodes"], shape["n_edges"]
+        a = rng.integers(0, n, e)
+        src, dst = np.full(e_pad, n, np.int32), np.full(e_pad, n, np.int32)
+        src[:e], dst[:e] = a, (a + rng.integers(1, n, e)) % n
+        gid = np.zeros(n, np.int32)
+    elif kind == "sampled":
+        if graph is None:
+            graph = sampled_host_graph(shape["n_nodes"], shape["n_edges"],
+                                       rng)
+            facts["graph_seconds"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        src, dst, n, e, seed_rows = sampled_edges(
+            shape, graph, n_pad, e_pad, int(rng.integers(1 << 31)))
+        facts["sample_seconds"] = time.perf_counter() - t1
+        gid = np.zeros(n, np.int32)
+    else:
+        raise ValueError(f"no batch for a {kind!r} shape")
+    t2 = time.perf_counter()
+    facts.update(nodes=n, edges=e)
+    if equivariant:
         pos = np.zeros((n_pad, 3), np.float32)
         pos[:n] = 1.5 * rng.normal(size=(n, 3))
-        gid = np.full(n_pad, mols, np.int32)
-        gid[:n] = np.repeat(np.arange(mols), atoms)
+        graph_id = np.full(n_pad, graphs, np.int32)
+        graph_id[:n] = gid
         species = np.zeros(n_pad, np.int32)
         species[:n] = rng.integers(0, N_SPECIES, n)
-        b = dict(species=species, positions=pos, edge_src=src.astype(np.int32),
-                 edge_dst=dst.astype(np.int32), graph_id=gid,
-                 energy=rng.normal(size=mols).astype(np.float32))
+        b = dict(species=species, positions=pos, edge_src=src, edge_dst=dst,
+                 graph_id=graph_id,
+                 energy=rng.normal(size=graphs).astype(np.float32))
         if cfg.arch == "nequip":
             forces = np.zeros((n_pad, 3), np.float32)
             forces[:n] = 0.1 * rng.normal(size=(n, 3))
             b["forces"] = forces
-        return b, d_feat
-    n_pad = specs["feats"].shape[0]
-    src = rng.integers(0, n_pad, e_pad).astype(np.int32)
-    dst = rng.integers(0, n_pad, e_pad).astype(np.int32)
-    feats = rng.normal(size=specs["feats"].shape).astype(np.float32)
-    if cfg.arch == "gat":
-        mask = np.zeros(n_pad, np.float32)
-        mask[:shape["n_nodes"]] = 1
-        return dict(feats=feats, edge_src=src, edge_dst=dst,
-                    labels=rng.integers(0, cfg.d_out, n_pad).astype(np.int32),
-                    label_mask=mask), d_feat
-    return dict(feats=feats, edge_src=src, edge_dst=dst,
-                target=rng.normal(size=feats.shape).astype(np.float32)), d_feat
+        r = np.linalg.norm(pos[src[:e]] - pos[dst[:e]], axis=1)
+        facts["within_cutoff"] = float((r < cfg.cutoff).mean())
+    else:
+        width = specs["feats"].shape[1]
+        feats = np.zeros((n_pad, width), np.float32)
+        feats[:n] = rng.normal(size=(n, width))
+        b = dict(feats=feats, edge_src=src, edge_dst=dst)
+        if cfg.arch == "gat":
+            labels = np.zeros(n_pad, np.int32)
+            labels[:n] = rng.integers(0, cfg.d_out, n)
+            mask = np.zeros(n_pad, np.float32)
+            mask[np.arange(n) if seed_rows is None else seed_rows] = 1
+            b.update(labels=labels, label_mask=mask)
+        else:
+            target = np.zeros((n_pad, width), np.float32)
+            target[:n] = rng.normal(size=(n, width))
+            b["target"] = target
+    facts["batch_seconds"] = time.perf_counter() - t2
+    return b, d_feat
 
 
 def gnn_train_once(cfg, params, batch, dev, d_feat):
@@ -6665,24 +6838,87 @@ def equivariance_checks(dev):
     return row, ok
 
 
-def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0):
+def cell_equivariance(cfg, params, b, seed=FIT_ROTATION_SEED):
+    """The equivariance checks at a cell's own batch ``b`` (tensors on the
+    parameters' device): the energy with the positions rotated by a
+    seeded scipy rotation against the energy without, and NequIP's forces
+    against the rotated forces, within the reference's bounds
+    (``EQUIV_NEQUIP``, ``EQUIV_EQUIFORMER``).  Returns ``(row, ok)``."""
+    from scipy.spatial.transform import Rotation
+
+    from repro_torch.models.gnn.equiformer_v2 import equiformer_energy
+    from repro_torch.models.gnn.nequip import nequip_energy_forces
+
+    pos = b["positions"]
+    rot = torch.as_tensor(Rotation.random(random_state=seed).as_matrix(),
+                          dtype=pos.dtype, device=pos.device)
+    rest = (b["edge_src"], b["edge_dst"], b["graph_id"], b["energy"].shape[0])
+    nequip = cfg.arch == "nequip"
+    tol = EQUIV_NEQUIP if nequip else EQUIV_EQUIFORMER
+    with torch.no_grad():
+        if nequip:
+            e1, f1 = nequip_energy_forces(params, cfg, b["species"], pos,
+                                          *rest)
+            e2, f2 = nequip_energy_forces(params, cfg, b["species"],
+                                          pos @ rot.T, *rest)
+        else:
+            e1 = equiformer_energy(params, cfg, b["species"], pos, *rest)
+            e2 = equiformer_energy(params, cfg, b["species"], pos @ rot.T,
+                                   *rest)
+    e1, e2 = float(e1[0]), float(e2[0])
+    bound = tol["atol"] + tol["rtol"] * abs(e1)
+    ok = abs(e1 - e2) < bound
+    row = dict(rotation_seed=seed, e=e1, e_rotated=e2, diff=abs(e1 - e2),
+               bound=bound)
+    if nequip:
+        diff = float((f1 @ rot.T - f2).abs().max())
+        row.update(forces_diff=diff, forces_bound=tol["force_atol"],
+                   forces_max=float(f1.abs().max()))
+        ok = ok and diff <= tol["force_atol"]
+    row["ok"] = ok
+    return row, ok
+
+
+def blas_ready(dev):
+    """Products on ``dev``, forward and backward, before a measured
+    window: the BLAS library's workspace is no step's own memory (32 MiB
+    on an NVIDIA H100 80GB HBM3, allocated at a thread's first product
+    and kept for the process; a backward runs on autograd's own thread,
+    so a first train step after none held 32 MiB past its walk)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones(8, 8, dtype=dtype, device=dev, requires_grad=True)
+        (torch.nn.functional.linear(a, a, a[0]) @ a).sum().backward()
+
+
+def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0, graph=None,
+                  checks=()):
     """``name`` at its published widths on the card: parameters drawn
     there, ``steps`` train steps on one :func:`gnn_cell_batch` of
-    ``shape`` (each step's seconds, the median of steps 2 on, every loss
-    finite), one step's launches and busy share from the profiler, and
-    ``max_memory_allocated``."""
+    ``shape`` (``graph``: a sampled shape's host graph; each step's
+    seconds, the median of steps 2 on, every loss finite), one step's
+    launches and busy share from the profiler, and
+    ``max_memory_allocated`` held to the dry run's walk
+    (:func:`walk_sizing`, the batch staged before the measurement
+    excluded).  ``checks``: ``"cpu"`` runs the first step again from the
+    same parameters and batch on the card and on the CPU, held by
+    :func:`step_errs`; ``"equivariance"`` is :func:`cell_equivariance` at
+    the batch.  Returns ``(row, ok)``."""
     from repro_torch.configs import GNN_SHAPES, get_config
     from repro_torch.models.gnn_steps import build_gnn_train_step, gnn_init
 
     cfg = get_config(name)
     shape = GNN_SHAPES[shape] if isinstance(shape, str) else shape
-    b, d_feat = gnn_cell_batch(cfg, shape, np.random.default_rng(seed))
-    b = _tensors(b, dev)
+    facts = {}
+    host, d_feat = gnn_cell_batch(cfg, shape, np.random.default_rng(seed),
+                                  graph=graph, facts=facts)
+    b = _tensors(host, dev)
+    blas_ready(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     params = gnn_init(torch.Generator(device=dev).manual_seed(seed), cfg,
                       d_feat, device=dev)
+    first = _lm_to(params, torch.device("cpu")) if "cpu" in checks else None
     build, info = build_gnn_train_step(cfg, None, d_feat, device=dev)
     fn = build(b)
     opt = info["opt_init"](params)
@@ -6695,23 +6931,45 @@ def gnn_full_step(dev, name, shape, steps=GNN_FULL_STEPS, seed=0):
         secs.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before
-    sizing = None
-    if cfg.arch in GNN_SIZED:  # the batch was staged before the peak
-        sizing, _ = walk_sizing(cfg, shape, peak, excluded=sum(
-            t.numel() * t.element_size() for t in b.values()))
+    sizing, _ = walk_sizing(cfg, shape, peak, excluded=sum(
+        t.numel() * t.element_size() for t in b.values()))
     prof = profile_count(lambda: fn(params, opt, b, steps), 0, kernel="\0",
                          label="gnn", cpu=False)
-    nodes = b["species" if "species" in b else "feats"].shape[0]
-    row = dict(config=name, nodes=nodes, edges=int(b["edge_src"].shape[0]),
-               param_numel=sum(t.numel() for t in _lm_leaves(params)),
-               losses=losses, step_seconds=secs,
-               median_step_seconds=float(np.median(secs[1:])),
-               max_memory_allocated=peak, step_profile=_profile_row(prof))
-    if sizing is not None:
-        row["walk"] = sizing
-    del params, opt, b
-    torch.cuda.empty_cache()
+    row = dict(
+        config=name,
+        nodes=int(b["species" if "species" in b else "feats"].shape[0]),
+        edges=int(b["edge_src"].shape[0]), real_nodes=facts["nodes"],
+        real_edges=facts["edges"], host=facts,
+        param_numel=sum(t.numel() for t in _lm_leaves(params)),
+        losses=losses, step_seconds=secs,
+        median_step_seconds=float(np.median(secs[1:])),
+        max_memory_allocated=peak, step_profile=_profile_row(prof),
+        walk=sizing)
     ok = bool(np.isfinite(losses).all())
+    if "equivariance" in checks:
+        t0 = time.perf_counter()
+        row["equivariance"], good = cell_equivariance(cfg, params, b)
+        row["equivariance"]["seconds"] = time.perf_counter() - t0
+        ok = ok and good
+    del params, opt
+    if "cpu" in checks:
+        t0 = time.perf_counter()
+        got = gnn_train_once(cfg, first, b, dev, d_feat)
+        t1 = time.perf_counter()
+        ref = gnn_train_once(cfg, first, _tensors(host, "cpu"),
+                             torch.device("cpu"), d_feat)
+        t2 = time.perf_counter()
+        errs, good = step_errs(got, ref, MODEL_STEP_TOL, lr_t=5e-3, step=0)
+        row["vs_cpu"] = dict(ok=good, tol=MODEL_STEP_TOL,
+                             loss_cpu=float(ref[2]["loss"]),
+                             card_step_seconds=t1 - t0,
+                             cpu_step_seconds=t2 - t1,
+                             seconds=time.perf_counter() - t0,
+                             **{f"err_{k}": v for k, v in errs.items()})
+        ok = ok and good
+        del got, ref
+    del b
+    torch.cuda.empty_cache()
     return row, ok
 
 
@@ -6740,9 +6998,10 @@ def gnn_path(dev, smi, full=(("equiformer-v2", MOLECULE),
     """The GNN family: every ``-smoke`` config's train step card against
     CPU with a planted NequIP fault (:func:`gnn_smoke`), the equivariance
     checks on the card (:func:`equivariance_checks`), each of ``full`` at
-    its published widths on its cell (:func:`gnn_full_step`), and the
-    ``train_gnn`` example (:func:`gnn_example`).  No hand-written kernel
-    runs here: the JAX package has no Pallas kernel on this path."""
+    its published widths on its cell (:func:`gnn_full_step`, its peak
+    held to the dry run's walk), and the ``train_gnn`` example
+    (:func:`gnn_example`).  No hand-written kernel runs here: the JAX
+    package has no Pallas kernel on this path."""
     t0 = time.perf_counter()
     secs = {}
 
@@ -6774,8 +7033,328 @@ def gnn_path(dev, smi, full=(("equiformer-v2", MOLECULE),
         fail("the train_gnn example on the card did not reach held-out "
              "accuracy 0.7")
     for name, row in rows.items():
-        if "walk" in row:
-            sizing_fail(f"{name}'s train step", row["walk"])
+        sizing_fail(f"{name}'s train step", row["walk"])
+
+
+# ----------------------------------------------------------------------
+# every model cell the dry run fits on one card, at its exact shape
+# ----------------------------------------------------------------------
+# the cells of the dry run's walks that fit 80 GB and that no phase
+# above runs: qwen2-0.5b's decode_32k, and six GNN cells with the checks
+# each is held to besides the walk ("cpu": the first step card against
+# CPU; "equivariance": at the cell's own batch)
+FIT_LM = ("qwen2-0.5b", "decode_32k")
+FIT_GNN = (("gat-cora", "molecule", ("cpu",)),
+           ("graphcast", "molecule", ("cpu",)),
+           ("nequip", "full_graph_sm", ("cpu", "equivariance")),
+           ("equiformer-v2", "full_graph_sm", ("equivariance",)),
+           ("gat-cora", "minibatch_lg", ("cpu",)),
+           ("nequip", "minibatch_lg", ("equivariance",)))
+# decode_32k's cache: N(0, 1) below each row's length, +-FIT_JUNK at and
+# past it, so a mask that reads a slot it should not moves the logits far
+# past LM_FULL_CPU_TOL; the rows held to the CPU: the whole cache and the
+# shortest row
+FIT_JUNK = 64.0
+FIT_DECODE_ROWS = (0, -1)
+FIT_DECODE_REPS = 3
+# the bfloat16 step's held rows (the built step's own logits, tokens and
+# written slots) against the CPU's bfloat16 step and its float32 one:
+# bfloat16's rounding over 24 layers put them 0.066 and 0.085 apart (the
+# CPU's own bfloat16 0.098 from its float32) and the planted longest-row
+# mask 2.45 (an NVIDIA H100 80GB HBM3 at 700 W, in four runs)
+FIT_BF16_TOL = 0.25
+
+
+def decode_cell_lens(batch, seq):
+    """Each row's ``cache_len``: row 0 at ``seq - 1`` (the whole cache
+    once the step writes its slot), the last row at ``seq // 2``, the
+    rows between spread evenly."""
+    return np.rint(np.linspace(seq - 1, seq // 2, batch)).astype(np.int32)
+
+
+def decode_cell_inputs(cfg, shape, device, seed=0):
+    """A decode step's inputs at an ``LM_SHAPES`` entry on ``device``
+    (``"meta"``: shapes only), drawn from a seeded ``torch.Generator``:
+    ``cache`` (``init_kv_cache``) N(0, 1) in each row's slots below its
+    ``cache_len`` (:func:`decode_cell_lens`) and ``±FIT_JUNK`` at and
+    past it, written in place; one ``token`` a row; ``cache_len``."""
+    from repro_torch.models.transformer import init_kv_cache
+
+    dev = torch.device(device)
+    b, s = shape["global_batch"], shape["seq_len"]
+    lens = decode_cell_lens(b, s)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    cache = init_kv_cache(cfg, b, s, device=dev)
+    for c in cache.values():
+        c.normal_(generator=gen)
+        for row, n in enumerate(lens.tolist()):
+            c[:, row, n:].bernoulli_(0.5, generator=gen).mul_(
+                2 * FIT_JUNK).sub_(FIT_JUNK)
+    token = torch.randint(0, cfg.vocab, (b,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return dict(cache=cache, token=token,
+                cache_len=torch.from_numpy(lens).to(dev))
+
+
+@contextlib.contextmanager
+def _decode_logits():
+    """The logits of each call of a built decode step inside the block,
+    in a list: ``build_lm_decode_step`` returns the tokens and the cache
+    only, so the ``lm_decode_step`` it calls is wrapped to keep them."""
+    from repro_torch.models import steps
+
+    own, kept = steps.lm_decode_step, []
+
+    def keep(*args, **kw):
+        out = own(*args, **kw)
+        kept.append(out[1])
+        return out
+
+    steps.lm_decode_step = keep
+    try:
+        yield kept
+    finally:
+        steps.lm_decode_step = own
+
+
+@contextlib.contextmanager
+def _planted_longest_row():
+    """A decode fault planted for the block: ``decode_attention`` takes
+    every row's length as the longest row's, so a shorter row reads the
+    slots past its own."""
+    from repro_torch.models import transformer as tr
+
+    own = tr.decode_attention
+    tr.decode_attention = lambda q, k, v, n: own(q, k, v,
+                                                 n.amax().expand(n.shape))
+    try:
+        yield
+    finally:
+        tr.decode_attention = own
+
+
+def _decode_rows(logits, tokens, cache, at, lens):
+    """Rows ``at`` of one decode step's logits and tokens, and the slots
+    it wrote into each of their caches (at ``lens``), on the host."""
+    slots = {k: v[:, at, lens.long()].cpu() for k, v in cache.items()}
+    return dict(logits=logits[at].cpu(), tokens=tokens[at].cpu(),
+                slots=slots)
+
+
+def decode_rows_vs_cpu(card, cpu, tol=LM_FULL_CPU_TOL):
+    """:func:`_decode_rows` of the card against the CPU's: the logits and
+    the written slots within ``tol``, greedy tokens equal wherever the
+    margin decides."""
+    err_l = lm_err(card["logits"], cpu["logits"])
+    err_s = max(lm_err(card["slots"][k], v) for k, v in cpu["slots"].items())
+    d = _lm_margin_decided(cpu["logits"], card["logits"])
+    equal = int((card["tokens"][d] == cpu["tokens"][d]).sum())
+    rows = [lm_err(a, b) for a, b in zip(card["logits"], cpu["logits"])]
+    return dict(tol=tol, err_logits=err_l, err_slots=err_s,
+                err_logits_rows=rows, decided=int(d.sum()),
+                tokens_equal=equal,
+                ok=err_l <= tol and err_s <= tol and equal == int(d.sum()))
+
+
+def decode_rows_f32(dev, cfg, params, host):
+    """The held rows' step in float32 from the same bfloat16 parameters
+    (``params``, on the card) and cache slices (``host``: the CPU's
+    parameters, tokens, cache slices and lengths) upcast, on the CPU, on
+    the card, and on the card again with the planted longest-row mask:
+    :func:`_decode_rows` of each."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    cpu = torch.device("cpu")
+    cache = {k: v.float() for k, v in host[2].items()}
+    out = {}
+    with torch.no_grad():
+        for key, d in (("cpu", cpu), ("card", dev), ("planted", dev)):
+            p = _cast_floats(host[0] if d == cpu else params, torch.float32)
+            c = _lm_to(cache, d)
+            n = host[3].to(d)
+            with (_planted_longest_row() if key == "planted"
+                  else contextlib.nullcontext()):
+                nt, logits, c = tr.lm_decode_step(p, cfg, host[1].to(d), c, n)
+            out[key] = _decode_rows(logits, nt, c,
+                                    torch.arange(n.numel(), device=d), n)
+            del p, c
+    return out
+
+
+def fit_decode(dev, name=FIT_LM[0], shape=FIT_LM[1], seed=0,
+               reps=FIT_DECODE_REPS):
+    """One decode step of ``name`` at ``shape`` (``decode_32k``: 128 rows,
+    a 32,768-slot cache) on the card: parameters and
+    :func:`decode_cell_inputs` drawn there; ``build_lm_decode_step``
+    timed (the median of ``reps`` after a warm-up call) and held to
+    writing in place (the returned cache is the same storage, and the
+    step's peak over what it held is less than a cache), its tokens in
+    the vocabulary, ``max_memory_allocated`` to the dry run's walk; one
+    step's launches and busy share from the profiler.  Rows
+    ``FIT_DECODE_ROWS`` are held to the same step on the CPU over their
+    cache slices, copied to the host before the step, in float32 on both
+    (:func:`decode_rows_f32`, :func:`decode_rows_vs_cpu` within
+    ``LM_TOL["float32"]``), and the card's again with the planted
+    longest-row mask, which that check must catch.  In bfloat16 the
+    built step's own rows (its logits, tokens and written slots at the
+    full batch) are held to the CPU's bfloat16 step and to the float32
+    one within ``FIT_BF16_TOL`` (``bf16_rows``; bfloat16's own rounding
+    over 24 layers puts them past ``LM_FULL_CPU_TOL``), and the built
+    step with the planted mask must land past that bound too.  Returns
+    ``(row, ok)``."""
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.steps import build_lm_decode_step
+
+    cfg = get_config(name)
+    label = shape if isinstance(shape, str) else shape["kind"]
+    shape = LM_SHAPES[shape] if isinstance(shape, str) else shape
+    cpu = torch.device("cpu")
+    blas_ready(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tr.lm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    inputs = decode_cell_inputs(cfg, shape, dev, seed)
+    cache, token, lens = inputs["cache"], inputs["token"], inputs["cache_len"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b = token.shape[0]
+    at = torch.tensor(sorted({r % b for r in FIT_DECODE_ROWS}), device=dev)
+    host = (_lm_to(params, cpu), token[at].cpu(),
+            {k: v[:, at].cpu() for k, v in cache.items()}, lens[at].cpu())
+    t2 = time.perf_counter()
+    param_bytes = sum(t.numel() * t.element_size() for t in _lm_leaves(params))
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    decode, _ = build_lm_decode_step(cfg, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(1 + reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nt, out = decode(params, cache, token, lens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    in_place = dict(same_storage=all(out[k].data_ptr() == p
+                                     for k, p in ptrs.items()),
+                    step_temps=peak - held, cache_bytes=cache_bytes)
+    in_place["ok"] = in_place["same_storage"] and peak - held < cache_bytes
+    in_vocab = bool(((nt >= 0) & (nt < cfg.vocab)).all())
+    sizing, _ = walk_sizing(cfg, shape, peak - before)
+    prof = profile_count(lambda: decode(params, cache, token, lens), 0,
+                         kernel="\0", label="lm")
+    with _decode_logits() as kept:
+        nt, cache = decode(params, cache, token, lens)
+    card = _decode_rows(kept.pop(), nt, cache, at, lens[at])
+    with torch.no_grad():
+        t3 = time.perf_counter()
+        c_nt, c_logits, c_cache = tr.lm_decode_step(host[0], cfg, *host[1:])
+        ref = _decode_rows(c_logits, c_nt, c_cache,
+                           torch.arange(at.numel()), host[3])
+        cpu_s = time.perf_counter() - t3
+    with _planted_longest_row(), _decode_logits() as kept:
+        _, cache = decode(params, cache, token, lens)
+    planted_bf16 = lm_err(kept.pop()[at].cpu(), ref["logits"])
+    del cache, out, inputs
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    f32 = decode_rows_f32(dev, cfg, params, host)
+    f32_s = time.perf_counter() - t4
+    tol = LM_TOL["float32"][1]
+    vs_cpu = decode_rows_vs_cpu(f32["card"], f32["cpu"], tol)
+    planted = dict(fault="every row's length taken as the longest row's",
+                   err_logits=lm_err(f32["planted"]["logits"],
+                                     f32["cpu"]["logits"]),
+                   err_logits_bf16=planted_bf16)
+    planted["caught"] = (planted["err_logits"] > tol
+                         and planted_bf16 > FIT_BF16_TOL)
+    bf16 = dict(card_vs_cpu=decode_rows_vs_cpu(card, ref, FIT_BF16_TOL),
+                card_vs_cpu_f32=decode_rows_vs_cpu(card, f32["cpu"],
+                                                   FIT_BF16_TOL),
+                cpu_vs_cpu_f32=decode_rows_vs_cpu(ref, f32["cpu"],
+                                                  FIT_BF16_TOL))
+    median = float(np.median(secs[1:]))
+    bound_ms = (cache_bytes + param_bytes) / HBM_BYTES_PER_S * 1e3
+    row = dict(
+        config=name, shape=label, batch=b, cache_slots=shape["seq_len"],
+        cache_len=[int(lens[0]), int(lens[-1])], rows_held=at.tolist(),
+        junk=FIT_JUNK, init_seconds=t1 - t0, host_copy_seconds=t2 - t1,
+        param_bytes=param_bytes, cache_bytes=cache_bytes,
+        warm_up_ms=secs[0] * 1e3, step_ms=[x * 1e3 for x in secs[1:]],
+        median_ms=median * 1e3, bound_ms=bound_ms,
+        bound_share=bound_ms / (median * 1e3), in_place=in_place,
+        tokens_in_vocab=in_vocab, cpu_step_seconds=cpu_s,
+        f32_seconds=f32_s, vs_cpu=vs_cpu, planted_fault=planted,
+        bf16_rows=bf16, max_memory_allocated=peak - before, walk=sizing,
+        step_profile=_profile_row(prof))
+    ok = (in_place["ok"] and in_vocab and vs_cpu["ok"] and planted["caught"]
+          and bf16["card_vs_cpu"]["ok"] and bf16["card_vs_cpu_f32"]["ok"])
+    del params, host
+    torch.cuda.empty_cache()
+    return row, ok
+
+
+def fit_cells_path(dev, smi, lm=FIT_LM, gnn=FIT_GNN, steps=GNN_FULL_STEPS,
+                   seed=0):
+    """The model cells that the dry run says fit one card and that no
+    phase above runs, each once on the card at exactly its input specs'
+    shapes, its peak held to the dry run's walk: ``lm`` (qwen2-0.5b's
+    ``decode_32k``, :func:`fit_decode`) and each of ``gnn`` with its
+    checks (:func:`gnn_full_step`); a sampled shape's host graph is
+    built once (:func:`sampled_host_graph`).  One ``fit_cells_path``
+    line, a row a cell; fails with the cells named on a failed check or
+    a walk more than ``DRYRUN_UNDER`` under its measured peak.  No
+    hand-written kernel runs here: the JAX package has no Pallas kernel
+    on these paths."""
+    from repro_torch.configs import GNN_SHAPES
+
+    t0 = time.perf_counter()
+    rows, bad, secs, graphs = {}, [], {}, {}
+
+    def key(name, shape):
+        return f"{name}:{shape if isinstance(shape, str) else shape['kind']}"
+
+    t = time.perf_counter()
+    rows[key(*lm)], ok = fit_decode(dev, *lm, seed=seed)
+    secs[key(*lm)] = time.perf_counter() - t
+    if not ok:
+        bad.append(key(*lm))
+    for name, shape, checks in gnn:
+        t = time.perf_counter()
+        sh = GNN_SHAPES[shape] if isinstance(shape, str) else shape
+        graph = None
+        if sh["kind"] == "sampled":
+            size = (sh["n_nodes"], sh["n_edges"])
+            if size not in graphs:
+                graphs[size] = sampled_host_graph(
+                    *size, np.random.default_rng(seed))
+                secs[f"host_graph:{size[0]}:{size[1]}"] = (
+                    time.perf_counter() - t)
+            graph = graphs[size]
+        t = time.perf_counter()
+        rows[key(name, shape)], ok = gnn_full_step(
+            dev, name, shape, steps, seed, graph=graph, checks=checks)
+        secs[key(name, shape)] = time.perf_counter() - t
+        if not ok:
+            bad.append(key(name, shape))
+    del graphs
+    under = [k for k, r in rows.items() if r["walk"]["under"]]
+    seconds = time.perf_counter() - t0
+    emit("fit_cells_path", ok=not bad and not under, gpu=smi, failed=bad,
+         walk_under=under, cells=rows, part_seconds=secs, seconds=seconds)
+    if bad:
+        fail(f"fit_cells_path: a check failed on the card: {bad}")
+    for k in under:
+        sizing_fail(f"fit_cells_path {k}", rows[k]["walk"])
 
 
 # ----------------------------------------------------------------------
@@ -7669,6 +8248,7 @@ def main():
     phase("model_mesh_path", model_mesh_path, dev, smi)
     phase("recsys_path", recsys_path, dev, smi)
     phase("gnn_path", gnn_path, dev, smi)
+    phase("fit_cells_path", fit_cells_path, dev, smi)
     kernels.append(phase("pod_path", pod_path, g, oracle, dev, GRID))
     # search2 first: the runtime's persistent-fault count is demoted to
     # its cached plan

@@ -14,6 +14,7 @@ tensor's dtype, as ``jnp``'s weak scalars are.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import sharding
@@ -38,11 +39,33 @@ def _scalar(value: float, like: torch.Tensor) -> float:
     return float(torch.tensor(value, dtype=like.dtype))
 
 
+_ROPE_INV: dict = {}  # (dim, theta, device) -> the frequencies there
+
+
+def _rope_inv(dim: int, theta: float, device: torch.device):
+    """``1 / theta ** (2i / dim)`` in float32, made once a device: the
+    power is taken on the host in float64 and rounded once, so every
+    device holds the same frequencies (a float32 ``pow`` may differ in
+    its last bit between the CPU and a GPU, and at position 32,767 one
+    bit of a frequency turns the angle by up to 0.004 rad).  On ``meta``
+    (a dry run's walk) they are made at each call, so that every walk of
+    a step makes the same tensors, the first in a process too."""
+    key = (dim, float(theta), device)
+    inv = _ROPE_INV.get(key)
+    if inv is None:
+        exps = np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim)
+        power = (np.float64(theta) ** exps.astype(np.float64))
+        inv = np.float32(1.0) / power.astype(np.float32)
+        inv = torch.from_numpy(inv).to(device)
+        if device.type != "meta":
+            _ROPE_INV[key] = inv
+    return inv
+
+
 def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0):
-    """(..., dim/2) angles for rotary embedding."""
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
-    inv = 1.0 / (theta ** exps)
+    """(..., dim/2) angles for rotary embedding, in float32 as the
+    reference takes them, the frequencies from :func:`_rope_inv`."""
+    inv = _rope_inv(dim, theta, positions.device)
     return positions[..., None].to(torch.float32) * inv
 
 

@@ -15,11 +15,12 @@ __all__ = ["sample_neighbors", "SampledSubgraph"]
 
 
 class SampledSubgraph:
-    def __init__(self, node_ids, edge_src, edge_dst, seed_count):
+    def __init__(self, node_ids, edge_src, edge_dst, seed_count, seeds=None):
         self.node_ids = node_ids  # (N_sub,) global ids (padded w/ -1)
         self.edge_src = edge_src  # (E_sub,) local ids into node_ids
         self.edge_dst = edge_dst
         self.seed_count = seed_count
+        self.seeds = seeds  # (seed_count,) the seeds' global ids, as drawn
 
     @property
     def n_nodes(self):
@@ -88,4 +89,4 @@ def sample_neighbors(
     ed = np.zeros(max_edges, np.int32)
     es[: src_l.shape[0]] = src_l
     ed[: dst_l.shape[0]] = dst_l
-    return SampledSubgraph(nid, es, ed, seeds.shape[0])
+    return SampledSubgraph(nid, es, ed, seeds.shape[0], seeds)

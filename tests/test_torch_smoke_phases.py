@@ -736,11 +736,61 @@ def test_gnn_path_phase(on_cpu, capsys, monkeypatch):
     assert full["gat-cora-smoke"]["nodes"] == 512
     for row in full.values():
         assert len(row["losses"]) == 2 and np.isfinite(row["losses"]).all()
-    assert [k for k, row in full.items() if "walk" in row] == [
-        "equiformer-v2-smoke"]
-    assert full["equiformer-v2-smoke"]["walk"]["walk_peak"] > 0
+    for row in full.values():  # every full step held to its walk
+        assert row["walk"]["walk_peak"] > 0 and not row["walk"]["under"]
     assert line["train_gnn"]["ok"] and line["train_gnn"]["accuracy"] > 0.7
     assert len(line["train_gnn"]["checkpoints"]) == 4
+
+
+def test_fit_cells_path_phase(on_cpu, capsys, monkeypatch):
+    """``fit_cells_path`` on the smoke configs at small cells of each
+    kind (the CPU against itself: exact): the decode step in place with
+    its planted longest-row mask caught, every GNN cell's checks, every
+    cell held to its walk, a sampled cell's host graph built once."""
+    monkeypatch.setattr(chip_smoke, "profile_count", _profile_lm_on_cpu)
+    mol = dict(kind="batched", n_nodes=6, n_edges=8, batch=4)
+    graph = dict(kind="full", n_nodes=40, n_edges=120, d_feat=12)
+    sampled = dict(kind="sampled", n_nodes=500, n_edges=10_000,
+                   batch_nodes=8, fanout=(3, 2), d_feat=12)
+    chip_smoke.fit_cells_path(
+        CPU, "cpu",
+        lm=("qwen2-0.5b-smoke", dict(kind="decode", seq_len=64,
+                                     global_batch=4)),
+        gnn=(("gat-cora-smoke", mol, ("cpu",)),
+             ("nequip-smoke", graph, ("cpu", "equivariance")),
+             ("equiformer-v2-smoke", graph, ("equivariance",)),
+             ("gat-cora-smoke", sampled, ("cpu",)),
+             ("nequip-smoke", sampled, ("equivariance",))))
+    line = _line(capsys, "fit_cells_path")
+    assert line["ok"] and not line["failed"] and not line["walk_under"]
+    cells = line["cells"]
+    assert sorted(cells) == sorted([
+        "qwen2-0.5b-smoke:decode", "gat-cora-smoke:batched",
+        "nequip-smoke:full", "equiformer-v2-smoke:full",
+        "gat-cora-smoke:sampled", "nequip-smoke:sampled"])
+    dec = cells["qwen2-0.5b-smoke:decode"]
+    assert dec["in_place"]["same_storage"] and dec["tokens_in_vocab"]
+    assert dec["cache_len"] == [63, 32] and dec["rows_held"] == [0, 3]
+    assert dec["vs_cpu"]["err_logits"] == dec["vs_cpu"]["err_slots"] == 0.0
+    assert dec["planted_fault"]["caught"] and dec["vs_cpu"]["tol"] == 1e-4
+    assert dec["bf16_rows"]["card_vs_cpu"]["err_logits"] == 0.0
+    assert dec["bf16_rows"]["card_vs_cpu"]["ok"]
+    assert dec["bf16_rows"]["card_vs_cpu_f32"]["ok"]
+    assert dec["bf16_rows"]["card_vs_cpu"]["tol"] == chip_smoke.FIT_BF16_TOL
+    assert dec["planted_fault"]["err_logits_bf16"] > chip_smoke.FIT_BF16_TOL
+    for key, row in cells.items():
+        assert row["walk"]["grid_bytes"] > 0, key
+        if "vs_cpu" in row and key != "qwen2-0.5b-smoke:decode":
+            assert row["vs_cpu"]["ok"] and row["vs_cpu"]["err_params"] == 0.0
+        if "equivariance" in row:
+            assert row["equivariance"]["ok"], key
+    assert sorted(k for k, r in cells.items() if "equivariance" in r) == [
+        "equiformer-v2-smoke:full", "nequip-smoke:full",
+        "nequip-smoke:sampled"]
+    assert cells["gat-cora-smoke:sampled"]["edges"] == 512
+    assert 0 < cells["gat-cora-smoke:sampled"]["real_edges"] <= 8 * 9
+    assert [k for k in line["part_seconds"] if k.startswith("host_graph")] \
+        == ["host_graph:500:10000"]
 
 
 def test_molecule_cell_pads_as_the_input_specs_do():
